@@ -1,0 +1,30 @@
+"""repro_torch: the all-pairs similarity self-join in PyTorch, with its
+kernels written in CUDA C++ for NVIDIA Hopper (sm_90a).
+
+The port of ``repro`` (JAX/Pallas on a TPU), laid out like it so that each
+file sits at the same relative path as its reference. It imports torch,
+numpy and the standard library only. Entry points take ``device=``
+(default ``"cuda"``, which raises without a card); on the CPU the kernels'
+plain PyTorch versions run. Importing the package builds nothing: each
+kernel is compiled with ``nvcc`` on its first launch.
+
+Subpackages:
+
+- :mod:`repro_torch.core`    -- the dense self-join: oracle, blocked join,
+                                matches, pruning bounds, graph helpers
+- :mod:`repro_torch.kernels` -- K1 (streaming fused) and K2 (live-tile
+                                worklist) with their wrappers and plain
+                                versions
+- :mod:`repro_torch.data`    -- synthetic corpora (numpy)
+"""
+
+from repro_torch.core.apss import (
+    apss_blocked,
+    apss_reference,
+    normalize_rows,
+    similarity_topk,
+)
+from repro_torch.core.matches import Matches, extract_matches, merge_matches
+from repro_torch.kernels.apss_block.ops import apss_fused, apss_fused_compacted
+
+__version__ = "0.1.0"

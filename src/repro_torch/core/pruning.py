@@ -1,0 +1,168 @@
+"""Candidate pruning bounds at tile granularity (dense half, PyTorch).
+
+The sequential optimizations of Bayardo et al. (partial indexing / minsize)
+exploit per-dimension ``maxweight`` upper bounds to skip work. Here they are
+evaluated per tile: a cheap summary product yields a
+``(row_blocks × col_blocks)`` mask of provably-below-threshold block pairs,
+which the kernels skip.
+
+All bounds are conservative: a pruned block pair can contain **no** match,
+so pruned execution stays exact.
+
+Local pruning (paper Lemma 1): if ``sim(x, y) ≥ t`` then at least one of
+``p`` dimension shards sees a partial score ``≥ t/p``
+(:func:`local_threshold`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.precision import dot_f32
+
+
+class BlockStats(NamedTuple):
+    """Per-row-block pruning summaries: the *index-build* half of pruning.
+
+    Attributes:
+      maxw:    ``(nb, m)`` per-block per-dimension max ``|weight|``.
+      mw:      ``(nb,)`` per-block max weight (max of ``maxw`` over dims).
+      max_nnz: ``(nb,)`` int32 per-block max row nnz (the paper's ``|y|``).
+    """
+
+    maxw: torch.Tensor
+    mw: torch.Tensor
+    max_nnz: torch.Tensor
+
+
+def dense_block_stats(
+    D: torch.Tensor, block_rows: int, eps: float = 0.0
+) -> BlockStats:
+    """Block pruning summaries from a dense ``(n, m)`` tensor."""
+    maxw = block_maxweight_bounds(D, block_rows)
+    mw, max_nnz = block_minsize_bounds(D, block_rows, eps)
+    return BlockStats(maxw=maxw, mw=mw, max_nnz=max_nnz)
+
+
+def live_tile_mask(
+    stats_rows: BlockStats,
+    stats_cols: BlockStats,
+    threshold: float,
+    *,
+    use_minsize: bool = True,
+    normalized: bool = True,
+    return_ub: bool = False,
+):
+    """``(n_row_blocks, n_col_blocks)`` bool LIVE mask from block stats.
+
+    ``normalized`` refers to the column side (the minsize bound needs
+    ``||y|| = 1``). ``return_ub=True`` also returns the f32 upper bounds,
+    the worklist ordering key (``ops.compact_worklist``).
+    """
+    t = float(np.float32(threshold))
+    ub = block_upper_bounds(stats_rows.maxw, stats_cols.maxw)
+    live = ub >= t
+    if use_minsize and normalized:
+        ms_ub = (
+            stats_rows.mw.float()[:, None]
+            * torch.sqrt(stats_cols.max_nnz.float())[None, :]
+        )
+        live &= ms_ub >= t
+        ub = torch.minimum(ub, ms_ub)
+    if return_ub:
+        return live, ub
+    return live
+
+
+def block_maxweight_bounds(D: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """Per-block, per-dimension max absolute weight: ``(n/b, m)``."""
+    n, m = D.shape
+    if n % block_rows:
+        raise ValueError(f"rows {n} not a multiple of block_rows {block_rows}")
+    return D.abs().reshape(n // block_rows, block_rows, m).amax(dim=1)
+
+
+def block_upper_bounds(
+    maxw_rows: torch.Tensor, maxw_cols: torch.Tensor
+) -> torch.Tensor:
+    """Upper bound on any cross-block similarity: ``ub[I, J] ≥ max sim``.
+
+    ``sim(x, y) ≤ Σ_d maxw_I[d]·maxw_J[d]`` for ``x ∈ I``, ``y ∈ J``.
+    """
+    return dot_f32(maxw_rows, maxw_cols)
+
+
+def row_nnz(D: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Number of non-zero components per row (paper's ``|x|``)."""
+    return (D.abs() > eps).sum(dim=-1, dtype=torch.int32)
+
+
+def block_minsize_bounds(
+    D: torch.Tensor, block_rows: int, eps: float = 0.0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(max_weight, max_nnz)`` per row block for the minsize bound.
+
+    For unit rows, Cauchy-Schwarz over the nonzero support gives
+    ``sim(x, y) ≤ maxweight(x) · sqrt(|y|)``.
+    """
+    n, m = D.shape
+    if n % block_rows:
+        raise ValueError(f"rows {n} not a multiple of block_rows {block_rows}")
+    absD = D.abs().reshape(n // block_rows, block_rows, m)
+    max_weight = absD.amax(dim=(1, 2))
+    nnz = (absD > eps).sum(dim=-1, dtype=torch.int32)
+    return max_weight, nnz.amax(dim=1)
+
+
+def block_prune_mask(
+    D_rows: torch.Tensor,
+    D_cols: torch.Tensor,
+    threshold: float,
+    block_rows: int,
+    block_cols: int | None = None,
+    *,
+    use_minsize: bool = True,
+    normalized: bool = True,
+    return_ub: bool = False,
+):
+    """``(n_row_blocks, n_col_blocks)`` bool mask; True = block pair is LIVE.
+
+    ``D_rows`` are query rows, ``D_cols`` corpus rows (self-join: the same
+    tensor). A thin wrapper over :func:`dense_block_stats` +
+    :func:`live_tile_mask`.
+    """
+    block_cols = block_cols or block_rows
+    stats_r = dense_block_stats(D_rows, block_rows)
+    stats_c = (
+        stats_r
+        if D_cols is D_rows and block_cols == block_rows
+        else dense_block_stats(D_cols, block_cols)
+    )
+    return live_tile_mask(
+        stats_r, stats_c, threshold,
+        use_minsize=use_minsize, normalized=normalized, return_ub=return_ub,
+    )
+
+
+class PruneStats(NamedTuple):
+    live_blocks: torch.Tensor    # scalar i32
+    total_blocks: torch.Tensor   # scalar i32
+    live_fraction: torch.Tensor  # scalar f32
+
+
+def prune_stats(mask: torch.Tensor) -> PruneStats:
+    total = torch.tensor(mask.numel(), dtype=torch.int32)
+    live = mask.sum(dtype=torch.int32).cpu()
+    return PruneStats(
+        live_blocks=live,
+        total_blocks=total,
+        live_fraction=live.float() / total.float(),
+    )
+
+
+def local_threshold(threshold: float, num_shards: int) -> torch.Tensor:
+    """Paper Lemma 1: local pruning threshold ``t_local = t / p``."""
+    return torch.tensor(threshold, dtype=torch.float32) / num_shards

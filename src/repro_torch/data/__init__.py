@@ -1,0 +1,7 @@
+from repro_torch.data.synthetic import (
+    PAPER_DATASETS,
+    clustered_corpus,
+    corpus_stats,
+    paper_like_corpus,
+    synthetic_corpus,
+)

@@ -1,0 +1,84 @@
+"""Moving APSS state between numpy (and so the JAX package) and the port.
+
+This system has no weights; the corpus, the block statistics of an index
+and the ``Matches`` a join returns are its state. These functions carry
+each across in either direction with the port's dtypes: float32 scores,
+int32 ids and counts.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.matches import Matches
+from repro_torch.core.pruning import BlockStats
+
+
+def device_of(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path"
+        )
+    return dev
+
+
+def as_corpus(D, device: str | torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous tensor on ``device``.
+
+    A bf16 corpus stays bf16 (the kernels read it and sum in f32); every
+    other dtype becomes float32.
+    """
+    dev = device_of(device)
+    t = torch.as_tensor(D)
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        t = t.float()
+    return t.to(dev).contiguous()
+
+
+def corpus_from_numpy(D: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """An ``(n, m)`` numpy corpus as a float32 tensor on ``device``."""
+    return as_corpus(np.array(D, np.float32), device)
+
+
+def block_stats_from_numpy(
+    maxw: np.ndarray, mw: np.ndarray, max_nnz: np.ndarray,
+    device: str | torch.device,
+) -> BlockStats:
+    """Index block statistics (``BlockStats`` fields) from numpy arrays."""
+    dev = device_of(device)
+    return BlockStats(
+        maxw=torch.tensor(np.asarray(maxw), device=dev),
+        mw=torch.tensor(np.asarray(mw), device=dev),
+        max_nnz=torch.tensor(np.asarray(max_nnz, np.int32), device=dev),
+    )
+
+
+def matches_from_numpy(
+    values: np.ndarray, indices: np.ndarray, counts: np.ndarray,
+    device: str | torch.device,
+) -> Matches:
+    """``Matches`` from numpy arrays (f32 values, i32 ids and counts)."""
+    dev = device_of(device)
+    return Matches(
+        values=torch.tensor(np.asarray(values, np.float32), device=dev),
+        indices=torch.tensor(np.asarray(indices, np.int32), device=dev),
+        counts=torch.tensor(np.asarray(counts, np.int32), device=dev),
+    )
+
+
+def matches_to_numpy(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``(values, indices, counts)`` as numpy arrays, from either package."""
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().cpu().numpy()
+        return np.asarray(a)
+
+    return (
+        host(m.values).astype(np.float32),
+        host(m.indices).astype(np.int32),
+        host(m.counts).astype(np.int32),
+    )

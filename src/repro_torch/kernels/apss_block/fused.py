@@ -1,0 +1,347 @@
+"""The self-join's two kernels: wrappers, launch counts and plain versions.
+
+1. :func:`apss_fused_kernel` (K1, ``csrc/apss_fused.cu``) -- streaming fused
+   extraction: per-row top-k and exact counts of ``X·Yᵀ ≥ t`` over every
+   live column tile, with the score matrix never in device memory.
+2. :func:`apss_tile_candidates_kernel` (K2, ``csrc/tile_candidates.cu``) --
+   per live upper-triangular tile of a ``(2, T)`` worklist, a forward packet
+   (rows of block i) and a mirror packet (rows of block j), which
+   ``ops.fold_packets`` folds into ``Matches``.
+
+Each wrapper takes the kernel's padded inputs. On a CUDA tensor it checks
+device, dtype, shape and contiguity, allocates the outputs, launches on the
+current stream, raises on a non-zero status and adds one to
+``LAUNCHES[name]``. On a CPU tensor it returns the plain PyTorch version of
+the same function (:func:`apss_fused_plain`,
+:func:`apss_tile_candidates_plain`), which the CPU tests hold against the
+reference package and which the card's smoke run holds the kernels against.
+
+Top-k order everywhere: value descending, then global id ascending. Empty
+slots are ``NEG_LARGE`` / ``-1``; the ops layer turns them into ``-inf``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.matches import stable_topk
+from repro_torch.core.precision import dot_f32
+from repro_torch.kernels import _build
+
+# Finite stand-in for -inf inside the kernels; the ops layer converts it.
+NEG_LARGE = -0.5e30
+_VALID = -0.25e30  # values above this are real candidates
+
+# Kernel launches by wrapper name; a launch is counted only where it happens.
+LAUNCHES = {"apss_fused": 0, "apss_tile_candidates": 0}
+
+_TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
+_TK = 32    # their feature chunk
+
+
+def _f32(threshold: float) -> float:
+    return float(np.float32(threshold))
+
+
+def _select(values: torch.Tensor, ids: torch.Tensor, k: int):
+    """Top-k along the last axis of candidates whose ids ascend along it.
+
+    Returns ``(values, ids)`` padded to ``k`` with ``NEG_LARGE`` / ``-1``.
+    """
+    v, pos = stable_topk(values, k)
+    i = torch.gather(ids, -1, pos)
+    valid = v > _VALID
+    v = torch.where(valid, v, NEG_LARGE)
+    i = torch.where(valid, i, -1)
+    pad = k - v.shape[-1]
+    if pad:
+        v = torch.nn.functional.pad(v, (0, pad), value=NEG_LARGE)
+        i = torch.nn.functional.pad(i, (0, pad), value=-1)
+    return v, i
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def apss_fused_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    block_mask: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int,
+    block_n: int,
+    n_valid_cols: int,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    exclude_self: bool = True,
+):
+    """K1's function in plain PyTorch, one row block at a time.
+
+    Returns ``(values (n_rows, k) f32, indices (n_rows, k) i32,
+    counts (n_rows, 1) i32)``.
+    """
+    n_rows, n_cols = x.shape[0], y.shape[0]
+    dev = x.device
+    t = _f32(threshold)
+    lcol = torch.arange(n_cols, dtype=torch.int32, device=dev)
+    gcol = lcol + int(col_offset)
+    col_ok = lcol < n_valid_cols
+    live = block_mask.to(dev, torch.bool)
+    outs = []
+    for b in range(n_rows // block_m):
+        s = dot_f32(x[b * block_m:(b + 1) * block_m], y)
+        ok = (s >= t) & (col_ok & live[b].repeat_interleave(block_n))[None, :]
+        if exclude_self:
+            grow = (
+                int(row_offset) + b * block_m
+                + torch.arange(block_m, dtype=torch.int32, device=dev)
+            )
+            ok &= grow[:, None] != gcol[None, :]
+        v, i = _select(
+            torch.where(ok, s, NEG_LARGE),
+            torch.where(ok, gcol[None, :], -1),
+            k,
+        )
+        outs.append((v, i, ok.sum(dim=1, keepdim=True, dtype=torch.int32)))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _tile_packets(
+    s, ib, jb, *, threshold: float, k: int, block_m: int, block_n: int,
+    n_valid: int,
+):
+    """Forward + mirror candidate packets of a batch of self-join tiles.
+
+    ``s (B, block_m, block_n)`` scores of tiles ``(ib[b], jb[b])``. Mirror
+    candidate ids are the tile's ROW ids (``grow``): the mirror rows are the
+    y-block's vectors and their partners the x-block's. Diagonal tiles emit
+    an empty mirror packet (a copy would double-count).
+
+    Returns ``(fv, fi, fc, bv, bi, bc)`` with counts shaped ``(B, block, 1)``.
+    """
+    dev = s.device
+    ib = ib.to(torch.int32)[:, None, None]
+    jb = jb.to(torch.int32)[:, None, None]
+    grow = ib * block_m + torch.arange(block_m, dtype=torch.int32, device=dev)[:, None]
+    gcol = jb * block_n + torch.arange(block_n, dtype=torch.int32, device=dev)[None, :]
+    ok = (
+        (s >= _f32(threshold))
+        & (grow != gcol)
+        & (grow < n_valid)
+        & (gcol < n_valid)
+    )
+    sv = torch.where(ok, s, NEG_LARGE)
+    fv, fi = _select(sv, torch.where(ok, gcol, -1), k)
+    fc = ok.sum(dim=2, keepdim=True, dtype=torch.int32)
+    mv, mi = _select(
+        sv.transpose(1, 2), torch.where(ok, grow, -1).transpose(1, 2), k
+    )
+    diag = ib == jb
+    bv = torch.where(diag, NEG_LARGE, mv)
+    bi = torch.where(diag, -1, mi)
+    bc = torch.where(diag, 0, ok.sum(dim=1, dtype=torch.int32)[..., None])
+    return fv, fi, fc, bv, bi, bc
+
+
+def apss_tile_candidates_plain(
+    D: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int,
+    block_n: int,
+    n_valid: int,
+    chunk_bytes: int = 1 << 30,
+):
+    """K2's function in plain PyTorch, in chunks of worklist entries whose
+    gathered row blocks stay under ``chunk_bytes``.
+
+    Returns ``(fv, fi, fc)`` shaped ``(T, block_m, k|k|1)`` and
+    ``(bv, bi, bc)`` shaped ``(T, block_n, k|k|1)``.
+    """
+    n, m = D.shape
+    T = ij.shape[1]
+    ij = ij.to(D.device, torch.long)
+    xb = D.view(n // block_m, block_m, m)
+    yb = D.view(n // block_n, block_n, m)
+    step = max(1, chunk_bytes // (4 * (block_m + block_n) * m))
+    outs = []
+    for a in range(0, T, step):
+        ib, jb = ij[0, a:a + step], ij[1, a:a + step]
+        s = dot_f32(xb[ib], yb[jb])
+        outs.append(_tile_packets(
+            s, ib, jb, threshold=threshold, k=k, block_m=block_m,
+            block_n=block_n, n_valid=n_valid,
+        ))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _entry(lib_name: str, symbol: str, argtypes: list):
+    lib = _build.load(lib_name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.apss_error_string.argtypes = [ctypes.c_int]
+    lib.apss_error_string.restype = ctypes.c_char_p
+    return fn, lib
+
+
+def _check_status(lib, name: str, status: int) -> None:
+    if status != 0:
+        msg = lib.apss_error_string(status).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (status {status})")
+
+
+def _check_operand(name: str, a: torch.Tensor) -> None:
+    if a.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {a.device}")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} must be float32 or bfloat16, got {a.dtype}")
+    if a.dim() != 2 or not a.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    if a.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def apss_fused_kernel(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    block_mask: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int = 256,
+    block_n: int = 256,
+    n_valid_cols: int,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    exclude_self: bool = True,
+):
+    """K1 on padded inputs: ``x (n_rows, m)``, ``y (n_cols, m)``, ``block_mask
+    (n_rows/block_m, n_cols/block_n)`` (0 ⇒ tile provably dead).
+
+    ``row_offset``/``col_offset`` are the global ids of ``x[0]``/``y[0]``
+    and ``n_valid_cols`` the count of non-padding rows of ``y``; all three
+    are runtime arguments of the kernel. Returns ``(values (n_rows, k) f32,
+    indices (n_rows, k) i32, counts (n_rows, 1) i32)``.
+    """
+    kw = dict(
+        block_m=block_m, block_n=block_n, n_valid_cols=n_valid_cols,
+        row_offset=row_offset, col_offset=col_offset, exclude_self=exclude_self,
+    )
+    if x.device.type == "cpu":
+        return apss_fused_plain(x, y, block_mask, threshold, k, **kw)
+    _check_operand("x", x)
+    _check_operand("y", y)
+    n_rows, m = x.shape
+    n_cols = y.shape[0]
+    if y.device != x.device or y.dtype != x.dtype or y.shape[1] != m:
+        raise ValueError("x and y must share device, dtype and width")
+    if n_rows % block_m or n_cols % block_n:
+        raise ValueError(
+            f"({n_rows}, {n_cols}) not tile-divisible by ({block_m}, {block_n})"
+        )
+    if block_m % _TILE or block_n % _TILE or m % _TK:
+        raise ValueError(
+            f"block_m, block_n must be multiples of {_TILE} and m of {_TK}; "
+            f"got {block_m}, {block_n}, {m}"
+        )
+    mask = block_mask.to(x.device, torch.int32).contiguous()
+    if tuple(mask.shape) != (n_rows // block_m, n_cols // block_n):
+        raise ValueError(f"block_mask shape {tuple(mask.shape)} is not the grid")
+    values = torch.empty((n_rows, k), dtype=torch.float32, device=x.device)
+    indices = torch.empty((n_rows, k), dtype=torch.int32, device=x.device)
+    counts = torch.empty((n_rows, 1), dtype=torch.int32, device=x.device)
+    fn, lib = _entry(
+        "apss_fused", f"apss_fused_{_suffix(x.dtype)}",
+        [_VP] * 6 + [_I] * 8 + [_F, _I, _I, _VP],
+    )
+    status = fn(
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+        values.data_ptr(), indices.data_ptr(), counts.data_ptr(),
+        n_rows, n_cols, m, block_m, block_n,
+        int(row_offset), int(col_offset), int(n_valid_cols),
+        _f32(threshold), k, int(bool(exclude_self)),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _check_status(lib, "apss_fused", status)
+    LAUNCHES["apss_fused"] += 1
+    return values, indices, counts
+
+
+def apss_tile_candidates_kernel(
+    D: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int = 256,
+    block_n: int = 256,
+    n_valid: int,
+):
+    """K2 on a padded corpus ``D (n, m)`` and a ``(2, T)`` worklist of live
+    upper-triangular tiles.
+
+    Returns forward packets ``(T, block_m, k)×2 + (T, block_m, 1)`` and
+    mirror packets ``(T, block_n, k)×2 + (T, block_n, 1)``.
+    """
+    kw = dict(block_m=block_m, block_n=block_n, n_valid=n_valid)
+    if D.device.type == "cpu":
+        return apss_tile_candidates_plain(D, ij, threshold, k, **kw)
+    _check_operand("D", D)
+    n, m = D.shape
+    if n % block_m or n % block_n:
+        raise ValueError(f"n={n} not tile-divisible by ({block_m}, {block_n})")
+    if block_m % _TILE or block_n % _TILE or max(block_m, block_n) > 256 or m % _TK:
+        raise ValueError(
+            f"block_m, block_n must be multiples of {_TILE} up to 256 and m of "
+            f"{_TK}; got {block_m}, {block_n}, {m}"
+        )
+    ij = ij.to(D.device, torch.int32).contiguous()
+    if ij.dim() != 2 or ij.shape[0] != 2 or ij.shape[1] < 1:
+        raise ValueError(f"ij must be a non-empty (2, T) worklist: {tuple(ij.shape)}")
+    lo, hi_i, hi_j = torch.stack([ij.min(), ij[0].max(), ij[1].max()]).tolist()
+    if lo < 0 or hi_i >= n // block_m or hi_j >= n // block_n:
+        raise ValueError("ij holds a block index outside the corpus")
+    T = ij.shape[1]
+    dev = D.device
+    scratch = torch.empty((T, block_m, block_n), dtype=torch.float32, device=dev)
+    fv = torch.empty((T, block_m, k), dtype=torch.float32, device=dev)
+    fi = torch.empty((T, block_m, k), dtype=torch.int32, device=dev)
+    fc = torch.empty((T, block_m, 1), dtype=torch.int32, device=dev)
+    bv = torch.empty((T, block_n, k), dtype=torch.float32, device=dev)
+    bi = torch.empty((T, block_n, k), dtype=torch.int32, device=dev)
+    bc = torch.empty((T, block_n, 1), dtype=torch.int32, device=dev)
+    fn, lib = _entry(
+        "tile_candidates", f"apss_tile_candidates_{_suffix(D.dtype)}",
+        [_VP, _VP, _I] + [_VP] * 7 + [_I] * 4 + [_F, _I, _VP],
+    )
+    status = fn(
+        D.data_ptr(), ij.data_ptr(), T, scratch.data_ptr(),
+        fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
+        bv.data_ptr(), bi.data_ptr(), bc.data_ptr(),
+        m, block_m, block_n, int(n_valid), _f32(threshold), k,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_status(lib, "apss_tile_candidates", status)
+    LAUNCHES["apss_tile_candidates"] += 1
+    return fv, fi, fc, bv, bi, bc

@@ -1,0 +1,222 @@
+"""Public wrappers of the self-join kernels: padding, masks, worklists, folds.
+
+- :func:`apss_fused` -- streaming fused extraction (K1): matmul →
+  threshold → top-k merge → count in one kernel, ``Matches``-shaped
+  ``O(n·k)`` output; the ``n×n`` score matrix never exists.
+- :func:`apss_fused_compacted` -- the worklist path (K2): the live mask is
+  compacted on the host into upper-triangular tiles, each computed once
+  for both orientations (S = Sᵀ), and the per-tile packets are folded into
+  ``Matches`` by :func:`fold_packets`.
+
+Both run the kernels on a CUDA tensor and their plain versions on a CPU one
+(``fused.py``); the entry points take ``device=`` and default to the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.matches import NEG_INF, Matches, empty_matches, topk_by_id
+from repro_torch.core.pruning import block_prune_mask
+from repro_torch.interop import as_corpus
+from repro_torch.kernels.apss_block.fused import (
+    _VALID,
+    apss_fused_kernel,
+    apss_tile_candidates_kernel,
+)
+
+
+def _pad_to(x: torch.Tensor, mult0: int, mult1: int) -> torch.Tensor:
+    p0 = (-x.shape[0]) % mult0
+    p1 = (-x.shape[1]) % mult1
+    if p0 or p1:
+        x = torch.nn.functional.pad(x, (0, p1, 0, p0))
+    return x
+
+
+def _pick_bk(m: int, block_k: int) -> int:
+    """Feature-axis tile: requested size, shrunk for narrow inputs so the
+    zero-padding stays < one tile (multiples of 128)."""
+    return min(block_k, max(128, -(-m // 128) * 128))
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def apss_fused(
+    x,
+    y,
+    threshold: float,
+    k: int,
+    *,
+    block_mask=None,
+    auto_mask: bool = True,
+    block_m: int = 256,
+    block_n: int = 256,
+    block_k: int = 512,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    exclude_self: bool = True,
+    device: str | torch.device = "cuda",
+) -> Matches:
+    """Fused streaming similarity join: ``Matches`` straight from K1.
+
+    ``x (nq, m)`` query rows, ``y (nc, m)`` corpus rows (numpy or tensors;
+    moved to ``device``). Offsets are runtime arguments of the kernel, so a
+    distribution schedule can change them at every step. Without
+    ``block_mask``, the maxweight bound mask gates tiles (``auto_mask``).
+    """
+    same = y is x
+    x = as_corpus(x, device)
+    y = x if same else as_corpus(y, device)
+    nq, m = x.shape
+    nc = y.shape[0]
+    bk = _pick_bk(m, block_k)
+    xp = _pad_to(x, block_m, bk)
+    yp = xp if y is x and block_n == block_m else _pad_to(y, block_n, bk)
+    grid = (xp.shape[0] // block_m, yp.shape[0] // block_n)
+
+    if block_mask is None:
+        if auto_mask:
+            block_mask = block_prune_mask(
+                xp, yp, threshold, block_m, block_n, use_minsize=False
+            )
+        else:
+            block_mask = torch.ones(grid, dtype=torch.int32, device=xp.device)
+    block_mask = torch.as_tensor(block_mask).to(xp.device)
+
+    values, indices, counts = apss_fused_kernel(
+        xp, yp, block_mask, threshold, k,
+        block_m=block_m, block_n=block_n, n_valid_cols=nc,
+        row_offset=int(row_offset), col_offset=int(col_offset),
+        exclude_self=exclude_self,
+    )
+    values = torch.where(indices >= 0, values, NEG_INF)
+    return Matches(values=values[:nq], indices=indices[:nq], counts=counts[:nq, 0])
+
+
+def compact_worklist(mask, ub=None) -> np.ndarray | None:
+    """Host-side live mask → dense upper-triangular worklist ``(2, T)``.
+
+    Symmetrizes first (the minsize bound is asymmetric: a pair is live if
+    either orientation is), then keeps ``j ≥ i`` only: each off-diagonal
+    tile is computed once for both orientations (S = Sᵀ). Returns None when
+    nothing is live. With ``ub`` (the ``(nb, nb)`` tile upper bounds of
+    ``core.pruning.live_tile_mask(return_ub=True)``), live tiles are sorted
+    by upper bound descending (the paper's adaptive ordering); results do
+    not depend on the order.
+    """
+    live = _host(mask).astype(bool)
+    live = np.triu(live | live.T)
+    iu, ju = np.nonzero(live)
+    if iu.size == 0:
+        return None
+    if ub is not None:
+        u = _host(ub).astype(np.float64)
+        u = np.maximum(u, u.T)  # match the symmetrized liveness
+        order = np.argsort(-u[iu, ju], kind="stable")
+        iu, ju = iu[order], ju[order]
+    return np.stack([iu, ju]).astype(np.int32)
+
+
+def pad_worklist(wl: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Bucket-pad a ``(2, T)`` worklist to the next power of two.
+
+    Padding entries repeat tile ``(0, 0)`` and are marked invalid in the
+    returned ``(Tb,)`` bool vector, so a fold can drop them.
+    """
+    T = wl.shape[1]
+    Tb = 1 << max(0, (T - 1).bit_length())
+    valid = np.zeros((Tb,), bool)
+    valid[:T] = True
+    if Tb == T:
+        return wl, valid
+    pad = np.zeros((2, Tb - T), np.int32)
+    return np.concatenate([wl, pad], axis=1), valid
+
+
+def fold_packets(ij, fv, fi, fc, bv, bi, bc, *, grid_m, block_m, k):
+    """Fold per-tile candidate packets into flat ``(values, indices, counts)``.
+
+    ``ij (2, T)`` worklist of upper-triangular tiles; ``f*`` are the forward
+    packets (rows of block ``ij[0, t]``), ``b*`` the mirror packets (rows of
+    block ``ij[1, t]``; empty on diagonal tiles); counts are ``(T, block_m)``.
+    Packets entering one row block come from disjoint column ranges, so one
+    top-k per row over all of that block's packets, by (value desc, id asc),
+    is exact. Vectorised: packets are grouped by target block into a
+    ``(grid_m, P, block_m, k)`` buffer, ``P`` the most packets any block
+    receives.
+    """
+    dev = fv.device
+    ij = torch.as_tensor(ij).to(dev, torch.long)
+    off = ij[0] != ij[1]  # a diagonal tile's mirror packet is empty
+    blk = torch.cat([ij[0], ij[1][off]])
+    pv = torch.cat([fv, bv[off]])
+    pi = torch.cat([fi, bi[off]])
+    pc = torch.cat([fc, bc[off]])
+
+    counts = torch.zeros((grid_m, block_m), dtype=torch.int32, device=dev)
+    counts.index_add_(0, blk, pc.to(torch.int32))
+
+    order = torch.argsort(blk, stable=True)
+    blk = blk[order]
+    per_block = torch.bincount(blk, minlength=grid_m)
+    start = torch.cumsum(per_block, 0) - per_block
+    slot = torch.arange(blk.numel(), device=dev) - start[blk]
+    P = int(per_block.max())
+    shape = (grid_m, P, block_m, k)
+    buf_v = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
+    buf_i = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    buf_v[blk, slot] = pv[order]
+    buf_i[blk, slot] = pi[order]
+    cand_v = buf_v.permute(0, 2, 1, 3).reshape(grid_m, block_m, P * k)
+    cand_i = buf_i.permute(0, 2, 1, 3).reshape(grid_m, block_m, P * k)
+    v, i = topk_by_id(cand_v, cand_i, k)
+    i = torch.where(v > _VALID, i, -1)
+    values = torch.where(i >= 0, v, NEG_INF).reshape(grid_m * block_m, k)
+    return values, i.reshape(grid_m * block_m, k), counts.reshape(grid_m * block_m)
+
+
+def apss_fused_compacted(
+    D,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int = 256,
+    block_k: int = 512,
+    use_minsize: bool = True,
+    device: str | torch.device = "cuda",
+) -> Matches:
+    """Self-join via the live-tile worklist kernel (K2).
+
+    The block bound mask is compacted ON THE HOST into a dense list of live
+    upper-triangular ``(i, j)`` tiles: a pruned tile costs nothing, and each
+    off-diagonal tile is computed once for both orientations (S = Sᵀ).
+    """
+    D = as_corpus(D, device)
+    n, m = D.shape
+    bk = _pick_bk(m, block_k)
+    Dp = _pad_to(D, block_m, bk)
+    grid_m = Dp.shape[0] // block_m
+
+    mask, ub = block_prune_mask(
+        Dp, Dp, threshold, block_m, block_m, use_minsize=use_minsize,
+        return_ub=True,
+    )
+    wl = compact_worklist(mask, ub)
+    if wl is None:
+        return empty_matches(n, k, Dp.device)
+    ij = torch.as_tensor(wl).to(Dp.device)
+
+    fv, fi, fc, bv, bi, bc = apss_tile_candidates_kernel(
+        Dp, ij, threshold, k, block_m=block_m, block_n=block_m, n_valid=n,
+    )
+    values, indices, counts = fold_packets(
+        ij, fv, fi, fc[..., 0], bv, bi, bc[..., 0],
+        grid_m=grid_m, block_m=block_m, k=k,
+    )
+    return Matches(values=values[:n], indices=indices[:n], counts=counts[:n])

@@ -28,6 +28,14 @@ def shard_of(path: str, num_shards: int) -> int:
     return zlib.crc32(path.encode()) % num_shards
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA Hopper card with CUDA (each test skips itself "
+        "without one)",
+    )
+
+
 def pytest_collection_modifyitems(config, items):
     """Optional tier-1 sharding for the CI matrix.
 

@@ -1,0 +1,159 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA Hopper card and ``nvcc``; each decides that
+inside itself (the ``card`` fixture) and skips with a reason elsewhere. Run
+them on a machine with a card:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: inputs keep every float64 score more than 1e-5 from t, so the
+kernel (FMA in feature order) and the plain version (cuBLAS) keep the same
+pairs; ids and counts must be equal, values within 1e-5.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import assert_clear_of_threshold  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+TOL = 1e-5
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("the kernels are built for sm_90a (Hopper)")
+    return torch.device("cuda")
+
+
+def _corp(n, m, seed, density=0.3):
+    rng = np.random.default_rng(seed)
+    D = np.abs(rng.standard_normal((n, m))).astype(np.float32)
+    D *= rng.random((n, m)) < density
+    return D / np.maximum(np.linalg.norm(D, axis=1, keepdims=True), 1e-12)
+
+
+def _pad(D, rows, cols):
+    return np.pad(D, ((0, (-D.shape[0]) % rows), (0, (-D.shape[1]) % cols)))
+
+
+def _assert_close(got, ref):
+    for g, r in zip(got, ref):
+        g, r = g.cpu().numpy(), r.cpu().numpy()
+        assert g.shape == r.shape and g.dtype == r.dtype
+        if g.dtype == np.float32:
+            np.testing.assert_allclose(g, r, atol=TOL, rtol=0)
+        else:
+            np.testing.assert_array_equal(g, r)
+
+
+def _inputs(dtype, seed):
+    D = _corp(300, 200, seed=seed)
+    if dtype == torch.bfloat16:
+        D = torch.from_numpy(D).bfloat16().float().numpy()
+    assert_clear_of_threshold(D, D, 0.3, exclude_self=True)
+    return D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256])
+def test_k1_kernel_matches_plain(card, dtype, block):
+    from repro_torch.kernels.apss_block import fused
+
+    D = _inputs(dtype, seed=1)
+    Dp = torch.from_numpy(_pad(D, 256, 128)).to(card, dtype)
+    g = Dp.shape[0] // block
+    mask = torch.ones((g, g), dtype=torch.int32)
+    mask[0, -1] = 0
+    kw = dict(block_m=block, block_n=block, n_valid_cols=300, row_offset=0,
+              col_offset=0, exclude_self=True)
+    before = fused.LAUNCHES["apss_fused"]
+    got = fused.apss_fused_kernel(Dp, Dp, mask, 0.3, 16, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["apss_fused"] == before + 1
+    ref = fused.apss_fused_plain(Dp, Dp, mask, 0.3, 16, **kw)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+def test_k1_kernel_runtime_offsets(card):
+    from repro_torch.kernels.apss_block import fused
+
+    D = _corp(230, 120, seed=2)
+    assert_clear_of_threshold(D[100:228], D, 0.3)
+    x = torch.from_numpy(_pad(D[100:228], 128, 128)).to(card)
+    y = torch.from_numpy(_pad(D, 128, 128)).to(card)
+    mask = torch.ones((1, 2), dtype=torch.int32)
+    for col_off in (0, 300):  # the second step sees no self pair
+        kw = dict(block_m=128, block_n=128, n_valid_cols=230, row_offset=100,
+                  col_offset=col_off, exclude_self=True)
+        got = fused.apss_fused_kernel(x, y, mask, 0.3, 16, **kw)
+        _assert_close(got, fused.apss_fused_plain(x, y, mask, 0.3, 16, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_matches_plain(card, dtype):
+    from repro_torch.core.pruning import block_prune_mask
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.kernels.apss_block.ops import compact_worklist
+
+    D = _inputs(dtype, seed=2)
+    Dp = torch.from_numpy(_pad(D, 128, 128)).to(card, dtype)
+    mask, ub = block_prune_mask(Dp, Dp, 0.3, 128, return_ub=True)
+    ij = torch.as_tensor(compact_worklist(mask, ub)).to(card)
+    kw = dict(block_m=128, block_n=128, n_valid=300)
+    before = fused.LAUNCHES["apss_tile_candidates"]
+    got = fused.apss_tile_candidates_kernel(Dp, ij, 0.3, 16, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["apss_tile_candidates"] == before + 1
+    _assert_close(got, fused.apss_tile_candidates_plain(Dp, ij, 0.3, 16, **kw))
+
+
+def test_entry_points_on_card_match_plain_path(card):
+    from repro_torch import apss_blocked, apss_fused_compacted
+
+    D = _inputs(torch.float32, seed=17)
+    ref = apss_blocked(D, 0.3, 16, use_kernel=False, device="cpu")
+    for got in (
+        apss_blocked(D, 0.3, 16, use_kernel=True),
+        apss_fused_compacted(D, 0.3, 16),
+    ):
+        assert got.values.device.type == "cuda"
+        _assert_close((got.values, got.indices, got.counts), ref)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.apss_block import fused
+
+    D = torch.zeros((256, 128), device=card)
+    mask = torch.ones((2, 2), dtype=torch.int32)
+    D192 = torch.zeros((192, 128), device=card)
+    with pytest.raises(ValueError, match="multiples"):
+        fused.apss_fused_kernel(D192, D192, mask, 0.3, 8, block_m=96, block_n=96,
+                                n_valid_cols=192)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.apss_fused_kernel(D.T, D.T, mask, 0.3, 8, block_m=128, block_n=128,
+                                n_valid_cols=256)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused.apss_fused_kernel(D.half(), D.half(), mask, 0.3, 8, block_m=128,
+                                block_n=128, n_valid_cols=256)
+    with pytest.raises(RuntimeError, match="launch failed"):  # shared memory for k
+        fused.apss_fused_kernel(D, D, mask, 0.3, 4096, block_m=128, block_n=128,
+                                n_valid_cols=256)
+    with pytest.raises(ValueError, match="outside the corpus"):
+        fused.apss_tile_candidates_kernel(
+            D, torch.tensor([[0], [2]], dtype=torch.int32), 0.3, 8,
+            block_m=128, block_n=128, n_valid=256,
+        )
+    with pytest.raises(ValueError, match="up to 256"):
+        fused.apss_tile_candidates_kernel(
+            torch.zeros((512, 128), device=card),
+            torch.zeros((2, 1), dtype=torch.int32),
+            0.3, 8, block_m=512, block_n=512, n_valid=512,
+        )

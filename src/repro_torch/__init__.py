@@ -10,12 +10,14 @@ kernel is compiled with ``nvcc`` on its first launch.
 
 Subpackages:
 
-- :mod:`repro_torch.core`    -- the dense self-join: oracle, blocked join,
-                                matches, pruning bounds, graph helpers
-- :mod:`repro_torch.kernels` -- K1 (streaming fused) and K2 (live-tile
-                                worklist) with their wrappers and plain
-                                versions
-- :mod:`repro_torch.data`    -- synthetic corpora (numpy)
+- :mod:`repro_torch.core`    -- the self-join: oracle, blocked join (dense
+                                and padded-CSR ``SparseCorpus``), matches,
+                                pruning bounds, graph helpers
+- :mod:`repro_torch.kernels` -- K1 (streaming fused), K2 (live-tile
+                                worklist), K3 (CSR worklist) and K7
+                                (thresholded dense tile) with their
+                                wrappers and plain versions
+- :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR)
 """
 
 from repro_torch.core.apss import (
@@ -25,6 +27,12 @@ from repro_torch.core.apss import (
     similarity_topk,
 )
 from repro_torch.core.matches import Matches, extract_matches, merge_matches
-from repro_torch.kernels.apss_block.ops import apss_fused, apss_fused_compacted
+from repro_torch.core.sparse import SparseCorpus, from_dense, to_dense
+from repro_torch.kernels.apss_block.ops import (
+    apss_block_matmul,
+    apss_fused,
+    apss_fused_compacted,
+)
+from repro_torch.kernels.apss_block.sparse import apss_sparse_compacted
 
 __version__ = "0.1.0"

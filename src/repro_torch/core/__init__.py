@@ -1,8 +1,10 @@
-"""The dense self-join of the paper.
+"""The self-join of the paper, on dense and padded-CSR corpora.
 
 - :mod:`repro_torch.core.apss`      oracle + blocked self-join
 - :mod:`repro_torch.core.matches`   fixed-capacity match extraction / merging
-- :mod:`repro_torch.core.pruning`   maxweight / minsize block bounds
+- :mod:`repro_torch.core.pruning`   maxweight / minsize block bounds, dense
+                                    and sparse (inverted-index candidacy)
+- :mod:`repro_torch.core.sparse`    padded-CSR SparseCorpus + sparse scoring
 - :mod:`repro_torch.core.graph`     similarity-graph (COO) helpers
 - :mod:`repro_torch.core.precision` full-float32 products
 """
@@ -22,4 +24,14 @@ from repro_torch.core.pruning import (
     dense_block_stats,
     live_tile_mask,
     local_threshold,
+    sparse_block_prune_mask,
+    sparse_block_stats,
+    sparse_candidate_mask,
+)
+from repro_torch.core.sparse import (
+    SparseCorpus,
+    from_dense,
+    normalize_sparse,
+    sparse_similarity_topk,
+    to_dense,
 )

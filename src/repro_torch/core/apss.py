@@ -7,10 +7,14 @@ products (``use_kernel=False``) or through the fused streaming kernel K1
 (``use_kernel=True``), which never materializes the score matrix and skips
 tiles the maxweight bound proves dead.
 
-Entry points take numpy arrays or tensors and ``device=`` (default
-``"cuda"``, which raises when there is no card; the CPU runs the plain
-versions of the kernels). Dense corpora only in this slice: sparse corpora
-and the planner's ``variant="auto"`` are ROADMAP queue 1 items 2 and 5.
+A :class:`~repro_torch.core.sparse.SparseCorpus` takes the sparse path:
+the inverted-index worklist and the CSR tile kernel K3
+(``use_kernel=True``) or the blocked gather-dot join (``use_kernel=False``).
+
+Entry points take numpy arrays, tensors or a ``SparseCorpus`` and
+``device=`` (default ``"cuda"``, which raises when there is no card; the
+CPU runs the plain versions of the kernels). The planner's
+``variant="auto"`` is ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -22,7 +26,18 @@ import torch
 
 from repro_torch.core.matches import Matches, extract_matches
 from repro_torch.core.precision import dot_f32
-from repro_torch.core.pruning import PruneStats, block_prune_mask, prune_stats
+from repro_torch.core.pruning import (
+    PruneStats,
+    block_prune_mask,
+    live_tile_mask,
+    prune_stats,
+    sparse_block_stats,
+)
+from repro_torch.core.sparse import (
+    SparseCorpus,
+    pad_rows_sparse,
+    sparse_similarity_topk,
+)
 from repro_torch.interop import as_corpus
 
 
@@ -42,16 +57,6 @@ def pad_rows(x: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
     return x, n
 
 
-def _dense_only(*corpora) -> None:
-    for c in corpora:
-        if not isinstance(c, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                f"dense corpora only (numpy array or tensor), got "
-                f"{type(c).__name__}: the sparse self-join is ROADMAP queue 1 "
-                "item 2"
-            )
-
-
 def apss_reference(
     D,
     threshold: float,
@@ -62,9 +67,14 @@ def apss_reference(
 ) -> Matches:
     """Oracle APSS self-join: dense ``D·Dᵀ``, threshold, per-row top-k.
 
-    O(n²m) FLOPs, O(n²) memory: for validation-scale inputs only.
+    O(n²m) FLOPs, O(n²) memory: for validation-scale inputs only. Dense
+    corpora only: pass ``core.sparse.to_dense(sp)`` for a sparse one.
     """
-    _dense_only(D)
+    if not isinstance(D, (np.ndarray, torch.Tensor)):
+        raise TypeError(
+            f"apss_reference takes a dense corpus (numpy array or tensor), "
+            f"got {type(D).__name__}"
+        )
     D = as_corpus(D, device)
     return extract_matches(dot_f32(D, D), threshold, k, exclude_self=exclude_self)
 
@@ -92,6 +102,10 @@ def similarity_topk(
     bound mask gating tiles and runtime offsets; ``col_valid`` is not
     supported there (the kernel derives contiguous-prefix validity from the
     corpus length).
+
+    Two ``SparseCorpus`` inputs take ``core.sparse.sparse_similarity_topk``
+    (no ``use_kernel``, no ``col_valid``: the sparse kernel path is the
+    self-join ``apss_blocked``).
     """
     if variant == "auto":
         raise NotImplementedError(
@@ -99,7 +113,26 @@ def similarity_topk(
         )
     if variant is not None:
         raise ValueError(f"unknown variant: {variant!r} (only 'auto')")
-    _dense_only(Q, C)
+    if isinstance(Q, SparseCorpus) != isinstance(C, SparseCorpus):
+        raise ValueError(
+            "Q and C must use the same representation "
+            "(both SparseCorpus or both dense)"
+        )
+    if isinstance(Q, SparseCorpus):
+        if use_kernel:
+            raise ValueError(
+                "sparse use_kernel is self-join only: call apss_blocked on a "
+                "SparseCorpus (kernels.apss_block.sparse.apss_sparse_compacted)"
+            )
+        if col_valid is not None:
+            raise ValueError("sparse similarity_topk derives col validity "
+                             "from the unpadded corpus length")
+        same = C is Q
+        Q = Q.to(device)
+        return sparse_similarity_topk(
+            Q, Q if same else C.to(device), threshold, k, block_rows=block_rows,
+            exclude_self=exclude_self, row_offset=row_offset, col_offset=col_offset,
+        )
     same = C is Q
     Q = as_corpus(Q, device)
     C = Q if same else as_corpus(C, device)
@@ -148,8 +181,17 @@ def apss_blocked(
     kernel K1: matmul → threshold → top-k merge → count in one kernel, tile
     skipping from the maxweight bound mask, and an ``O(n·k)`` output. The
     plain path computes every tile. Exactness does not depend on the mask.
+
+    ``D`` may be a :class:`~repro_torch.core.sparse.SparseCorpus`: the
+    self-join then takes the sparse path, the inverted-index worklist and
+    K3 (``use_kernel=True``) or the blocked gather-dot join
+    (``use_kernel=False``). Both are exact on the densified corpus.
     """
-    _dense_only(D)
+    if isinstance(D, SparseCorpus):
+        return _apss_blocked_sparse(
+            D.to(device), threshold, k, block_rows=block_rows,
+            with_prune_stats=with_prune_stats, use_kernel=use_kernel,
+        )
     D = as_corpus(D, device)
     if use_kernel:
         from repro_torch.kernels.apss_block.ops import apss_fused
@@ -168,3 +210,36 @@ def apss_blocked(
         return m
     Dp, _ = pad_rows(D, block_rows)
     return m, prune_stats(block_prune_mask(Dp, Dp, threshold, block_rows))
+
+
+def _apss_blocked_sparse(
+    D: SparseCorpus,
+    threshold: float,
+    k: int,
+    *,
+    block_rows: int,
+    with_prune_stats: bool,
+    use_kernel: bool,
+) -> Matches | tuple[Matches, PruneStats]:
+    mask = ub = None
+    bs = _kernel_tile(block_rows) if use_kernel else block_rows
+    if with_prune_stats or use_kernel:
+        # The block stats are computed once and shared by the worklist and
+        # the accounting.
+        Dp, _ = pad_rows_sparse(D, bs)
+        stats = sparse_block_stats(Dp, bs)
+        mask, ub = live_tile_mask(stats, stats, threshold, return_ub=True)
+    if use_kernel:
+        from repro_torch.kernels.apss_block.sparse import apss_sparse_compacted
+
+        m = apss_sparse_compacted(
+            D, threshold, k, block_m=bs, block_mask=mask, block_ub=ub,
+            device=D.device,
+        )
+    else:
+        m = sparse_similarity_topk(
+            D, D, threshold, k, block_rows=block_rows, exclude_self=True
+        )
+    if not with_prune_stats:
+        return m
+    return m, prune_stats(mask)

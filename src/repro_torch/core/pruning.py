@@ -1,4 +1,4 @@
-"""Candidate pruning bounds at tile granularity (dense half, PyTorch).
+"""Candidate pruning bounds at tile granularity (PyTorch).
 
 The sequential optimizations of Bayardo et al. (partial indexing / minsize)
 exploit per-dimension ``maxweight`` upper bounds to skip work. Here they are
@@ -8,6 +8,11 @@ which the kernels skip.
 
 All bounds are conservative: a pruned block pair can contain **no** match,
 so pruned execution stays exact.
+
+For CSR corpora (``core.sparse``) the same bounds come straight from the
+sparse layout (:func:`sparse_block_prune_mask`): block maxima by
+scatter-max, per-row sizes from the stored ``nnz``, and the inverted-index
+candidacy test, since blocks that share no dimension have a zero bound.
 
 Local pruning (paper Lemma 1): if ``sim(x, y) ≥ t`` then at least one of
 ``p`` dimension shards sees a partial score ``≥ t/p``
@@ -45,6 +50,18 @@ def dense_block_stats(
     maxw = block_maxweight_bounds(D, block_rows)
     mw, max_nnz = block_minsize_bounds(D, block_rows, eps)
     return BlockStats(maxw=maxw, mw=mw, max_nnz=max_nnz)
+
+
+def sparse_block_stats(sp, block_rows: int) -> BlockStats:
+    """Block pruning summaries straight from padded CSR (never densified).
+
+    ``max_nnz`` uses the corpus's exact stored per-row nnz; stored nnz
+    over-counts duplicate coordinates, which only loosens (never unsounds)
+    the minsize bound.
+    """
+    maxw = sparse_block_maxweight(sp, block_rows)
+    max_nnz = sp.nnz.reshape(-1, block_rows).amax(dim=1)
+    return BlockStats(maxw=maxw, mw=maxw.amax(dim=1), max_nnz=max_nnz)
 
 
 def live_tile_mask(
@@ -166,3 +183,82 @@ def prune_stats(mask: torch.Tensor) -> PruneStats:
 def local_threshold(threshold: float, num_shards: int) -> torch.Tensor:
     """Paper Lemma 1: local pruning threshold ``t_local = t / p``."""
     return torch.tensor(threshold, dtype=torch.float32) / num_shards
+
+
+# ---------------------------------------------------------------------------
+# Sparse-exact bounds: inverted-index candidacy + tile bounds computed from
+# the padded-CSR corpus (core.sparse.SparseCorpus), never from a dense array.
+# ---------------------------------------------------------------------------
+
+
+def sparse_block_maxweight(sp, block_rows: int) -> torch.Tensor:
+    """Per-block per-dimension max weight ``(n/b, m)`` from CSR, by scatter-max.
+
+    Duplicate coordinates are combined first (``core.sparse.dedupe_rows``),
+    so the bound sees the effective per-component magnitude ``|Σ slots|``:
+    a per-slot max would under-bound concentrated duplicates and prune
+    unsoundly. Padding slots ``(0, 0.0)`` are inert under max-with-0.
+    """
+    from repro_torch.core.sparse import dedupe_rows
+
+    n = sp.n
+    if n % block_rows:
+        raise ValueError(f"rows {n} not a multiple of block_rows {block_rows}")
+    idx, comp = dedupe_rows(sp.indices, sp.values)
+    blk = torch.arange(n, device=idx.device)[:, None] // block_rows
+    out = torch.zeros(((n // block_rows) * sp.m,), dtype=torch.float32,
+                      device=idx.device)
+    out.scatter_reduce_(0, (blk * sp.m + idx).reshape(-1), comp.abs().reshape(-1),
+                        reduce="amax")
+    return out.reshape(n // block_rows, sp.m)
+
+
+def sparse_block_support(sp, block_rows: int) -> torch.Tensor:
+    """Tile-granular posting lists: ``sup[B, d]`` ⇔ dimension ``d``'s posting
+    list intersects row block ``B`` (the inverted index, quantized to
+    blocks)."""
+    return sparse_block_maxweight(sp, block_rows) > 0
+
+
+def sparse_candidate_mask(sup_rows: torch.Tensor, sup_cols: torch.Tensor) -> torch.Tensor:
+    """Inverted-index candidate generation at tile granularity.
+
+    A tile ``(I, J)`` is a candidate iff some dimension's posting list hits
+    both blocks. :func:`sparse_block_prune_mask` enforces this through the
+    weighted maxweight bound instead (no shared support ⇒ ``ub = 0 < t``
+    for any ``t > 0``), which stays sound at ``t ≤ 0``; this boolean form is
+    for index statistics and candidate accounting.
+    """
+    return dot_f32(sup_rows.float(), sup_cols.float()) > 0
+
+
+def sparse_block_prune_mask(
+    sp_rows,
+    sp_cols,
+    threshold: float,
+    block_rows: int,
+    block_cols: int | None = None,
+    *,
+    use_minsize: bool = True,
+    normalized: bool = True,
+    return_ub: bool = False,
+):
+    """``(n_row_blocks, n_col_blocks)`` LIVE mask from CSR inputs only.
+
+    The maxweight bound over sparse block maxima (which is the
+    inverted-index candidacy test in weighted form) and, with
+    ``use_minsize`` and unit rows, the minsize bound from the exact stored
+    nnz. Both are trivially live at ``t ≤ 0``. A self-join
+    (``sp_cols is sp_rows``) computes its stats once.
+    """
+    block_cols = block_cols or block_rows
+    stats_r = sparse_block_stats(sp_rows, block_rows)
+    stats_c = (
+        stats_r
+        if sp_cols is sp_rows and block_cols == block_rows
+        else sparse_block_stats(sp_cols, block_cols)
+    )
+    return live_tile_mask(
+        stats_r, stats_c, threshold,
+        use_minsize=use_minsize, normalized=normalized, return_ub=return_ub,
+    )

@@ -5,3 +5,4 @@ from repro_torch.data.synthetic import (
     paper_like_corpus,
     synthetic_corpus,
 )
+from repro_torch.data.sparse import sparse_clustered_corpus, sparse_zipfian_corpus

@@ -1,9 +1,9 @@
 """Moving APSS state between numpy (and so the JAX package) and the port.
 
-This system has no weights; the corpus, the block statistics of an index
-and the ``Matches`` a join returns are its state. These functions carry
-each across in either direction with the port's dtypes: float32 scores,
-int32 ids and counts.
+This system has no weights; the corpus (dense, or a padded-CSR
+``SparseCorpus``), the block statistics of an index and the ``Matches`` a
+join returns are its state. These functions carry each across in either
+direction with the port's dtypes: float32 scores, int32 ids and counts.
 """
 
 from __future__ import annotations
@@ -44,6 +44,33 @@ def corpus_from_numpy(D: np.ndarray, device: str | torch.device) -> torch.Tensor
     return as_corpus(np.array(D, np.float32), device)
 
 
+def sparse_corpus_from_numpy(
+    indices: np.ndarray, values: np.ndarray, nnz: np.ndarray, m: int,
+    device: str | torch.device,
+):
+    """A padded-CSR ``SparseCorpus`` (int32 ids, f32 values, int32 nnz) from
+    the numpy arrays of one, e.g. ``np.asarray`` of a JAX corpus's fields."""
+    from repro_torch.core.sparse import SparseCorpus  # core.sparse imports this module
+
+    dev = device_of(device)
+    return SparseCorpus(
+        indices=torch.tensor(np.asarray(indices, np.int32), device=dev),
+        values=torch.tensor(np.asarray(values, np.float32), device=dev),
+        nnz=torch.tensor(np.asarray(nnz, np.int32), device=dev),
+        m=int(m),
+    )
+
+
+def sparse_corpus_to_numpy(sp) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """``(indices, values, nnz, m)`` of a ``SparseCorpus`` from either package."""
+    return (
+        _host(sp.indices).astype(np.int32),
+        _host(sp.values).astype(np.float32),
+        _host(sp.nnz).astype(np.int32),
+        int(sp.m),
+    )
+
+
 def block_stats_from_numpy(
     maxw: np.ndarray, mw: np.ndarray, max_nnz: np.ndarray,
     device: str | torch.device,
@@ -70,15 +97,16 @@ def matches_from_numpy(
     )
 
 
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def matches_to_numpy(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(values, indices, counts)`` as numpy arrays, from either package."""
-    def host(a):
-        if isinstance(a, torch.Tensor):
-            return a.detach().cpu().numpy()
-        return np.asarray(a)
-
     return (
-        host(m.values).astype(np.float32),
-        host(m.indices).astype(np.int32),
-        host(m.counts).astype(np.int32),
+        _host(m.values).astype(np.float32),
+        _host(m.indices).astype(np.int32),
+        _host(m.counts).astype(np.int32),
     )

@@ -1,9 +1,15 @@
 """Kernels written by hand for Hopper, each with a plain PyTorch version.
 
-- :mod:`repro_torch.kernels.apss_block` -- K1 (``csrc/apss_fused.cu``) and
-  K2 (``csrc/tile_candidates.cu``) of the self-join.
+- :mod:`repro_torch.kernels.apss_block` -- K1 (``csrc/apss_fused.cu``),
+  K2 (``csrc/tile_candidates.cu``) and K3
+  (``csrc/sparse_tile_candidates.cu``) of the self-join, and K7
+  (``csrc/apss_block.cu``), the thresholded dense score matrix.
 - :mod:`repro_torch.kernels._build`     -- nvcc build + ctypes loading, at
   first launch.
 """
 
-from repro_torch.kernels.apss_block.ops import apss_fused, apss_fused_compacted
+from repro_torch.kernels.apss_block.ops import (
+    apss_block_matmul,
+    apss_fused,
+    apss_fused_compacted,
+)

@@ -9,11 +9,31 @@
 //   feature order, one fmaf at a time. Inputs are float32 or bfloat16
 //   (as raw 16-bit words, widened exactly to float32); the sum is float32.
 //
+// tile_packets: the two-phase body of the worklist kernels K2 and K3 (one
+//   thread block per worklist entry t; the caller passes the operand
+//   pointers of the tile's row and column blocks). A block_m x block_n tile
+//   of f32 scores (256 KB at 256 x 256) does not fit a block's 227 KB of
+//   shared memory, so it goes to a device scratch buffer the wrapper
+//   allocates, (T, block_m, block_n) f32. Phase 1 computes the tile as
+//   64 x 64 sub-tiles with score_tile and writes them to scratch; after a
+//   block barrier, phase 2 selects from it:
+//     forward: one warp per tile row: keep s >= t, grow != gcol,
+//       grow < n_valid, gcol < n_valid; count them; top-k by
+//       (value desc, gcol asc) in min(k, count) rounds of warp-wide
+//       selection over the row held in registers (select_packet);
+//     mirror (ib != jb): one warp per tile column, the same kept set read
+//       down the column, ids grow (not gcol); on a diagonal tile the mirror
+//       packet is empty with count 0.
+//   Scratch costs 4 * block_m * block_n bytes per worklist entry; its
+//   traffic (written once, read twice, mostly from L2) is small next to the
+//   tile's 2 * block_m * block_n * m FLOP. Tiles are at most 256 x 256
+//   (eight register slots per lane in phase 2).
+//
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
 //   scanned in ascending order. Empty slots are (NEG_LARGE, -1).
 //
-// Bound: both kernels are bound by float32 FMA throughput at the shapes of
+// Bound: the self-join kernels are bound by float32 FMA throughput at the shapes of
 //   the self-join (2 m FLOP per score against 8 bytes of input per row
 //   pair, m in the hundreds to the hundred thousands); TF32 and the tensor
 //   cores are not used, so the card's non-tensor f32 peak is the bound.
@@ -32,6 +52,7 @@ constexpr int LDS = TILE + 4;      // padded row of a staged chunk (float4-align
 constexpr float NEG_LARGE = -0.5e30f;
 constexpr float VALID = -0.25e30f; // values above this are real candidates
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_BLOCK = 256;     // largest worklist tile side (tile_packets)
 
 struct Staged {
   float a[TK * LDS];
@@ -123,6 +144,127 @@ __device__ __forceinline__ void warp_first(float& v, int& id, int& pos) {
       id = oid;
       pos = opos;
     }
+  }
+}
+
+// Writes the top-k of the lane-held candidates (v, id; up to 8 per lane,
+// `count` of them real) to out_v/out_i[0, k) and count to *out_c.
+__device__ __forceinline__ void select_packet(float (&v)[MAX_BLOCK / 32],
+                                              int (&id)[MAX_BLOCK / 32], int count, int k,
+                                              float* out_v, int* out_i, int* out_c) {
+  const int lane = threadIdx.x & 31;
+  const int rounds = count < k ? count : k;
+  for (int slot = 0; slot < rounds; ++slot) {
+    float bv = NEG_LARGE;
+    int bi = 0x7fffffff, bp = 0;
+#pragma unroll
+    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+      if (before(v[q], id[q], bv, bi)) {
+        bv = v[q];
+        bi = id[q];
+      }
+    }
+    warp_first(bv, bi, bp);
+#pragma unroll
+    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+      if (id[q] == bi) v[q] = NEG_LARGE;  // real ids are unique within a packet
+    }
+    if (lane == 0) {
+      out_v[slot] = bv;
+      out_i[slot] = bi;
+    }
+  }
+  for (int e = rounds + lane; e < k; e += 32) {
+    out_v[e] = NEG_LARGE;
+    out_i[e] = -1;
+  }
+  if (lane == 0) *out_c = count;
+}
+
+// Forward and mirror packets of worklist entry t, tile (ib, jb): xb holds
+// the tile's block_m rows and yb its block_n columns, both with row stride m.
+// fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T, block_n, k|k|1).
+template <typename T>
+__device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb, long long m,
+                             int t, int ib, int jb, int block_m, int block_n, int n_valid,
+                             float threshold, int k, Staged& st, float* scratch,
+                             float* __restrict__ fv, int* __restrict__ fi,
+                             int* __restrict__ fc, float* __restrict__ bv,
+                             int* __restrict__ bi, int* __restrict__ bc) {
+  float* s = scratch + (long long)t * block_m * block_n;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int r0 = 0; r0 < block_m; r0 += TILE) {
+    for (int c0 = 0; c0 < block_n; c0 += TILE) {
+      float acc[4][4];
+      score_tile(xb + (long long)r0 * m, yb + (long long)c0 * m, m, st, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(&s[(long long)(r0 + ty * 4 + i) * block_n + c0 + tx * 4]) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
+  __syncthreads();  // the block's scratch writes are visible to all its threads
+
+  const int grow0 = ib * block_m, gcol0 = jb * block_n;
+  for (int r = warp; r < block_m; r += WARPS) {  // forward packet: rows of block ib
+    const int grow = grow0 + r;
+    float v[MAX_BLOCK / 32];
+    int id[MAX_BLOCK / 32];
+    int count = 0;
+#pragma unroll
+    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+      const int c = q * 32 + lane;
+      bool ok = false;
+      float sv = NEG_LARGE;
+      if (c < block_n) {
+        const int gcol = gcol0 + c;
+        sv = s[(long long)r * block_n + c];
+        ok = sv >= threshold && grow != gcol && grow < n_valid && gcol < n_valid;
+        id[q] = ok ? gcol : -1;
+      } else {
+        id[q] = -1;
+      }
+      v[q] = ok ? sv : NEG_LARGE;
+      count += __popc(__ballot_sync(FULL, ok));
+    }
+    const long long row = (long long)t * block_m + r;
+    select_packet(v, id, count, k, fv + row * k, fi + row * k, fc + row);
+  }
+
+  for (int c = warp; c < block_n; c += WARPS) {  // mirror packet: rows of block jb
+    const long long row = (long long)t * block_n + c;
+    if (ib == jb) {
+      for (int e = lane; e < k; e += 32) {
+        bv[row * k + e] = NEG_LARGE;
+        bi[row * k + e] = -1;
+      }
+      if (lane == 0) bc[row] = 0;
+      continue;
+    }
+    const int gcol = gcol0 + c;
+    float v[MAX_BLOCK / 32];
+    int id[MAX_BLOCK / 32];
+    int count = 0;
+#pragma unroll
+    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+      const int r = q * 32 + lane;
+      bool ok = false;
+      float sv = NEG_LARGE;
+      if (r < block_m) {
+        const int grow = grow0 + r;
+        sv = s[(long long)r * block_n + c];
+        ok = sv >= threshold && grow != gcol && grow < n_valid && gcol < n_valid;
+        id[q] = ok ? grow : -1;
+      } else {
+        id[q] = -1;
+      }
+      v[q] = ok ? sv : NEG_LARGE;
+      count += __popc(__ballot_sync(FULL, ok));
+    }
+    select_packet(v, id, count, k, bv + row * k, bi + row * k, bc + row);
   }
 }
 

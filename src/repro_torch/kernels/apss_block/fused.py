@@ -36,7 +36,12 @@ NEG_LARGE = -0.5e30
 _VALID = -0.25e30  # values above this are real candidates
 
 # Kernel launches by wrapper name; a launch is counted only where it happens.
-LAUNCHES = {"apss_fused": 0, "apss_tile_candidates": 0}
+LAUNCHES = {
+    "apss_fused": 0,              # K1, this module
+    "apss_tile_candidates": 0,    # K2, this module
+    "sparse_tile_candidates": 0,  # K3, sparse.py
+    "apss_block": 0,              # K7, apss_block.py
+}
 
 _TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
 _TK = 32    # their feature chunk

@@ -1,5 +1,8 @@
 """Public wrappers of the self-join kernels: padding, masks, worklists, folds.
 
+- :func:`apss_block_matmul` -- the dense-output kernel (K7): the
+  thresholded ``n×n`` score matrix, dead tiles zero (validation and
+  benchmarks; ``O(n²)`` device memory).
 - :func:`apss_fused` -- streaming fused extraction (K1): matmul →
   threshold → top-k merge → count in one kernel, ``Matches``-shaped
   ``O(n·k)`` output; the ``n×n`` score matrix never exists.
@@ -8,8 +11,10 @@
   for both orientations (S = Sᵀ), and the per-tile packets are folded into
   ``Matches`` by :func:`fold_packets`.
 
-Both run the kernels on a CUDA tensor and their plain versions on a CPU one
-(``fused.py``); the entry points take ``device=`` and default to the card.
+Each runs its kernel on a CUDA tensor and the kernel's plain version on a
+CPU one (``fused.py``, ``apss_block.py``); the entry points take
+``device=`` and default to the card. The sparse worklist path (K3) is
+``sparse.py``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 
 from repro_torch.core.matches import NEG_INF, Matches, empty_matches, topk_by_id
 from repro_torch.core.pruning import block_prune_mask
-from repro_torch.interop import as_corpus
+from repro_torch.interop import _host, as_corpus
+from repro_torch.kernels.apss_block.apss_block import apss_block_kernel
 from repro_torch.kernels.apss_block.fused import (
     _VALID,
     apss_fused_kernel,
@@ -41,10 +47,55 @@ def _pick_bk(m: int, block_k: int) -> int:
     return min(block_k, max(128, -(-m // 128) * 128))
 
 
-def _host(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
+def _padded_pair(x, y, threshold, block_mask, auto_mask, block_m, block_n, bk, device):
+    """``x``/``y`` on ``device``, rows padded to ``block_m``/``block_n`` and
+    features to ``bk``, with the tile mask: the caller's, else the maxweight
+    bound mask (``auto_mask``), else all live. Returns ``(nx, ny, xp, yp,
+    mask)``."""
+    same = y is x
+    x = as_corpus(x, device)
+    y = x if same else as_corpus(y, device)
+    xp = _pad_to(x, block_m, bk)
+    yp = xp if y is x and block_n == block_m else _pad_to(y, block_n, bk)
+    if block_mask is None:
+        if auto_mask:
+            block_mask = block_prune_mask(
+                xp, yp, threshold, block_m, block_n, use_minsize=False
+            )
+        else:
+            grid = (xp.shape[0] // block_m, yp.shape[0] // block_n)
+            block_mask = torch.ones(grid, dtype=torch.int32, device=xp.device)
+    block_mask = torch.as_tensor(block_mask).to(xp.device)
+    return x.shape[0], y.shape[0], xp, yp, block_mask
+
+
+def apss_block_matmul(
+    x,
+    y,
+    threshold: float,
+    *,
+    block_mask=None,
+    auto_mask: bool = True,
+    block_m: int = 256,
+    block_n: int = 256,
+    block_k: int = 512,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Thresholded similarity matrix ``where(X·Yᵀ ≥ t, ·, 0)`` with tile
+    skipping, from K7.
+
+    Rows are padded to ``block_m``/``block_n`` and features to ``block_k``.
+    Without ``block_mask``, the maxweight bound mask is computed from the
+    padded inputs (``auto_mask``); ``auto_mask=False`` runs every tile.
+    Returns ``(nx, ny)`` f32.
+    """
+    n_rows, n_cols, xp, yp, block_mask = _padded_pair(
+        x, y, threshold, block_mask, auto_mask, block_m, block_n, block_k, device
+    )
+    out = apss_block_kernel(
+        xp, yp, block_mask, threshold, block_m=block_m, block_n=block_n
+    )
+    return out[:n_rows, :n_cols]
 
 
 def apss_fused(
@@ -70,25 +121,10 @@ def apss_fused(
     distribution schedule can change them at every step. Without
     ``block_mask``, the maxweight bound mask gates tiles (``auto_mask``).
     """
-    same = y is x
-    x = as_corpus(x, device)
-    y = x if same else as_corpus(y, device)
-    nq, m = x.shape
-    nc = y.shape[0]
-    bk = _pick_bk(m, block_k)
-    xp = _pad_to(x, block_m, bk)
-    yp = xp if y is x and block_n == block_m else _pad_to(y, block_n, bk)
-    grid = (xp.shape[0] // block_m, yp.shape[0] // block_n)
-
-    if block_mask is None:
-        if auto_mask:
-            block_mask = block_prune_mask(
-                xp, yp, threshold, block_m, block_n, use_minsize=False
-            )
-        else:
-            block_mask = torch.ones(grid, dtype=torch.int32, device=xp.device)
-    block_mask = torch.as_tensor(block_mask).to(xp.device)
-
+    nq, nc, xp, yp, block_mask = _padded_pair(
+        x, y, threshold, block_mask, auto_mask, block_m, block_n,
+        _pick_bk(x.shape[1], block_k), device,
+    )
     values, indices, counts = apss_fused_kernel(
         xp, yp, block_mask, threshold, k,
         block_m=block_m, block_n=block_n, n_valid_cols=nc,

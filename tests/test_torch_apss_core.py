@@ -56,7 +56,10 @@ def _cpu(a):
 
 def test_import_loads_neither_jax_nor_repro():
     code = (
-        "import sys, repro_torch, repro_torch.data, repro_torch.core.graph; "
+        "import sys, repro_torch, repro_torch.data, repro_torch.core.graph, "
+        "repro_torch.core.sparse, repro_torch.data.sparse, "
+        "repro_torch.kernels.apss_block.sparse, "
+        "repro_torch.kernels.apss_block.apss_block; "
         "bad = sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
         "print(bad)"
@@ -71,7 +74,13 @@ def test_import_loads_neither_jax_nor_repro():
 def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works here")
-    from repro_torch import apss_fused, apss_fused_compacted
+    from repro_torch import (
+        apss_block_matmul,
+        apss_fused,
+        apss_fused_compacted,
+        apss_sparse_compacted,
+        from_dense,
+    )
 
     for call in (
         lambda: tapss.apss_blocked(corpus, T, K),
@@ -80,19 +89,36 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         lambda: tapss.apss_reference(corpus, T, K),
         lambda: apss_fused(corpus, corpus, T, K),
         lambda: apss_fused_compacted(corpus, T, K),
+        lambda: apss_block_matmul(corpus, corpus, T),
+        lambda: from_dense(corpus),
+        lambda: apss_sparse_compacted(from_dense(corpus, device="cpu"), T, K),
+        lambda: tapss.apss_blocked(from_dense(corpus, device="cpu"), T, K),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
 
-def test_sparse_and_auto_raise_not_implemented(corpus):
+def test_auto_variant_raises_not_implemented(corpus):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tapss.similarity_topk(corpus, corpus, T, K, variant="auto", device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        tapss.similarity_topk(corpus, corpus, T, K, variant="ring", device="cpu")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_apss_blocked_sparse_input_parity(corpus, use_kernel):
+    """A JAX ``SparseCorpus`` carried across takes the port's sparse path and
+    matches the JAX sparse path and the dense oracle."""
     from repro.core.sparse import from_dense
 
     sp = from_dense(jnp.asarray(corpus))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tapss.apss_blocked(sp, T, K, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapss.similarity_topk(corpus, corpus, T, K, variant="auto", device="cpu")
+    assert_clear_of_threshold(corpus, corpus, T, exclude_self=True)
+    carried = interop.sparse_corpus_from_numpy(
+        np.asarray(sp.indices), np.asarray(sp.values), np.asarray(sp.nnz), sp.m, "cpu"
+    )
+    got = tapss.apss_blocked(carried, T, K, use_kernel=use_kernel, device="cpu")
+    assert_same_matches(got, japss.apss_reference(jnp.asarray(corpus), T, K))
+    assert_same_matches(got, japss.apss_blocked(sp, T, K))
 
 
 # -- data ---------------------------------------------------------------------

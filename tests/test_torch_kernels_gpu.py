@@ -1,14 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs an NVIDIA Hopper card and ``nvcc``; each decides that
-inside itself (the ``card`` fixture) and skips with a reason elsewhere. Run
-them on a machine with a card:
+K1 and K2 (the dense self-join), K3 (the sparse one) and K7 (the dense
+score matrix). Every test here needs an NVIDIA Hopper card and ``nvcc``;
+each decides that inside itself (the ``card`` fixture) and skips with a
+reason elsewhere. Run them on a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: inputs keep every float64 score more than 1e-5 from t, so the
 kernel (FMA in feature order) and the plain version (cuBLAS) keep the same
-pairs; ids and counts must be equal, values within 1e-5.
+pairs; ids and counts must be equal, values within 1e-5 (K7: the zero
+pattern equal as well).
 """
 
 import numpy as np
@@ -157,3 +159,128 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
             torch.zeros((2, 1), dtype=torch.int32),
             0.3, 8, block_m=512, block_n=512, n_valid=512,
         )
+
+
+def _k3_operands(card, dtype, bm, seed):
+    """Support-compacted K3 operands of a clustered CSR corpus, as the main
+    path builds them."""
+    from repro_torch.core.pruning import sparse_block_prune_mask
+    from repro_torch.core.sparse import pad_rows_sparse
+    from repro_torch.data.sparse import sparse_clustered_corpus
+    from repro_torch.kernels.apss_block import sparse
+    from repro_torch.kernels.apss_block.ops import compact_worklist
+
+    sp = sparse_clustered_corpus(3 * bm - 20, 2048, 24.0, n_clusters=2, seed=seed,
+                                 device=card)
+    spp = pad_rows_sparse(sp, bm)[0]
+    mask, ub = sparse_block_prune_mask(spp, spp, 0.5, bm, return_ub=True)
+    ij = torch.as_tensor(compact_worklist(mask, ub)).to(card)
+    bdims, bx = sparse.block_support_gather(spp, bm)
+    nb = spp.n // bm
+    yg = sparse.gather_tiles(torch.from_numpy(bdims).to(card),
+                             spp.indices.reshape(nb, bm, -1),
+                             spp.values.reshape(nb, bm, -1), ij)
+    bx = torch.from_numpy(bx).to(card)
+    if dtype == torch.bfloat16:
+        bx, yg = bx.bfloat16(), yg.bfloat16()
+    return sp, bx.contiguous(), yg.contiguous(), ij
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_k3_kernel_matches_plain(card, dtype, bm):
+    from repro_torch.core.sparse import to_dense
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    sp, bx, yg, ij = _k3_operands(card, dtype, bm, seed=3)
+    D = to_dense(sp).cpu().numpy()
+    if dtype == torch.bfloat16:  # the kernel sees the bf16 scores
+        Db = torch.from_numpy(D).bfloat16().float().numpy()
+        assert_clear_of_threshold(Db, Db, 0.5, exclude_self=True)
+    else:
+        assert_clear_of_threshold(D, D, 0.5, exclude_self=True)
+    assert (ij[0] != ij[1]).any()  # mirror packets are exercised
+    before = fused.LAUNCHES["sparse_tile_candidates"]
+    got = sparse.sparse_tile_candidates_kernel(bx, yg, ij, 0.5, 16, n_valid=sp.n)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["sparse_tile_candidates"] == before + 1
+    ref = sparse.sparse_tile_candidates_plain(bx, yg, ij, 0.5, 16, n_valid=sp.n)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_kernel_matches_plain_and_zeroes_dead_tiles(card, dtype):
+    from repro_torch.kernels.apss_block import apss_block, fused
+
+    D = _inputs(dtype, seed=17)
+    x = torch.from_numpy(_pad(D, 128, 128)).to(card, dtype)
+    y = torch.from_numpy(_pad(D[:256], 128, 128)).to(card, dtype)
+    mask = torch.ones((3, 2), dtype=torch.int32)
+    mask[0, 1] = mask[2, 0] = 0
+    for t in (0.3, -0.5):  # at t < 0 a dead tile is still all zeros
+        before = fused.LAUNCHES["apss_block"]
+        got = apss_block.apss_block_kernel(x, y, mask, t, block_m=128, block_n=128)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["apss_block"] == before + 1
+        ref = apss_block.apss_block_plain(x, y, t, block_mask=mask, block_m=128,
+                                          block_n=128)
+        _assert_close((got,), (ref,))
+        g = got.cpu().numpy()
+        assert not g[:128, 128:].any() and not g[256:, :128].any()
+        np.testing.assert_array_equal(g != 0, ref.cpu().numpy() != 0)
+
+
+def test_sparse_entry_points_on_card_match_plain_path(card):
+    from repro_torch import apss_block_matmul, apss_blocked, from_dense
+
+    D = _inputs(torch.float32, seed=17)
+    sp = from_dense(D)
+    ref = apss_blocked(D, 0.3, 16, use_kernel=False, device="cpu")
+    got = apss_blocked(sp, 0.3, 16, use_kernel=True)
+    assert got.values.device.type == "cuda"
+    _assert_close((got.values, got.indices, got.counts), ref)
+    plain = apss_blocked(sp, 0.3, 16, use_kernel=False)
+    _assert_close((plain.values, plain.indices, plain.counts), ref)
+    S = apss_block_matmul(D, D, 0.3)
+    want = apss_block_matmul(D, D, 0.3, device="cpu")
+    _assert_close((S,), (want,))
+
+
+def test_k3_k7_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.apss_block import apss_block, sparse
+
+    bx = torch.zeros((2, 128, 256), device=card)
+    yg = torch.zeros((1, 128, 256), device=card)
+    ij = torch.tensor([[0], [1]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        sparse.sparse_tile_candidates_kernel(
+            torch.zeros((2, 96, 256), device=card), torch.zeros((1, 96, 256), device=card),
+            ij, 0.3, 8, n_valid=192)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sparse.sparse_tile_candidates_kernel(
+            torch.zeros((2, 128, 200), device=card), torch.zeros((1, 128, 200), device=card),
+            ij, 0.3, 8, n_valid=256)
+    with pytest.raises(ValueError, match="share device and dtype"):
+        sparse.sparse_tile_candidates_kernel(bx, yg.bfloat16(), ij, 0.3, 8, n_valid=256)
+    with pytest.raises(ValueError, match="yg shape"):
+        sparse.sparse_tile_candidates_kernel(bx, torch.zeros((2, 128, 256), device=card),
+                                             ij, 0.3, 8, n_valid=256)
+    with pytest.raises(ValueError, match="outside the corpus"):
+        sparse.sparse_tile_candidates_kernel(bx, yg, torch.tensor([[0], [2]]), 0.3, 8,
+                                             n_valid=256)
+    with pytest.raises(ValueError, match="contiguous 3-D"):
+        sparse.sparse_tile_candidates_kernel(bx.transpose(1, 2), yg, ij, 0.3, 8,
+                                             n_valid=256)
+    x = torch.zeros((256, 128), device=card)
+    with pytest.raises(ValueError, match="multiples"):
+        apss_block.apss_block_kernel(x, x[:192].contiguous(),
+                                     torch.ones((1, 2), dtype=torch.int32), 0.3,
+                                     block_m=256, block_n=96)
+    with pytest.raises(ValueError, match="multiples"):
+        apss_block.apss_block_kernel(x[:, :100].contiguous(), x[:, :100].contiguous(),
+                                     torch.ones((2, 2), dtype=torch.int32), 0.3,
+                                     block_m=128, block_n=128)
+    with pytest.raises(ValueError, match="not the grid"):
+        apss_block.apss_block_kernel(x, x, torch.ones((1, 1), dtype=torch.int32), 0.3,
+                                     block_m=128, block_n=128)

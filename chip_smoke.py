@@ -21,34 +21,57 @@ Phases, each printing one JSON line:
    padded rows, k > n, duplicate coordinates concentrated in one dimension
    across two blocks, and t=1.5 (all pruned); K7 with an explicit mask
    holding dead tiles, whose output must be zeros.
-5. ``clustered_65k``: ``clustered_corpus(65536, 768, 8)``, t=0.5, k=32: the
+5. ``serving_edge_probes`` (not timed): ``query_topk`` on a dense and a
+   sparse index of n=130 m=100, B=5 queries at block_q=8 through K4, K5
+   and K6: t=0.35; t=-0.1 against padded corpus rows; k > n; t=1.5 (empty);
+   an all-zero query; and the tie probe of the strict early-exit test (a
+   tile whose bound equals every row's k-th value must be scored), against
+   the rectangular oracle ``extract_matches(Q·Cᵀ, t, k, exclude_self=False)``.
+6. ``clustered_65k``: ``clustered_corpus(65536, 768, 8)``, t=0.5, k=32: the
    pruning-friendly regime (most tiles provably dead), K1 and K2.
-6. ``radikal_full``: the paper's radikal dataset at full scale
+7. ``radikal_full``: the paper's radikal dataset at full scale
    (n=6883, m=136447, 155.8 nnz/row), t=0.2, k=32: nearly every tile live,
    the unpruned worst case with a 267-chunk feature loop, K1 and K2.
-7. ``k7_radikal_full``: ``apss_block_matmul`` (K7) with the auto mask on the
+8. ``k7_radikal_full``: ``apss_block_matmul`` (K7) with the auto mask on the
    same corpus, held against ``apss_block_plain`` element by element.
-8. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
-   ``apss_blocked(sp, use_kernel=True)`` (K3), held against the plain sparse
-   path and against phase 6's K2 result (counts exactly equal: both sum
-   the same nonzero products in the same order).
-9. ``sparse_clustered_65k``: ``sparse_clustered_corpus(65536, 8192, 16,
-   n_clusters=32)``, t=0.5, k=32 (the serving benchmark's corpus), K3.
-10. ``kernels``: per kernel and main-path shape, launches on the main path,
+9. ``serve_radikal_full``: a dense index (K4 at B=64 and B=8, K5) and a
+   sparse index (K6) of the same corpus, 64 ``perturbed_queries``, t=0.2,
+   k=32, held against the plain path on the card and the oracle.
+10. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
+    ``apss_blocked(sp, use_kernel=True)`` (K3), held against the plain
+    sparse path and against phase 7's K2 result (counts exactly equal: both
+    sum the same nonzero products in the same order).
+11. ``sparse_clustered_65k``: ``sparse_clustered_corpus(65536, 8192, 16,
+    n_clusters=32)``, t=0.5, k=32 (the serving benchmark's corpus), K3.
+12. ``serve_sparse_clustered_65k``: the same corpus as a serving index
+    (``benchmarks/bench_serve.py``'s corpus and traffic): ``query_topk`` at
+    B = 1, 8 and 64 through K6, sparse early exit, and the step and
+    continuous servers at max_batch 8 and 64 (192 closed-loop requests, no
+    cache): QPS and host-clock p50/p99 of submit → latch; every request
+    "ok", no degradation or retry, each equal to its one-shot call.
+13. ``serve_early_exit_overlap``: ``bench_serve.measure_early_exit``'s
+    corpus (8192 × 2048, overlap_dims=8), t=0.01, k=8, B=64: densified
+    through K5 and sparse through the plain scan with K6 tiles; both skip
+    tiles and equal their full scans; scored tiles of the kernel and of the
+    plain scan side by side.
+14. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound, and
     the largest value difference from the plain version.
 
-The main-path phases (5, 6, 7, 8, 9) drive the port's entry points
+The main-path phases (6-13) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
-``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3)
-with the launch counts set to 0 just before and read just after, and hold
-the results against the plain paths on the card. Comparison rule (the
+``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
+``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6) with the
+launch counts set to 0 just before and read just after, and hold the
+results against the plain paths on the card. Comparison rule (the
 kernels, cuBLAS and the CPU add in different orders): pairs with
 |s - t| > 1e-5 agree exactly in membership, count and order by (value
 desc, id asc); values agree to 1e-5; pairs within 1e-5 of t may differ, and
 the number of such pairs is printed. Two entries whose values differ by at
 most 1e-5 may trade places (a near tie). K7's matrix: values agree to 1e-5
-and the zero pattern is equal wherever |s - t| > 1e-5.
+and the zero pattern is equal wherever |s - t| > 1e-5. Early exit is held
+to more: values and ids identical to the full scan through the same
+kernels, counts equal to ``min(count, k)``.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.
@@ -87,6 +110,21 @@ KERNEL_INFO = {
         route="cuda",
         source="src/repro_torch/kernels/apss_block/csrc/apss_block.cu",
         replaces="src/repro/kernels/apss_block/apss_block.py:98",
+    ),
+    "rect_tile_candidates": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/apss_block/csrc/rect_tile_candidates.cu",
+        replaces="src/repro/kernels/apss_block/fused.py:501",
+    ),
+    "rect_tile_candidates_ee": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/apss_block/csrc/rect_tile_candidates_ee.cu",
+        replaces="src/repro/kernels/apss_block/fused.py:666",
+    ),
+    "rect_sparse_tile_candidates": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/apss_block/csrc/rect_sparse_tile_candidates.cu",
+        replaces="src/repro/kernels/apss_block/sparse.py:296",
     ),
 }
 
@@ -141,6 +179,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     edge_probes(np, torch)
     sparse_edge_probes(np, torch)
+    serving_edge_probes(np, torch)
     D, gen_s = generated(torch, lambda: torch.from_numpy(
         clustered_corpus(65536, 768, 8, n_clusters=32, seed=0)).cuda())
     rows, _ = main_path_phase(np, torch, "clustered_65k", D, gen_s, threshold=0.5, k=32)
@@ -151,6 +190,7 @@ def main() -> int:
     rows += more
     rows.append(k7_phase(np, torch, "k7_radikal_full", D, threshold=0.2))
     sp, conv_s = generated(torch, lambda: from_dense(D))
+    rows += serve_radikal_phase(np, torch, "serve_radikal_full", D, sp, threshold=0.2, k=32)
     del D
     torch.cuda.empty_cache()
     rows.append(sparse_phase(np, torch, "sparse_radikal_full", sp, conv_s,
@@ -160,6 +200,11 @@ def main() -> int:
         65536, 8192, 16.0, n_clusters=32, seed=0))
     rows.append(sparse_phase(np, torch, "sparse_clustered_65k", sp, gen_s,
                              threshold=0.5, k=32))
+    rows.append(serve_clustered_phase(np, torch, "serve_sparse_clustered_65k", sp,
+                                      threshold=0.5, k=32))
+    del sp
+    torch.cuda.empty_cache()
+    rows.append(serve_early_exit_phase(np, torch, "serve_early_exit_overlap"))
     emit("kernels", kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -733,6 +778,482 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
         library, flop, nbytes,
     )
     del got, ref, bx, yg, pk, pp
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Serving phases (K4, K5, K6)
+# ---------------------------------------------------------------------------
+
+
+def rect_reference(torch, Q, C, t: float, k: int):
+    """The rectangular oracle ``extract_matches(Q·Cᵀ, t, k, exclude_self=False)``
+    and, per query row, the pairs with |s - t| <= TOL."""
+    from repro_torch.core.matches import extract_matches
+    from repro_torch.core.precision import dot_f32
+
+    S = dot_f32(Q, C)
+    near = ((S - t).abs() <= TOL).sum(dim=1).cpu().numpy()
+    return extract_matches(S, t, k, exclude_self=False), near
+
+
+def saturated(np, m, k):
+    """``(values, indices, counts)`` with counts saturated at k."""
+    v, i, c = m
+    return v, i, np.minimum(c, k)
+
+
+def identical(np, got, ref) -> bool:
+    return all(np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+def tile_near(np, near, wl, bq):
+    """Per packet row of a rectangular worklist, its query row's
+    near-threshold count (0 on padded query rows)."""
+    rows = (wl[0][:, None] * bq + np.arange(bq)[None, :]).reshape(-1)
+    return np.concatenate([near, np.zeros(rows.max() + 1, near.dtype)])[rows]
+
+
+def serving_inputs(np, torch, index, Q, t: float, block_q: int):
+    """The padded batch, worklist (host and card) and bounds that
+    ``query_topk`` builds for ``Q``."""
+    from repro_torch.kernels.apss_block.ops import compact_rect_worklist
+    from repro_torch.serving.query import _query_mask, _queries
+
+    Qt = _queries(index, Q)
+    Qp = torch.nn.functional.pad(Qt, (0, 0, 0, (-Qt.shape[0]) % block_q))
+    mask, ub = _query_mask(Qp, index.stats, threshold=t, block_q=block_q,
+                           use_minsize=True, normalized=index.normalized)
+    wl = compact_rect_worklist(mask, ub)
+    ubw = torch.from_numpy(ub.cpu().numpy()[wl[0], wl[1]].astype(np.float32)).cuda()
+    return Qp, wl, torch.as_tensor(wl).cuda(), ubw
+
+
+def rect_work(np, wl, *, B, n, bq, bc, depth, k, tiles=None):
+    """FLOP and bytes of one rectangular kernel call: products over the valid
+    rows of the tiles it scores (``tiles``: a mask, default all), each valid
+    query row and each corpus row of those tiles read once at ``depth`` f32
+    features, every packet written."""
+    T = wl.shape[1]
+    tiles = np.ones(T, bool) if tiles is None else tiles
+    vq = np.clip(B - wl[0][tiles] * bq, 0, bq)
+    vc = np.clip(n - wl[1][tiles] * bc, 0, bc)
+    rows_c = np.clip(n - np.unique(wl[1][tiles]) * bc, 0, bc).sum()
+    flop = 2.0 * depth * float((vq * vc).sum())
+    return flop, 4.0 * depth * (B + rows_c) + 8 * T + T * bq * (8 * k + 4)
+
+
+def library_rect(torch, Q, C, t: float, k: int):
+    """Yardstick of K4 and K5: f32 ``torch.matmul(Q, Cᵀ)`` over the whole
+    corpus plus a stable top-k (no tile masks). The port never calls it."""
+    s = torch.matmul(Q, C.T)
+    cnt = (s >= t).sum(dim=1)
+    s = torch.where(s >= t, s, float("-inf"))
+    v, i = torch.sort(s, dim=1, descending=True, stable=True)
+    return v[:, :k], i[:, :k], cnt
+
+
+def k4_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
+    """K4 against its plain version on the main path's inputs, timed."""
+    from repro_torch.kernels.apss_block import fused
+
+    B = Q.shape[0]
+    Qp, wl, ij, _ = serving_inputs(np, torch, index, Q, t, bq)
+    kw = dict(block_q=bq, block_c=index.block_rows, nc_valid=index.n)
+    pk = fused.rect_tile_candidates_kernel(Qp, index.corpus, ij, t, k, **kw)
+    pp = fused.rect_tile_candidates_plain(Qp, index.corpus, ij, t, k, **kw)
+    c = compare(np, as_rows(np, *pk), as_rows(np, *pp), t, tile_near(np, near, wl, bq))
+    check(c["ok"], f"{row_name}: K4 disagrees with its plain version: {c}")
+    flop, nbytes = rect_work(np, wl, B=B, n=index.n, bq=bq, bc=index.block_rows,
+                             depth=index.m, k=k)
+    return kernel_row(
+        np, torch, "rect_tile_candidates", row_name, launches, c,
+        lambda: fused.rect_tile_candidates_kernel(Qp, index.corpus, ij, t, k, **kw),
+        lambda: fused.rect_tile_candidates_plain(Qp, index.corpus, ij, t, k, **kw),
+        lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes,
+    )
+
+
+def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
+    """K5 against its plain version on the main path's inputs (packets and
+    skip flags), timed; the bound counts the tiles this run scores."""
+    from repro_torch.kernels.apss_block import fused
+
+    B = Q.shape[0]
+    Qp, wl, ij, ubw = serving_inputs(np, torch, index, Q, t, bq)
+    kw = dict(block_q=bq, block_c=index.block_rows, nc_valid=index.n, nq_valid=B)
+    pk = fused.rect_tile_candidates_early_exit_kernel(Qp, index.corpus, ij, ubw, t, k, **kw)
+    pp = fused.rect_tile_candidates_early_exit_plain(Qp, index.corpus, ij, ubw, t, k, **kw)
+    c = compare(np, as_rows(np, *pk[:3]), as_rows(np, *pp[:3]), t,
+                tile_near(np, near, wl, bq))
+    skipped = pk[3][:, 0].cpu().numpy().astype(bool)
+    c["skip_flags_equal"] = bool(np.array_equal(skipped, pp[3][:, 0].cpu().numpy() == 1))
+    check(c["ok"] and c["skip_flags_equal"],
+          f"{row_name}: K5 disagrees with its plain version: {c}")
+    flop, nbytes = rect_work(np, wl, B=B, n=index.n, bq=bq, bc=index.block_rows,
+                             depth=index.m, k=k, tiles=~skipped)
+    row = kernel_row(
+        np, torch, "rect_tile_candidates_ee", row_name, launches, c,
+        lambda: fused.rect_tile_candidates_early_exit_kernel(Qp, index.corpus, ij, ubw, t, k,
+                                                             **kw),
+        lambda: fused.rect_tile_candidates_early_exit_plain(Qp, index.corpus, ij, ubw, t, k,
+                                                            **kw),
+        lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes + 8 * len(skipped),
+    )
+    row.update(live_tiles=len(skipped), scored_tiles=int((~skipped).sum()))
+    return row
+
+
+def k6_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
+    """K6 against its plain version on the main path's inputs, timed."""
+    from repro_torch.kernels.apss_block import sparse
+    from repro_torch.kernels.apss_block.fused import _rect_tile_packets
+
+    B = Q.shape[0]
+    Qp, wl, ij, _ = serving_inputs(np, torch, index, Q, t, bq)
+    qg = sparse.gather_query_tiles(Qp, index.bdims, ij, bq)
+    kw = dict(nc_valid=index.n)
+    pk = sparse.rect_sparse_tile_candidates_kernel(qg, index.bx, ij, t, k, **kw)
+    pp = sparse.rect_sparse_tile_candidates_plain(qg, index.bx, ij, t, k, **kw)
+    c = compare(np, as_rows(np, *pk), as_rows(np, *pp), t, tile_near(np, near, wl, bq))
+    check(c["ok"], f"{row_name}: K6 disagrees with its plain version: {c}")
+    bc, S = index.block_rows, qg.shape[2]
+    flop, nbytes = rect_work(np, wl, B=B, n=index.n, bq=bq, bc=bc, depth=S, k=k)
+    nbytes += 4.0 * S * (qg.shape[0] * bq - B)  # qg is read whole, padding rows too
+    cj = ij[1].long()
+
+    def library():
+        s = torch.bmm(qg, index.bx[cj].transpose(1, 2))
+        return _rect_tile_packets(s, cj, threshold=t, k=k, block_q=bq, block_c=bc,
+                                  nc_valid=index.n)
+
+    row = kernel_row(
+        np, torch, "rect_sparse_tile_candidates", row_name, launches, c,
+        lambda: sparse.rect_sparse_tile_candidates_kernel(qg, index.bx, ij, t, k, **kw),
+        lambda: sparse.rect_sparse_tile_candidates_plain(qg, index.bx, ij, t, k, **kw),
+        library, flop, nbytes,
+    )
+    row.update(support_S=S, tiles=int(wl.shape[1]))
+    return row
+
+
+def serving_edge_probes(np, torch) -> None:
+    """query_topk through K4, K5 and K6 (and the plain early-exit scan) on the
+    shapes that broke things before, and the tie probe of the strict skip
+    test, against the rectangular oracle on the card."""
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import build_index, query_topk
+
+    def corpus(n, m, seed, density=0.3):
+        rng = np.random.default_rng(seed)
+        D = np.abs(rng.standard_normal((n, m))).astype(np.float32)
+        D *= rng.random((n, m)) < density
+        D /= np.maximum(np.linalg.norm(D, axis=1, keepdims=True), 1e-12)
+        return torch.from_numpy(D).cuda()
+
+    C, Q = corpus(130, 100, 1), corpus(5, 100, 11)
+    Qz = Q.clone()
+    Qz[2] = 0  # an all-zero query
+    probes = {
+        "n130_m100_B5": (Q, 0.35, 16),
+        "negative_t_padded": (Q, -0.1, 16),
+        "k_gt_n": (Q, 0.2, 160),
+        "all_pruned_t1.5": (Q, 1.5, 16),
+        "zero_query": (Qz, 0.2, 16),
+    }
+    indexes = {
+        "dense": build_index(C, block_rows=64, normalize=False),
+        "sparse": build_index(from_dense(C), block_rows=64, normalize=False),
+    }
+    results = {}
+    for name, (Qb, t, k) in probes.items():
+        ref, near = rect_reference(torch, Qb, C, t, k)
+        ref_np = matches_to_numpy(ref)
+        r = {}
+        for kind, index in indexes.items():
+            reset_launches()
+            full = matches_to_numpy(query_topk(index, Qb, t, k, block_q=8, use_kernel=True))
+            ee = matches_to_numpy(query_topk(index, Qb, t, k, block_q=8, use_kernel=True,
+                                             early_exit=True))
+            torch.cuda.synchronize()
+            launches = launches_now()
+            c = compare(np, full, ref_np, t, near)
+            ce = compare(np, ee, saturated(np, ref_np, k), t, near)
+            check(c["ok"] and ce["ok"], f"serving probe {name} ({kind}): {c} {ce}")
+            check(identical(np, ee, saturated(np, full, k)),
+                  f"serving probe {name} ({kind}): early exit differs from the full scan")
+            used = (["rect_tile_candidates", "rect_tile_candidates_ee"] if kind == "dense"
+                    else ["rect_sparse_tile_candidates"])
+            if t <= 1.0:
+                check(all(launches[u] > 0 for u in used),
+                      f"serving probe {name} ({kind}): a kernel never ran: {launches}")
+            else:
+                check(int(full[2].sum()) == 0, f"serving probe {name}: t=1.5 matched")
+            if t < 0:
+                check(bool((full[2] == 130).all()), "padded corpus rows matched at t < 0")
+            if name == "zero_query":
+                check(int(full[2][2]) == 0, "an all-zero query matched")
+            r[kind] = dict(launches={u: launches[u] for u in used},
+                           **{key: v for key, v in c.items() if key != "ok"})
+        results[name] = dict(matches=int(ref.counts.sum()), **r)
+
+    # The tie probe: corpus block 1 (bound √2) fills both rows' top-k with
+    # 1.0 first; block 0's bound is exactly 1.0, every row's k-th value, and
+    # its lower ids must win, so the strict skip test has to score it.
+    k = 4
+    Ct = torch.zeros((128, 64))
+    Ct[0:k, 3] = Ct[64:64 + k, 3] = 1.0
+    Ct[k:2 * k, 17] = Ct[64 + k:64 + 2 * k, 17] = 1.0
+    Ct[64 + 2 * k, [3, 17]] = float(np.float32(1 / np.sqrt(2)))
+    Qt = torch.zeros((2, 64))
+    Qt[0, 3] = Qt[1, 17] = 1.0
+    want = [[0, 1, 2, 3], [4, 5, 6, 7]]
+    tie = {}
+    for kind, corpus_t in (("dense", Ct.cuda()), ("sparse", from_dense(Ct.cuda()))):
+        index = build_index(corpus_t, block_rows=64, normalize=False)
+        full = query_topk(index, Qt, 0.5, k, block_q=8, use_kernel=True)
+        for way, use_kernel in (("kernel", True), ("plain", False)):
+            ee, stats = query_topk(index, Qt, 0.5, k, block_q=8, use_kernel=use_kernel,
+                                   early_exit=True, return_stats=True)
+            check(full.indices.tolist() == want and ee.indices.tolist() == want,
+                  f"tie probe ({kind}, {way}): {full.indices.tolist()} {ee.indices.tolist()}")
+            check(bool(torch.equal(ee.values, full.values)), f"tie probe ({kind}, {way})")
+            check(stats.scored_tiles == 2, f"tie probe ({kind}, {way}): tied tile skipped")
+            tie[f"{kind}_{way}"] = stats._asdict()
+    results["tie_probe"] = tie
+    emit("serving_edge_probes", probes=results)
+
+
+def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
+    """``query_topk`` on the radikal corpus: a dense index (K4 at B = 64 and
+    at B = 8, K5) and a sparse one (K6), 64 perturbed rows as queries; each
+    held against the plain path on the card and the oracle."""
+    from repro_torch.data.sparse import perturbed_queries
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import build_index, index_nbytes, query_topk
+
+    t = threshold
+    n, m = D.shape
+    dense, build_d = generated(torch, lambda: build_index(D, block_rows=256, normalize=False))
+    spidx, build_s = generated(torch, lambda: build_index(sp, block_rows=256, normalize=False))
+    Q = torch.from_numpy(perturbed_queries(sp, 64, seed=1)).cuda()
+    runs = {  # name: (index, batch, block_q, early_exit)
+        "k4_b64": (dense, 64, 64, False),
+        "k4_b8": (dense, 8, 8, False),
+        "k5_b64": (dense, 64, 64, True),
+        "k6_b64": (spidx, 64, 64, False),
+    }
+
+    def run(name, use_kernel):
+        index, B, bq, ee = runs[name]
+        return query_topk(index, Q[:B], t, k, block_q=bq, use_kernel=use_kernel,
+                          early_exit=ee, return_stats=True)
+
+    reset_launches()
+    first, got = {}, {}
+    for name in runs:
+        got[name], first[name] = timed(torch, lambda: run(name, True))
+    launches = launches_now()
+    for kname in ("rect_tile_candidates", "rect_tile_candidates_ee",
+                  "rect_sparse_tile_candidates"):
+        check(launches[kname] > 0, f"{phase}: {kname} never ran: {launches}")
+    wall = {name: wall_ms(np, torch, lambda: run(name, True)) for name in runs}
+    wall.update({f"{name}_plain": wall_ms(np, torch, lambda: run(name, False), reps=1)
+                 for name in runs})
+    ref, near = rect_reference(torch, Q, D, t, k)
+    ref_np = matches_to_numpy(ref)
+    cmp = {}
+    for name, (res, stats) in got.items():
+        _, B, _, ee = runs[name]
+        g = matches_to_numpy(res)
+        want = tuple(a[:B] for a in (saturated(np, ref_np, k) if ee else ref_np))
+        plain = matches_to_numpy(run(name, False)[0])
+        cmp[name] = dict(vs_oracle=compare(np, g, want, t, near[:B]),
+                         vs_plain=compare(np, g, plain, t, near[:B]), **stats._asdict())
+        check(cmp[name]["vs_oracle"]["ok"] and cmp[name]["vs_plain"]["ok"],
+              f"{phase}: {name} disagrees: {cmp[name]}")
+    k4 = matches_to_numpy(got["k4_b64"][0])
+    check(identical(np, matches_to_numpy(got["k5_b64"][0]), saturated(np, k4, k)),
+          f"{phase}: K5's values/ids differ from K4's")
+    emit(phase, n=n, m=m, threshold=t, k=k, queries=64,
+         index_build_s={"dense": build_d, "sparse": build_s},
+         index_bytes={"dense": index_nbytes(dense), "sparse": index_nbytes(spidx)},
+         support_S=int(spidx.bx.shape[2]), total_matches=int(ref.counts.sum()),
+         launches=launches, first_call_ms=first, wall_ms=wall, compare=cmp)
+    kw = dict(t=t, k=k)
+    rows = [
+        k4_row(np, torch, f"{phase}/b64", launches, dense, Q, near, bq=64, **kw),
+        k4_row(np, torch, f"{phase}/b8", launches, dense, Q[:8], near[:8], bq=8, **kw),
+        k5_row(np, torch, phase, launches, dense, Q, near, bq=64, **kw),
+        k6_row(np, torch, phase, launches, spidx, Q, near, bq=64, **kw),
+    ]
+    del dense, spidx
+    torch.cuda.empty_cache()
+    return rows
+
+
+def drive_server(srv, queries, nreq: int, *, step_when_full: bool):
+    """Closed-loop burst of ``nreq`` requests (the step server steps at each
+    full batch, as ``benchmarks/bench_serve.py`` drives it). Returns
+    ``(wall seconds, results)``."""
+    t0 = time.perf_counter()
+    rids = []
+    for i in range(nreq):
+        rids.append(srv.submit(queries[i % len(queries)]))
+        if step_when_full and len(srv._pending) >= srv.max_batch:
+            srv.step()
+    results = [srv.result(r) for r in rids]
+    return time.perf_counter() - t0, results
+
+
+def serve_clustered_phase(np, torch, phase, sp, *, threshold, k) -> dict:
+    """Serving on ``bench_serve.py``'s corpus and traffic: ``query_topk`` at
+    B = 1, 8 and 64 through K6, sparse early exit, and both servers at
+    max_batch 8 and 64 (192 closed-loop requests, no cache)."""
+    from repro_torch.core.sparse import to_dense
+    from repro_torch.data.sparse import perturbed_queries
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import (
+        ContinuousRetrievalServer,
+        RetrievalServer,
+        build_index,
+        index_nbytes,
+        query_topk,
+    )
+
+    t = threshold
+    n, m = sp.shape
+    index, build_s = generated(torch, lambda: build_index(sp, block_rows=256, normalize=False))
+    qmax = perturbed_queries(sp, 64, seed=1)
+    Q = torch.from_numpy(qmax).cuda()
+    ref, near = rect_reference(torch, Q, to_dense(sp), t, k)
+    ref_np = matches_to_numpy(ref)
+
+    def run(B, use_kernel=True, early_exit=False):
+        return query_topk(index, Q[:B], t, k, block_q=max(8, B), use_kernel=use_kernel,
+                          early_exit=early_exit, return_stats=True)
+
+    reset_launches()
+    got, first = {}, {}
+    for B in (1, 8, 64):
+        got[B], first[f"b{B}"] = timed(torch, lambda: run(B))
+    ee, first["ee_b64"] = timed(torch, lambda: run(64, early_exit=True))
+    launches = launches_now()
+    check(launches["rect_sparse_tile_candidates"] > 0, f"{phase}: K6 never ran: {launches}")
+    wall = {f"b{B}": wall_ms(np, torch, lambda: run(B)) for B in (1, 8, 64)}
+    wall["ee_b64"] = wall_ms(np, torch, lambda: run(64, early_exit=True))
+    wall.update({f"b{B}_plain": wall_ms(np, torch, lambda: run(B, False), reps=1)
+                 for B in (1, 8, 64)})
+    cmp = {}
+    for B, (res, stats) in got.items():
+        g = matches_to_numpy(res)
+        cmp[f"b{B}"] = dict(
+            vs_oracle=compare(np, g, tuple(a[:B] for a in ref_np), t, near[:B]),
+            vs_plain=compare(np, g, matches_to_numpy(run(B, False)[0]), t, near[:B]),
+            **stats._asdict())
+        check(cmp[f"b{B}"]["vs_oracle"]["ok"] and cmp[f"b{B}"]["vs_plain"]["ok"],
+              f"{phase}: B={B} disagrees: {cmp[f'b{B}']}")
+    ee_np = matches_to_numpy(ee[0])
+    check(identical(np, ee_np, saturated(np, matches_to_numpy(got[64][0]), k)),
+          f"{phase}: sparse early exit differs from the K6 scan")
+    cmp["ee_b64"] = ee[1]._asdict()
+
+    servers = {}
+    for max_batch in (8, 64):
+        bq = max(8, max_batch)
+        one_shot = [matches_to_numpy(query_topk(index, Q[i:i + 1], t, k, block_q=bq,
+                                                use_kernel=True)) for i in range(64)]
+        for kind in ("step", "continuous"):
+            kwargs = dict(threshold=t, k=k, max_batch=max_batch, cache_size=0,
+                          use_kernel=True, normalize=False)
+
+            def make():
+                if kind == "continuous":
+                    return ContinuousRetrievalServer(index, workers=2, **kwargs)
+                return RetrievalServer(index, **kwargs)
+
+            warm = make()
+            warm.serve(list(qmax[:max_batch]))
+            warm.close()
+            srv = make()
+            reset_launches()
+            wall_s, results = drive_server(srv, list(qmax), 192,
+                                           step_when_full=kind == "step")
+            srv.close()
+            k6 = launches_now()["rect_sparse_tile_candidates"]
+            st = srv.stats
+            lat = np.percentile(np.array(srv.latencies_s) * 1e3, [50, 99])
+            ok = sum(r.status == "ok" for r in results)
+            check(ok == 192 and st.degraded == 0 and st.retries == 0 and k6 > 0,
+                  f"{phase}: {kind} server at max_batch {max_batch}: ok={ok} {st} K6={k6}")
+            for i, r in enumerate(results):
+                v, ids, c = one_shot[i % 64]
+                check(r.count == int(c[0]) and np.array_equal(r.indices, ids[0])
+                      and np.array_equal(r.values, v[0]),
+                      f"{phase}: {kind} server result {i} differs from the one-shot call")
+            servers[f"{kind}_{max_batch}"] = dict(
+                requests=192, ok=ok, qps=192 / wall_s, wall_s=wall_s,
+                latency_ms_host={"p50": float(lat[0]), "p99": float(lat[1])},
+                steps=st.steps, degraded=st.degraded, retries=st.retries, k6_launches=k6)
+    emit(phase, n=n, m=m, threshold=t, k=k, index_build_s=build_s,
+         index_bytes=index_nbytes(index), support_S=int(index.bx.shape[2]),
+         launches=launches, first_call_ms=first, wall_ms=wall, compare=cmp,
+         servers=servers)
+    row = k6_row(np, torch, phase, launches, index, Q, near, bq=64, t=t, k=k)
+    del index
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_early_exit_phase(np, torch, phase) -> dict:
+    """``bench_serve.measure_early_exit``'s corpus: cross-cluster tiles stay
+    live through a weak shared vocabulary but lose to within-cluster top-k.
+    Densified through K5 and sparse through the plain scan with K6 tiles:
+    both must skip tiles and equal their full scans."""
+    from repro_torch.core.sparse import to_dense
+    from repro_torch.data.sparse import perturbed_queries, sparse_clustered_corpus
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import build_index, query_topk
+
+    t, k = 0.01, 8
+    sp = sparse_clustered_corpus(8192, 2048, 16.0, n_clusters=16, seed=2, overlap_dims=8)
+    Q = torch.from_numpy(perturbed_queries(sp, 64, seed=3)).cuda()
+    dense = build_index(to_dense(sp), block_rows=64, normalize=False)
+    spidx = build_index(sp, block_rows=64, normalize=False)
+
+    def run(index, use_kernel, early_exit):
+        res, stats = query_topk(index, Q, t, k, block_q=64, use_kernel=use_kernel,
+                                early_exit=early_exit, return_stats=True)
+        return matches_to_numpy(res), stats
+
+    reset_launches()
+    k4, k4s = run(dense, True, False)
+    k5, k5s = run(dense, True, True)
+    k6, _ = run(spidx, True, False)
+    sp_ee, sp_ees = run(spidx, True, True)
+    launches = launches_now()
+    for kname in ("rect_tile_candidates", "rect_tile_candidates_ee",
+                  "rect_sparse_tile_candidates"):
+        check(launches[kname] > 0, f"{phase}: {kname} never ran: {launches}")
+    plain_ee, plain_ees = run(dense, False, True)
+    ref, near = rect_reference(torch, Q, to_dense(sp), t, k)
+    ref_np = saturated(np, matches_to_numpy(ref), k)
+    scored = {"k5": k5s._asdict(), "dense_plain_scan": plain_ees._asdict(),
+              "sparse_scan_k6_tiles": sp_ees._asdict()}
+    c_plain = compare(np, plain_ee, ref_np, t, near)
+    c_k5 = compare(np, k5, ref_np, t, near)
+    emit(phase, n=sp.n, m=sp.m, threshold=t, k=k, queries=64, launches=launches,
+         live_tiles=k4s.live_tiles, scored=scored, k5_vs_oracle=c_k5,
+         plain_scan_vs_oracle=c_plain)
+    check(identical(np, k5, saturated(np, k4, k)), f"{phase}: K5 differs from the K4 scan")
+    check(identical(np, sp_ee, saturated(np, k6, k)), f"{phase}: sparse scan differs from K6")
+    check(k5s.scored_tiles < k5s.live_tiles and sp_ees.scored_tiles < sp_ees.live_tiles,
+          f"{phase}: no tile skipped: {scored}")
+    check(c_k5["ok"] and c_plain["ok"], f"{phase}: {c_k5} {c_plain}")
+    row = k5_row(np, torch, phase, launches, dense, Q, near, bq=64, t=t, k=k)
+    del dense, spidx
     torch.cuda.empty_cache()
     return row
 

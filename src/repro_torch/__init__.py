@@ -14,10 +14,15 @@ Subpackages:
                                 and padded-CSR ``SparseCorpus``), matches,
                                 pruning bounds, graph helpers
 - :mod:`repro_torch.kernels` -- K1 (streaming fused), K2 (live-tile
-                                worklist), K3 (CSR worklist) and K7
-                                (thresholded dense tile) with their
-                                wrappers and plain versions
-- :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR)
+                                worklist), K3 (CSR worklist), K4/K5/K6
+                                (rectangular serving tiles, K5 with early
+                                exit) and K7 (thresholded dense tile) with
+                                their wrappers and plain versions
+- :mod:`repro_torch.serving` -- build-once index, ``query_topk``, the
+                                retrieval servers
+- :mod:`repro_torch.launch`  -- ``launch/serve.py`` (retrieval mode)
+- :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR) and
+                                the serving traffic model
 """
 
 from repro_torch.core.apss import (

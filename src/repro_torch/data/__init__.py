@@ -5,4 +5,8 @@ from repro_torch.data.synthetic import (
     paper_like_corpus,
     synthetic_corpus,
 )
-from repro_torch.data.sparse import sparse_clustered_corpus, sparse_zipfian_corpus
+from repro_torch.data.sparse import (
+    perturbed_queries,
+    sparse_clustered_corpus,
+    sparse_zipfian_corpus,
+)

@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.sparse import SparseCorpus, normalize_sparse
+from repro_torch.core.apss import normalize_rows
+from repro_torch.core.sparse import SparseCorpus, densify_rows, normalize_sparse
 from repro_torch.interop import device_of
 
 
@@ -65,6 +66,33 @@ def sparse_zipfian_corpus(
         indices[i, :k] = dims
         values[i, :k] = np.abs(rng.standard_normal(k)).astype(np.float32) + 0.05
     return _finish(indices, values, nnz, m, device)
+
+
+def perturbed_queries(
+    sp: SparseCorpus,
+    nq: int,
+    *,
+    noise: float = 0.02,
+    start: int | None = None,
+    seed: int = 1,
+) -> np.ndarray:
+    """Dense query batch: perturbed rows from one contiguous corpus range.
+
+    The serving traffic model: near-duplicate, topical queries. Rows
+    ``[start, start + nq)`` are densified, their nonzeros jittered by
+    ``noise`` and the batch L2-renormalized, drawing the reference's numpy
+    stream. Returns ``(nq, m)`` f32 numpy.
+    """
+    rng = np.random.default_rng(seed)
+    if start is None:
+        start = int(rng.integers(0, max(1, sp.n - nq)))
+    qd = densify_rows(sp, start, min(nq, sp.n)).cpu().numpy()
+    if qd.shape[0] < nq:  # tiny corpora: repeat rows to fill the batch
+        reps = -(-nq // qd.shape[0])
+        qd = np.tile(qd, (reps, 1))[:nq]
+    jitter = noise * np.abs(rng.standard_normal(qd.shape)).astype(np.float32)
+    qd = qd + jitter * (qd > 0)
+    return normalize_rows(torch.from_numpy(qd)).numpy()
 
 
 def sparse_clustered_corpus(

@@ -110,3 +110,39 @@ def matches_to_numpy(m) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         _host(m.indices).astype(np.int32),
         _host(m.counts).astype(np.int32),
     )
+
+
+def index_from_numpy(
+    corpus,
+    maxw: np.ndarray,
+    mw: np.ndarray,
+    max_nnz: np.ndarray,
+    *,
+    bdims: np.ndarray | None = None,
+    bx: np.ndarray | None = None,
+    n: int,
+    m: int,
+    block_rows: int,
+    kind: str,
+    normalized: bool,
+    device: str | torch.device,
+):
+    """A serving ``APSSIndex`` from the numpy arrays of one, e.g. the leaves of
+    a JAX index (``np.asarray`` of each): ``corpus`` is the padded dense
+    array or the ``(indices, values, nnz)`` CSR triple, ``maxw``/``mw``/
+    ``max_nnz`` its block stats and ``bdims``/``bx`` its sparse support
+    compaction."""
+    from repro_torch.serving.index import APSSIndex  # serving imports this module
+
+    dev = device_of(device)
+    if kind == "sparse":
+        sp = sparse_corpus_from_numpy(*corpus, m, dev)
+        corpus = (sp.indices, sp.values, sp.nnz)
+        bdims = torch.tensor(np.asarray(bdims, np.int32), device=dev)
+        bx = torch.tensor(np.asarray(bx, np.float32), device=dev)
+    else:
+        corpus = as_corpus(np.asarray(corpus), dev)
+    return APSSIndex(
+        corpus, block_stats_from_numpy(maxw, mw, max_nnz, dev), bdims, bx,
+        n=n, m=m, block_rows=block_rows, kind=kind, normalized=normalized,
+    )

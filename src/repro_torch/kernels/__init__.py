@@ -2,7 +2,9 @@
 
 - :mod:`repro_torch.kernels.apss_block` -- K1 (``csrc/apss_fused.cu``),
   K2 (``csrc/tile_candidates.cu``) and K3
-  (``csrc/sparse_tile_candidates.cu``) of the self-join, and K7
+  (``csrc/sparse_tile_candidates.cu``) of the self-join; K4
+  (``csrc/rect_tile_candidates.cu``), K5 (``csrc/rect_tile_candidates_ee.cu``)
+  and K6 (``csrc/rect_sparse_tile_candidates.cu``) of serving; and K7
   (``csrc/apss_block.cu``), the thresholded dense score matrix.
 - :mod:`repro_torch.kernels._build`     -- nvcc build + ctypes loading, at
   first launch.

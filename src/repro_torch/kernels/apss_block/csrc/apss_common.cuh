@@ -29,6 +29,19 @@
 //   tile's 2 * block_m * block_n * m FLOP. Tiles are at most 256 x 256
 //   (eight register slots per lane in phase 2).
 //
+// rect_tile_packet: the forward-only body of the rectangular (serving)
+//   kernels K4, K5 and K6: a block_q x block_c tile of query rows against
+//   corpus rows (block_q a multiple of 8 up to 128, block_c 64, 128 or
+//   256). The f32 tile is at most 128 KB, so it stays in dynamic shared
+//   memory (no device scratch). It is scored in strips of 16, 32 or 64
+//   query rows by 64 corpus rows (score_strip<RM>, RM = 1, 2 or 4 rows per
+//   thread, chosen from block_q so that a block of 8 query rows wastes at
+//   most half of its strip instead of seven eighths of a 64-row one), then
+//   one warp per tile row keeps s >= t and gcol < nc_valid (no
+//   self-exclusion: queries are not corpus rows), counts them and selects
+//   the row's top-k (select_packet). K5 also merges each selected row's
+//   values into a running per-row values buffer (merge_values).
+//
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
 //   scanned in ascending order. Empty slots are (NEG_LARGE, -1).
@@ -53,6 +66,8 @@ constexpr float NEG_LARGE = -0.5e30f;
 constexpr float VALID = -0.25e30f; // values above this are real candidates
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_BLOCK = 256;     // largest worklist tile side (tile_packets)
+constexpr int MAX_QBLOCK = 128;    // largest query block of the rect kernels
+constexpr int MAX_EE_K = 256;      // largest k of the values buffer (merge_values)
 
 struct Staged {
   float a[TK * LDS];
@@ -266,6 +281,199 @@ __device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb,
     }
     select_packet(v, id, count, k, bv + row * k, bi + row * k, bc + row);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Rectangular tiles (K4, K5, K6)
+// ---------------------------------------------------------------------------
+
+// Rows [0, 16 * RM) of `src` (row stride m), features [k0, k0 + 32); rows
+// at or past `rows` read as 0. Thread i loads the float4 i and i + 256.
+template <int RM, typename T>
+__device__ __forceinline__ void load_strip(const T* __restrict__ src, int rows, long long m,
+                                           long long k0, float4 (&reg)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = threadIdx.x + h * THREADS, r = i >> 3, f = (i & 7) * 4;
+    reg[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < 16 * RM * 8 && r < rows) reg[h] = load4(src + (long long)r * m + k0 + f);
+  }
+}
+
+template <int RM>
+__device__ __forceinline__ void store_strip(float* dst, const float4 (&reg)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = threadIdx.x + h * THREADS, r = i >> 3, f = (i & 7) * 4;
+    if (i < 16 * RM * 8) {
+      float* d = dst + f * LDS + r;
+      d[0] = reg[h].x;
+      d[LDS] = reg[h].y;
+      d[2 * LDS] = reg[h].z;
+      d[3 * LDS] = reg[h].w;
+    }
+  }
+}
+
+// acc[i][j] = X[ty*RM + i] . Y[tx*4 + j] for a strip of 16 * RM rows at x
+// (rows at or past x_rows are 0) and the 64 rows at y, summed in increasing
+// feature order one fmaf at a time, as score_tile does.
+template <int RM, typename T>
+__device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
+                                            const T* __restrict__ y, long long m, Staged& st,
+                                            float (&acc)[RM][4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float4 ra[2], rb[2];
+  load_strip<RM>(x, x_rows, m, 0, ra);
+  load_chunk(y, m, 0, rb);
+  for (long long k0 = 0; k0 < m; k0 += TK) {
+    __syncthreads();  // every thread is done reading the previous chunk
+    store_strip<RM>(st.a, ra);
+    store_chunk(st.b, rb);
+    __syncthreads();
+    if (k0 + TK < m) {
+      load_strip<RM>(x, x_rows, m, k0 + TK, ra);
+      load_chunk(y, m, (int)(k0 + TK), rb);
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < TK; ++kk) {
+      float av[RM];
+      if constexpr (RM == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(&st.a[kk * LDS + ty * 4]);
+        av[0] = a.x;
+        av[1] = a.y;
+        av[2] = a.z;
+        av[3] = a.w;
+      } else if constexpr (RM == 2) {
+        const float2 a = *reinterpret_cast<const float2*>(&st.a[kk * LDS + ty * 2]);
+        av[0] = a.x;
+        av[1] = a.y;
+      } else {
+        av[0] = st.a[kk * LDS + ty];
+      }
+      const float4 b = *reinterpret_cast<const float4*>(&st.b[kk * LDS + tx * 4]);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// s[r * block_c + c] = X[r] . Y[c] for the block_q rows at x and the block_c
+// rows at y (both at row stride m), in strips of 16 * RM rows by 64 columns.
+template <int RM, typename T>
+__device__ void rect_scores_rm(const T* __restrict__ x, const T* __restrict__ y, long long m,
+                               int block_q, int block_c, Staged& st, float* s) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  for (int r0 = 0; r0 < block_q; r0 += 16 * RM) {
+    for (int c0 = 0; c0 < block_c; c0 += TILE) {
+      float acc[RM][4];
+      score_strip<RM>(x + (long long)r0 * m, block_q - r0, y + (long long)c0 * m, m, st, acc);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = r0 + ty * RM + i;
+        if (r < block_q)
+          *reinterpret_cast<float4*>(&s[r * block_c + c0 + tx * 4]) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ void rect_scores(const T* __restrict__ x, const T* __restrict__ y, long long m,
+                            int block_q, int block_c, Staged& st, float* s) {
+  if (block_q <= 16)
+    rect_scores_rm<1>(x, y, m, block_q, block_c, st, s);
+  else if (block_q <= 32)
+    rect_scores_rm<2>(x, y, m, block_q, block_c, st, s);
+  else
+    rect_scores_rm<4>(x, y, m, block_q, block_c, st, s);
+}
+
+// a[0, k) := the k largest of a[0, k) and b[0, k), both sorted descending
+// (values only). One warp: each entry's place in the merged order is its
+// own index plus the entries of the other list before it (a first on
+// ties), so the merge needs no sort. a is shared memory, b the packet row
+// this warp has just written.
+__device__ __forceinline__ void merge_values(float* a, const float* b, int k) {
+  constexpr int Q = MAX_EE_K / 32;
+  const int lane = threadIdx.x & 31;
+  float va[Q], vb[Q];
+  int ra[Q], rb[Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int e = q * 32 + lane;
+    ra[q] = rb[q] = k;  // past the end: not written
+    if (e < k) {
+      va[q] = a[e];
+      vb[q] = b[e];
+      int na = 0, nb = 0;
+      for (int j = 0; j < k; ++j) {
+        na += b[j] > va[q];
+        nb += a[j] >= vb[q];
+      }
+      ra[q] = e + na;
+      rb[q] = e + nb;
+    }
+  }
+  __syncwarp();  // every lane has read a before any lane writes it
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    if (ra[q] < k) a[ra[q]] = va[q];
+    if (rb[q] < k) a[rb[q]] = vb[q];
+  }
+  __syncwarp();
+}
+
+// The forward packet of one rectangular tile: x holds its block_q query rows
+// and y its block_c corpus rows (row stride m), gcol0 the global id of y's
+// first row. s is block_q * block_c floats of shared memory; fv/fi are
+// (block_q, k) and fc (block_q,) of this tile's packet. With topv (block_q,
+// k) in shared memory, each selected row's values are merged into it (K5).
+// Ends with every thread past its last read of s and write of topv.
+template <typename T>
+__device__ void rect_tile_packet(const T* __restrict__ x, const T* __restrict__ y, long long m,
+                                 int block_q, int block_c, int gcol0, int nc_valid,
+                                 float threshold, int k, Staged& st, float* s,
+                                 float* __restrict__ fv, int* __restrict__ fi,
+                                 int* __restrict__ fc, float* topv = nullptr) {
+  rect_scores(x, y, m, block_q, block_c, st, s);
+  __syncthreads();  // the whole tile is in s
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < block_q; r += WARPS) {
+    float v[MAX_BLOCK / 32];
+    int id[MAX_BLOCK / 32];
+    int count = 0;
+#pragma unroll
+    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+      const int c = q * 32 + lane;
+      bool ok = false;
+      float sv = NEG_LARGE;
+      if (c < block_c) {
+        const int gcol = gcol0 + c;
+        sv = s[r * block_c + c];
+        ok = sv >= threshold && gcol < nc_valid;
+        id[q] = ok ? gcol : -1;
+      } else {
+        id[q] = -1;
+      }
+      v[q] = ok ? sv : NEG_LARGE;
+      count += __popc(__ballot_sync(FULL, ok));
+    }
+    select_packet(v, id, count, k, fv + (long long)r * k, fi + (long long)r * k, fc + r);
+    if (topv != nullptr) {
+      __syncwarp();  // the packet row is written (lane 0 and the padding lanes)
+      merge_values(topv + r * k, fv + (long long)r * k, k);
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace apss

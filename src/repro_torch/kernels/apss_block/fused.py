@@ -1,4 +1,4 @@
-"""The self-join's two kernels: wrappers, launch counts and plain versions.
+"""The dense worklist kernels: wrappers, launch counts and plain versions.
 
 1. :func:`apss_fused_kernel` (K1, ``csrc/apss_fused.cu``) -- streaming fused
    extraction: per-row top-k and exact counts of ``X·Yᵀ ≥ t`` over every
@@ -7,6 +7,15 @@
    per live upper-triangular tile of a ``(2, T)`` worklist, a forward packet
    (rows of block i) and a mirror packet (rows of block j), which
    ``ops.fold_packets`` folds into ``Matches``.
+3. :func:`rect_tile_candidates_kernel` (K4, ``csrc/rect_tile_candidates.cu``)
+   -- query-time serving: per live (query block, corpus block) tile of a
+   rectangular worklist, the forward packet of the query rows only (no
+   mirror, no self-exclusion), folded by ``ops.fold_rect_packets``.
+4. :func:`rect_tile_candidates_early_exit_kernel` (K5,
+   ``csrc/rect_tile_candidates_ee.cu``) -- K4 walking the worklist in its
+   upper-bound-descending order with a running per-row values buffer, and
+   skipping a tile once every valid row of its query block holds k values
+   strictly above the tile's bound.
 
 Each wrapper takes the kernel's padded inputs. On a CUDA tensor it checks
 device, dtype, shape and contiguity, allocates the outputs, launches on the
@@ -40,11 +49,17 @@ LAUNCHES = {
     "apss_fused": 0,              # K1, this module
     "apss_tile_candidates": 0,    # K2, this module
     "sparse_tile_candidates": 0,  # K3, sparse.py
+    "rect_tile_candidates": 0,       # K4, this module
+    "rect_tile_candidates_ee": 0,    # K5, this module
+    "rect_sparse_tile_candidates": 0,  # K6, sparse.py
     "apss_block": 0,              # K7, apss_block.py
 }
 
 _TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
 _TK = 32    # their feature chunk
+_RECT_CHUNK = 64  # rectangular tiles selected together by the plain versions
+_MAX_EE_K = 256  # K5's values buffer (csrc/apss_common.cuh, MAX_EE_K)
+_DYN_SMEM = 232448 - 17408  # a block's shared memory less the static staging
 
 
 def _f32(threshold: float) -> float:
@@ -187,6 +202,112 @@ def apss_tile_candidates_plain(
             block_n=block_n, n_valid=n_valid,
         ))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _rect_tile_packets(
+    s, jb, *, threshold: float, k: int, block_q: int, block_c: int,
+    nc_valid: int,
+):
+    """Forward packets of a batch of rectangular (query × corpus) tiles.
+
+    ``s (B, block_q, block_c)`` scores of tiles whose corpus blocks have
+    global ids ``jb (B,)``. Queries are not corpus rows: no self-exclusion
+    and no mirror packet; ``gcol < nc_valid`` masks corpus padding rows.
+    Returns ``(fv, fi, fc)`` shaped ``(B, block_q, k|k|1)``.
+    """
+    jb = jb.to(s.device, torch.int32)[:, None, None]
+    gcol = jb * block_c + torch.arange(block_c, dtype=torch.int32, device=s.device)
+    ok = (s >= _f32(threshold)) & (gcol < nc_valid)
+    fv, fi = _select(torch.where(ok, s, NEG_LARGE), torch.where(ok, gcol, -1), k)
+    return fv, fi, ok.sum(dim=2, keepdim=True, dtype=torch.int32)
+
+
+def rect_tile_candidates_plain(
+    Q: torch.Tensor,
+    C: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_q: int,
+    block_c: int,
+    nc_valid: int,
+):
+    """K4's function in plain PyTorch.
+
+    Rows 0 and 1 of ``ij (2|3, T)`` address the query and corpus blocks;
+    packet column ids come from its last row. Each tile is one product, so
+    a tile's scores do not depend on which other tiles share the call (the
+    early-exit paths score single tiles and must give the same bits); the
+    selection runs ``_RECT_CHUNK`` tiles at a time. Returns ``(fv, fi, fc)``
+    shaped ``(T, block_q, k|k|1)``.
+    """
+    m = Q.shape[1]
+    ij = ij.to(Q.device, torch.long)
+    qb = Q.view(-1, block_q, m)
+    cb = C.view(-1, block_c, m)
+    wl = ij.cpu().tolist()
+    outs = []
+    step = _RECT_CHUNK
+    for a in range(0, ij.shape[1], step):
+        s = torch.stack([
+            dot_f32(qb[qi], cb[cj])
+            for qi, cj in zip(wl[0][a:a + step], wl[1][a:a + step])
+        ])
+        outs.append(_rect_tile_packets(
+            s, ij[-1, a:a + step], threshold=threshold, k=k, block_q=block_q,
+            block_c=block_c, nc_valid=nc_valid,
+        ))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def rect_tile_candidates_early_exit_plain(
+    Q: torch.Tensor,
+    C: torch.Tensor,
+    ij: torch.Tensor,
+    ub: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_q: int,
+    block_c: int,
+    nc_valid: int,
+    nq_valid: int,
+):
+    """K5's function in plain PyTorch: the worklist walked in order with a
+    running per-row values buffer.
+
+    Tile ``t`` is skipped when ``ub[t]`` is a padding bound (≤ −0.25e30) or
+    when every valid row (global row < ``nq_valid``) of its query block holds
+    a k-th value strictly above ``ub[t]``. A skipped tile's packet is
+    ``(NEG_LARGE, -1, 0)``. Returns ``(fv, fi, fc, skipped)`` with
+    ``skipped (T, 1)`` int32.
+    """
+    nq = Q.shape[0]
+    dev = Q.device
+    T = ij.shape[1]
+    ij = ij.to(dev, torch.long)
+    wl = ij.cpu().numpy()
+    ubh = ub.float().cpu().tolist()
+    live = torch.arange(nq, device=dev).view(-1, block_q) < nq_valid
+    topv = torch.full((nq // block_q, block_q, k), NEG_LARGE, device=dev)
+    fv = torch.full((T, block_q, k), NEG_LARGE, device=dev)
+    fi = torch.full((T, block_q, k), -1, dtype=torch.int32, device=dev)
+    fc = torch.zeros((T, block_q, 1), dtype=torch.int32, device=dev)
+    skipped = torch.ones((T, 1), dtype=torch.int32, device=dev)
+    for t in range(T):
+        qi, cj, u = int(wl[0, t]), int(wl[1, t]), ubh[t]
+        if u <= _VALID or not bool((live[qi] & ~(topv[qi, :, k - 1] > u)).any()):
+            continue
+        pv, pi, pc = rect_tile_candidates_plain(
+            Q, C, ij[:, t:t + 1], threshold, k, block_q=block_q, block_c=block_c,
+            nc_valid=nc_valid,
+        )
+        fv[t], fi[t], fc[t] = pv[0], pi[0], pc[0]
+        skipped[t] = 0
+        merged = torch.cat([topv[qi], pv[0]], dim=1)
+        topv[qi] = torch.sort(merged, dim=1, descending=True).values[:, :k]
+    return fv, fi, fc, skipped
 
 
 # ---------------------------------------------------------------------------
@@ -350,3 +471,139 @@ def apss_tile_candidates_kernel(
     _check_status(lib, "apss_tile_candidates", status)
     LAUNCHES["apss_tile_candidates"] += 1
     return fv, fi, fc, bv, bi, bc
+
+
+def _check_rect_blocks(block_q: int, block_c: int, width: int) -> None:
+    if block_q % 8 or not 8 <= block_q <= 128 or block_c not in (64, 128, 256) or width % _TK:
+        raise ValueError(
+            "block_q must be a multiple of 8 up to 128, block_c 64, 128 or 256 "
+            f"and the width a multiple of {_TK}; got {block_q}, {block_c}, {width}"
+        )
+
+
+def _worklist_on(ij, dev: torch.device, rows: tuple[int, ...], limits) -> torch.Tensor:
+    """``ij`` as a contiguous int32 worklist on ``dev``, checked: ``rows`` it
+    may have, and per row the exclusive upper bound of its block ids
+    (``None``: any id ≥ 0)."""
+    ij = torch.as_tensor(ij).to(dev, torch.int32).contiguous()
+    if ij.dim() != 2 or ij.shape[0] not in rows or ij.shape[1] < 1:
+        raise ValueError(
+            f"ij must be a non-empty ({'|'.join(map(str, rows))}, T) worklist: "
+            f"{tuple(ij.shape)}"
+        )
+    lo, *hi = torch.cat([ij.min()[None], ij.amax(dim=1)]).tolist()
+    if lo < 0 or any(lim is not None and h >= lim for h, lim in zip(hi, limits)):
+        raise ValueError("ij holds a block index outside the corpus or the queries")
+    return ij
+
+
+def _check_rect_operands(Q: torch.Tensor, C: torch.Tensor, block_q: int, block_c: int):
+    _check_operand("Q", Q)
+    _check_operand("C", C)
+    nq, m = Q.shape
+    if C.device != Q.device or C.dtype != Q.dtype or C.shape[1] != m:
+        raise ValueError("Q and C must share device, dtype and width")
+    _check_rect_blocks(block_q, block_c, m)
+    if nq % block_q or C.shape[0] % block_c:
+        raise ValueError(
+            f"({nq}, {C.shape[0]}) rows not divisible by ({block_q}, {block_c})"
+        )
+    return nq // block_q, C.shape[0] // block_c
+
+
+def rect_tile_candidates_kernel(
+    Q: torch.Tensor,
+    C: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_q: int = 128,
+    block_c: int = 256,
+    nc_valid: int,
+):
+    """K4 on padded queries ``Q (nq, m)``, a padded corpus ``C (nc, m)`` and
+    a ``(2, T)`` or ``(3, T)`` worklist of live (query block, corpus block)
+    tiles; packet column ids come from the worklist's last row.
+
+    Returns ``(fv, fi, fc)`` shaped ``(T, block_q, k|k|1)``.
+    """
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=nc_valid)
+    if Q.device.type == "cpu":
+        return rect_tile_candidates_plain(Q, C, ij, threshold, k, **kw)
+    grid_q, grid_c = _check_rect_operands(Q, C, block_q, block_c)
+    ij = _worklist_on(ij, Q.device, (2, 3), (grid_q, grid_c, None))
+    R, T = ij.shape
+    dev = Q.device
+    fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
+    fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
+    fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
+    fn, lib = _entry(
+        "rect_tile_candidates", f"apss_rect_tile_candidates_{_suffix(Q.dtype)}",
+        [_VP, _VP, _VP, _I, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
+    )
+    status = fn(
+        Q.data_ptr(), C.data_ptr(), ij.data_ptr(), R, T,
+        fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
+        Q.shape[1], block_q, block_c, int(nc_valid), _f32(threshold), k,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_status(lib, "rect_tile_candidates", status)
+    LAUNCHES["rect_tile_candidates"] += 1
+    return fv, fi, fc
+
+
+def rect_tile_candidates_early_exit_kernel(
+    Q: torch.Tensor,
+    C: torch.Tensor,
+    ij: torch.Tensor,
+    ub: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_q: int = 128,
+    block_c: int = 256,
+    nc_valid: int,
+    nq_valid: int,
+):
+    """K5: K4 over a ``(2, T)`` worklist ordered by upper bound descending,
+    with ``ub (T,)`` the tiles' bounds (``NEG_LARGE`` on padding entries)
+    and ``nq_valid`` the count of real query rows (a runtime argument).
+
+    Returns ``(fv, fi, fc, skipped)``: K4's packets (neutral on skipped
+    tiles) and ``skipped (T, 1)`` int32.
+    """
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=nc_valid, nq_valid=nq_valid)
+    if Q.device.type == "cpu":
+        return rect_tile_candidates_early_exit_plain(Q, C, ij, ub, threshold, k, **kw)
+    grid_q, grid_c = _check_rect_operands(Q, C, block_q, block_c)
+    if not 1 <= k <= _MAX_EE_K:
+        raise ValueError(f"k must be in [1, {_MAX_EE_K}] for the values buffer; got {k}")
+    if 4 * block_q * (block_c + k) > _DYN_SMEM:
+        raise ValueError(
+            f"the score tile and values buffer ({block_q} x ({block_c} + {k}) f32) "
+            "exceed a block's shared memory"
+        )
+    ij = _worklist_on(ij, Q.device, (2,), (grid_q, grid_c))
+    T = ij.shape[1]
+    dev = Q.device
+    ub = torch.as_tensor(ub).to(dev, torch.float32).contiguous()
+    if tuple(ub.shape) != (T,):
+        raise ValueError(f"ub shape {tuple(ub.shape)} is not ({T},)")
+    fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
+    fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
+    fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
+    skipped = torch.empty((T, 1), dtype=torch.int32, device=dev)
+    fn, lib = _entry(
+        "rect_tile_candidates_ee", f"apss_rect_tile_candidates_ee_{_suffix(Q.dtype)}",
+        [_VP] * 4 + [_I, _I] + [_VP] * 4 + [_I] * 5 + [_F, _I, _VP],
+    )
+    status = fn(
+        Q.data_ptr(), C.data_ptr(), ij.data_ptr(), ub.data_ptr(), T, grid_q,
+        fv.data_ptr(), fi.data_ptr(), fc.data_ptr(), skipped.data_ptr(),
+        Q.shape[1], block_q, block_c, int(nc_valid), int(nq_valid),
+        _f32(threshold), k, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_status(lib, "rect_tile_candidates_ee", status)
+    LAUNCHES["rect_tile_candidates_ee"] += 1
+    return fv, fi, fc, skipped

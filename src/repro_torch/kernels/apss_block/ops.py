@@ -10,6 +10,9 @@
   compacted on the host into upper-triangular tiles, each computed once
   for both orientations (S = Sᵀ), and the per-tile packets are folded into
   ``Matches`` by :func:`fold_packets`.
+- :func:`compact_rect_worklist` and :func:`fold_rect_packets` -- the same
+  two steps for the rectangular (queries × corpus) tiles of serving
+  (``serving/query.py``, kernels K4, K5 and K6).
 
 Each runs its kernel on a CUDA tensor and the kernel's plain version on a
 CPU one (``fused.py``, ``apss_block.py``); the entry points take
@@ -175,46 +178,85 @@ def pad_worklist(wl: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return np.concatenate([wl, pad], axis=1), valid
 
 
+def compact_rect_worklist(mask, ub=None) -> np.ndarray | None:
+    """Host-side live mask → rectangular worklist ``(2, T)`` of live
+    ``(query_block, corpus_block)`` tiles (the serving sibling of
+    :func:`compact_worklist`: no symmetry, no triangular cut), ordered by
+    ``ub`` descending when given, ties in row-major order. None when
+    nothing is live."""
+    iu, ju = np.nonzero(_host(mask).astype(bool))
+    if iu.size == 0:
+        return None
+    if ub is not None:
+        order = np.argsort(-_host(ub).astype(np.float64)[iu, ju], kind="stable")
+        iu, ju = iu[order], ju[order]
+    return np.stack([iu, ju]).astype(np.int32)
+
+
+def _fold_by_block(blk, pv, pi, pc, *, grid, block, k):
+    """Fold packets ``pv/pi (P, block, k)``, ``pc (P, block)`` into the row
+    blocks ``blk (P,)`` they target: counts add, and one top-k per row over
+    all of its block's packets by (value desc, id asc), which is exact
+    because packets entering one row block come from disjoint column
+    ranges. Packets are grouped by target block into a ``(grid, P_max,
+    block, k)`` buffer, ``P_max`` the most any block receives."""
+    dev = pv.device
+    counts = torch.zeros((grid, block), dtype=torch.int32, device=dev)
+    counts.index_add_(0, blk, pc.to(torch.int32))
+    order = torch.argsort(blk, stable=True)
+    blk = blk[order]
+    per_block = torch.bincount(blk, minlength=grid)
+    start = torch.cumsum(per_block, 0) - per_block
+    slot = torch.arange(blk.numel(), device=dev) - start[blk]
+    P = int(per_block.max())
+    shape = (grid, P, block, k)
+    buf_v = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
+    buf_i = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    buf_v[blk, slot] = pv[order]
+    buf_i[blk, slot] = pi[order]
+    cand_v = buf_v.permute(0, 2, 1, 3).reshape(grid, block, P * k)
+    cand_i = buf_i.permute(0, 2, 1, 3).reshape(grid, block, P * k)
+    v, i = topk_by_id(cand_v, cand_i, k)
+    i = torch.where(v > _VALID, i, -1)
+    values = torch.where(i >= 0, v, NEG_INF).reshape(grid * block, k)
+    return values, i.reshape(grid * block, k), counts.reshape(grid * block)
+
+
 def fold_packets(ij, fv, fi, fc, bv, bi, bc, *, grid_m, block_m, k):
     """Fold per-tile candidate packets into flat ``(values, indices, counts)``.
 
     ``ij (2, T)`` worklist of upper-triangular tiles; ``f*`` are the forward
     packets (rows of block ``ij[0, t]``), ``b*`` the mirror packets (rows of
     block ``ij[1, t]``; empty on diagonal tiles); counts are ``(T, block_m)``.
-    Packets entering one row block come from disjoint column ranges, so one
-    top-k per row over all of that block's packets, by (value desc, id asc),
-    is exact. Vectorised: packets are grouped by target block into a
-    ``(grid_m, P, block_m, k)`` buffer, ``P`` the most packets any block
-    receives.
     """
     dev = fv.device
     ij = torch.as_tensor(ij).to(dev, torch.long)
     off = ij[0] != ij[1]  # a diagonal tile's mirror packet is empty
-    blk = torch.cat([ij[0], ij[1][off]])
-    pv = torch.cat([fv, bv[off]])
-    pi = torch.cat([fi, bi[off]])
-    pc = torch.cat([fc, bc[off]])
+    return _fold_by_block(
+        torch.cat([ij[0], ij[1][off]]),
+        torch.cat([fv, bv[off]]), torch.cat([fi, bi[off]]), torch.cat([fc, bc[off]]),
+        grid=grid_m, block=block_m, k=k,
+    )
 
-    counts = torch.zeros((grid_m, block_m), dtype=torch.int32, device=dev)
-    counts.index_add_(0, blk, pc.to(torch.int32))
 
-    order = torch.argsort(blk, stable=True)
-    blk = blk[order]
-    per_block = torch.bincount(blk, minlength=grid_m)
-    start = torch.cumsum(per_block, 0) - per_block
-    slot = torch.arange(blk.numel(), device=dev) - start[blk]
-    P = int(per_block.max())
-    shape = (grid_m, P, block_m, k)
-    buf_v = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
-    buf_i = torch.full(shape, -1, dtype=torch.int32, device=dev)
-    buf_v[blk, slot] = pv[order]
-    buf_i[blk, slot] = pi[order]
-    cand_v = buf_v.permute(0, 2, 1, 3).reshape(grid_m, block_m, P * k)
-    cand_i = buf_i.permute(0, 2, 1, 3).reshape(grid_m, block_m, P * k)
-    v, i = topk_by_id(cand_v, cand_i, k)
-    i = torch.where(v > _VALID, i, -1)
-    values = torch.where(i >= 0, v, NEG_INF).reshape(grid_m * block_m, k)
-    return values, i.reshape(grid_m * block_m, k), counts.reshape(grid_m * block_m)
+def fold_rect_packets(ij, tvalid, fv, fi, fc, *, grid_q, block_q, k):
+    """Fold rectangular forward packets (rows of query block ``ij[0, t]``)
+    into flat ``(values, indices, counts)``; counts are ``(T, block_q)``.
+
+    ``tvalid (T,)`` marks real worklist entries: padding entries (which may
+    alias a real tile) are neutralised (values −inf, ids −1, counts 0)
+    before the merge, so they never count twice.
+    """
+    dev = fv.device
+    ij = torch.as_tensor(ij).to(dev, torch.long)
+    dead = ~torch.as_tensor(tvalid).to(dev, torch.bool)
+    return _fold_by_block(
+        ij[0],
+        torch.where(dead[:, None, None], NEG_INF, fv),
+        torch.where(dead[:, None, None], -1, fi),
+        torch.where(dead[:, None], 0, fc),
+        grid=grid_q, block=block_q, k=k,
+    )
 
 
 def apss_fused_compacted(

@@ -20,9 +20,15 @@ form of the paper's partial indexing):
    turns ``(bx, yg, ij)`` into forward and mirror candidate packets exactly
    as K2 does, and ``ops.fold_packets`` folds them into ``Matches``.
 
-On a CPU tensor the wrapper runs :func:`sparse_tile_candidates_plain`, the
-same tiles in plain PyTorch; on a CUDA tensor it launches the kernel or
-raises. Exactness: identical counts and match sets to ``apss_reference`` on
+Query-time serving scores dense query blocks against the same per-block
+supports: :func:`gather_query_tiles` gathers, per live (query block, corpus
+block) tile, the query rows' components at the corpus block's support, and
+:func:`rect_sparse_tile_candidates_kernel` (K6,
+``csrc/rect_sparse_tile_candidates.cu``) turns ``(qg, bx, ij)`` into the
+forward packets that ``ops.fold_rect_packets`` folds.
+
+On a CPU tensor each wrapper runs its plain version (the same tiles in plain
+PyTorch); on a CUDA tensor it launches the kernel or raises. Exactness: identical counts and match sets to ``apss_reference`` on
 the densified corpus, duplicates-sum semantics included (duplicate
 coordinates land in the same gathered slot and accumulate).
 """
@@ -38,17 +44,21 @@ from repro_torch.core.pruning import sparse_block_prune_mask
 from repro_torch.core.sparse import SparseCorpus, pad_rows_sparse
 from repro_torch.kernels.apss_block.fused import (
     _I,
+    _RECT_CHUNK,
     _TILE,
     _TK,
     _VP,
     _F,
     LAUNCHES,
     _check_operand,
+    _check_rect_blocks,
     _check_status,
     _entry,
     _f32,
+    _rect_tile_packets,
     _suffix,
     _tile_packets,
+    _worklist_on,
 )
 from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
 
@@ -233,6 +243,102 @@ def sparse_tile_candidates_kernel(
     _check_status(lib, "sparse_tile_candidates", status)
     LAUNCHES["sparse_tile_candidates"] += 1
     return fv, fi, fc, bv, bi, bc
+
+
+# ---------------------------------------------------------------------------
+# K6: the serving query gather, plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def gather_query_tiles(
+    Qp: torch.Tensor, bdims: torch.Tensor, ij: torch.Tensor, block_q: int
+) -> torch.Tensor:
+    """``qg (T, block_q, S)`` f32: for worklist entry ``t``, the rows of query
+    block ``ij[0, t]`` at the support ``bdims[ij[1, t]]``.
+
+    ``Qp (grid_q · block_q, m)`` is dense; a zero column is appended so the
+    support's sentinel ``m`` gathers 0.
+    """
+    ij = ij.to(Qp.device, torch.long)
+    qext = torch.nn.functional.pad(Qp.float(), (0, 1))
+    rows = ij[0][:, None, None] * block_q + torch.arange(block_q, device=Qp.device)[:, None]
+    return qext[rows, bdims.to(Qp.device, torch.long)[ij[1]][:, None, :]]
+
+
+def rect_sparse_tile_candidates_plain(
+    qg: torch.Tensor,
+    bx: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    nc_valid: int,
+):
+    """K6's function in plain PyTorch: one product per tile (as
+    ``fused.rect_tile_candidates_plain``), the selection ``_RECT_CHUNK``
+    tiles at a time. Returns ``(fv, fi, fc)`` shaped ``(T, block_q,
+    k|k|1)``."""
+    T, block_q, _ = qg.shape
+    block_c = bx.shape[1]
+    ij = ij.to(bx.device, torch.long)
+    cjs = ij[1].cpu().tolist()
+    outs = []
+    for a in range(0, T, _RECT_CHUNK):
+        s = torch.stack([
+            dot_f32(qg[a + i], bx[cj]) for i, cj in enumerate(cjs[a:a + _RECT_CHUNK])
+        ])
+        outs.append(_rect_tile_packets(
+            s, ij[1, a:a + _RECT_CHUNK], threshold=threshold, k=k, block_q=block_q,
+            block_c=block_c, nc_valid=nc_valid,
+        ))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def rect_sparse_tile_candidates_kernel(
+    qg: torch.Tensor,
+    bx: torch.Tensor,
+    ij: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    nc_valid: int,
+):
+    """K6 on ``qg (T, block_q, S)`` (:func:`gather_query_tiles`), the index's
+    ``bx (nb, block_c, S)`` corpus blocks on their own supports and a
+    ``(2, T)`` worklist of live (query block, corpus block) tiles.
+
+    Returns ``(fv, fi, fc)`` shaped ``(T, block_q, k|k|1)``.
+    """
+    if bx.device.type == "cpu":
+        return rect_sparse_tile_candidates_plain(qg, bx, ij, threshold, k, nc_valid=nc_valid)
+    _check_blocks("qg", qg)
+    _check_blocks("bx", bx)
+    T, block_q, S = qg.shape
+    nb, block_c, S2 = bx.shape
+    if qg.device != bx.device or qg.dtype != bx.dtype or S2 != S:
+        raise ValueError("qg and bx must share device, dtype and support width")
+    _check_rect_blocks(block_q, block_c, S)
+    ij = _worklist_on(ij, bx.device, (2,), (None, nb))
+    if ij.shape[1] != T:
+        raise ValueError(f"qg holds {T} tiles but ij {ij.shape[1]}")
+    dev = bx.device
+    fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
+    fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
+    fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
+    fn, lib = _entry(
+        "rect_sparse_tile_candidates",
+        f"apss_rect_sparse_tile_candidates_{_suffix(bx.dtype)}",
+        [_VP, _VP, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
+    )
+    status = fn(
+        qg.data_ptr(), bx.data_ptr(), ij.data_ptr(), T,
+        fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
+        S, block_q, block_c, int(nc_valid), _f32(threshold), k,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check_status(lib, "rect_sparse_tile_candidates", status)
+    LAUNCHES["rect_sparse_tile_candidates"] += 1
+    return fv, fi, fc
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,8 @@ def test_import_loads_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.data, repro_torch.core.graph, "
         "repro_torch.core.sparse, repro_torch.data.sparse, "
         "repro_torch.kernels.apss_block.sparse, "
-        "repro_torch.kernels.apss_block.apss_block; "
+        "repro_torch.kernels.apss_block.apss_block, "
+        "repro_torch.serving, repro_torch.serving.server, repro_torch.launch.serve; "
         "bad = sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
         "print(bad)"
@@ -81,6 +82,7 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         apss_sparse_compacted,
         from_dense,
     )
+    from repro_torch.serving import build_index, query_topk
 
     for call in (
         lambda: tapss.apss_blocked(corpus, T, K),
@@ -93,6 +95,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         lambda: from_dense(corpus),
         lambda: apss_sparse_compacted(from_dense(corpus, device="cpu"), T, K),
         lambda: tapss.apss_blocked(from_dense(corpus, device="cpu"), T, K),
+        lambda: build_index(corpus),
+        lambda: build_index(from_dense(corpus, device="cpu")),
+        lambda: query_topk(build_index(corpus), corpus[:4], T, K),  # the index's device
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()

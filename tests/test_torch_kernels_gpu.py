@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 and K2 (the dense self-join), K3 (the sparse one) and K7 (the dense
-score matrix). Every test here needs an NVIDIA Hopper card and ``nvcc``;
+K1 and K2 (the dense self-join), K3 (the sparse one), K7 (the dense score
+matrix) and the serving kernels K4, K5 and K6. Every test here needs an NVIDIA Hopper card and ``nvcc``;
 each decides that inside itself (the ``card`` fixture) and skips with a
 reason elsewhere. Run them on a machine with a card:
 
@@ -284,3 +284,180 @@ def test_k3_k7_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="not the grid"):
         apss_block.apss_block_kernel(x, x, torch.ones((1, 1), dtype=torch.int32), 0.3,
                                      block_m=128, block_n=128)
+
+
+# -- serving: K4, K5, K6 -------------------------------------------------------
+
+
+def _rect_inputs(dtype, nq, seed, t=0.3):
+    """Queries and a 512-row corpus of width 256, both clear of t in the
+    dtype the kernel reads."""
+    C = _corp(500, 230, seed=seed)
+    Q = _corp(nq, 230, seed=seed + 100)
+    if dtype == torch.bfloat16:
+        C = torch.from_numpy(C).bfloat16().float().numpy()
+        Q = torch.from_numpy(Q).bfloat16().float().numpy()
+    assert_clear_of_threshold(Q, C, t)
+    return _pad(Q, 128, 256), _pad(C, 256, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_c", [64, 256])
+@pytest.mark.parametrize("block_q", [8, 64, 128])
+def test_k4_kernel_matches_plain(card, dtype, block_q, block_c):
+    from repro_torch.kernels.apss_block import fused
+
+    Qn, Cn = _rect_inputs(dtype, 100, seed=11)
+    Q = torch.from_numpy(Qn).to(card, dtype)
+    C = torch.from_numpy(Cn).to(card, dtype)
+    gq, gc = Q.shape[0] // block_q, C.shape[0] // block_c
+    qi, cj = torch.meshgrid(torch.arange(gq), torch.arange(gc), indexing="ij")
+    ij = torch.stack([qi.flatten(), cj.flatten()]).int()
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=500)
+    for wl in (ij, torch.cat([ij, ij[1:2] + 1])):  # (2, T) and (3, T)
+        before = fused.LAUNCHES["rect_tile_candidates"]
+        got = fused.rect_tile_candidates_kernel(Q, C, wl, 0.3, 16, **kw)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["rect_tile_candidates"] == before + 1
+        ref = fused.rect_tile_candidates_plain(Q, C, wl, 0.3, 16, **kw)
+        _assert_close(got, ref)
+        assert int(ref[2].sum()) > 0
+
+
+def test_k5_kernel_matches_plain_with_padding(card):
+    """Worklist padding entries (ub = NEG_LARGE) are skipped, padded query
+    rows never pin a block, and the kernel's packets and skips equal the
+    plain version's."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import build_index
+    from repro_torch.serving.query import _query_mask
+    from repro_torch.kernels.apss_block.ops import compact_rect_worklist
+
+    Qn, Cn = _rect_inputs(torch.float32, 100, seed=28)
+    index = build_index(Cn[:500], block_rows=64, normalize=False)
+    Q = torch.from_numpy(Qn).to(card)
+    for block_q, nq_valid in ((64, 100), (128, 100), (8, 5)):
+        Qp = Q[: -(-nq_valid // block_q) * block_q].contiguous()
+        mask, ub = _query_mask(Qp, index.stats, threshold=0.3, block_q=block_q,
+                               use_minsize=True, normalized=True)
+        wl = compact_rect_worklist(mask, ub)
+        ubw = ub.cpu().numpy()[wl[0], wl[1]]
+        ij = torch.from_numpy(np.concatenate([wl, np.zeros((2, 2), np.int32)], 1))
+        ubw = torch.from_numpy(np.concatenate([ubw, [fused.NEG_LARGE] * 2]).astype(np.float32))
+        kw = dict(block_q=block_q, block_c=64, nc_valid=500, nq_valid=nq_valid)
+        before = fused.LAUNCHES["rect_tile_candidates_ee"]
+        got = fused.rect_tile_candidates_early_exit_kernel(Qp, index.corpus, ij, ubw, 0.3, 8, **kw)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["rect_tile_candidates_ee"] == before + 1
+        ref = fused.rect_tile_candidates_early_exit_plain(Qp, index.corpus, ij, ubw, 0.3, 8, **kw)
+        _assert_close(got, ref)
+        assert got[3][-2:].tolist() == [[1], [1]]
+
+
+def test_k5_tie_probe_on_card(card):
+    """The strict skip test: a tile whose bound equals every row's k-th value
+    exactly is scored, so the lower ids of the tie win, as in K4 + fold."""
+    from repro_torch.serving import build_index, query_topk
+
+    k = 4
+    C = np.zeros((128, 64), np.float32)
+    C[0:k, 3] = C[64:64 + k, 3] = 1.0
+    C[k:2 * k, 17] = C[64 + k:64 + 2 * k, 17] = 1.0
+    C[64 + 2 * k, [3, 17]] = np.float32(1 / np.sqrt(2))
+    Q = np.zeros((2, 64), np.float32)
+    Q[0, 3] = Q[1, 17] = 1.0
+    index = build_index(C, block_rows=64, normalize=False)
+    full = query_topk(index, Q, 0.5, k, block_q=8, use_kernel=True)
+    ee, stats = query_topk(index, Q, 0.5, k, block_q=8, use_kernel=True, early_exit=True,
+                           return_stats=True)
+    assert full.indices.tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert torch.equal(ee.indices, full.indices) and torch.equal(ee.values, full.values)
+    assert stats.scored_tiles == 2
+
+
+@pytest.mark.parametrize("block_q", [8, 64])
+def test_k6_kernel_matches_plain(card, block_q):
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.kernels.apss_block import fused, sparse
+    from repro_torch.serving import build_index
+
+    Qn, Cn = _rect_inputs(torch.float32, 60, seed=7)
+    index = build_index(from_dense(Cn[:500]), block_rows=256, normalize=False)
+    Qp = torch.from_numpy(Qn[: -(-60 // block_q) * block_q]).to(card)
+    gq = Qp.shape[0] // block_q
+    qi, cj = torch.meshgrid(torch.arange(gq), torch.arange(2), indexing="ij")
+    ij = torch.stack([qi.flatten(), cj.flatten()]).int().to(card)
+    qg = sparse.gather_query_tiles(Qp, index.bdims, ij, block_q)
+    before = fused.LAUNCHES["rect_sparse_tile_candidates"]
+    got = sparse.rect_sparse_tile_candidates_kernel(qg, index.bx, ij, 0.3, 16, nc_valid=500)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rect_sparse_tile_candidates"] == before + 1
+    ref = sparse.rect_sparse_tile_candidates_plain(qg, index.bx, ij, 0.3, 16, nc_valid=500)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_query_topk_on_card_matches_plain_path(card, kind):
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.serving import build_index, query_topk
+
+    Qn, Cn = _rect_inputs(torch.float32, 40, seed=8)
+    C, Q = Cn[:500, :230], Qn[:40, :230]
+    cpu = build_index(C if kind == "dense" else from_dense(C, device="cpu"), block_rows=64,
+                      normalize=False, device="cpu")
+    gpu = build_index(C if kind == "dense" else from_dense(C), block_rows=64, normalize=False)
+    ref = query_topk(cpu, Q, 0.3, 16, block_q=64)
+    for early_exit in (False, True):
+        got = query_topk(gpu, Q, 0.3, 16, block_q=64, use_kernel=True, early_exit=early_exit)
+        assert got.values.device.type == "cuda"
+        counts = ref.counts.clamp_max(16) if early_exit else ref.counts
+        _assert_close((got.values, got.indices, got.counts), (ref.values, ref.indices, counts))
+
+
+def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    Q = torch.zeros((64, 128), device=card)
+    C = torch.zeros((256, 128), device=card)
+    ij = torch.tensor([[0], [0]], dtype=torch.int32)
+    kw = dict(block_q=64, block_c=256, nc_valid=256)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused.rect_tile_candidates_kernel(Q[:60].contiguous(), C, ij, 0.3, 8, block_q=12,
+                                          block_c=256, nc_valid=256)
+    with pytest.raises(ValueError, match="block_c 64, 128 or 256"):
+        fused.rect_tile_candidates_kernel(Q, C[:192].contiguous(), ij, 0.3, 8, block_q=64,
+                                          block_c=96, nc_valid=192)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.rect_tile_candidates_kernel(Q.T, C, ij, 0.3, 8, **kw)
+    with pytest.raises(ValueError, match="share device, dtype"):
+        fused.rect_tile_candidates_kernel(Q.bfloat16(), C, ij, 0.3, 8, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        fused.rect_tile_candidates_kernel(Q, C, torch.tensor([[0], [1]]), 0.3, 8, **kw)
+    with pytest.raises(ValueError, match="worklist"):
+        fused.rect_tile_candidates_kernel(Q, C, torch.zeros((4, 1), dtype=torch.int32), 0.3,
+                                          8, **kw)
+    ub = torch.zeros(1)
+    with pytest.raises(ValueError, match="values buffer"):
+        fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, ub, 0.3, 300, nq_valid=64, **kw)
+    with pytest.raises(ValueError, match="shared memory"):  # 128 x (256 + 256) f32
+        fused.rect_tile_candidates_early_exit_kernel(
+            torch.zeros((128, 128), device=card), C, ij, ub, 0.3, 256, nq_valid=128,
+            block_q=128, block_c=256, nc_valid=256)
+    with pytest.raises(ValueError, match="ub shape"):
+        fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, torch.zeros(2), 0.3, 8,
+                                                     nq_valid=64, **kw)
+    with pytest.raises(ValueError, match="worklist"):  # K5 takes no (3, T) worklist
+        fused.rect_tile_candidates_early_exit_kernel(
+            Q, C, torch.zeros((3, 1), dtype=torch.int32), ub, 0.3, 8, nq_valid=64, **kw)
+    bx = torch.zeros((2, 256, 128), device=card)
+    qg = torch.zeros((1, 64, 128), device=card)
+    with pytest.raises(ValueError, match="support width"):
+        sparse.rect_sparse_tile_candidates_kernel(torch.zeros((1, 64, 96), device=card), bx,
+                                                  ij, 0.3, 8, nc_valid=512)
+    with pytest.raises(ValueError, match="tiles but ij"):
+        sparse.rect_sparse_tile_candidates_kernel(qg, bx, torch.zeros((2, 2), dtype=torch.int32),
+                                                  0.3, 8, nc_valid=512)
+    with pytest.raises(ValueError, match="outside"):
+        sparse.rect_sparse_tile_candidates_kernel(qg, bx, torch.tensor([[0], [2]]), 0.3, 8,
+                                                  nc_valid=512)

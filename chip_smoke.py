@@ -47,8 +47,8 @@ Phases, each printing one JSON line:
     (``benchmarks/bench_serve.py``'s corpus and traffic): ``query_topk`` at
     B = 1, 8 and 64 through K6, sparse early exit, and the step and
     continuous servers at max_batch 8 and 64 (192 closed-loop requests, no
-    cache): QPS and host-clock p50/p99 of submit → latch; every request
-    "ok", no degradation or retry, each equal to its one-shot call.
+    cache): QPS and host-clock p50/p99 of submit → ``result()``; every
+    request "ok", no degradation or retry, each equal to its one-shot call.
 13. ``serve_early_exit_overlap``: ``bench_serve.measure_early_exit``'s
     corpus (8192 × 2048, overlap_dims=8), t=0.01, k=8, B=64: densified
     through K5 and sparse through the plain scan with K6 tiles; both skip
@@ -62,7 +62,8 @@ The main-path phases (6-13) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6) with the
-launch counts set to 0 just before and read just after, and hold the
+launch counts set to 0 just before and read just after, each serving path
+(batch size, early exit, server) on its own, and hold the
 results against the plain paths on the card. Comparison rule (the
 kernels, cuBLAS and the CPU add in different orders): pairs with
 |s - t| > 1e-5 agree exactly in membership, count and order by (value
@@ -938,6 +939,14 @@ def k6_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
     return row
 
 
+def query_tiles(*args, **kw):
+    """``query_topk`` and the tiles it added to ``query.TILES``."""
+    from repro_torch.serving import query
+
+    query.TILES.update(total=0, live=0, scored=0)
+    return query.query_topk(*args, **kw), dict(query.TILES)
+
+
 def serving_edge_probes(np, torch) -> None:
     """query_topk through K4, K5 and K6 (and the plain early-exit scan) on the
     shapes that broke things before, and the tie probe of the strict skip
@@ -1015,13 +1024,13 @@ def serving_edge_probes(np, torch) -> None:
         index = build_index(corpus_t, block_rows=64, normalize=False)
         full = query_topk(index, Qt, 0.5, k, block_q=8, use_kernel=True)
         for way, use_kernel in (("kernel", True), ("plain", False)):
-            ee, stats = query_topk(index, Qt, 0.5, k, block_q=8, use_kernel=use_kernel,
-                                   early_exit=True, return_stats=True)
+            ee, tiles = query_tiles(index, Qt, 0.5, k, block_q=8, use_kernel=use_kernel,
+                                    early_exit=True)
             check(full.indices.tolist() == want and ee.indices.tolist() == want,
                   f"tie probe ({kind}, {way}): {full.indices.tolist()} {ee.indices.tolist()}")
             check(bool(torch.equal(ee.values, full.values)), f"tie probe ({kind}, {way})")
-            check(stats.scored_tiles == 2, f"tie probe ({kind}, {way}): tied tile skipped")
-            tie[f"{kind}_{way}"] = stats._asdict()
+            check(tiles["scored"] == 2, f"tie probe ({kind}, {way}): tied tile skipped")
+            tie[f"{kind}_{way}"] = tiles
     results["tie_probe"] = tie
     emit("serving_edge_probes", probes=results)
 
@@ -1032,46 +1041,44 @@ def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
     held against the plain path on the card and the oracle."""
     from repro_torch.data.sparse import perturbed_queries
     from repro_torch.interop import matches_to_numpy
-    from repro_torch.serving import build_index, index_nbytes, query_topk
+    from repro_torch.serving import build_index, index_nbytes
 
     t = threshold
     n, m = D.shape
     dense, build_d = generated(torch, lambda: build_index(D, block_rows=256, normalize=False))
     spidx, build_s = generated(torch, lambda: build_index(sp, block_rows=256, normalize=False))
     Q = torch.from_numpy(perturbed_queries(sp, 64, seed=1)).cuda()
-    runs = {  # name: (index, batch, block_q, early_exit)
-        "k4_b64": (dense, 64, 64, False),
-        "k4_b8": (dense, 8, 8, False),
-        "k5_b64": (dense, 64, 64, True),
-        "k6_b64": (spidx, 64, 64, False),
+    runs = {  # name: (index, batch, block_q, early_exit, kernel)
+        "k4_b64": (dense, 64, 64, False, "rect_tile_candidates"),
+        "k4_b8": (dense, 8, 8, False, "rect_tile_candidates"),
+        "k5_b64": (dense, 64, 64, True, "rect_tile_candidates_ee"),
+        "k6_b64": (spidx, 64, 64, False, "rect_sparse_tile_candidates"),
     }
 
     def run(name, use_kernel):
-        index, B, bq, ee = runs[name]
-        return query_topk(index, Q[:B], t, k, block_q=bq, use_kernel=use_kernel,
-                          early_exit=ee, return_stats=True)
+        index, B, bq, ee, _ = runs[name]
+        return query_tiles(index, Q[:B], t, k, block_q=bq, use_kernel=use_kernel,
+                           early_exit=ee)
 
-    reset_launches()
-    first, got = {}, {}
-    for name in runs:
+    first, got, launches = {}, {}, {}
+    for name, (*_, kname) in runs.items():  # each path counted on its own
+        reset_launches()
         got[name], first[name] = timed(torch, lambda: run(name, True))
-    launches = launches_now()
-    for kname in ("rect_tile_candidates", "rect_tile_candidates_ee",
-                  "rect_sparse_tile_candidates"):
-        check(launches[kname] > 0, f"{phase}: {kname} never ran: {launches}")
+        launches[name] = launches_now()
+        check(launches[name][kname] > 0, f"{phase}: {kname} never ran: {launches[name]}")
     wall = {name: wall_ms(np, torch, lambda: run(name, True)) for name in runs}
     wall.update({f"{name}_plain": wall_ms(np, torch, lambda: run(name, False), reps=1)
                  for name in runs})
     ref, near = rect_reference(torch, Q, D, t, k)
     ref_np = matches_to_numpy(ref)
     cmp = {}
-    for name, (res, stats) in got.items():
-        _, B, _, ee = runs[name]
+    for name, (res, tiles) in got.items():
+        _, B, _, ee, _ = runs[name]
         g = matches_to_numpy(res)
         want = tuple(a[:B] for a in (saturated(np, ref_np, k) if ee else ref_np))
         plain = matches_to_numpy(run(name, False)[0])
         cmp[name] = dict(vs_oracle=compare(np, g, want, t, near[:B]),
-                         vs_plain=compare(np, g, plain, t, near[:B]), **stats._asdict())
+                         vs_plain=compare(np, g, plain, t, near[:B]), **tiles)
         check(cmp[name]["vs_oracle"]["ok"] and cmp[name]["vs_plain"]["ok"],
               f"{phase}: {name} disagrees: {cmp[name]}")
     k4 = matches_to_numpy(got["k4_b64"][0])
@@ -1084,28 +1091,37 @@ def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
          launches=launches, first_call_ms=first, wall_ms=wall, compare=cmp)
     kw = dict(t=t, k=k)
     rows = [
-        k4_row(np, torch, f"{phase}/b64", launches, dense, Q, near, bq=64, **kw),
-        k4_row(np, torch, f"{phase}/b8", launches, dense, Q[:8], near[:8], bq=8, **kw),
-        k5_row(np, torch, phase, launches, dense, Q, near, bq=64, **kw),
-        k6_row(np, torch, phase, launches, spidx, Q, near, bq=64, **kw),
+        k4_row(np, torch, f"{phase}/b64", launches["k4_b64"], dense, Q, near, bq=64, **kw),
+        k4_row(np, torch, f"{phase}/b8", launches["k4_b8"], dense, Q[:8], near[:8], bq=8,
+               **kw),
+        k5_row(np, torch, phase, launches["k5_b64"], dense, Q, near, bq=64, **kw),
+        k6_row(np, torch, phase, launches["k6_b64"], spidx, Q, near, bq=64, **kw),
     ]
     del dense, spidx
     torch.cuda.empty_cache()
     return rows
 
 
-def drive_server(srv, queries, nreq: int, *, step_when_full: bool):
-    """Closed-loop burst of ``nreq`` requests (the step server steps at each
-    full batch, as ``benchmarks/bench_serve.py`` drives it). Returns
-    ``(wall seconds, results)``."""
+def drive_server(srv, queries, nreq: int, *, step_server: bool):
+    """Closed-loop burst of ``nreq`` requests. The step server gets
+    ``max_batch`` submits and then their ``result()`` calls, which step it
+    (``benchmarks/bench_serve.py`` steps it at each full batch); the
+    continuous server gets every submit at once and its workers score them
+    as they arrive. Returns ``(wall seconds, results, latencies)``: a
+    request's latency runs from its submit to the return of its
+    ``result()`` call, in ms on the host clock."""
     t0 = time.perf_counter()
-    rids = []
-    for i in range(nreq):
-        rids.append(srv.submit(queries[i % len(queries)]))
-        if step_when_full and len(srv._pending) >= srv.max_batch:
-            srv.step()
-    results = [srv.result(r) for r in rids]
-    return time.perf_counter() - t0, results
+    group = srv.max_batch if step_server else nreq
+    results, lat = [], []
+    for a in range(0, nreq, group):
+        sent = []
+        for i in range(a, min(a + group, nreq)):
+            at = time.perf_counter()
+            sent.append((srv.submit(queries[i % len(queries)]), at))
+        for rid, at in sent:
+            results.append(srv.result(rid))
+            lat.append((time.perf_counter() - at) * 1e3)
+    return time.perf_counter() - t0, results, lat
 
 
 def serve_clustered_phase(np, torch, phase, sp, *, threshold, k) -> dict:
@@ -1132,33 +1148,36 @@ def serve_clustered_phase(np, torch, phase, sp, *, threshold, k) -> dict:
     ref_np = matches_to_numpy(ref)
 
     def run(B, use_kernel=True, early_exit=False):
-        return query_topk(index, Q[:B], t, k, block_q=max(8, B), use_kernel=use_kernel,
-                          early_exit=early_exit, return_stats=True)
+        return query_tiles(index, Q[:B], t, k, block_q=max(8, B), use_kernel=use_kernel,
+                           early_exit=early_exit)
 
-    reset_launches()
-    got, first = {}, {}
-    for B in (1, 8, 64):
-        got[B], first[f"b{B}"] = timed(torch, lambda: run(B))
-    ee, first["ee_b64"] = timed(torch, lambda: run(64, early_exit=True))
-    launches = launches_now()
-    check(launches["rect_sparse_tile_candidates"] > 0, f"{phase}: K6 never ran: {launches}")
+    got, first, launches = {}, {}, {}
+    for name, B, early_exit in (("b1", 1, False), ("b8", 8, False), ("b64", 64, False),
+                                ("ee_b64", 64, True)):  # each path counted on its own
+        reset_launches()
+        got[name], first[name] = timed(torch, lambda: run(B, early_exit=early_exit))
+        launches[name] = launches_now()
+        check(launches[name]["rect_sparse_tile_candidates"] > 0,
+              f"{phase}: K6 never ran on {name}: {launches[name]}")
+    ee = got.pop("ee_b64")
     wall = {f"b{B}": wall_ms(np, torch, lambda: run(B)) for B in (1, 8, 64)}
     wall["ee_b64"] = wall_ms(np, torch, lambda: run(64, early_exit=True))
     wall.update({f"b{B}_plain": wall_ms(np, torch, lambda: run(B, False), reps=1)
                  for B in (1, 8, 64)})
     cmp = {}
-    for B, (res, stats) in got.items():
+    for name, (res, tiles) in got.items():
+        B = int(name[1:])
         g = matches_to_numpy(res)
-        cmp[f"b{B}"] = dict(
+        cmp[name] = dict(
             vs_oracle=compare(np, g, tuple(a[:B] for a in ref_np), t, near[:B]),
             vs_plain=compare(np, g, matches_to_numpy(run(B, False)[0]), t, near[:B]),
-            **stats._asdict())
-        check(cmp[f"b{B}"]["vs_oracle"]["ok"] and cmp[f"b{B}"]["vs_plain"]["ok"],
-              f"{phase}: B={B} disagrees: {cmp[f'b{B}']}")
+            **tiles)
+        check(cmp[name]["vs_oracle"]["ok"] and cmp[name]["vs_plain"]["ok"],
+              f"{phase}: B={B} disagrees: {cmp[name]}")
     ee_np = matches_to_numpy(ee[0])
-    check(identical(np, ee_np, saturated(np, matches_to_numpy(got[64][0]), k)),
+    check(identical(np, ee_np, saturated(np, matches_to_numpy(got["b64"][0]), k)),
           f"{phase}: sparse early exit differs from the K6 scan")
-    cmp["ee_b64"] = ee[1]._asdict()
+    cmp["ee_b64"] = ee[1]
 
     servers = {}
     for max_batch in (8, 64):
@@ -1179,12 +1198,12 @@ def serve_clustered_phase(np, torch, phase, sp, *, threshold, k) -> dict:
             warm.close()
             srv = make()
             reset_launches()
-            wall_s, results = drive_server(srv, list(qmax), 192,
-                                           step_when_full=kind == "step")
+            wall_s, results, lat_ms = drive_server(srv, list(qmax), 192,
+                                                   step_server=kind == "step")
             srv.close()
             k6 = launches_now()["rect_sparse_tile_candidates"]
             st = srv.stats
-            lat = np.percentile(np.array(srv.latencies_s) * 1e3, [50, 99])
+            lat = np.percentile(lat_ms, [50, 99])
             ok = sum(r.status == "ok" for r in results)
             check(ok == 192 and st.degraded == 0 and st.retries == 0 and k6 > 0,
                   f"{phase}: {kind} server at max_batch {max_batch}: ok={ok} {st} K6={k6}")
@@ -1195,13 +1214,13 @@ def serve_clustered_phase(np, torch, phase, sp, *, threshold, k) -> dict:
                       f"{phase}: {kind} server result {i} differs from the one-shot call")
             servers[f"{kind}_{max_batch}"] = dict(
                 requests=192, ok=ok, qps=192 / wall_s, wall_s=wall_s,
-                latency_ms_host={"p50": float(lat[0]), "p99": float(lat[1])},
+                latency_ms_submit_to_result_host={"p50": float(lat[0]), "p99": float(lat[1])},
                 steps=st.steps, degraded=st.degraded, retries=st.retries, k6_launches=k6)
     emit(phase, n=n, m=m, threshold=t, k=k, index_build_s=build_s,
          index_bytes=index_nbytes(index), support_S=int(index.bx.shape[2]),
          launches=launches, first_call_ms=first, wall_ms=wall, compare=cmp,
          servers=servers)
-    row = k6_row(np, torch, phase, launches, index, Q, near, bq=64, t=t, k=k)
+    row = k6_row(np, torch, phase, launches["b64"], index, Q, near, bq=64, t=t, k=k)
     del index
     torch.cuda.empty_cache()
     return row
@@ -1215,7 +1234,7 @@ def serve_early_exit_phase(np, torch, phase) -> dict:
     from repro_torch.core.sparse import to_dense
     from repro_torch.data.sparse import perturbed_queries, sparse_clustered_corpus
     from repro_torch.interop import matches_to_numpy
-    from repro_torch.serving import build_index, query_topk
+    from repro_torch.serving import build_index
 
     t, k = 0.01, 8
     sp = sparse_clustered_corpus(8192, 2048, 16.0, n_clusters=16, seed=2, overlap_dims=8)
@@ -1223,36 +1242,37 @@ def serve_early_exit_phase(np, torch, phase) -> dict:
     dense = build_index(to_dense(sp), block_rows=64, normalize=False)
     spidx = build_index(sp, block_rows=64, normalize=False)
 
-    def run(index, use_kernel, early_exit):
-        res, stats = query_topk(index, Q, t, k, block_q=64, use_kernel=use_kernel,
-                                early_exit=early_exit, return_stats=True)
-        return matches_to_numpy(res), stats
+    launches = {}
 
-    reset_launches()
-    k4, k4s = run(dense, True, False)
-    k5, k5s = run(dense, True, True)
-    k6, _ = run(spidx, True, False)
-    sp_ee, sp_ees = run(spidx, True, True)
-    launches = launches_now()
-    for kname in ("rect_tile_candidates", "rect_tile_candidates_ee",
-                  "rect_sparse_tile_candidates"):
-        check(launches[kname] > 0, f"{phase}: {kname} never ran: {launches}")
-    plain_ee, plain_ees = run(dense, False, True)
+    def run(name, index, use_kernel, early_exit, kname=None):
+        reset_launches()
+        res, tiles = query_tiles(index, Q, t, k, block_q=64, use_kernel=use_kernel,
+                                 early_exit=early_exit)
+        torch.cuda.synchronize()
+        launches[name] = launches_now()
+        if kname:
+            check(launches[name][kname] > 0, f"{phase}: {kname} never ran on {name}")
+        return matches_to_numpy(res), tiles
+
+    k4, k4s = run("k4", dense, True, False, "rect_tile_candidates")
+    k5, k5s = run("k5", dense, True, True, "rect_tile_candidates_ee")
+    k6, _ = run("k6", spidx, True, False, "rect_sparse_tile_candidates")
+    sp_ee, sp_ees = run("sparse_scan", spidx, True, True, "rect_sparse_tile_candidates")
+    plain_ee, plain_ees = run("dense_plain_scan", dense, False, True)
     ref, near = rect_reference(torch, Q, to_dense(sp), t, k)
     ref_np = saturated(np, matches_to_numpy(ref), k)
-    scored = {"k5": k5s._asdict(), "dense_plain_scan": plain_ees._asdict(),
-              "sparse_scan_k6_tiles": sp_ees._asdict()}
+    scored = {"k5": k5s, "dense_plain_scan": plain_ees, "sparse_scan_k6_tiles": sp_ees}
     c_plain = compare(np, plain_ee, ref_np, t, near)
     c_k5 = compare(np, k5, ref_np, t, near)
     emit(phase, n=sp.n, m=sp.m, threshold=t, k=k, queries=64, launches=launches,
-         live_tiles=k4s.live_tiles, scored=scored, k5_vs_oracle=c_k5,
+         live_tiles=k4s["live"], scored=scored, k5_vs_oracle=c_k5,
          plain_scan_vs_oracle=c_plain)
     check(identical(np, k5, saturated(np, k4, k)), f"{phase}: K5 differs from the K4 scan")
     check(identical(np, sp_ee, saturated(np, k6, k)), f"{phase}: sparse scan differs from K6")
-    check(k5s.scored_tiles < k5s.live_tiles and sp_ees.scored_tiles < sp_ees.live_tiles,
+    check(k5s["scored"] < k5s["live"] and sp_ees["scored"] < sp_ees["live"],
           f"{phase}: no tile skipped: {scored}")
     check(c_k5["ok"] and c_plain["ok"], f"{phase}: {c_k5} {c_plain}")
-    row = k5_row(np, torch, phase, launches, dense, Q, near, bq=64, t=t, k=k)
+    row = k5_row(np, torch, phase, launches["k5"], dense, Q, near, bq=64, t=t, k=k)
     del dense, spidx
     torch.cuda.empty_cache()
     return row

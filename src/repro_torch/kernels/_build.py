@@ -6,8 +6,8 @@ takes seconds) under ``build/repro_torch/`` at the root of the checkout.
 A library's file name carries a digest of its source and of the headers
 beside it, so an edited kernel is rebuilt and an unchanged one is loaded
 as it is. Sources that need building are compiled by concurrent ``nvcc``
-processes. A failed build raises with the command and the compiler's
-output; nothing falls back to the plain versions.
+processes. A failed build or load raises :class:`KernelError` with the
+command and the compiler's output; nothing falls back to the plain versions.
 
 Nothing here runs at import time: importing the port needs neither
 ``nvcc`` nor a card.
@@ -34,6 +34,12 @@ NVCC_FLAGS = (
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel did not build, load or launch. It marks a fault of the port,
+    never a load condition: callers let it through instead of serving the
+    plain version in its place."""
+
+
 def sources() -> dict[str, Path]:
     """Every kernel source of the port, by library name (the file stem)."""
     return {p.stem: p for p in sorted(KERNELS_DIR.glob("**/csrc/*.cu"))}
@@ -48,7 +54,7 @@ def nvcc() -> str:
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and (Path(root) / "bin" / "nvcc").is_file():
             return str(Path(root) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+    raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
 def _target(src: Path) -> Path:
@@ -91,7 +97,7 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
         lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        raise KernelError("nvcc failed:\n" + "\n".join(failures))
     return out
 
 
@@ -99,7 +105,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel source, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
+        path = build([name])[name]
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load {path}: {e}") from e
         _LIBS[name] = lib
     return lib
 

@@ -36,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core.matches import stable_topk
+from repro_torch.core.matches import NEG_INF, stable_topk, topk_by_id
 from repro_torch.core.precision import dot_f32
 from repro_torch.kernels import _build
 
@@ -261,6 +261,52 @@ def rect_tile_candidates_plain(
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def early_exit_walk(packets, ij, ub, nq_valid: int, *, grid_q: int, block_q: int, k: int):
+    """The strict early-exit rule in plain PyTorch, the one both early-exit
+    paths run: the worklist ``ij (2|3, T)`` walked in order with running
+    per-block top-k buffers.
+
+    Tile ``t`` is skipped when ``ub[t]`` is a padding bound (≤ −0.25e30) or
+    when every valid row (global row < ``nq_valid``; padded rows never pin a
+    block) of its query block holds a k-th value strictly above ``ub[t]``.
+    Once every valid row holds a k-th value above some bound, each later
+    tile under it is skipped without looking at the buffers (the global stop:
+    in a bound-descending worklist, the rest of it). Strict, where the
+    reference skips at k-th ≥ bound: ties are ordered by (value desc, id
+    asc), so a skipped tile holding a candidate equal to a row's k-th value
+    with a lower id would change the result. ``packets(t)`` gives tile
+    ``t``'s forward packet ``(1, block_q, k|k|1)``; each scored packet merges
+    into its block's buffer in that order, which is the fold's result.
+
+    Returns ``(values (grid_q·block_q, k), indices, counts saturated at k,
+    skipped (T,) bool)``, the buffers on ``ij``'s device.
+    """
+    dev = ij.device
+    cv = torch.full((grid_q, block_q, k), NEG_INF, device=dev)
+    ci = torch.full((grid_q, block_q, k), -1, dtype=torch.int32, device=dev)
+    cc = torch.zeros((grid_q, block_q), dtype=torch.int32, device=dev)
+    live = torch.arange(grid_q * block_q, device=dev).view(grid_q, block_q) < nq_valid
+    ubh = torch.as_tensor(ub).float().cpu().tolist()
+    skipped = torch.ones(len(ubh), dtype=torch.bool)
+    stop = NEG_INF  # every valid row's k-th value is above this
+    for t, qi in enumerate(ij[0].tolist()):
+        u = ubh[t]
+        if u <= _VALID or u < stop:
+            continue
+        kth = torch.where(live, cv[:, :, k - 1], float("inf"))
+        blk_min, stop = torch.stack([kth[qi].min(), kth.min()]).tolist()
+        if blk_min > u:
+            continue
+        fv, fi, fc = packets(t)
+        v, i = topk_by_id(torch.cat([cv[qi], fv[0]], 1), torch.cat([ci[qi], fi[0]], 1), k)
+        i = torch.where(v > _VALID, i, -1)
+        cv[qi] = torch.where(i >= 0, v, NEG_INF)
+        ci[qi] = i
+        cc[qi] += fc[0, :, 0]
+        skipped[t] = False
+    return cv.reshape(-1, k), ci.reshape(-1, k), cc.clamp_max(k).reshape(-1), skipped
+
+
 def rect_tile_candidates_early_exit_plain(
     Q: torch.Tensor,
     C: torch.Tensor,
@@ -274,40 +320,28 @@ def rect_tile_candidates_early_exit_plain(
     nc_valid: int,
     nq_valid: int,
 ):
-    """K5's function in plain PyTorch: the worklist walked in order with a
-    running per-row values buffer.
+    """K5's function in plain PyTorch: :func:`early_exit_walk` over K4's
+    plain per-tile packets, each scored packet kept at its worklist slot.
 
-    Tile ``t`` is skipped when ``ub[t]`` is a padding bound (≤ −0.25e30) or
-    when every valid row (global row < ``nq_valid``) of its query block holds
-    a k-th value strictly above ``ub[t]``. A skipped tile's packet is
-    ``(NEG_LARGE, -1, 0)``. Returns ``(fv, fi, fc, skipped)`` with
-    ``skipped (T, 1)`` int32.
+    A skipped tile's packet is ``(NEG_LARGE, -1, 0)``. Returns ``(fv, fi,
+    fc, skipped)`` with ``skipped (T, 1)`` int32.
     """
-    nq = Q.shape[0]
     dev = Q.device
     T = ij.shape[1]
     ij = ij.to(dev, torch.long)
-    wl = ij.cpu().numpy()
-    ubh = ub.float().cpu().tolist()
-    live = torch.arange(nq, device=dev).view(-1, block_q) < nq_valid
-    topv = torch.full((nq // block_q, block_q, k), NEG_LARGE, device=dev)
     fv = torch.full((T, block_q, k), NEG_LARGE, device=dev)
     fi = torch.full((T, block_q, k), -1, dtype=torch.int32, device=dev)
     fc = torch.zeros((T, block_q, 1), dtype=torch.int32, device=dev)
-    skipped = torch.ones((T, 1), dtype=torch.int32, device=dev)
-    for t in range(T):
-        qi, cj, u = int(wl[0, t]), int(wl[1, t]), ubh[t]
-        if u <= _VALID or not bool((live[qi] & ~(topv[qi, :, k - 1] > u)).any()):
-            continue
-        pv, pi, pc = rect_tile_candidates_plain(
-            Q, C, ij[:, t:t + 1], threshold, k, block_q=block_q, block_c=block_c,
-            nc_valid=nc_valid,
-        )
-        fv[t], fi[t], fc[t] = pv[0], pi[0], pc[0]
-        skipped[t] = 0
-        merged = torch.cat([topv[qi], pv[0]], dim=1)
-        topv[qi] = torch.sort(merged, dim=1, descending=True).values[:, :k]
-    return fv, fi, fc, skipped
+
+    def packets(t):
+        p = rect_tile_candidates_plain(Q, C, ij[:, t:t + 1], threshold, k, block_q=block_q,
+                                       block_c=block_c, nc_valid=nc_valid)
+        fv[t], fi[t], fc[t] = (a[0] for a in p)
+        return p
+
+    *_, skipped = early_exit_walk(packets, ij, ub, nq_valid, grid_q=Q.shape[0] // block_q,
+                                  block_q=block_q, k=k)
+    return fv, fi, fc, skipped.to(dev, torch.int32)[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +364,7 @@ def _entry(lib_name: str, symbol: str, argtypes: list):
 def _check_status(lib, name: str, status: int) -> None:
     if status != 0:
         msg = lib.apss_error_string(status).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (status {status})")
+        raise _build.KernelError(f"{name} kernel launch failed: {msg} (status {status})")
 
 
 def _check_operand(name: str, a: torch.Tensor) -> None:

@@ -6,7 +6,9 @@ retrieval server and report QPS.
         --corpus-n 4096 --corpus-m 2048 --requests 64 --batch 8
 
 Scoring runs on the card through the rectangular kernels
-(``use_kernel=True``); ``--device cpu`` runs their plain versions. The
+(``use_kernel=True``); ``--device cpu`` runs their plain versions. A run in
+which any batch was retried or served by a lower tier than the first exits
+non-zero after its report: its QPS is not the first tier's. The
 reference's ``--mode lm`` and ``--mode auto`` wait for ROADMAP queue 1
 items 9 and 5, ``--chaos`` and the trace/metrics exports for item 7.
 """
@@ -77,6 +79,8 @@ def run_retrieval(args) -> dict:
         f"{1e3 * dt / len(results):.2f} ms/query), {report['matches']} matches, "
         f"{report['ok']} exact, stats={srv.stats}"
     )
+    if srv.stats.degraded or srv.stats.retries:
+        raise SystemExit(f"[serve] scoring was retried or degraded: stats={srv.stats}")
     return report
 
 

@@ -12,7 +12,7 @@
 """
 
 from repro_torch.serving.index import APSSIndex, build_index, index_nbytes  # noqa: F401
-from repro_torch.serving.query import QueryStats, query_topk  # noqa: F401
+from repro_torch.serving.query import query_topk  # noqa: F401
 from repro_torch.serving.server import (  # noqa: F401
     ContinuousRetrievalServer,
     RetrievalResult,

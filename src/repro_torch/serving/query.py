@@ -14,29 +14,28 @@ mirror packets: queries are not corpus rows.
 of a block holds k values strictly above a tile's bound, no candidate of
 that tile (each ≤ the bound) can enter its top-k, so the tile is skipped;
 once that holds for every row, the scan stops. Values and ids equal the
-full scan's; counts saturate at ``min(count, k)``. The test is strict
-(k-th > bound, where the reference skips at k-th ≥ bound): the port orders
-ties by (value desc, id asc), so a skipped tile holding a candidate equal
-to a row's k-th value with a lower id would change the result.
+full scan's; counts saturate at ``min(count, k)``. K5 runs the rule on the
+card; everywhere else ``fused.early_exit_walk`` runs it, strict (k-th >
+bound) as its doc explains.
 
 The worklist is not bucket-padded: the reference pads it to a power of two
 only so that its jitted inners do not retrace, and eager PyTorch does not
-trace. Telemetry, metrics and trace hooks wait for ROADMAP queue 1 item 7;
-the sharded path (item 4) and ``plan=`` (item 5) are not ported yet.
+trace. ``TILES`` counts the tiles of every call, as ``fused.LAUNCHES``
+counts launches; telemetry, metrics and trace hooks wait for ROADMAP queue
+1 item 7; the sharded path (item 4) and ``plan=`` (item 5) are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
-from repro_torch.core.matches import NEG_INF, Matches, empty_matches, topk_by_id
+from repro_torch.core.matches import Matches, empty_matches
 from repro_torch.core.pruning import dense_block_stats, live_tile_mask
 from repro_torch.core.sparse import SparseCorpus, to_dense
 from repro_torch.kernels.apss_block.fused import (
-    _VALID,
+    early_exit_walk,
     rect_tile_candidates_early_exit_kernel,
     rect_tile_candidates_kernel,
     rect_tile_candidates_plain,
@@ -50,13 +49,9 @@ from repro_torch.kernels.apss_block.sparse import (
 from repro_torch.serving.index import APSSIndex
 
 
-class QueryStats(NamedTuple):
-    """Tiles of one ``query_topk`` call: live after pruning, in the grid, and
-    scored (fewer than live only under ``early_exit``)."""
-
-    live_tiles: int
-    total_tiles: int
-    scored_tiles: int
+# Tiles of the query_topk calls since the caller last set them to 0: in the
+# grid, live after pruning, and scored (fewer than live only under early_exit).
+TILES = {"total": 0, "live": 0, "scored": 0}
 
 
 def query_topk(
@@ -69,8 +64,7 @@ def query_topk(
     use_kernel: bool = False,
     use_minsize: bool = True,
     early_exit: bool = False,
-    return_stats: bool = False,
-):
+) -> Matches:
     """Top-k corpus neighbours ≥ ``threshold`` for a batch of queries.
 
     ``Q`` is ``(B, m)`` dense (numpy or a tensor; a :class:`SparseCorpus`
@@ -86,7 +80,7 @@ def query_topk(
     plain PyTorch (the reference has no kernel for it either) and scores
     each tile it does not skip through K6 or, without ``use_kernel``, its
     plain version. On a CPU index the wrappers run their plain versions.
-    ``return_stats=True`` also returns a :class:`QueryStats`.
+    Each call adds its tiles to ``TILES``.
     """
     Q = _queries(index, Q)
     B = Q.shape[0]
@@ -109,8 +103,9 @@ def query_topk(
             grid_q=grid_q, use_kernel=use_kernel, early_exit=early_exit,
         )
         out = Matches(values=values[:B], indices=indices[:B], counts=counts[:B])
-    if return_stats:
-        return out, QueryStats(live_tiles=T, total_tiles=int(mk.size), scored_tiles=scored)
+    TILES["total"] += int(mk.size)
+    TILES["live"] += T
+    TILES["scored"] += scored
     return out
 
 
@@ -158,10 +153,6 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
         def packets(ij_t):
             qg = gather_query_tiles(Qp, index.bdims, ij_t, block_q)
             return score(qg, index.bx, ij_t, threshold, k, nc_valid=index.n)
-
-        if early_exit:
-            return _ee_fold(packets, ij, ubw, B, dev=dev, **fold)
-        fv, fi, fc = packets(ij)
     elif early_exit and use_kernel:
         fv, fi, fc, skipped = rect_tile_candidates_early_exit_kernel(
             Qp, index.corpus, ij, torch.from_numpy(ubw).to(dev), **tile, **kw, nq_valid=B,
@@ -169,49 +160,17 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
         values, indices, counts = fold_rect_packets(
             ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
         return values, indices, counts.clamp_max(k), T - int(skipped.sum())
-    elif early_exit:
-        def packets(ij_t):
-            return rect_tile_candidates_plain(Qp, index.corpus, ij_t, **tile, **kw)
-
-        return _ee_fold(packets, ij, ubw, B, dev=dev, **fold)
     else:
         score = rect_tile_candidates_kernel if use_kernel else rect_tile_candidates_plain
-        fv, fi, fc = score(Qp, index.corpus, ij, **tile, **kw)
+
+        def packets(ij_t):
+            return score(Qp, index.corpus, ij_t, **tile, **kw)
+
+    if early_exit:
+        values, indices, counts, skipped = early_exit_walk(
+            lambda t: packets(ij[:, t:t + 1]), ij, ubw, B, **fold)
+        return values, indices, counts, T - int(skipped.sum())
+    fv, fi, fc = packets(ij)
     values, indices, counts = fold_rect_packets(
         ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
     return values, indices, counts, T
-
-
-def _ee_fold(packets, ij, ub, nq_valid, *, grid_q, block_q, k, dev):
-    """Score and fold the worklist in order with early exit (plain PyTorch).
-
-    ``packets(ij[:, t:t+1])`` gives tile ``t``'s forward packet. The running
-    per-block top-k buffers merge each scored packet by (value desc, id
-    asc), which gives the fold's result. Tile ``t`` is skipped when every
-    valid row (global row < ``nq_valid``; padded rows never pin a block) of
-    its query block holds a k-th value strictly above ``ub[t]``; the scan
-    stops when every valid row does. Returns ``(values, indices, counts,
-    scored_tiles)`` with counts saturated at k.
-    """
-    cv = torch.full((grid_q, block_q, k), NEG_INF, device=dev)
-    ci = torch.full((grid_q, block_q, k), -1, dtype=torch.int32, device=dev)
-    cc = torch.zeros((grid_q, block_q), dtype=torch.int32, device=dev)
-    live = torch.arange(grid_q * block_q, device=dev).view(grid_q, block_q) < nq_valid
-    qis = ij[0].tolist()
-    scored = 0
-    for t, qi in enumerate(qis):
-        u = float(ub[t])
-        kth = torch.where(live, cv[:, :, k - 1], float("inf"))
-        blk_min, all_min = torch.stack([kth[qi].min(), kth.min()]).tolist()
-        if all_min > u:
-            break  # every later tile's bound is ≤ u (descending order)
-        if blk_min > u:
-            continue
-        fv, fi, fc = packets(ij[:, t:t + 1])
-        v, i = topk_by_id(torch.cat([cv[qi], fv[0]], 1), torch.cat([ci[qi], fi[0]], 1), k)
-        i = torch.where(v > _VALID, i, -1)
-        cv[qi] = torch.where(i >= 0, v, NEG_INF)
-        ci[qi] = i
-        cc[qi] += fc[0, :, 0]
-        scored += 1
-    return (cv.reshape(-1, k), ci.reshape(-1, k), cc.clamp_max(k).reshape(-1), scored)

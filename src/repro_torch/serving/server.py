@@ -20,6 +20,13 @@ prefers a worse answer now over a perfect answer too late:
   to the next; when every tier fails, a stale LRU entry (past ``ttl_s``)
   still answers (``status="stale"``) and only cache misses fail.
 
+The ladder absorbs what load and injected faults cause, not faults of the
+code: a :class:`~repro_torch.kernels._build.KernelError` (a kernel that does
+not build, load or launch) or a ``ValueError`` (a wrapper refusing its
+operands) would fail every retry alike, and degrading past it would hide a
+broken kernel behind the plain tier. It propagates from ``step()``, or, in
+the continuous server, stops the workers and re-raises from ``result()``.
+
 Each event is counted in :class:`ServerStats`. Adversarial input is
 rejected at ``submit``: non-numeric dtypes, non-finite values and a wrong
 dimension raise ``ValueError``; an all-zero query is served (it normalizes
@@ -43,8 +50,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.apss import normalize_rows
+from repro_torch.kernels._build import KernelError
 from repro_torch.serving.index import APSSIndex
 from repro_torch.serving.query import query_topk
+
+# Faults of the code, not of the load: never retried, never degraded past.
+_CODE_FAULTS = (KernelError, ValueError)
 
 
 class RetrievalResult(NamedTuple):
@@ -127,9 +138,9 @@ class RetrievalServer:
         self._cache: collections.OrderedDict[
             str, tuple[RetrievalResult, float, int]
         ] = collections.OrderedDict()
-        # pending: (rid, query, cache key, absolute deadline | inf, submit time)
+        # pending: (rid, query, cache key, absolute deadline | inf)
         self._pending: collections.deque[
-            tuple[int, np.ndarray, str, float, float]
+            tuple[int, np.ndarray, str, float]
         ] = collections.deque()
         self._results: dict[int, RetrievalResult] = {}
         self._next_id = 0
@@ -141,8 +152,6 @@ class RetrievalServer:
         self._retries = 0
         self._stale = 0
         self._ladder_lock = threading.Lock()  # scoring runs outside the server lock
-        # submit → latch seconds (host clock) of every request a batch answered
-        self.latencies_s: list[float] = []
 
     # -- input contract -----------------------------------------------------
 
@@ -189,7 +198,7 @@ class RetrievalServer:
         budget = deadline_s if deadline_s is not None else self.deadline_s
         now = time.monotonic()
         deadline = now + budget if budget is not None else np.inf
-        self._pending.append((rid, q, key, deadline, now))
+        self._pending.append((rid, q, key, deadline))
         return rid
 
     # -- request lifecycle --------------------------------------------------
@@ -211,6 +220,7 @@ class RetrievalServer:
         Each tier gets ``1 + max_retries`` attempts with exponential
         backoff; a tier that stays down degrades to the next, and ``None``
         means every tier failed (the caller falls to stale answers).
+        ``_CODE_FAULTS`` propagate at once (module doc).
         """
         for nth, (tier, use_k) in enumerate(self._tiers()):
             delay = self.backoff_s
@@ -226,6 +236,8 @@ class RetrievalServer:
                         with self._ladder_lock:
                             self._degraded += 1
                     return m, tier
+                except _CODE_FAULTS:
+                    raise
                 except Exception:
                     if attempt < self.max_retries:
                         with self._ladder_lock:
@@ -238,7 +250,7 @@ class RetrievalServer:
 
     def _batch_queries(self, batch) -> torch.Tensor:
         Q = np.zeros((self.max_batch, self.index.m), np.float32)
-        for slot, (_, q, _, _, _) in enumerate(batch):
+        for slot, (_, q, _, _) in enumerate(batch):
             Q[slot] = q
         Q = torch.from_numpy(Q).to(self.index.device)
         return normalize_rows(Q) if self.normalize else Q
@@ -279,10 +291,8 @@ class RetrievalServer:
     def _latch_batch(self, batch, m) -> None:
         """Latch each request's result (or, with ``m`` None, its stale cache
         entry, else ``"failed"``)."""
-        now = time.monotonic()
-        self.latencies_s.extend(now - born for *_, born in batch)
         if m is None:
-            for rid, _, key, _, _ in batch:
+            for rid, _, key, _ in batch:
                 stale = self._cache_get(key, stale_ok=True)
                 if stale is not None:
                     self._stale += 1
@@ -293,7 +303,7 @@ class RetrievalServer:
         values = m.values.cpu().numpy()
         indices = m.indices.cpu().numpy()
         counts = m.counts.cpu().numpy()
-        for slot, (rid, _, key, _, _) in enumerate(batch):
+        for slot, (rid, _, key, _) in enumerate(batch):
             # Frozen per-request copies: the cache and every client hold the
             # same arrays, so an in-place edit by one caller raises instead.
             v = values[slot].copy()
@@ -384,7 +394,8 @@ class ContinuousRetrievalServer(RetrievalServer):
     Threading: one lock guards the queue, results, cache and counters;
     scoring runs outside it. Deadline sheds happen at batch assembly, as in
     the step server. ``step()`` is a no-op; use ``result()``/``serve()``,
-    and ``close()`` (or the context manager) to stop the workers.
+    and ``close()`` (or the context manager) to stop the workers. A fault of
+    the code in any worker stops them all; ``result()`` re-raises it.
     """
 
     def __init__(self, index: APSSIndex, *, workers: int = 2, **kwargs):
@@ -393,6 +404,7 @@ class ContinuousRetrievalServer(RetrievalServer):
         self._work_ready = threading.Condition(self._lock)
         self._done = threading.Condition(self._lock)
         self._stop = False
+        self._error: Optional[BaseException] = None  # a worker's fault, re-raised
         self._batch_seq = 0  # the continuous analogue of the step count
         self._inflight: set[int] = set()  # claimed by a worker, not latched
         self._workers = [
@@ -406,8 +418,6 @@ class ContinuousRetrievalServer(RetrievalServer):
     def close(self) -> None:
         """Stop the workers (idempotent). Pending requests stay queued."""
         with self._lock:
-            if self._stop:
-                return
             self._stop = True
             self._work_ready.notify_all()
         for w in self._workers:
@@ -440,6 +450,8 @@ class ContinuousRetrievalServer(RetrievalServer):
         deadline = time.monotonic() + timeout_s if timeout_s is not None else None
         with self._lock:
             while rid not in self._results:
+                if self._error is not None:
+                    raise self._error
                 if rid >= self._next_id or (
                     rid not in self._inflight and all(p[0] != rid for p in self._pending)
                 ):
@@ -491,7 +503,14 @@ class ContinuousRetrievalServer(RetrievalServer):
             # other workers from draining arrivals.
             if self.fault_plan is not None:
                 self.fault_plan.delay("serving", step=seq)
-            m, _tier = self._score_batch(self._batch_queries(batch))
+            try:
+                m, _tier = self._score_batch(self._batch_queries(batch))
+            except BaseException as e:
+                with self._lock:
+                    self._error, self._stop = e, True
+                    self._work_ready.notify_all()
+                    self._done.notify_all()
+                return
             with self._lock:
                 self._steps += 1
                 self._latch_batch(batch, m)

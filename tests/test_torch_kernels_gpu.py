@@ -357,7 +357,7 @@ def test_k5_kernel_matches_plain_with_padding(card):
 def test_k5_tie_probe_on_card(card):
     """The strict skip test: a tile whose bound equals every row's k-th value
     exactly is scored, so the lower ids of the tie win, as in K4 + fold."""
-    from repro_torch.serving import build_index, query_topk
+    from repro_torch.serving import build_index, query, query_topk
 
     k = 4
     C = np.zeros((128, 64), np.float32)
@@ -368,11 +368,11 @@ def test_k5_tie_probe_on_card(card):
     Q[0, 3] = Q[1, 17] = 1.0
     index = build_index(C, block_rows=64, normalize=False)
     full = query_topk(index, Q, 0.5, k, block_q=8, use_kernel=True)
-    ee, stats = query_topk(index, Q, 0.5, k, block_q=8, use_kernel=True, early_exit=True,
-                           return_stats=True)
+    query.TILES.update(total=0, live=0, scored=0)
+    ee = query_topk(index, Q, 0.5, k, block_q=8, use_kernel=True, early_exit=True)
     assert full.indices.tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]
     assert torch.equal(ee.indices, full.indices) and torch.equal(ee.values, full.values)
-    assert stats.scored_tiles == 2
+    assert query.TILES["scored"] == 2
 
 
 @pytest.mark.parametrize("block_q", [8, 64])
@@ -413,6 +413,26 @@ def test_query_topk_on_card_matches_plain_path(card, kind):
         assert got.values.device.type == "cuda"
         counts = ref.counts.clamp_max(16) if early_exit else ref.counts
         _assert_close((got.values, got.indices, got.counts), (ref.values, ref.indices, counts))
+
+
+def test_server_raises_when_a_kernel_refuses_its_operands(card):
+    """The degradation ladder does not hide a kernel fault: a batch width K4
+    does not take (block_q 12) raises instead of falling to the plain tier."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import RetrievalServer, build_index
+
+    D = _corp(200, 96, seed=41)
+    index = build_index(D, block_rows=64, normalize=False)
+    kw = dict(threshold=0.3, k=8, use_kernel=True, cache_size=0)
+    good = RetrievalServer(index, max_batch=8, **kw)
+    before = fused.LAUNCHES["rect_tile_candidates"]
+    assert good.result(good.submit(D[0])).status == "ok"
+    assert fused.LAUNCHES["rect_tile_candidates"] == before + 1
+    assert good.stats.degraded == good.stats.retries == 0
+    bad = RetrievalServer(index, max_batch=12, **kw)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bad.result(bad.submit(D[0]))
+    assert bad.stats.degraded == bad.stats.retries == 0
 
 
 def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):

@@ -49,8 +49,15 @@ from repro_torch.data import sparse as tdata  # noqa: E402
 from repro_torch.kernels.apss_block import fused, ops  # noqa: E402
 from repro_torch.kernels.apss_block import sparse as tks  # noqa: E402
 from repro_torch.serving import build_index, index_nbytes, query_topk  # noqa: E402
+from repro_torch.serving import query as tquery  # noqa: E402
 
 NEG_LARGE = fused.NEG_LARGE
+
+
+def _query_tiles(*args, **kw):
+    """``query_topk`` and the tiles it added to ``query.TILES``."""
+    tquery.TILES.update(total=0, live=0, scored=0)
+    return query_topk(*args, **kw), dict(tquery.TILES)
 
 
 def _corpus_queries(n, m, density, nq, seed):
@@ -355,9 +362,8 @@ def test_query_topk_all_pruned_and_input_checks():
         index = _index(C, kind, 32)
         got = query_topk(index, Q, 1.5, 4, block_q=8)  # no pair reaches t
         assert (host(got.indices) == -1).all() and (host(got.counts) == 0).all()
-        zero, stats = query_topk(index, np.zeros((2, 64), np.float32), 0.1, 4,
-                                 block_q=8, return_stats=True)
-        assert stats.live_tiles == 0 and stats.total_tiles == 4  # all pruned
+        zero, tiles = _query_tiles(index, np.zeros((2, 64), np.float32), 0.1, 4, block_q=8)
+        assert tiles == {"total": 4, "live": 0, "scored": 0}  # all pruned
         assert (host(zero.counts) == 0).all() and np.isneginf(host(zero.values)).all()
         sq = query_topk(index, from_dense(Q, device="cpu"), 0.3, 4, block_q=8)
         assert_same_matches(sq, _oracle(Q, C, 0.3, 4))
@@ -389,16 +395,15 @@ def test_early_exit_skips_tiles_on_overlap_clusters(kind, use_kernel):
     corpus = sp if kind == "sparse" else host(to_dense(sp))
     index = build_index(corpus, block_rows=64, normalize=False, device="cpu")
     ref = query_topk(index, Q, 0.01, 8)
-    got, stats = query_topk(index, Q, 0.01, 8, early_exit=True, use_kernel=use_kernel,
-                            return_stats=True)
+    got, tiles = _query_tiles(index, Q, 0.01, 8, early_exit=True, use_kernel=use_kernel)
     _assert_ee_exact(ref, got, 8)
-    assert stats.scored_tiles < stats.live_tiles
+    assert tiles["scored"] < tiles["live"]
     jcorpus = jsp if kind == "sparse" else jsparse.to_dense(jsp)
     jidx = jindex.build_index(jcorpus, block_rows=64, normalize=False)
     with MetricsRegistry() as reg:
         jquery.query_topk(jidx, jnp.asarray(Q), 0.01, 8, early_exit=True)
     skipped = int(reg.counters.get("serving.early_exit_skipped_tiles", 0))
-    assert stats.live_tiles - stats.scored_tiles == skipped > 0
+    assert tiles["live"] - tiles["scored"] == skipped > 0
 
 
 def _tie_probe(k=4):
@@ -430,10 +435,10 @@ def test_early_exit_tie_probe_keeps_lower_ids(kind):
     _, wl, ubw = _k5_inputs(index, Q, 0.5, 8)
     assert wl[1].tolist() == [1, 0] and ubw[1].item() == 1.0  # bound = k-th value
     for use_kernel in (False, True):
-        got, stats = query_topk(index, Q, 0.5, k, block_q=8, early_exit=True,
-                                use_kernel=use_kernel, return_stats=True)
+        got, tiles = _query_tiles(index, Q, 0.5, k, block_q=8, early_exit=True,
+                                  use_kernel=use_kernel)
         _assert_ee_exact(ref, got, k)
-        assert stats.scored_tiles == 2  # strict: the tied tile is scored
+        assert tiles["scored"] == 2  # strict: the tied tile is scored
     # the JAX scan skips the tied tile (k-th ≥ bound) and keeps block 1's ids
     jidx = _jindex(C, kind, 64)
     jee = jquery.query_topk(jidx, jnp.asarray(Q), 0.5, k, block_q=8, early_exit=True)

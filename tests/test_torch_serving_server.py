@@ -28,6 +28,8 @@ from repro.serving import build_index as jbuild  # noqa: E402
 from repro.serving import query_topk as jquery  # noqa: E402
 from repro_torch.core.matches import extract_matches  # noqa: E402
 from repro_torch.core.precision import dot_f32  # noqa: E402
+from repro_torch.kernels._build import KernelError  # noqa: E402
+from repro_torch.serving import server as tserver  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ContinuousRetrievalServer,
     RetrievalServer,
@@ -98,7 +100,7 @@ def test_batched_equals_one_shot_and_jax(case, server):
     with contextlib.closing(srv):
         results = srv.serve([Q[i] for i in range(10)])
     assert len(results) == 10 and all(r.status == "ok" for r in results)
-    assert len(srv.latencies_s) == 10
+    assert srv.stats.requests == 10 and srv.stats.cache_hits == 0
     if server == "step":
         assert srv.stats.steps == 3
     for i, res in enumerate(results):
@@ -173,6 +175,33 @@ def test_transient_error_recovers_by_retry(case):
     res = srv.result(srv.submit(C[3]))
     _assert_result_is(res, C, C[3])
     assert srv.stats.retries == 1 and srv.stats.degraded == 0
+
+
+@pytest.mark.parametrize("server", ["step", "continuous"])
+@pytest.mark.parametrize("fault", [KernelError("rect_tile_candidates kernel launch failed"),
+                                   ValueError("block_q must be a multiple of 8")],
+                         ids=["kernel_error", "refused_operands"])
+def test_kernel_fault_propagates_instead_of_degrading(case, monkeypatch, server, fault):
+    """A kernel that does not build or launch, or refuses its operands, is
+    raised to the caller: the plain tier must not hide it."""
+    C, _, index = case
+    calls = []
+
+    def broken(*args, use_kernel=False, **kw):
+        calls.append(use_kernel)
+        if use_kernel:
+            raise fault
+        return query_topk(*args, use_kernel=use_kernel, **kw)
+
+    monkeypatch.setattr(tserver, "query_topk", broken)
+    kw = dict(threshold=T, k=K, cache_size=0, use_kernel=True, max_retries=2,
+              backoff_s=0.001)
+    srv = (ContinuousRetrievalServer(index, workers=2, **kw) if server == "continuous"
+           else RetrievalServer(index, **kw))
+    with contextlib.closing(srv), pytest.raises(type(fault), match=str(fault)):
+        srv.result(srv.submit(C[2]))
+    assert calls == [True]
+    assert srv.stats.retries == 0 and srv.stats.degraded == 0
 
 
 def test_all_tiers_down_serves_stale_then_fails_on_miss(case):
@@ -263,7 +292,7 @@ def test_continuous_many_workers_lose_no_update(case):
     assert len(set(rids)) == 120
     st = srv.stats
     assert st.requests == 120 and st.degraded == st.retries == st.shed == 0
-    assert st.cache_hits + len(srv.latencies_s) == 120
+    assert sum(r.cached for r in results) == st.cache_hits
     for i, res in enumerate(results):
         assert res.status == "ok"
         np.testing.assert_array_equal(res.indices, want[i % 10].indices[0].numpy())
@@ -291,3 +320,20 @@ def test_launch_serve_retrieval_mode(server, capsys):
     assert report["queries"] == 24 and report["ok"] == 24
     assert report["stats"]["degraded"] == 0 and report["matches"] > 0
     assert "QPS" in capsys.readouterr().out
+
+
+def test_launch_serve_exits_nonzero_when_degraded(monkeypatch, capsys):
+    """A run whose batches fell down the ladder reports, then fails."""
+    from repro_torch.launch import serve
+
+    def down(*args, **kw):
+        raise RuntimeError("scoring unavailable")
+
+    monkeypatch.setattr(tserver, "query_topk", down)
+    with pytest.raises(SystemExit, match="retried or degraded"):
+        serve.main([
+            "--mode", "retrieval", "--corpus-n", "256", "--corpus-m", "128",
+            "--requests", "8", "--batch", "8", "--block", "64", "--k", "4",
+            "--server", "step", "--device", "cpu",
+        ])
+    assert "0 exact" in capsys.readouterr().out

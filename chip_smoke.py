@@ -54,14 +54,45 @@ Phases, each printing one JSON line:
     through K5 and sparse through the plain scan with K6 tiles; both skip
     tiles and equal their full scans; scored tiles of the kernel and of the
     plain scan side by side.
-14. ``kernels``: per kernel and main-path shape, launches on the main path,
+14. ``lm_edge_probes`` (not timed): K8 (flash attention, through
+    ``kernels.flash_attention.flash_attention``) and K9 (flash-decode
+    partials) against their plain versions, in f32 and bf16: S = 1, S not a
+    multiple of the tile, q heads per kv head of 1, 2 and 8, head dims 16,
+    64 and 128, non-causal at a divisible S, and the non-causal
+    ``ValueError``; cache lengths 0, 1 and L with L not a multiple of a tile.
+15. ``lm_prefill_qwen3_1_7b``: the full qwen3-1.7b config in bf16, weights
+    from ``torch.Generator`` seed 0 on the card, tokens (2, 4096) from numpy
+    seed 0. ``prefill`` (K8 in every layer) against ``use_kernel=False``;
+    ``transformer_logits`` on both paths over all 8,192 positions (largest
+    |Δlogit|, top-1 agreement), in bf16 and with the same weights in f32:
+    top-1 agreement ≥ 99 % in f32, and in bf16 the kernel path no farther
+    from the f32 model's top-1 than the plain path (within 1 % of the
+    positions). The top-2 margins of this random-weight model are often
+    below bf16's rounding noise, so each bf16 path parts from the f32 model
+    at a few percent of the positions and bf16 agreement is printed, not
+    held to 99 %. K8 at one layer's shapes against its plain version in
+    bf16 and f32.
+16. ``lm_decode_qwen3_1_7b_32k``: the same model and a seeded random KV
+    cache of 8 sequences × 32,768 positions (30.1 GB), lengths from numpy
+    seed 0 in [1, 32767] with one at 32767: ``decode_step`` (K9 in every
+    layer, lengths restored between repeats, the update being in place)
+    against the plain path (largest |Δlogit|, top-1 agreement); K9 at one
+    layer's shapes against its plain version.
+17. ``lm_server_qwen3_1_7b``: the port's ``LMServer`` (max_batch 8, max_len
+    512) on the same model, 4 requests of a 16-token prompt (numpy seed 1)
+    and 32 generated tokens: tokens/s, ms per step, K9 launches (28 per
+    step). Its token streams must equal the plain path's server; where they
+    part, the plain path's top-2 logit margin at that step must be at most
+    phase 16's largest |Δlogit|.
+18. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound, and
     the largest value difference from the plain version.
 
-The main-path phases (6-13) drive the port's entry points
+The main-path phases (6-13 and 15-17) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
-``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6) with the
+``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6;
+``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9) with the
 launch counts set to 0 just before and read just after, each serving path
 (batch size, early exit, server) on its own, and hold the
 results against the plain paths on the card. Comparison rule (the
@@ -80,6 +111,8 @@ non-zero before it.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -127,7 +160,18 @@ KERNEL_INFO = {
         source="src/repro_torch/kernels/apss_block/csrc/rect_sparse_tile_candidates.cu",
         replaces="src/repro/kernels/apss_block/sparse.py:296",
     ),
+    "flash_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+    ),
+    "decode_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:102",
+    ),
 }
+LM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # K8/K9 against their plain versions
 
 
 class PhaseFailed(Exception):
@@ -206,6 +250,13 @@ def main() -> int:
     del sp
     torch.cuda.empty_cache()
     rows.append(serve_early_exit_phase(np, torch, "serve_early_exit_overlap"))
+    torch.cuda.empty_cache()
+    lm_edge_probes(np, torch)
+    cfg, model = lm_model(torch)
+    rows.append(lm_prefill_phase(np, torch, "lm_prefill_qwen3_1_7b", cfg, model))
+    row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_qwen3_1_7b_32k", cfg, model)
+    rows.append(row)
+    lm_server_phase(np, torch, "lm_server_qwen3_1_7b", cfg, model, max_dlogit)
     emit("kernels", kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -321,6 +372,36 @@ def wall_ms(np, torch, fn, reps: int = REPS) -> dict:
     """Median, min and max host-clock ms of ``reps`` more calls of one path."""
     times = [timed(torch, fn)[1] for _ in range(reps)]
     return dict(median=float(np.median(times)), min=min(times), max=max(times))
+
+
+def profiled(torch, fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: host-clock ms, the number
+    of top-level host ops, the device launches and their summed device time
+    (the device's busy time, kernels not overlapping), the idle share, and
+    the ``top`` kernels by device time; ``None`` where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    host_ops = sum(1 for e in prof.events()
+                   if e.device_type != cuda and e.cpu_parent is None)
+    events = [e for e in prof.key_averages()  # kernels, memcpys and memsets, not the ops
+              if e.device_type == cuda and e.self_device_time_total > 0]
+    if not events:  # the profiler saw no device time: not measured
+        return dict(wall_ms=wall, host_ops=host_ops, device_busy_ms=None, idle_share=None,
+                    top=[])
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return dict(wall_ms=wall, host_ops=host_ops, device_launches=sum(e.count for e in events),
+                device_busy_ms=busy, idle_share=1 - busy / wall,
+                top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, count=e.count)
+                     for e in events[:top]])
 
 
 def bound(flop: float, nbytes: float) -> tuple[float, str]:
@@ -491,17 +572,22 @@ def generated(torch, make):
     return out, time.perf_counter() - t0
 
 
-def reset_launches():
-    from repro_torch.kernels.apss_block import fused
+def launch_counters() -> list:
+    import importlib
 
-    for key in fused.LAUNCHES:
-        fused.LAUNCHES[key] = 0
+    return [importlib.import_module(f"repro_torch.kernels.{m}").LAUNCHES for m in (
+        "apss_block.fused", "flash_attention.flash_attention",
+        "decode_attention.decode_attention")]
+
+
+def reset_launches():
+    for counts in launch_counters():
+        for key in counts:
+            counts[key] = 0
 
 
 def launches_now() -> dict:
-    from repro_torch.kernels.apss_block import fused
-
-    return dict(fused.LAUNCHES)
+    return {k: v for counts in launch_counters() for k, v in counts.items()}
 
 
 def packet_compare(np, phase, name, pk, pp, ij, *, grid, bm, k, t, near_p):
@@ -1276,6 +1362,345 @@ def serve_early_exit_phase(np, torch, phase) -> dict:
     del dense, spidx
     torch.cuda.empty_cache()
     return row
+
+# ---------------------------------------------------------------------------
+# LM serving: K8 (prefill) and K9 (decode)
+# ---------------------------------------------------------------------------
+
+
+def _attention_modules():
+    import importlib
+
+    return (importlib.import_module("repro_torch.kernels.flash_attention.flash_attention"),
+            importlib.import_module("repro_torch.kernels.decode_attention.decode_attention"))
+
+
+def _raises(fn, exc) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def _dtype_name(torch, dtype) -> str:
+    return "bfloat16" if dtype == torch.bfloat16 else "float32"
+
+
+def _k9_compare(torch, got, want) -> dict:
+    """K9 partials against the plain version's: normalised output, m, l."""
+    (acc, m, l), (pacc, pm, pl) = got, want
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    pout = pacc / torch.where(pl == 0, 1.0, pl)[..., None]
+    l_rel = ((l - pl).abs() / torch.where(pl == 0, 1.0, pl)).max().item()
+    return dict(max_abs_err=(out - pout).abs().max().item(),
+                m_err=(m - pm).abs().max().item(), l_rel_err=l_rel)
+
+
+def _k9_ok(cmp: dict, dtype_name: str) -> bool:
+    return (cmp["max_abs_err"] <= LM_ATOL[dtype_name] and cmp["m_err"] <= 2e-5
+            and cmp["l_rel_err"] <= 1e-5)
+
+
+K8_PROBES = [  # B, Hq, Hkv, S, D, causal
+    (1, 2, 2, 1, 16, True),       # S = 1, group 1
+    (2, 4, 2, 130, 64, True),     # S not a multiple of the tile, group 2
+    (1, 8, 1, 200, 128, True),    # group 8
+    (2, 16, 8, 256, 128, False),  # non-causal, divisible S
+]
+K9_PROBES = [  # B, Hq, Hkv, L, D, lengths
+    (3, 2, 2, 100, 16, [0, 1, 100]),    # lengths 0, 1 and L; group 1
+    (3, 4, 2, 1000, 64, [0, 1, 1000]),  # L not a multiple of a tile; group 2
+    (2, 16, 2, 777, 128, [777, 5]),     # group 8
+]
+
+
+def lm_edge_probes(np, torch) -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    k8, k9 = _attention_modules()
+    g = torch.Generator("cuda").manual_seed(0)
+
+    def normal(shape, dtype):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    errs, bad = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = _dtype_name(torch, dtype)
+        for B, Hq, Hkv, S, D, causal in K8_PROBES:
+            q, k, v = normal((B, Hq, S, D), dtype), normal((B, Hkv, S, D), dtype), \
+                normal((B, Hkv, S, D), dtype)
+            got = flash_attention(q, k, v, causal=causal)
+            want = k8.flash_attention_plain(q, k, v, causal=causal)
+            name = f"k8_{B}x{Hq}x{Hkv}x{S}x{D}_{'causal' if causal else 'full'}_{dn}"
+            errs[name] = (got.float() - want.float()).abs().max().item()
+            if not (got.dtype == dtype and errs[name] <= LM_ATOL[dn]):
+                bad.append(name)
+        for B, Hq, Hkv, L, D, lengths in K9_PROBES:
+            q, k, v = normal((B, Hq, D), dtype), normal((B, Hkv, L, D), dtype), \
+                normal((B, Hkv, L, D), dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens),
+                              k9.decode_attention_plain(q, k, v, lens))
+            name = f"k9_{B}x{Hq}x{Hkv}x{L}x{D}_len{'-'.join(map(str, lengths))}_{dn}"
+            errs[name] = cmp
+            if not _k9_ok(cmp, dn):
+                bad.append(name)
+    torch.cuda.synchronize()
+    q = normal((1, 2, 130, 64), torch.float32)
+    noncausal_raises = _raises(lambda: flash_attention(q, q, q, causal=False), ValueError)
+    emit("lm_edge_probes", errors=errs, noncausal_value_error=noncausal_raises)
+    check(not bad, f"lm_edge_probes: kernel differs from its plain version: {bad}")
+    check(noncausal_raises, "lm_edge_probes: non-causal ragged S did not raise")
+
+
+def _top1(a, b) -> int:
+    """Positions whose top-1 token is the same in two logit tensors."""
+    return int((a.argmax(-1) == b.argmax(-1)).sum())
+
+
+def _max_dlogit(a, b) -> float:
+    return max((a[i].float() - b[i].float()).abs().max().item() for i in range(a.shape[0]))
+
+
+def lm_model(torch):
+    """The full qwen3-1.7b config in bf16, weights from seed 0 on the card."""
+    from repro_torch.configs.qwen3_1_7b import config
+    from repro_torch.models.transformer import count_params, init_transformer
+
+    cfg = config()
+    model, init_s = generated(torch, lambda: init_transformer(
+        cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda"))
+    n = count_params(cfg)
+    check(n == sum(p.numel() for p in model.parameters()), "lm_model: parameter count")
+    emit("lm_model", config=cfg.name, params=n,
+         weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+         init_seconds=init_s)
+    return cfg, model
+
+
+def lm_prefill_phase(np, torch, phase, cfg, model, *, batch=2, seq=4096) -> dict:
+    from repro_torch.models.transformer import prefill, transformer_logits
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
+    reset_launches()
+    logits, first_ms = timed(torch, lambda: prefill(model, cfg, tokens))
+    launches = launches_now()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{phase}: K8 launched {launches['flash_attention']} times, not {cfg.n_layers}")
+    check(tuple(logits.shape) == (batch, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{phase}: prefill logits {tuple(logits.shape)} not finite or misshaped")
+    wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens))
+    profile = profiled(torch, lambda: prefill(model, cfg, tokens))
+    plain = prefill(model, cfg, tokens, use_kernel=False)
+    plain_wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens, use_kernel=False))
+    prefill_dlogit = (logits - plain).abs().max().item()
+    n = batch * seq
+    lk = transformer_logits(model, cfg, tokens)
+    lp = transformer_logits(model, cfg, tokens, use_kernel=False)
+    finite = bool(torch.isfinite(lk).all())
+    # The same weights in f32: K8 and the plain path then differ only in the
+    # order of their f32 sums, below bf16's rounding noise.
+    m32, cfg32 = copy.deepcopy(model).float(), dataclasses.replace(cfg, dtype=torch.float32)
+    lk32 = transformer_logits(m32, cfg32, tokens)
+    lp32 = transformer_logits(m32, cfg32, tokens, use_kernel=False)
+    del m32
+    agree = dict(bf16=_top1(lk, lp), f32=_top1(lk32, lp32),
+                 bf16_kernel_vs_f32=_top1(lk, lp32), bf16_plain_vs_f32=_top1(lp, lp32))
+    dlogit = dict(bf16=_max_dlogit(lk, lp), f32=_max_dlogit(lk32, lp32))
+    del lk, lp, lk32, lp32
+    torch.cuda.empty_cache()
+    emit(phase, batch=batch, seq=seq, launches=launches, first_call_ms=first_ms,
+         wall_ms=wall, plain_wall_ms=plain_wall, profile=profile,
+         prefill_max_abs_dlogit=prefill_dlogit,
+         prefill_top1_equal=int((logits.argmax(-1) == plain.argmax(-1)).sum()),
+         logits_max_abs_dlogit=dlogit, logits_top1_agree=agree, positions=n,
+         top1_agreement={k: v / n for k, v in agree.items()})
+    check(finite, f"{phase}: transformer_logits not finite")
+    check(agree["f32"] >= 0.99 * n, f"{phase}: f32 top-1 agreement {agree['f32']}/{n}")
+    check(agree["bf16_kernel_vs_f32"] >= agree["bf16_plain_vs_f32"] - 0.01 * n,
+          f"{phase}: in bf16 the kernel path is farther from the f32 model than the plain "
+          f"path: {agree}")
+    return k8_row(np, torch, phase, launches, batch, cfg.n_heads, cfg.n_kv_heads, seq,
+                  cfg.head_dim)
+
+
+def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
+    """K8 at one layer's shapes: bf16 (the model's dtype) and f32 against the
+    plain version; times in bf16 beside SDPA (flash, GQA, causal)."""
+    import torch.nn.functional as F
+
+    k8, _ = _attention_modules()
+    g = torch.Generator("cuda").manual_seed(1)
+    q32, k32, v32 = (torch.randn(shape, generator=g, device="cuda")
+                     for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (a.to(dtype) for a in (q32, k32, v32))
+        got = k8.flash_attention_kernel(q, k, v)
+        want = k8.flash_attention_plain(q, k, v)
+        dn = _dtype_name(torch, dtype)
+        errs[dn] = (got.float() - want.float()).abs().max().item()
+        check(errs[dn] <= LM_ATOL[dn], f"{phase}: K8 differs from its plain version in {dn}: "
+              f"{errs[dn]}")
+        del got, want
+    scale = 1.0 / D ** 0.5
+    flop = 4.0 * D * (S * (S + 1) / 2) * B * Hq
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    row = kernel_row(
+        np, torch, "flash_attention", phase, launches, dict(max_abs_err=errs["bfloat16"]),
+        lambda: k8.flash_attention_kernel(q, k, v),
+        lambda: k8.flash_attention_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                               enable_gqa=True),
+        flop, nbytes)
+    row.update(shape=[B, Hq, Hkv, S, D], dtype="bfloat16", max_abs_err_f32=errs["float32"],
+               per_prefill_bound_ms=row["bound_ms"] * launches["flash_attention"])
+    return row
+
+
+def lm_decode_phase(np, torch, phase, cfg, model, *, batch=8, max_len=32768):
+    """Returns the K9 row and the largest |Δlogit| between the two paths."""
+    from repro_torch.models.transformer import decode_step, make_cache
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1, max_len, size=batch)  # in [1, max_len - 1]
+    lens[0] = max_len - 1
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, batch).astype(np.int32)).cuda()
+    lens_t = torch.from_numpy(lens.astype(np.int32)).cuda()
+
+    def filled():
+        cache = make_cache(cfg, batch, max_len, device="cuda")
+        g = torch.Generator("cuda").manual_seed(2)
+        for i in range(cfg.n_layers):
+            cache["k"][i].normal_(generator=g)
+            cache["v"][i].normal_(generator=g)
+        return cache
+
+    cache, fill_s = generated(torch, filled)
+
+    def step(use_kernel=None):
+        cache["length"].copy_(lens_t)  # the update is in place: repeat the same step
+        return decode_step(model, cfg, cache, tokens, use_kernel=use_kernel)[0]
+
+    reset_launches()
+    lk, first_ms = timed(torch, step)
+    launches = launches_now()
+    check(launches["decode_attention"] == cfg.n_layers,
+          f"{phase}: K9 launched {launches['decode_attention']} times, not {cfg.n_layers}")
+    check(tuple(lk.shape) == (batch, cfg.padded_vocab) and bool(torch.isfinite(lk).all()),
+          f"{phase}: decode logits {tuple(lk.shape)} not finite or misshaped")
+    check(cache["length"].tolist() == (lens + 1).tolist(), f"{phase}: lengths not advanced")
+    wall = wall_ms(np, torch, step)
+    profile = profiled(torch, step)
+    lp = step(False)
+    plain_wall = wall_ms(np, torch, lambda: step(False))
+    dlogit = (lk - lp).abs().max().item()
+    agree = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    live = int(lens.sum())
+    kv_row = cfg.n_kv_heads * cfg.head_dim * 2 * cache["k"].element_size()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    emit(phase, batch=batch, max_len=max_len, lengths=lens.tolist(),
+         cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(), fill_seconds=fill_s,
+         launches=launches, first_call_ms=first_ms, wall_ms=wall, plain_wall_ms=plain_wall,
+         profile=profile, max_abs_dlogit=dlogit, top1_agree=agree, rows=batch,
+         k9_step_bound_ms=cfg.n_layers * live * kv_row / PEAK_BYTES * 1e3,
+         weights_step_bound_ms=weight_bytes / PEAK_BYTES * 1e3)
+    row = k9_row(np, torch, phase, launches, cfg, cache, lens_t)
+    del cache, lk, lp
+    torch.cuda.empty_cache()
+    return row, dlogit
+
+
+def k9_row(np, torch, phase, launches, cfg, cache, lens_t) -> dict:
+    """K9 at one layer's shapes (layer 0 of the decode cache) against its
+    plain version; times beside SDPA with a length mask."""
+    import torch.nn.functional as F
+
+    _, k9 = _attention_modules()
+    B, L, D = lens_t.numel(), cache["k"].shape[3], cfg.head_dim
+    g = torch.Generator("cuda").manual_seed(3)
+    q = torch.randn((B, cfg.n_heads, D), generator=g, device="cuda").to(cfg.dtype)
+    k, v = cache["k"][0], cache["v"][0]
+    cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens_t),
+                      k9.decode_attention_plain(q, k, v, lens_t))
+    check(_k9_ok(cmp, "bfloat16"), f"{phase}: K9 differs from its plain version: {cmp}")
+    mask = (torch.arange(L, device="cuda")[None, :] < lens_t[:, None])[:, None, None, :]
+    live = int(lens_t.sum())
+    nbytes = 2.0 * live * cfg.n_kv_heads * D * k.element_size() + q.numel() * q.element_size() \
+        + 4.0 * B * cfg.n_heads * (D + 2)
+    flop = 4.0 * live * cfg.n_heads * D
+    row = kernel_row(
+        np, torch, "decode_attention", phase, launches, cmp,
+        lambda: k9.decode_attention_kernel(q, k, v, lens_t),
+        lambda: k9.decode_attention_plain(q, k, v, lens_t),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               scale=1.0 / D ** 0.5, enable_gqa=True),
+        flop, nbytes)
+    row.update(shape=[B, cfg.n_heads, cfg.n_kv_heads, L, D], dtype="bfloat16",
+               live_positions=live, m_err=cmp["m_err"], l_rel_err=cmp["l_rel_err"],
+               per_step_bound_ms=row["bound_ms"] * launches["decode_attention"])
+    return row
+
+
+def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, prompt=16,
+                    gen=32, max_batch=8, max_len=512) -> None:
+    from repro_torch.launch.serve import LMServer
+
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (requests, prompt))
+
+    class MarginServer(LMServer):
+        """Records each step's token and the stepped slot's top-2 logit margin."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.stream, self.margins = [], []
+
+        def step_token(self, slot, token):
+            nxt = super().step_token(slot, token)
+            top2 = self.last_logits[slot].topk(2).values
+            self.stream.append(nxt)
+            self.margins.append(float(top2[0] - top2[1]))
+            return nxt
+
+    def serve(srv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p in prompts:
+            srv.generate(srv.add_request(p), gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    steps = requests * (prompt + gen)
+    srv = LMServer(cfg, max_batch=max_batch, max_len=max_len, params=model, device="cuda")
+    reset_launches()
+    dt = serve(srv)
+    launches = launches_now()
+    stream = [t for slot in range(requests) for t in srv.outputs[slot]]
+    final_lengths = srv.cache["length"].tolist()
+    profile = profiled(torch, lambda: srv.step_token(requests - 1, stream[-1]))  # one more
+    ref = MarginServer(cfg, max_batch=max_batch, max_len=max_len, params=model,
+                       device="cuda", use_kernel=False)
+    plain_dt = serve(ref)
+    part = next((i for i, (a, b) in enumerate(zip(stream, ref.stream)) if a != b), None)
+    margin = None if part is None else ref.margins[part]
+    emit(phase, requests=requests, prompt_tokens=prompt, generated_tokens=gen, steps=steps,
+         seconds=dt, tokens_per_s=steps / dt, generated_tokens_per_s=requests * gen / dt,
+         ms_per_step=dt * 1e3 / steps, launches=launches,
+         k9_launches_per_step=launches["decode_attention"] / steps,
+         final_lengths=final_lengths, step_profile=profile,
+         plain_seconds=plain_dt, plain_ms_per_step=plain_dt * 1e3 / steps,
+         streams_equal=part is None, parted_at_step=part, plain_top2_margin_there=margin,
+         decode_max_abs_dlogit=max_dlogit)
+    check(launches["decode_attention"] == cfg.n_layers * steps,
+          f"{phase}: K9 launched {launches['decode_attention']} times in {steps} steps")
+    check(len(stream) == steps and len(ref.stream) == steps, f"{phase}: stream lengths")
+    check(final_lengths == [steps] * max_batch,
+          f"{phase}: every slot must advance on every step")
+    check(part is None or margin <= max_dlogit,
+          f"{phase}: streams part at step {part} where the plain margin {margin} exceeds "
+          f"the decode phase's largest |Δlogit| {max_dlogit}")
 
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,

@@ -1,5 +1,6 @@
-"""repro_torch: the all-pairs similarity self-join in PyTorch, with its
-kernels written in CUDA C++ for NVIDIA Hopper (sm_90a).
+"""repro_torch: the all-pairs similarity self-join and its serving, and the
+LM serving path, in PyTorch, with the kernels written in CUDA C++ for NVIDIA
+Hopper (sm_90a).
 
 The port of ``repro`` (JAX/Pallas on a TPU), laid out like it so that each
 file sits at the same relative path as its reference. It imports torch,
@@ -16,11 +17,17 @@ Subpackages:
 - :mod:`repro_torch.kernels` -- K1 (streaming fused), K2 (live-tile
                                 worklist), K3 (CSR worklist), K4/K5/K6
                                 (rectangular serving tiles, K5 with early
-                                exit) and K7 (thresholded dense tile) with
-                                their wrappers and plain versions
+                                exit), K7 (thresholded dense tile), K8
+                                (flash attention) and K9 (flash-decode
+                                partials) with their wrappers and plain
+                                versions
 - :mod:`repro_torch.serving` -- build-once index, ``query_topk``, the
                                 retrieval servers
-- :mod:`repro_torch.launch`  -- ``launch/serve.py`` (retrieval mode)
+- :mod:`repro_torch.models`  -- the dense GQA transformer (qwen3) and its
+                                layers: prefill, KV-cache decode
+- :mod:`repro_torch.configs` -- architecture registry (qwen3-1.7b)
+- :mod:`repro_torch.launch`  -- ``launch/serve.py`` (LM and retrieval
+                                modes, ``LMServer``)
 - :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR) and
                                 the serving traffic model
 """

@@ -1,9 +1,11 @@
-"""Moving APSS state between numpy (and so the JAX package) and the port.
+"""Moving state between numpy (and so the JAX package) and the port.
 
-This system has no weights; the corpus (dense, or a padded-CSR
+The APSS self-join has no weights; the corpus (dense, or a padded-CSR
 ``SparseCorpus``), the block statistics of an index and the ``Matches`` a
 join returns are its state. These functions carry each across in either
 direction with the port's dtypes: float32 scores, int32 ids and counts.
+The LM's parameters cross as the reference's nested dict of numpy arrays
+(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`).
 """
 
 from __future__ import annotations
@@ -146,3 +148,68 @@ def index_from_numpy(
         corpus, block_stats_from_numpy(maxw, mw, max_nnz, dev), bdims, bx,
         n=n, m=m, block_rows=block_rows, kind=kind, normalized=normalized,
     )
+
+
+# -- LM parameters ---------------------------------------------------------------
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_FFN = ("w_gate", "w_up", "w_down")
+
+
+def transformer_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+    """The port's ``Transformer`` holding the parameters of a reference
+    parameter tree (``jax.tree.map(np.asarray, params)``): ``embed (V, d)``,
+    ``layers`` stacked over the layer axis with ``(d_in, d_out)`` matrices,
+    ``final_norm``, ``lm_head (d, V)``. Matrices are transposed into
+    ``nn.Linear`` weights ``(d_out, d_in)``; values are cast to ``cfg.dtype``
+    (a bf16 tree widens to f32 on the way, exactly)."""
+    from repro_torch.models.transformer import Transformer  # models import this module
+
+    dev = device_of(device)
+    model = Transformer(cfg, dev)
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, cfg.dtype)
+
+    layers = tree["layers"]
+    with torch.no_grad():
+        model.embed.copy_(t(tree["embed"]))
+        model.final_norm.copy_(t(tree["final_norm"]))
+        model.lm_head.weight.copy_(t(tree["lm_head"]).T)
+        for i, blk in enumerate(model.layers):
+            blk.attn_norm.copy_(t(layers["attn_norm"][i]))
+            blk.ffn_norm.copy_(t(layers["ffn_norm"][i]))
+            for name in _ATTN:
+                getattr(blk.attn, name).weight.copy_(t(layers["attn"][name][i]).T)
+            for name in _FFN:
+                getattr(blk.ffn, name).weight.copy_(t(layers["ffn"][name][i]).T)
+            if cfg.qk_norm:
+                blk.attn.q_scale.copy_(t(layers["attn"]["q_scale"][i]))
+                blk.attn.k_scale.copy_(t(layers["attn"]["k_scale"][i]))
+    return model
+
+
+def transformer_params_to_numpy(model) -> dict:
+    """The reference's parameter tree (float32 numpy) of a port ``Transformer``:
+    the inverse of :func:`transformer_params_from_numpy`."""
+    def h(a: torch.Tensor) -> np.ndarray:
+        return a.detach().float().cpu().numpy()
+
+    def stack(get) -> np.ndarray:
+        return np.stack([h(get(blk)) for blk in model.layers])
+
+    attn = {n: stack(lambda b, n=n: getattr(b.attn, n).weight.T) for n in _ATTN}
+    if model.cfg.qk_norm:
+        attn["q_scale"] = stack(lambda b: b.attn.q_scale)
+        attn["k_scale"] = stack(lambda b: b.attn.k_scale)
+    return {
+        "embed": h(model.embed),
+        "layers": {
+            "attn_norm": stack(lambda b: b.attn_norm),
+            "attn": attn,
+            "ffn_norm": stack(lambda b: b.ffn_norm),
+            "ffn": {n: stack(lambda b, n=n: getattr(b.ffn, n).weight.T) for n in _FFN},
+        },
+        "final_norm": h(model.final_norm),
+        "lm_head": h(model.lm_head.weight.T),
+    }

@@ -6,6 +6,10 @@
   (``csrc/rect_tile_candidates.cu``), K5 (``csrc/rect_tile_candidates_ee.cu``)
   and K6 (``csrc/rect_sparse_tile_candidates.cu``) of serving; and K7
   (``csrc/apss_block.cu``), the thresholded dense score matrix.
+- :mod:`repro_torch.kernels.flash_attention` -- K8
+  (``csrc/flash_attention.cu``), causal GQA attention for prefill.
+- :mod:`repro_torch.kernels.decode_attention` -- K9
+  (``csrc/decode_attention.cu``), flash-decode partials over a KV cache.
 - :mod:`repro_torch.kernels._build`     -- nvcc build + ctypes loading, at
   first launch.
 """

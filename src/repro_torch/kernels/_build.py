@@ -114,6 +114,27 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, symbol: str, argtypes: list, *, errors: str):
+    """Entry point ``symbol`` of library ``name`` with its argument types set,
+    and a ``check(status)`` that raises :class:`KernelError` with the message
+    the library's ``errors`` function gives for a non-zero status."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = getattr(lib, errors)
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+
+    def check(status: int) -> None:
+        if status != 0:
+            raise KernelError(
+                f"{symbol} launch failed: {err(status).decode()} (status {status})"
+            )
+
+    return fn, check
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _REGS = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")

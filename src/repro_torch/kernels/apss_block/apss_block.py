@@ -25,7 +25,6 @@ from repro_torch.kernels.apss_block.fused import (
     _F,
     LAUNCHES,
     _check_operand,
-    _check_status,
     _entry,
     _f32,
     _suffix,
@@ -87,7 +86,7 @@ def apss_block_kernel(
     if tuple(mask.shape) != (n_rows // block_m, n_cols // block_n):
         raise ValueError(f"block_mask shape {tuple(mask.shape)} is not the grid")
     out = torch.empty((n_rows, n_cols), dtype=torch.float32, device=x.device)
-    fn, lib = _entry(
+    fn, check = _entry(
         "apss_block", f"apss_block_{_suffix(x.dtype)}", [_VP] * 4 + [_I] * 5 + [_F, _VP]
     )
     status = fn(
@@ -95,6 +94,6 @@ def apss_block_kernel(
         n_rows, n_cols, m, block_m, block_n, _f32(threshold),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _check_status(lib, "apss_block", status)
+    check(status)
     LAUNCHES["apss_block"] += 1
     return out

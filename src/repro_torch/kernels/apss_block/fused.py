@@ -352,19 +352,8 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _entry(lib_name: str, symbol: str, argtypes: list):
-    lib = _build.load(lib_name)
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    lib.apss_error_string.argtypes = [ctypes.c_int]
-    lib.apss_error_string.restype = ctypes.c_char_p
-    return fn, lib
-
-
-def _check_status(lib, name: str, status: int) -> None:
-    if status != 0:
-        msg = lib.apss_error_string(status).decode()
-        raise _build.KernelError(f"{name} kernel launch failed: {msg} (status {status})")
+    """``(fn, check)`` of an APSS kernel entry (``_build.bind``)."""
+    return _build.bind(lib_name, symbol, argtypes, errors="apss_error_string")
 
 
 def _check_operand(name: str, a: torch.Tensor) -> None:
@@ -431,7 +420,7 @@ def apss_fused_kernel(
     values = torch.empty((n_rows, k), dtype=torch.float32, device=x.device)
     indices = torch.empty((n_rows, k), dtype=torch.int32, device=x.device)
     counts = torch.empty((n_rows, 1), dtype=torch.int32, device=x.device)
-    fn, lib = _entry(
+    fn, check = _entry(
         "apss_fused", f"apss_fused_{_suffix(x.dtype)}",
         [_VP] * 6 + [_I] * 8 + [_F, _I, _I, _VP],
     )
@@ -443,7 +432,7 @@ def apss_fused_kernel(
         _f32(threshold), k, int(bool(exclude_self)),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _check_status(lib, "apss_fused", status)
+    check(status)
     LAUNCHES["apss_fused"] += 1
     return values, indices, counts
 
@@ -491,7 +480,7 @@ def apss_tile_candidates_kernel(
     bv = torch.empty((T, block_n, k), dtype=torch.float32, device=dev)
     bi = torch.empty((T, block_n, k), dtype=torch.int32, device=dev)
     bc = torch.empty((T, block_n, 1), dtype=torch.int32, device=dev)
-    fn, lib = _entry(
+    fn, check = _entry(
         "tile_candidates", f"apss_tile_candidates_{_suffix(D.dtype)}",
         [_VP, _VP, _I] + [_VP] * 7 + [_I] * 4 + [_F, _I, _VP],
     )
@@ -502,7 +491,7 @@ def apss_tile_candidates_kernel(
         m, block_m, block_n, int(n_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_status(lib, "apss_tile_candidates", status)
+    check(status)
     LAUNCHES["apss_tile_candidates"] += 1
     return fv, fi, fc, bv, bi, bc
 
@@ -572,7 +561,7 @@ def rect_tile_candidates_kernel(
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
-    fn, lib = _entry(
+    fn, check = _entry(
         "rect_tile_candidates", f"apss_rect_tile_candidates_{_suffix(Q.dtype)}",
         [_VP, _VP, _VP, _I, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
     )
@@ -582,7 +571,7 @@ def rect_tile_candidates_kernel(
         Q.shape[1], block_q, block_c, int(nc_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_status(lib, "rect_tile_candidates", status)
+    check(status)
     LAUNCHES["rect_tile_candidates"] += 1
     return fv, fi, fc
 
@@ -628,7 +617,7 @@ def rect_tile_candidates_early_exit_kernel(
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
     skipped = torch.empty((T, 1), dtype=torch.int32, device=dev)
-    fn, lib = _entry(
+    fn, check = _entry(
         "rect_tile_candidates_ee", f"apss_rect_tile_candidates_ee_{_suffix(Q.dtype)}",
         [_VP] * 4 + [_I, _I] + [_VP] * 4 + [_I] * 5 + [_F, _I, _VP],
     )
@@ -638,6 +627,6 @@ def rect_tile_candidates_early_exit_kernel(
         Q.shape[1], block_q, block_c, int(nc_valid), int(nq_valid),
         _f32(threshold), k, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_status(lib, "rect_tile_candidates_ee", status)
+    check(status)
     LAUNCHES["rect_tile_candidates_ee"] += 1
     return fv, fi, fc, skipped

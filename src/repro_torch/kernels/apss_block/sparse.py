@@ -52,7 +52,6 @@ from repro_torch.kernels.apss_block.fused import (
     LAUNCHES,
     _check_operand,
     _check_rect_blocks,
-    _check_status,
     _entry,
     _f32,
     _rect_tile_packets,
@@ -229,7 +228,7 @@ def sparse_tile_candidates_kernel(
     bv = torch.empty((T, bm, k), dtype=torch.float32, device=dev)
     bi = torch.empty((T, bm, k), dtype=torch.int32, device=dev)
     bc = torch.empty((T, bm, 1), dtype=torch.int32, device=dev)
-    fn, lib = _entry(
+    fn, check = _entry(
         "sparse_tile_candidates", f"apss_sparse_tile_candidates_{_suffix(bx.dtype)}",
         [_VP, _VP, _VP, _I] + [_VP] * 7 + [_I] * 3 + [_F, _I, _VP],
     )
@@ -240,7 +239,7 @@ def sparse_tile_candidates_kernel(
         S, bm, int(n_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_status(lib, "sparse_tile_candidates", status)
+    check(status)
     LAUNCHES["sparse_tile_candidates"] += 1
     return fv, fi, fc, bv, bi, bc
 
@@ -325,7 +324,7 @@ def rect_sparse_tile_candidates_kernel(
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
-    fn, lib = _entry(
+    fn, check = _entry(
         "rect_sparse_tile_candidates",
         f"apss_rect_sparse_tile_candidates_{_suffix(bx.dtype)}",
         [_VP, _VP, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
@@ -336,7 +335,7 @@ def rect_sparse_tile_candidates_kernel(
         S, block_q, block_c, int(nc_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _check_status(lib, "rect_sparse_tile_candidates", status)
+    check(status)
     LAUNCHES["rect_sparse_tile_candidates"] += 1
     return fv, fi, fc
 

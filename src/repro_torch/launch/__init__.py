@@ -1,1 +1,1 @@
-"""Entry points: ``launch/serve.py`` (retrieval mode)."""
+"""Entry points: ``launch/serve.py`` (LM and retrieval modes)."""

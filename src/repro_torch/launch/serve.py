@@ -1,16 +1,24 @@
-"""Serving entry point, retrieval mode: build an APSS index once over a
-synthetic sparse corpus, then stream perturbed-row queries through a
-retrieval server and report QPS.
+"""Serving entry point, two modes:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
-        --corpus-n 4096 --corpus-m 2048 --requests 64 --batch 8
+- ``--mode lm``: continuous-batch LM decode (:class:`LMServer`) over the
+  transformer of ``--arch`` at its smoke config, attention through K9 on
+  the card:
 
-Scoring runs on the card through the rectangular kernels
-(``use_kernel=True``); ``--device cpu`` runs their plain versions. A run in
-which any batch was retried or served by a lower tier than the first exits
-non-zero after its report: its QPS is not the first tier's. The
-reference's ``--mode lm`` and ``--mode auto`` wait for ROADMAP queue 1
-items 9 and 5, ``--chaos`` and the trace/metrics exports for item 7.
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --requests 4
+
+- ``--mode retrieval``: build an APSS index once over a synthetic sparse
+  corpus, then stream perturbed-row queries through a retrieval server and
+  report QPS. Scoring runs through the rectangular kernels
+  (``use_kernel=True``). A run in which any batch was retried or served by
+  a lower tier than the first exits non-zero after its report: its QPS is
+  not the first tier's.
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
+          --corpus-n 4096 --corpus-m 2048 --requests 64 --batch 8
+
+``--device cpu`` runs the kernels' plain versions. The reference's
+``--mode auto`` waits for ROADMAP queue 1 item 5, ``--chaos`` and the
+trace/metrics exports for item 7.
 """
 
 from __future__ import annotations
@@ -18,6 +26,92 @@ from __future__ import annotations
 import argparse
 import contextlib
 import time
+
+import numpy as np
+
+
+class LMServer:
+    """Minimal batched LM server: a continuous batch of decode slots.
+
+    A request takes a free slot and its prompt is fed token by token through
+    decode steps; every step runs :func:`decode_step` over the whole batch.
+    As in the reference, a step feeds the stepped slot's token and zeros to
+    the other slots, and every slot's cache length advances on every step,
+    so a request that joins later sees earlier steps' filler tokens in its
+    cache. ``params`` is a ``Transformer`` (from ``interop``, say); without
+    it the model is initialised from ``seed`` on ``device``. ``last_logits``
+    holds the last step's logits ``(max_batch, V)`` f32.
+    """
+
+    def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 256, seed: int = 0,
+                 params=None, device="cuda", use_kernel: bool | None = None):
+        import torch
+
+        from repro_torch.interop import device_of
+        from repro_torch.models.transformer import init_transformer, make_cache
+
+        self.device = device_of(device)
+        self.cfg = cfg
+        self.params = params if params is not None else init_transformer(
+            cfg, generator=torch.Generator(self.device).manual_seed(seed), device=self.device)
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.use_kernel = use_kernel
+        self.cache = make_cache(cfg, max_batch, max_len, device=self.device)
+        self.active = np.zeros(max_batch, bool)
+        self.outputs: list = [[] for _ in range(max_batch)]
+        self.last_logits = None
+
+    def add_request(self, prompt_tokens) -> int:
+        slot = int(np.argmin(self.active))
+        assert not self.active[slot], "server full"
+        self.active[slot] = True
+        self.outputs[slot] = []
+        # feed the prompt through decode steps (simple; a production server
+        # would run a batched prefill into the cache region)
+        for tok in prompt_tokens:
+            self.step_token(slot, int(tok))
+        return slot
+
+    def step_token(self, slot: int, token: int) -> int:
+        from repro_torch.models.transformer import decode_step
+
+        tokens = np.zeros(self.max_batch, np.int32)
+        tokens[slot] = token
+        self.last_logits, self.cache = decode_step(
+            self.params, self.cfg, self.cache, tokens, use_kernel=self.use_kernel
+        )
+        nxt = int(self.last_logits[slot].argmax())  # the first maximum, as jnp.argmax
+        self.outputs[slot].append(nxt)
+        return nxt
+
+    def generate(self, slot: int, n: int) -> list:
+        tok = self.outputs[slot][-1]
+        for _ in range(n):
+            tok = self.step_token(slot, tok)
+        return self.outputs[slot][-n:]
+
+
+def run_lm(args) -> dict:
+    """LM mode: a few requests through :class:`LMServer` on the smoke config."""
+    from repro_torch.configs import get_arch
+
+    arch = get_arch(args.arch)
+    if arch.family != "lm":
+        raise SystemExit("serve demo supports LM archs")
+    cfg = arch.make_smoke_config()
+    srv = LMServer(cfg, max_batch=max(2, args.requests), device=args.device)
+    rng = np.random.default_rng(0)
+    outs = []
+    t0 = time.perf_counter()
+    for r in range(args.requests):
+        slot = srv.add_request(rng.integers(0, cfg.vocab_size, size=4))
+        outs.append(srv.generate(slot, args.gen_tokens))
+        print(f"[serve] request {r} slot {slot} → {outs[-1]}")
+    dt = time.perf_counter() - t0
+    total = args.requests * (args.gen_tokens + 4)
+    print(f"[serve] {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    return dict(arch=args.arch, tokens=total, seconds=dt, outputs=outs)
 
 
 def run_retrieval(args) -> dict:
@@ -86,8 +180,11 @@ def run_retrieval(args) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["retrieval"], default="retrieval")
-    ap.add_argument("--requests", type=int, default=64)
+    ap.add_argument("--mode", choices=["lm", "retrieval"], default="retrieval")
+    ap.add_argument("--arch", default="qwen3-1.7b", help="lm mode: the architecture")
+    ap.add_argument("--gen-tokens", type=int, default=8, help="lm mode: tokens per request")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests to serve (default: 2 in lm mode, 64 in retrieval mode)")
     ap.add_argument("--corpus-n", type=int, default=4096)
     ap.add_argument("--corpus-m", type=int, default=2048)
     ap.add_argument("--avg-nnz", type=float, default=16.0)
@@ -102,8 +199,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-request deadline; late requests are shed, not served")
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' scores through the kernels; 'cpu' runs the plain versions")
-    return run_retrieval(ap.parse_args(argv))
+                    help="'cuda' runs the kernels; 'cpu' runs their plain versions")
+    args = ap.parse_args(argv)
+    if args.mode == "lm":
+        args.requests = 2 if args.requests is None else args.requests
+        return run_lm(args)
+    args.requests = 64 if args.requests is None else args.requests
+    return run_retrieval(args)
 
 
 if __name__ == "__main__":

@@ -60,7 +60,9 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.core.sparse, repro_torch.data.sparse, "
         "repro_torch.kernels.apss_block.sparse, "
         "repro_torch.kernels.apss_block.apss_block, "
-        "repro_torch.serving, repro_torch.serving.server, repro_torch.launch.serve; "
+        "repro_torch.serving, repro_torch.serving.server, repro_torch.launch.serve, "
+        "repro_torch.models.transformer, repro_torch.kernels.flash_attention, "
+        "repro_torch.kernels.decode_attention, repro_torch.configs; "
         "bad = sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
         "print(bad)"
@@ -82,6 +84,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         apss_sparse_compacted,
         from_dense,
     )
+    from repro_torch.configs.qwen3_1_7b import smoke_config
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models.transformer import init_transformer, make_cache
     from repro_torch.serving import build_index, query_topk
 
     for call in (
@@ -98,6 +103,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         lambda: build_index(corpus),
         lambda: build_index(from_dense(corpus, device="cpu")),
         lambda: query_topk(build_index(corpus), corpus[:4], T, K),  # the index's device
+        lambda: init_transformer(smoke_config()),
+        lambda: make_cache(smoke_config(), 1, 8),
+        lambda: LMServer(smoke_config()),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 and K2 (the dense self-join), K3 (the sparse one), K7 (the dense score
-matrix) and the serving kernels K4, K5 and K6. Every test here needs an NVIDIA Hopper card and ``nvcc``;
+matrix), the serving kernels K4, K5 and K6, and the LM's attention kernels
+K8 (flash attention) and K9 (flash-decode partials). Every test here needs
+an NVIDIA Hopper card and ``nvcc``;
 each decides that inside itself (the ``card`` fixture) and skips with a
 reason elsewhere. Run them on a machine with a card:
 
@@ -10,7 +12,10 @@ reason elsewhere. Run them on a machine with a card:
 Tolerance: inputs keep every float64 score more than 1e-5 from t, so the
 kernel (FMA in feature order) and the plain version (cuBLAS) keep the same
 pairs; ids and counts must be equal, values within 1e-5 (K7: the zero
-pattern equal as well).
+pattern equal as well). K8 and K9 against their plain versions: outputs
+within 2e-5 in f32 and 2e-2 in bf16 (the kernels and the plain versions
+widen bf16 exactly and sum in f32, in other orders); K9's m within 2e-5 and
+l within a relative 1e-5.
 """
 
 import numpy as np
@@ -481,3 +486,149 @@ def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="outside"):
         sparse.rect_sparse_tile_candidates_kernel(qg, bx, torch.tensor([[0], [2]]), 0.3, 8,
                                                   nc_valid=512)
+
+
+# -- K8 and K9: the LM's attention kernels ------------------------------------
+
+ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _normal(shape, seed, dtype, card):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(card, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,S,D,causal",
+    [
+        (1, 2, 2, 1, 16, True),       # S = 1, group 1
+        (2, 4, 2, 130, 64, True),     # S not a multiple of the tile, group 2
+        (1, 8, 1, 200, 128, True),    # group 8
+        (1, 4, 2, 512, 32, True),
+        (2, 16, 8, 256, 128, False),  # non-causal, divisible S
+    ],
+)
+def test_k8_matches_plain(card, dtype, B, Hq, Hkv, S, D, causal):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES,
+        flash_attention_plain,
+    )
+
+    q = _normal((B, Hq, S, D), 1, dtype, card)
+    k = _normal((B, Hkv, S, D), 2, dtype, card)
+    v = _normal((B, Hkv, S, D), 3, dtype, card)
+    before = LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=ATOL[dtype], rtol=0)
+
+
+def test_k8_refuses_instead_of_running_the_plain_version(card):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        LAUNCHES,
+        flash_attention_kernel,
+    )
+
+    q = torch.zeros((1, 2, 100, 64), device=card)
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_attention_kernel(q, q, q)
+    q48 = torch.zeros((1, 2, 128, 48), device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_kernel(q48, q48, q48)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention_kernel(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="non-causal"):
+        flash_attention(q, q, q, causal=False)
+    assert LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,L,D,lengths",
+    [
+        (3, 2, 2, 100, 16, [0, 1, 100]),      # lengths 0, 1 and L; group 1
+        (3, 4, 2, 1000, 64, [0, 1, 1000]),    # L not a multiple of any tile
+        (2, 16, 2, 777, 128, [777, 5]),       # group 8
+        (2, 4, 1, 300, 32, [150, 300]),       # group 4
+    ],
+)
+def test_k9_matches_plain(card, dtype, B, Hq, Hkv, L, D, lengths):
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        LAUNCHES,
+        decode_attention_kernel,
+        decode_attention_plain,
+    )
+
+    q = _normal((B, Hq, D), 4, dtype, card)
+    k = _normal((B, Hkv, L, D), 5, dtype, card)
+    v = _normal((B, Hkv, L, D), 6, dtype, card)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = LAUNCHES["decode_attention"]
+    acc, m, l = decode_attention_kernel(q, k, v, lens)
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == before + 2
+    pacc, pm, pl = decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(m.cpu().numpy(), pm.cpu().numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(l.cpu().numpy(), pl.cpu().numpy(), rtol=1e-5, atol=0)
+    want = pacc / torch.where(pl == 0, 1.0, pl)[..., None]
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=ATOL[dtype], rtol=0)
+    empty = lens.cpu().numpy() == 0
+    assert (acc.cpu().numpy()[empty] == 0).all() and (l.cpu().numpy()[empty] == 0).all()
+
+
+def test_k9_refuses_instead_of_running_the_plain_version(card):
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        LAUNCHES,
+        decode_attention_kernel,
+    )
+
+    lens = torch.ones(2, dtype=torch.int32, device=card)
+    before = LAUNCHES["decode_attention"]
+    with pytest.raises(ValueError, match="groups"):  # group 3
+        decode_attention_kernel(torch.zeros((2, 3, 64), device=card),
+                                torch.zeros((2, 1, 8, 64), device=card),
+                                torch.zeros((2, 1, 8, 64), device=card), lens)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention_kernel(torch.zeros((2, 2, 48), device=card),
+                                torch.zeros((2, 2, 8, 48), device=card),
+                                torch.zeros((2, 2, 8, 48), device=card), lens)
+    kv = torch.zeros((2, 2, 8, 64), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_kernel(torch.zeros((2, 2, 64), device=card), kv.transpose(2, 3)
+                                .contiguous().transpose(2, 3), kv, lens)
+    assert LAUNCHES["decode_attention"] == before
+
+
+def test_lm_kernel_path_matches_plain_path_on_card(card):
+    """The qwen3 smoke model (f32) through K8 and K9 against use_kernel=False,
+    at the tolerance the CPU tests hold the model to JAX (atol 5e-4, rtol 5e-3)."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_1_7b import smoke_config
+    from repro_torch.models import transformer as tt
+
+    cfg = smoke_config()
+    model = tt.init_transformer(cfg, generator=torch.Generator(card).manual_seed(0), device=card)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(card)
+    tol = dict(atol=5e-4, rtol=5e-3)
+    np.testing.assert_allclose(tt.prefill(model, cfg, tokens).cpu().numpy(),
+                               tt.prefill(model, cfg, tokens, use_kernel=False).cpu().numpy(),
+                               **tol)
+    kernel, plain = (tt.make_cache(cfg, 2, 48, device=card) for _ in range(2))
+    for i in range(tokens.shape[1]):
+        a, _ = tt.decode_step(model, cfg, kernel, tokens[:, i])
+        b, _ = tt.decode_step(model, cfg, plain, tokens[:, i], use_kernel=False)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol)
+    with pytest.raises(ValueError, match="bf16_probs"):
+        tt.prefill(model, dataclasses.replace(cfg, bf16_probs=True), tokens)

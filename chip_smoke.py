@@ -374,34 +374,68 @@ def wall_ms(np, torch, fn, reps: int = REPS) -> dict:
     return dict(median=float(np.median(times)), min=min(times), max=max(times))
 
 
-def profiled(torch, fn, top: int = 6) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: host-clock ms, the number
-    of top-level host ops, the device launches and their summed device time
-    (the device's busy time, kernels not overlapping), the idle share, and
-    the ``top`` kernels by device time; ``None`` where the profiler saw no
-    device time."""
-    from torch.profiler import ProfilerActivity, profile
+# Device-record name of each kernel that ``profiled`` counts.
+PROFILED_KERNELS = {"flash_attention": "fa::flash_forward", "decode_attention": "da::decode_partials"}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+
+def _profile_stats(torch, prof, wall_ms: float, top: int) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
-    host_ops = sum(1 for e in prof.events()
-                   if e.device_type != cuda and e.cpu_parent is None)
+    host_ops = sum(1 for e in prof.events() if e.device_type != cuda and e.cpu_parent is None)
     events = [e for e in prof.key_averages()  # kernels, memcpys and memsets, not the ops
               if e.device_type == cuda and e.self_device_time_total > 0]
+    records = {name: sum(e.count for e in events if key in e.key)
+               for name, key in PROFILED_KERNELS.items()}
     if not events:  # the profiler saw no device time: not measured
-        return dict(wall_ms=wall, host_ops=host_ops, device_busy_ms=None, idle_share=None,
+        return dict(host_ops=host_ops, device_busy_ms=None, idle_share=None, records=records,
                     top=[])
     busy = sum(e.self_device_time_total for e in events) / 1e3
     events.sort(key=lambda e: -e.self_device_time_total)
-    return dict(wall_ms=wall, host_ops=host_ops, device_launches=sum(e.count for e in events),
-                device_busy_ms=busy, idle_share=1 - busy / wall,
+    return dict(host_ops=host_ops, device_launches=sum(e.count for e in events),
+                device_busy_ms=busy, idle_share=1 - busy / wall_ms, records=records,
                 top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, count=e.count)
                      for e in events[:top]])
+
+
+def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the number of top-level
+    host ops, the device launches and their summed device time (the
+    device's busy time, kernels not overlapping), the idle share against
+    ``wall_ms`` (the path's unprofiled host-clock time: the profiler slows
+    the host), the ``top`` kernels by device time, and per kernel of
+    ``PROFILED_KERNELS`` its device records beside the launches counted
+    around the call. The profiler now and then loses a contiguous block of
+    device records (on an H100, one decode layer's hundred in one of twelve
+    traces), so a trace whose records differ from the counted launches is
+    taken again, up to ``attempts`` calls. ``device_busy_ms`` is ``None``
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lost = []
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        before = launches_now()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        after = launches_now()
+        launched = {name: after[name] - before[name] for name in PROFILED_KERNELS}
+        stats = _profile_stats(torch, prof, wall_ms, top)
+        if stats["device_busy_ms"] is None or stats["records"] == launched:
+            break
+        lost.append(dict(records=stats["records"], device_launches=stats["device_launches"]))
+    return dict(stats, wall_ms=wall_ms, profiled_wall_ms=profiled_ms, launches=launched,
+                attempts=attempt, lost_records=lost)
+
+
+def check_profile(phase: str, profile: dict) -> None:
+    """The profiler's device records of the port's kernels equal their launch
+    counts (where it saw device time)."""
+    if profile["device_busy_ms"] is not None:
+        check(profile["records"] == profile["launches"],
+              f"{phase}: the profile holds {profile['records']} kernel records for "
+              f"{profile['launches']} counted launches")
 
 
 def bound(flop: float, nbytes: float) -> tuple[float, str]:
@@ -1492,7 +1526,7 @@ def lm_prefill_phase(np, torch, phase, cfg, model, *, batch=2, seq=4096) -> dict
     check(tuple(logits.shape) == (batch, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
           f"{phase}: prefill logits {tuple(logits.shape)} not finite or misshaped")
     wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens))
-    profile = profiled(torch, lambda: prefill(model, cfg, tokens))
+    profile = profiled(torch, lambda: prefill(model, cfg, tokens), wall["median"])
     plain = prefill(model, cfg, tokens, use_kernel=False)
     plain_wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens, use_kernel=False))
     prefill_dlogit = (logits - plain).abs().max().item()
@@ -1518,7 +1552,11 @@ def lm_prefill_phase(np, torch, phase, cfg, model, *, batch=2, seq=4096) -> dict
          logits_max_abs_dlogit=dlogit, logits_top1_agree=agree, positions=n,
          top1_agreement={k: v / n for k, v in agree.items()})
     check(finite, f"{phase}: transformer_logits not finite")
-    check(agree["f32"] >= 0.99 * n, f"{phase}: f32 top-1 agreement {agree['f32']}/{n}")
+    check_profile(phase, profile)
+    # In f32 the two paths differ by summation order only (|Δlogit| ~1e-6):
+    # at most 2 of the positions may flip a near-tie.
+    check(agree["f32"] >= n - 2 and dlogit["f32"] <= 1e-4,
+          f"{phase}: f32 top-1 agreement {agree['f32']}/{n}, |Δlogit| {dlogit['f32']}")
     check(agree["bf16_kernel_vs_f32"] >= agree["bf16_plain_vs_f32"] - 0.01 * n,
           f"{phase}: in bf16 the kernel path is farther from the f32 model than the plain "
           f"path: {agree}")
@@ -1593,7 +1631,7 @@ def lm_decode_phase(np, torch, phase, cfg, model, *, batch=8, max_len=32768):
           f"{phase}: decode logits {tuple(lk.shape)} not finite or misshaped")
     check(cache["length"].tolist() == (lens + 1).tolist(), f"{phase}: lengths not advanced")
     wall = wall_ms(np, torch, step)
-    profile = profiled(torch, step)
+    profile = profiled(torch, step, wall["median"])
     lp = step(False)
     plain_wall = wall_ms(np, torch, lambda: step(False))
     dlogit = (lk - lp).abs().max().item()
@@ -1607,6 +1645,7 @@ def lm_decode_phase(np, torch, phase, cfg, model, *, batch=8, max_len=32768):
          profile=profile, max_abs_dlogit=dlogit, top1_agree=agree, rows=batch,
          k9_step_bound_ms=cfg.n_layers * live * kv_row / PEAK_BYTES * 1e3,
          weights_step_bound_ms=weight_bytes / PEAK_BYTES * 1e3)
+    check_profile(phase, profile)
     row = k9_row(np, torch, phase, launches, cfg, cache, lens_t)
     del cache, lk, lp
     torch.cuda.empty_cache()
@@ -1679,7 +1718,8 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
     launches = launches_now()
     stream = [t for slot in range(requests) for t in srv.outputs[slot]]
     final_lengths = srv.cache["length"].tolist()
-    profile = profiled(torch, lambda: srv.step_token(requests - 1, stream[-1]))  # one more
+    profile = profiled(torch, lambda: srv.step_token(requests - 1, stream[-1]),  # one more
+                       dt * 1e3 / steps)
     ref = MarginServer(cfg, max_batch=max_batch, max_len=max_len, params=model,
                        device="cuda", use_kernel=False)
     plain_dt = serve(ref)
@@ -1693,6 +1733,7 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
          plain_seconds=plain_dt, plain_ms_per_step=plain_dt * 1e3 / steps,
          streams_equal=part is None, parted_at_step=part, plain_top2_margin_there=margin,
          decode_max_abs_dlogit=max_dlogit)
+    check_profile(phase, profile)
     check(launches["decode_attention"] == cfg.n_layers * steps,
           f"{phase}: K9 launched {launches['decode_attention']} times in {steps} steps")
     check(len(stream) == steps and len(ref.stream) == steps, f"{phase}: stream lengths")

@@ -35,7 +35,7 @@ def smoke_config() -> TransformerConfig:
         vocab_size=512,
         qk_norm=True,
         dtype=torch.float32,
-        q_chunk=32, kv_chunk=32, loss_chunk=32,
+        q_chunk=32, kv_chunk=32,
     )
 
 

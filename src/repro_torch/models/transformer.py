@@ -54,52 +54,20 @@ class TransformerConfig:
     head_dim: int
     d_ff: int
     vocab_size: int
-    # attention
-    attention: str = "gqa"          # "gqa" | "mla"
+    attention: str = "gqa"          # "mla" raises until ROADMAP item 9
     qk_norm: bool = False
     rope_theta: float = 1e6
-    # MLA dims (minicpm3/deepseek style)
-    q_lora_rank: int = 0
-    kv_lora_rank: int = 0
-    qk_nope_dim: int = 0
-    qk_rope_dim: int = 0
-    v_head_dim: int = 0
-    # MoE
-    moe: bool = False
-    n_experts: int = 0
-    top_k: int = 0
-    d_ff_expert: int = 0
-    n_shared_experts: int = 0
-    dense_residual: bool = False
-    first_k_dense: int = 0
-    capacity_factor: float = 1.25
-    aux_loss_weight: float = 0.01
-    # numerics / memory
+    moe: bool = False               # True raises until ROADMAP item 9
+    first_k_dense: int = 0          # MoE only: nonzero raises likewise
     dtype: Any = torch.bfloat16
-    remat: bool = True
-    q_chunk: int = 512
+    q_chunk: int = 512              # the plain path's attention chunks
     kv_chunk: int = 1024
-    loss_chunk: int = 2048
-    bf16_probs: bool = False
-    moe_impl: str = "gspmd"
-    grad_accum: int = 1
-    # parallelism
-    fsdp: bool = False
+    bf16_probs: bool = False        # plain path only (K8 raises)
 
     @property
     def padded_vocab(self) -> int:
         """Vocab rounded up to 256 (padded ids are never emitted as labels)."""
         return ((self.vocab_size + 255) // 256) * 256
-
-    @property
-    def qk_head_dim(self) -> int:
-        if self.attention == "mla":
-            return self.qk_nope_dim + self.qk_rope_dim
-        return self.head_dim
-
-    @property
-    def v_dim(self) -> int:
-        return self.v_head_dim if self.attention == "mla" else self.head_dim
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
@@ -241,7 +209,7 @@ def _gqa_qkv(p: Attention, cfg: TransformerConfig, x, positions):
 def _attention(p: Attention, cfg: TransformerConfig, x, positions, use_kernel: bool):
     b, s, _ = x.shape
     q, k, v = (a.transpose(1, 2) for a in _gqa_qkv(p, cfg, x, positions))  # (B, H, S, D)
-    scale = 1.0 / (cfg.qk_head_dim ** 0.5)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
     if use_kernel:
         if cfg.bf16_probs:
             raise ValueError("K8 has no bf16 probabilities: bf16_probs runs the plain path")
@@ -252,7 +220,7 @@ def _attention(p: Attention, cfg: TransformerConfig, x, positions, use_kernel: b
             q_chunk=min(cfg.q_chunk, s), kv_chunk=min(cfg.kv_chunk, s),
             probs_dtype=torch.bfloat16 if cfg.bf16_probs else None,
         )
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.v_dim)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return p.wo(o)
 
 

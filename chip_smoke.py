@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
 1. ``device``: fails unless CUDA is available; the card's name and the
    ``nvidia-smi`` name and power limit.
 2. ``build``: compiles every kernel source (one ``nvcc`` per source, all
-   started together) into ``build/repro_torch/``; build seconds and each
-   kernel's registers, shared memory and spills from ``-Xptxas -v``.
+   started together) into ``build/repro_torch/``; build seconds, each
+   kernel's registers, shared memory and spills from ``-Xptxas -v``, and
+   the tensor-core instructions in K8's SASS (``cuobjdump -sass``): it
+   fails if the library holds no ``HGMMA``.
 3. ``edge_probes``: n=130 m=100; t=-0.1 with padded zero columns; k > n;
    bf16 input; an all-pruned mask (t=1.5), through both dense kernel
    paths, against the port's oracle on the card.
@@ -85,8 +87,11 @@ Phases, each printing one JSON line:
     part, the plain path's top-2 logit margin at that step must be at most
     phase 16's largest |Δlogit|.
 18. ``kernels``: per kernel and main-path shape, launches on the main path,
-    median kernel / plain / library time from CUDA events, the bound, and
-    the largest value difference from the plain version.
+    median kernel / plain / library time from CUDA events, the bound (f32
+    FMA peak; K8's bf16 row the bf16 tensor-core peak), and the largest
+    value difference from the plain version; K5's rows add its cooperative
+    grid (``grid_blocks``) and feature chunks, K8's the f32 kernel's time
+    (``ms_f32``).
 
 The main-path phases (6-13 and 15-17) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
@@ -123,6 +128,7 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 REPS = 5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 without tensor cores (TF32 off)
+PEAK_BF16_TC_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 KERNEL_INFO = {
     "apss_fused": dict(
@@ -212,9 +218,13 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build()
-    emit("build", seconds=time.perf_counter() - t0,
+    libs = _build.build()
+    build_s = time.perf_counter() - t0
+    mma = sass_mma_counts(libs["flash_attention"])
+    emit("build", seconds=build_s, flash_attention_sass=mma,
          ptxas={name: _build.ptxas_report(name) for name in _build.sources()})
+    check(mma is None or mma["HGMMA"] > 0,
+          f"K8's library holds no warpgroup MMA (HGMMA) in its SASS: {mma}")
 
     from repro_torch.core.sparse import from_dense
     from repro_torch.data.sparse import sparse_clustered_corpus
@@ -264,6 +274,25 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def sass_mma_counts(lib: Path) -> dict | None:
+    """Tensor-core instructions in a built library's SASS: warpgroup MMA
+    (``HGMMA``) and warp MMA (``HMMA``), by ``cuobjdump -sass`` from the
+    toolkit beside ``nvcc``; ``None`` where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    ops = []  # the opcode of each instruction line "/*addr*/ [@pred] OP.mods ... ;"
+    for line in sass.splitlines():
+        words = [w for w in line.split("*/", 1)[-1].split() if not w.startswith("@")]
+        if words:
+            ops.append(words[0].split(".")[0])
+    return {op: ops.count(op) for op in ("HGMMA", "HMMA")}
 
 
 # ---------------------------------------------------------------------------
@@ -438,8 +467,8 @@ def check_profile(phase: str, profile: dict) -> None:
               f"{profile['launches']} counted launches")
 
 
-def bound(flop: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flop / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flop: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1022,7 +1051,10 @@ def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
                                                             **kw),
         lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes + 8 * len(skipped),
     )
-    row.update(live_tiles=len(skipped), scored_tiles=int((~skipped).sum()))
+    split = fused.ee_split_for(Qp, block_q=bq, block_c=index.block_rows, k=k)
+    row.update(live_tiles=len(skipped), scored_tiles=int((~skipped).sum()),
+               grid_blocks=split.grid, n_chunks=split.n_chunks, strip_rows=split.strip_rows,
+               work_items=len(split.items))
     return row
 
 
@@ -1565,8 +1597,10 @@ def lm_prefill_phase(np, torch, phase, cfg, model, *, batch=2, seq=4096) -> dict
 
 
 def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
-    """K8 at one layer's shapes: bf16 (the model's dtype) and f32 against the
-    plain version; times in bf16 beside SDPA (flash, GQA, causal)."""
+    """K8 at one layer's shapes: bf16 (the model's dtype, the tensor-core
+    kernel) and f32 (the FMA kernel) against the plain version; the bf16
+    times beside SDPA (flash, GQA, causal), bound at the bf16 tensor-core
+    peak; the f32 kernel's time as ``ms_f32`` beside its own bound."""
     import torch.nn.functional as F
 
     k8, _ = _attention_modules()
@@ -1583,6 +1617,7 @@ def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
         check(errs[dn] <= LM_ATOL[dn], f"{phase}: K8 differs from its plain version in {dn}: "
               f"{errs[dn]}")
         del got, want
+    ms_f32 = time_ms(np, torch, lambda: k8.flash_attention_kernel(q32, k32, v32))
     scale = 1.0 / D ** 0.5
     flop = 4.0 * D * (S * (S + 1) / 2) * B * Hq
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
@@ -1592,8 +1627,9 @@ def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
         lambda: k8.flash_attention_plain(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
                                                enable_gqa=True),
-        flop, nbytes)
+        flop, nbytes, peak=PEAK_BF16_TC_FLOPS)
     row.update(shape=[B, Hq, Hkv, S, D], dtype="bfloat16", max_abs_err_f32=errs["float32"],
+               ms_f32=ms_f32, bound_ms_f32=bound(flop, 2 * nbytes)[0],
                per_prefill_bound_ms=row["bound_ms"] * launches["flash_attention"])
     return row
 
@@ -1745,11 +1781,11 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,
-               flop, nbytes) -> dict:
+               flop, nbytes, peak=PEAK_F32_FLOPS) -> dict:
     ms = time_ms(np, torch, kernel)
     plain_ms = time_ms(np, torch, plain)
     library_ms = time_ms(np, torch, library)
-    bound_ms, bound_by = bound(flop, nbytes)
+    bound_ms, bound_by = bound(flop, nbytes, peak)
     return dict(
         name=f"{name}[{phase}]", **KERNEL_INFO[name],
         launches=launches[name], max_abs_err=cmp["max_abs_err"],

@@ -30,7 +30,7 @@
 //   (eight register slots per lane in phase 2).
 //
 // rect_tile_packet: the forward-only body of the rectangular (serving)
-//   kernels K4, K5 and K6: a block_q x block_c tile of query rows against
+//   kernels K4 and K6: a block_q x block_c tile of query rows against
 //   corpus rows (block_q a multiple of 8 up to 128, block_c 64, 128 or
 //   256). The f32 tile is at most 128 KB, so it stays in dynamic shared
 //   memory (no device scratch). It is scored in strips of 16, 32 or 64
@@ -39,8 +39,16 @@
 //   most half of its strip instead of seven eighths of a 64-row one), then
 //   one warp per tile row keeps s >= t and gcol < nc_valid (no
 //   self-exclusion: queries are not corpus rows), counts them and selects
-//   the row's top-k (select_packet). K5 also merges each selected row's
-//   values into a running per-row values buffer (merge_values).
+//   the row's top-k (rect_row_packet, select_packet). K5 scores the same
+//   strips on many thread blocks and selects with the same rect_row_packet.
+//
+// Summation order of a rectangular score (K4, K5, K6): the features are cut
+//   into chunks of FK (the last one ragged); each chunk's partial is one
+//   fmaf chain from 0 in increasing feature order (score_strip_part), and
+//   the score is 0 + partial_0 + partial_1 + ... in increasing chunk order.
+//   This order is part of the K4 = K5 contract: K5 computes the partials of
+//   a tile on different thread blocks and adds them in the same order, so
+//   its packets are bit-identical to K4's.
 //
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
@@ -68,6 +76,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_BLOCK = 256;     // largest worklist tile side (tile_packets)
 constexpr int MAX_QBLOCK = 128;    // largest query block of the rect kernels
 constexpr int MAX_EE_K = 256;      // largest k of the values buffer (merge_values)
+constexpr int FK = 1024;           // features per partial sum of a rectangular score
+static_assert(FK % TK == 0, "a summation chunk is a whole number of staged chunks");
 
 struct Staged {
   float a[TK * LDS];
@@ -315,13 +325,14 @@ __device__ __forceinline__ void store_strip(float* dst, const float4 (&reg)[2]) 
   }
 }
 
-// acc[i][j] = X[ty*RM + i] . Y[tx*4 + j] for a strip of 16 * RM rows at x
-// (rows at or past x_rows are 0) and the 64 rows at y, summed in increasing
-// feature order one fmaf at a time, as score_tile does.
+// acc[i][j] = the partial of X[ty*RM + i] . Y[tx*4 + j] over features
+// [0, len) for a strip of 16 * RM rows at x (rows at or past x_rows are 0)
+// and the 64 rows at y, both at row stride m: one fmaf chain from 0 in
+// increasing feature order, as score_tile sums. len is a multiple of 32.
 template <int RM, typename T>
-__device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
-                                            const T* __restrict__ y, long long m, Staged& st,
-                                            float (&acc)[RM][4]) {
+__device__ __forceinline__ void score_strip_part(const T* __restrict__ x, int x_rows,
+                                                 const T* __restrict__ y, long long m, int len,
+                                                 Staged& st, float (&acc)[RM][4]) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -330,12 +341,12 @@ __device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
   float4 ra[2], rb[2];
   load_strip<RM>(x, x_rows, m, 0, ra);
   load_chunk(y, m, 0, rb);
-  for (long long k0 = 0; k0 < m; k0 += TK) {
+  for (int k0 = 0; k0 < len; k0 += TK) {
     __syncthreads();  // every thread is done reading the previous chunk
     store_strip<RM>(st.a, ra);
     store_chunk(st.b, rb);
     __syncthreads();
-    if (k0 + TK < m) {
+    if (k0 + TK < len) {
       load_strip<RM>(x, x_rows, m, k0 + TK, ra);
       load_chunk(y, m, (int)(k0 + TK), rb);
     }
@@ -362,6 +373,28 @@ __device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+  }
+}
+
+// acc[i][j] = X[ty*RM + i] . Y[tx*4 + j] over all m features, in the
+// chunked order of the header comment: the FK-feature partials added to 0
+// in increasing chunk order.
+template <int RM, typename T>
+__device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
+                                            const T* __restrict__ y, long long m, Staged& st,
+                                            float (&acc)[RM][4]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (long long f0 = 0; f0 < m; f0 += FK) {
+    float part[RM][4];
+    score_strip_part<RM>(x + f0, x_rows, y + f0, m, (int)(m - f0 < FK ? m - f0 : FK), st,
+                         part);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
   }
 }
 
@@ -400,8 +433,7 @@ __device__ void rect_scores(const T* __restrict__ x, const T* __restrict__ y, lo
 // a[0, k) := the k largest of a[0, k) and b[0, k), both sorted descending
 // (values only). One warp: each entry's place in the merged order is its
 // own index plus the entries of the other list before it (a first on
-// ties), so the merge needs no sort. a is shared memory, b the packet row
-// this warp has just written.
+// ties), so the merge needs no sort. a and b are shared memory.
 __device__ __forceinline__ void merge_values(float* a, const float* b, int k) {
   constexpr int Q = MAX_EE_K / 32;
   const int lane = threadIdx.x & 31;
@@ -432,47 +464,54 @@ __device__ __forceinline__ void merge_values(float* a, const float* b, int k) {
   __syncwarp();
 }
 
+// Row r's forward packet from its block_c scores srow: keep s >= t and
+// gcol < nc_valid, count them and select the top-k (one warp). With Global,
+// srow lies in device memory written by other thread blocks of this launch
+// and is read through L2 (__ldcg), never from a stale L1 line.
+template <bool Global>
+__device__ __forceinline__ void rect_row_packet(const float* srow, int block_c, int gcol0,
+                                                int nc_valid, float threshold, int k,
+                                                float* out_v, int* out_i, int* out_c) {
+  const int lane = threadIdx.x & 31;
+  float v[MAX_BLOCK / 32];
+  int id[MAX_BLOCK / 32];
+  int count = 0;
+#pragma unroll
+  for (int q = 0; q < MAX_BLOCK / 32; ++q) {
+    const int c = q * 32 + lane;
+    bool ok = false;
+    float sv = NEG_LARGE;
+    if (c < block_c) {
+      const int gcol = gcol0 + c;
+      sv = Global ? __ldcg(srow + c) : srow[c];
+      ok = sv >= threshold && gcol < nc_valid;
+      id[q] = ok ? gcol : -1;
+    } else {
+      id[q] = -1;
+    }
+    v[q] = ok ? sv : NEG_LARGE;
+    count += __popc(__ballot_sync(FULL, ok));
+  }
+  select_packet(v, id, count, k, out_v, out_i, out_c);
+}
+
 // The forward packet of one rectangular tile: x holds its block_q query rows
 // and y its block_c corpus rows (row stride m), gcol0 the global id of y's
 // first row. s is block_q * block_c floats of shared memory; fv/fi are
-// (block_q, k) and fc (block_q,) of this tile's packet. With topv (block_q,
-// k) in shared memory, each selected row's values are merged into it (K5).
-// Ends with every thread past its last read of s and write of topv.
+// (block_q, k) and fc (block_q,) of this tile's packet. Ends with every
+// thread past its last read of s.
 template <typename T>
 __device__ void rect_tile_packet(const T* __restrict__ x, const T* __restrict__ y, long long m,
                                  int block_q, int block_c, int gcol0, int nc_valid,
                                  float threshold, int k, Staged& st, float* s,
                                  float* __restrict__ fv, int* __restrict__ fi,
-                                 int* __restrict__ fc, float* topv = nullptr) {
+                                 int* __restrict__ fc) {
   rect_scores(x, y, m, block_q, block_c, st, s);
   __syncthreads();  // the whole tile is in s
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < block_q; r += WARPS) {
-    float v[MAX_BLOCK / 32];
-    int id[MAX_BLOCK / 32];
-    int count = 0;
-#pragma unroll
-    for (int q = 0; q < MAX_BLOCK / 32; ++q) {
-      const int c = q * 32 + lane;
-      bool ok = false;
-      float sv = NEG_LARGE;
-      if (c < block_c) {
-        const int gcol = gcol0 + c;
-        sv = s[r * block_c + c];
-        ok = sv >= threshold && gcol < nc_valid;
-        id[q] = ok ? gcol : -1;
-      } else {
-        id[q] = -1;
-      }
-      v[q] = ok ? sv : NEG_LARGE;
-      count += __popc(__ballot_sync(FULL, ok));
-    }
-    select_packet(v, id, count, k, fv + (long long)r * k, fi + (long long)r * k, fc + r);
-    if (topv != nullptr) {
-      __syncwarp();  // the packet row is written (lane 0 and the padding lanes)
-      merge_values(topv + r * k, fv + (long long)r * k, k);
-    }
-  }
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < block_q; r += WARPS)
+    rect_row_packet<false>(s + r * block_c, block_c, gcol0, nc_valid, threshold, k,
+                           fv + (long long)r * k, fi + (long long)r * k, fc + r);
   __syncthreads();
 }
 

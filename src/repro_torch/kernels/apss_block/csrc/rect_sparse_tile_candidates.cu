@@ -17,8 +17,8 @@
 // Design. K4's: one thread block per worklist entry t reads ij[1, t] and
 // runs rect_tile_packet (apss_common.cuh) with x = qg[t] and y = bx[cj] at
 // row stride S: the block_q x block_c tile in dynamic shared memory, scored
-// by f32 FMA in support order, then one warp per query row selects by
-// (value desc, id asc).
+// by f32 FMA over the support in the chunked order of apss_common.cuh
+// (K4's), then one warp per query row selects by (value desc, id asc).
 //
 // Bound: 2 * block_q * block_c * S FLOP per tile against 4 * (block_q +
 // block_c) * S bytes of operands: about block_q / 2 FLOP per byte of bx,

@@ -14,7 +14,9 @@
 // (value desc, id asc). Rows 0 and 1 of the worklist address the operands;
 // the packet's column ids and validity come from the LAST row (a (3, T)
 // worklist carries global block ids there while row 1 holds local ones).
-// No TF32, no tensor cores: sums are f32 FMA in increasing feature order.
+// No TF32, no tensor cores: sums are f32 FMA in the chunked order of
+// apss_common.cuh (partials over FK features, each in increasing feature
+// order, added in increasing chunk order), the order K5 shares.
 //
 // Bound: at serving batches (8-128 query rows) a tile does 2 * block_q FLOP
 // per 4-byte corpus element it reads, so a batch of one query block is
@@ -23,7 +25,7 @@
 // thread block per tile fills only as many SMs as the batch has live tiles
 // (27 for one query block of a 6912-row corpus at block_c = 256), so the
 // kernel runs far from either bound there; splitting a tile over more SMs
-// is queued design work (ROADMAP).
+// is queued design work (ROADMAP); K5 spreads its tiles over every SM.
 #include "apss_common.cuh"
 
 namespace apss {

@@ -15,7 +15,8 @@
    ``csrc/rect_tile_candidates_ee.cu``) -- K4 walking the worklist in its
    upper-bound-descending order with a running per-row values buffer, and
    skipping a tile once every valid row of its query block holds k values
-   strictly above the tile's bound.
+   strictly above the tile's bound. One cooperative grid over every SM
+   scores each tile in the work items of :func:`ee_work_split`.
 
 Each wrapper takes the kernel's padded inputs. On a CUDA tensor it checks
 device, dtype, shape and contiguity, allocates the outputs, launches on the
@@ -32,6 +33,7 @@ slots are ``NEG_LARGE`` / ``-1``; the ops layer turns them into ``-inf``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -59,7 +61,11 @@ _TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
 _TK = 32    # their feature chunk
 _RECT_CHUNK = 64  # rectangular tiles selected together by the plain versions
 _MAX_EE_K = 256  # K5's values buffer (csrc/apss_common.cuh, MAX_EE_K)
-_DYN_SMEM = 232448 - 17408  # a block's shared memory less the static staging
+# Features per partial sum of a rectangular score (csrc/apss_common.cuh, FK):
+# K4, K5 and K6 add FK-feature partials in increasing chunk order.
+EE_FK = 1024
+_EE_STRIP_C = 64  # corpus rows of one K5 work item (a score_strip's columns)
+_THREADS = 256    # threads of a K5 block (csrc/apss_common.cuh, THREADS)
 
 
 def _f32(threshold: float) -> float:
@@ -348,6 +354,65 @@ def rect_tile_candidates_early_exit_plain(
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+
+@dataclasses.dataclass(frozen=True)
+class EeSplit:
+    """K5's work split of one scored tile.
+
+    ``items (n_items, 3)`` int32 rows are (feature chunk, first query row,
+    first corpus row) of a strip of ``strip_rows`` query rows by 64 corpus
+    rows over the chunk's FK features; ``grid`` is the number of thread
+    blocks to launch."""
+
+    n_chunks: int
+    strip_rows: int
+    items: np.ndarray
+    grid: int
+
+
+def ee_work_split(m: int, block_q: int, block_c: int, capacity: int) -> EeSplit:
+    """The work items of one K5 tile over a co-resident grid of ``capacity``
+    thread blocks.
+
+    The features go in ``ceil(m / EE_FK)`` chunks (the summation order K4
+    shares); the tile in strips of 64, 32 or 16 query rows (never more than
+    twice ``block_q``) by 64 corpus rows. The tallest strip that still gives
+    every block an item is taken, else the lowest, which gives the most
+    items. The grid is ``capacity`` capped by the work of the widest phase:
+    the items, the tile's elements at one per thread, its rows at one per
+    warp.
+    """
+    if m < 1 or block_q < 1 or block_c % _EE_STRIP_C or capacity < 1:
+        raise ValueError(f"no split for m={m}, block_q={block_q}, block_c={block_c}, "
+                         f"capacity={capacity}")
+    n_chunks = -(-m // EE_FK)
+    heights = [h for h in (64, 32, 16) if h < 2 * block_q or h == 16]
+    for rows in heights:
+        if n_chunks * -(-block_q // rows) * (block_c // _EE_STRIP_C) >= capacity:
+            break
+    f, r0, c0 = np.meshgrid(np.arange(n_chunks), np.arange(0, block_q, rows),
+                            np.arange(0, block_c, _EE_STRIP_C), indexing="ij")
+    items = np.stack([f.ravel(), r0.ravel(), c0.ravel()], 1).astype(np.int32)
+    work = max(len(items), -(-block_q * block_c // _THREADS), -(-block_q // (_THREADS // 32)))
+    return EeSplit(n_chunks, rows, items, min(capacity, work))
+
+
+def ee_capacity(dtype: torch.dtype, k: int, device: torch.device) -> int:
+    """Thread blocks of K5 that ``device`` holds at once (occupancy × SMs)."""
+    fn, check = _entry("rect_tile_candidates_ee",
+                       f"apss_rect_tile_candidates_ee_capacity_{_suffix(dtype)}", [_I, _VP])
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(fn(k, ctypes.byref(blocks)))
+    return blocks.value
+
+
+def ee_split_for(Q: torch.Tensor, *, block_q: int, block_c: int, k: int) -> EeSplit:
+    """The split :func:`rect_tile_candidates_early_exit_kernel` launches
+    with for queries ``Q`` on the card."""
+    return ee_work_split(Q.shape[1], block_q, block_c, ee_capacity(Q.dtype, k, Q.device))
+
+
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -602,30 +667,30 @@ def rect_tile_candidates_early_exit_kernel(
     grid_q, grid_c = _check_rect_operands(Q, C, block_q, block_c)
     if not 1 <= k <= _MAX_EE_K:
         raise ValueError(f"k must be in [1, {_MAX_EE_K}] for the values buffer; got {k}")
-    if 4 * block_q * (block_c + k) > _DYN_SMEM:
-        raise ValueError(
-            f"the score tile and values buffer ({block_q} x ({block_c} + {k}) f32) "
-            "exceed a block's shared memory"
-        )
     ij = _worklist_on(ij, Q.device, (2,), (grid_q, grid_c))
     T = ij.shape[1]
     dev = Q.device
     ub = torch.as_tensor(ub).to(dev, torch.float32).contiguous()
     if tuple(ub.shape) != (T,):
         raise ValueError(f"ub shape {tuple(ub.shape)} is not ({T},)")
+    split = ee_split_for(Q, block_q=block_q, block_c=block_c, k=k)
+    items = torch.from_numpy(split.items).to(dev)
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
     skipped = torch.empty((T, 1), dtype=torch.int32, device=dev)
+    topv = torch.empty((grid_q * block_q, k), dtype=torch.float32, device=dev)
+    part = torch.empty((split.n_chunks, block_q, block_c), dtype=torch.float32, device=dev)
     fn, check = _entry(
         "rect_tile_candidates_ee", f"apss_rect_tile_candidates_ee_{_suffix(Q.dtype)}",
-        [_VP] * 4 + [_I, _I] + [_VP] * 4 + [_I] * 5 + [_F, _I, _VP],
+        [_VP] * 4 + [_I, _I] + [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],
     )
     status = fn(
         Q.data_ptr(), C.data_ptr(), ij.data_ptr(), ub.data_ptr(), T, grid_q,
         fv.data_ptr(), fi.data_ptr(), fc.data_ptr(), skipped.data_ptr(),
-        Q.shape[1], block_q, block_c, int(nc_valid), int(nq_valid),
-        _f32(threshold), k, torch.cuda.current_stream(dev).cuda_stream,
+        topv.data_ptr(), part.data_ptr(), items.data_ptr(), len(split.items),
+        split.strip_rows, split.grid, Q.shape[1], block_q, block_c, int(nc_valid),
+        int(nq_valid), _f32(threshold), k, torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status)
     LAUNCHES["rect_tile_candidates_ee"] += 1

@@ -2,10 +2,12 @@
 
 :func:`flash_attention_kernel` takes q ``(B, Hq, S, D)`` and k, v
 ``(B, Hkv, S, D)`` (kv head = q head // (Hq / Hkv)) and returns
-``softmax(scale · q·kᵀ)·v`` in q's dtype: q scaled in f32, f32 scores and
-softmax statistics with the finite ``NEG_LARGE`` mask, ``acc / (l or 1)``.
-On a CUDA tensor it launches the kernel or raises, and adds one to
-``LAUNCHES["flash_attention"]``; on a CPU tensor it returns
+``softmax(scale · q·kᵀ)·v`` in q's dtype: f32 scores and softmax statistics
+with the finite ``NEG_LARGE`` mask, ``acc / (l or 1)``. The source holds two
+kernels: bf16 runs on the tensor cores (warpgroup MMA, the scale applied to
+the f32 scores, P rounded to bf16 for P·V), f32 on the FMA units (q scaled in
+f32, everything f32). On a CUDA tensor it launches the kernel or raises, and
+adds one to ``LAUNCHES["flash_attention"]``; on a CPU tensor it returns
 :func:`flash_attention_plain`, the same function in plain PyTorch.
 """
 

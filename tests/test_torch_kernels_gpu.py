@@ -359,6 +359,101 @@ def test_k5_kernel_matches_plain_with_padding(card):
         assert got[3][-2:].tolist() == [[1], [1]]
 
 
+def _k5_case(dtype, m, block_q, block_c, *, grid_q=3, nc_blocks=4, seed=0):
+    """Queries and a corpus whose blocks are scaled by 1, 1/2, 1/4, 1/8, the
+    (2, T) worklist of every tile ordered by its bound descending (query
+    blocks interleaved), the bounds (each tile's largest score plus 0.1 %)
+    and the count of valid query rows (the last block has three)."""
+    rng = np.random.default_rng(seed)
+    Q = np.abs(rng.standard_normal((grid_q * block_q, m))).astype(np.float32)
+    C = np.abs(rng.standard_normal((nc_blocks * block_c, m))).astype(np.float32)
+    C *= (0.5 ** np.repeat(np.arange(nc_blocks), block_c)).astype(np.float32)[:, None]
+    nq_valid = (grid_q - 1) * block_q + 3
+    Q[nq_valid:] = 0
+    Q, C = (torch.from_numpy(a).to(dtype).float().numpy() for a in (Q, C))
+    S = (Q.astype(np.float64) @ C.astype(np.float64).T).reshape(
+        grid_q, block_q, nc_blocks, block_c)
+    tmax = S.max(axis=(1, 3)).ravel() * 1.001
+    order = np.argsort(-tmax, kind="stable")
+    ij = np.stack([order // nc_blocks, order % nc_blocks]).astype(np.int32)
+    return Q, C, ij, tmax[order].astype(np.float32), nq_valid
+
+
+def _fold(ij, p, *, grid_q, block_q, k):
+    from repro_torch.kernels.apss_block.ops import fold_rect_packets
+
+    ones = torch.ones(ij.shape[1], dtype=torch.bool)
+    return fold_rect_packets(ij, ones, p[0], p[1], p[2][..., 0], grid_q=grid_q,
+                             block_q=block_q, k=k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [64, 2560])  # one short chunk; 2.5 chunks of FK, the last ragged
+@pytest.mark.parametrize("block_c", [64, 256])
+@pytest.mark.parametrize("block_q", [8, 64, 128])
+def test_k5_bit_identical_to_k4_fold(card, dtype, m, block_c, block_q):
+    """K5's packets fold to K4's values and ids bit for bit on the valid rows,
+    counts saturated at k, and its skip flags equal the plain version's,
+    over three interleaved query blocks, k = 1, 8 and 256."""
+    from repro_torch.kernels.apss_block import fused
+
+    Qn, Cn, wl, ubn, nq_valid = _k5_case(dtype, m, block_q, block_c)
+    Q = torch.from_numpy(Qn).to(card, dtype)
+    C = torch.from_numpy(Cn).to(card, dtype)
+    ij, ub = torch.from_numpy(wl).to(card), torch.from_numpy(ubn).to(card)
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=C.shape[0])
+    t = float(np.float32(0.25 * np.median(ubn)))
+    skipped_any = False
+    for k in (1, 8, 256):
+        fold = dict(grid_q=3, block_q=block_q, k=k)
+        before = fused.LAUNCHES["rect_tile_candidates_ee"]
+        ee = fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, ub, t, k,
+                                                          nq_valid=nq_valid, **kw)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES["rect_tile_candidates_ee"] == before + 1
+        full = fused.rect_tile_candidates_kernel(Q, C, ij, t, k, **kw)
+        plain = fused.rect_tile_candidates_early_exit_plain(Q, C, ij, ub, t, k,
+                                                            nq_valid=nq_valid, **kw)
+        got, want = _fold(ij, ee[:3], **fold), _fold(ij, full, **fold)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a[:nq_valid], b[:nq_valid])
+        assert torch.equal(got[2][:nq_valid].clamp_max(k), want[2][:nq_valid].clamp_max(k))
+        assert torch.equal(ee[3].cpu(), plain[3].cpu())
+        scored = ee[3][:, 0] == 0
+        for a, b in zip(ee[:3], full):  # a scored tile's packet is K4's
+            assert torch.equal(a[scored], b[scored])
+        skipped_any |= bool((~scored).any())
+    assert skipped_any  # k = 1: every row holds its block-0 maximum above the later bounds
+
+
+def test_k5_single_tile_padding_worklist_and_grid(card):
+    """T = 1 gives K4's packet; a worklist of padding entries only is all
+    skipped and neutral; on radikal's serving shape the grid covers every
+    SM."""
+    from repro_torch.kernels.apss_block import fused
+
+    Qn, Cn, wl, ubn, _ = _k5_case(torch.float32, 2560, 64, 256)
+    Q, C = torch.from_numpy(Qn).to(card), torch.from_numpy(Cn).to(card)
+    kw = dict(block_q=64, block_c=256, nc_valid=C.shape[0])
+    one = torch.tensor([[1], [0]], dtype=torch.int32)
+    ee = fused.rect_tile_candidates_early_exit_kernel(Q, C, one, torch.tensor([1e30]), 0.0, 8,
+                                                      nq_valid=150, **kw)
+    full = fused.rect_tile_candidates_kernel(Q, C, one, 0.0, 8, **kw)
+    assert ee[3].tolist() == [[0]]
+    for a, b in zip(ee[:3], full):
+        assert torch.equal(a, b)
+    ij = torch.from_numpy(wl)
+    pad = torch.full((ij.shape[1],), fused.NEG_LARGE)
+    fv, fi, fc, sk = fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, pad, 0.0, 8,
+                                                                  nq_valid=150, **kw)
+    assert bool((sk == 1).all()) and bool((fi == -1).all()) and bool((fc == 0).all())
+    assert bool((fv == fused.NEG_LARGE).all())
+    wide = torch.empty((64, 136704), device=card)
+    split = fused.ee_split_for(wide, block_q=64, block_c=256, k=32)
+    assert split.n_chunks == 134
+    assert split.grid >= torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def test_k5_tie_probe_on_card(card):
     """The strict skip test: a tile whose bound equals every row's k-th value
     exactly is scored, so the lower ids of the tie win, as in K4 + fold."""
@@ -465,10 +560,12 @@ def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):
     ub = torch.zeros(1)
     with pytest.raises(ValueError, match="values buffer"):
         fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, ub, 0.3, 300, nq_valid=64, **kw)
-    with pytest.raises(ValueError, match="shared memory"):  # 128 x (256 + 256) f32
-        fused.rect_tile_candidates_early_exit_kernel(
-            torch.zeros((128, 128), device=card), C, ij, ub, 0.3, 256, nq_valid=128,
-            block_q=128, block_c=256, nc_valid=256)
+    # 128 x (256 + 256) f32 once exceeded a block's shared memory; the tile
+    # now lives in device scratch, so K5 takes it.
+    got = fused.rect_tile_candidates_early_exit_kernel(
+        torch.zeros((128, 128), device=card), C, ij, ub, 0.3, 256, nq_valid=128,
+        block_q=128, block_c=256, nc_valid=256)
+    assert tuple(got[0].shape) == (1, 128, 256) and got[3].tolist() == [[0]]
     with pytest.raises(ValueError, match="ub shape"):
         fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, torch.zeros(2), 0.3, 8,
                                                      nq_valid=64, **kw)
@@ -507,6 +604,8 @@ def _normal(shape, seed, dtype, card):
         (1, 8, 1, 200, 128, True),    # group 8
         (1, 4, 2, 512, 32, True),
         (2, 16, 8, 256, 128, False),  # non-causal, divisible S
+        (1, 2, 1, 512, 16, False),    # D = 16 over several kv tiles
+        (2, 4, 4, 1024, 64, True),
     ],
 )
 def test_k8_matches_plain(card, dtype, B, Hq, Hkv, S, D, causal):
@@ -527,6 +626,27 @@ def test_k8_matches_plain(card, dtype, B, Hq, Hkv, S, D, causal):
     assert got.dtype == dtype and got.shape == q.shape
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [64, 192])
+@pytest.mark.parametrize("D", [16, 128])
+def test_k8_kernel_at_tile_multiples(card, dtype, S, D):
+    """The kernel itself at S a multiple of its 64-row tile (one tile; an odd
+    number of them), causal and not, GQA group 2."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_kernel,
+        flash_attention_plain,
+    )
+
+    q = _normal((2, 4, S, D), 4, dtype, card)
+    k = _normal((2, 2, S, D), 5, dtype, card)
+    v = _normal((2, 2, S, D), 6, dtype, card)
+    for causal in (True, False):
+        got = flash_attention_kernel(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   atol=ATOL[dtype], rtol=0)
 
 
 def test_k8_refuses_instead_of_running_the_plain_version(card):

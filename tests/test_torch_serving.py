@@ -292,6 +292,39 @@ def test_plain_k5_skips_padding_entries_and_padded_rows():
     assert bool(sk0.all())
 
 
+@pytest.mark.parametrize(
+    "m,block_q,block_c,capacity,strip_rows",
+    [
+        (136704, 64, 256, 264, 64),          # radikal's serving batch (134 chunks)
+        (2048, 64, 64, 264, 16),             # the early-exit overlap cell (2 chunks)
+        (int(2.5 * fused.EE_FK), 8, 256, 132, 16),  # a ragged last chunk, 8-row block
+        (64, 128, 128, 396, 16),             # one short chunk
+        (3 * fused.EE_FK, 40, 64, 2, 64),    # a strip taller than the block
+        (3 * fused.EE_FK, 40, 64, 4, 32),    # shorter strips, to give every block an item
+    ],
+)
+def test_k5_work_split_covers_every_chunk_and_strip_once(m, block_q, block_c, capacity,
+                                                         strip_rows):
+    """K5's work items: each (feature chunk, query strip, corpus strip) once,
+    the chunks of the summation order K4 shares, every score of the tile in
+    exactly one item per chunk, and a grid no larger than the card holds."""
+    split = fused.ee_work_split(m, block_q, block_c, capacity)
+    assert split.n_chunks == -(-m // fused.EE_FK)
+    assert split.strip_rows == strip_rows
+    items = split.items
+    assert items.dtype == np.int32 and items.shape[1] == 3
+    assert len({tuple(r) for r in items.tolist()}) == len(items)
+    cover = np.zeros((split.n_chunks, block_q, block_c), np.int32)
+    for f, r0, c0 in items.tolist():
+        assert 0 <= f < split.n_chunks and r0 % strip_rows == 0 and c0 % 64 == 0
+        cover[f, r0:r0 + strip_rows, c0:c0 + 64] += 1
+    assert (cover == 1).all()
+    work = max(len(items), -(-block_q * block_c // 256), -(-block_q // 8))
+    assert split.grid == min(capacity, work)
+    with pytest.raises(ValueError, match="no split"):
+        fused.ee_work_split(m, block_q, 96, capacity)
+
+
 # -- index and query path against the JAX package -----------------------------
 
 

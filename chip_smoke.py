@@ -14,7 +14,7 @@ Phases, each printing one JSON line:
    started together) into ``build/repro_torch/``; build seconds, each
    kernel's registers, shared memory and spills from ``-Xptxas -v``, and
    the tensor-core instructions in K8's SASS (``cuobjdump -sass``): it
-   fails if the library holds no ``HGMMA``.
+   fails if the library holds no ``HGMMA``, or if K1 or K4 spill registers.
 3. ``edge_probes``: n=130 m=100; t=-0.1 with padded zero columns; k > n;
    bf16 input; an all-pruned mask (t=1.5), through both dense kernel
    paths, against the port's oracle on the card.
@@ -29,6 +29,10 @@ Phases, each printing one JSON line:
    an all-zero query; and the tie probe of the strict early-exit test (a
    tile whose bound equals every row's k-th value must be scored), against
    the rectangular oracle ``extract_matches(Q·Cᵀ, t, k, exclude_self=False)``.
+   Then ``f1_probe``: a bf16 dense index (4096 × 2560) scores 64 f32
+   queries unrounded through K4's and K5's f32 × bf16 entries: counts equal
+   to the plain path's and to the float64 count on the bf16 corpus in every
+   row clear of t.
 6. ``clustered_65k``: ``clustered_corpus(65536, 768, 8)``, t=0.5, k=32: the
    pruning-friendly regime (most tiles provably dead), K1 and K2.
 7. ``radikal_full``: the paper's radikal dataset at full scale
@@ -89,9 +93,14 @@ Phases, each printing one JSON line:
 18. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound (f32
     FMA peak; K8's bf16 row the bf16 tensor-core peak), and the largest
-    value difference from the plain version; K5's rows add its cooperative
-    grid (``grid_blocks``) and feature chunks, K8's the f32 kernel's time
-    (``ms_f32``).
+    value difference from the plain version, and ``nvidia-smi``'s SM clock,
+    its maximum, power draw and temperature just before and after the
+    kernel's timed runs (``clocks``; one such line also comes before the
+    first and after the last timed row); K1's rows add its grid (row tiles
+    × segments) and segment count, K4's its work items, grid, passes and
+    scratch bytes, K5's its cooperative grid (``grid_blocks``) and feature
+    chunks, K8's the f32 kernel's time (``ms_f32``) beside SDPA's in f32
+    (``library_ms_f32``).
 
 The main-path phases (6-13 and 15-17) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
@@ -178,6 +187,7 @@ KERNEL_INFO = {
     ),
 }
 LM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # K8/K9 against their plain versions
+NO_SPILL = ("apss_fused", "rect_tile_candidates")  # the build fails on their spills
 
 
 class PhaseFailed(Exception):
@@ -221,10 +231,13 @@ def main() -> int:
     libs = _build.build()
     build_s = time.perf_counter() - t0
     mma = sass_mma_counts(libs["flash_attention"])
-    emit("build", seconds=build_s, flash_attention_sass=mma,
-         ptxas={name: _build.ptxas_report(name) for name in _build.sources()})
+    ptxas = {name: _build.ptxas_report(name) for name in _build.sources()}
+    emit("build", seconds=build_s, flash_attention_sass=mma, ptxas=ptxas)
     check(mma is None or mma["HGMMA"] > 0,
           f"K8's library holds no warpgroup MMA (HGMMA) in its SASS: {mma}")
+    for name in NO_SPILL:
+        spilled = [r for r in ptxas[name] if r.get("spill_stores") or r.get("spill_loads")]
+        check(not spilled, f"{name} spills registers: {spilled}")
 
     from repro_torch.core.sparse import from_dense
     from repro_torch.data.sparse import sparse_clustered_corpus
@@ -235,6 +248,8 @@ def main() -> int:
     edge_probes(np, torch)
     sparse_edge_probes(np, torch)
     serving_edge_probes(np, torch)
+    f1_probe(np, torch)
+    emit("clocks_before_timed_rows", nvidia_smi=clocks(), query=CLOCK_QUERY)
     D, gen_s = generated(torch, lambda: torch.from_numpy(
         clustered_corpus(65536, 768, 8, n_clusters=32, seed=0)).cuda())
     rows, _ = main_path_phase(np, torch, "clustered_65k", D, gen_s, threshold=0.5, k=32)
@@ -267,6 +282,7 @@ def main() -> int:
     row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_qwen3_1_7b_32k", cfg, model)
     rows.append(row)
     lm_server_phase(np, torch, "lm_server_qwen3_1_7b", cfg, model, max_dlogit)
+    emit("clocks_after_timed_rows", nvidia_smi=clocks(), query=CLOCK_QUERY)
     emit("kernels", kernels=rows)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
@@ -745,12 +761,18 @@ def main_path_phase(np, torch, phase, D, gen_s, *, threshold, k):
     mk = mask1.cpu().numpy()
     flop1 = 2.0 * m * float((mk * np.outer(valid, valid)).sum())
     bytes1 = 4.0 * n * m + n * (8 * k + 4) + mk.size
-    rows.append(kernel_row(
+    row = kernel_row(
         np, torch, "apss_fused", phase, launches, cmp1,
         lambda: fused.apss_fused_kernel(Dp, Dp, mask1, t, k, **kw1),
         lambda: fused.apss_fused_plain(Dp, Dp, mask1, t, k, **kw1),
         lambda: library_topk(torch, D, t, k), flop1, bytes1,
-    ))
+    )
+    segments = fused.fused_segments_for(Dp, Dp.shape[0], k)
+    row_tiles = -(-Dp.shape[0] // fused.FUSED_TILE)
+    row.update(segments=segments, grid=[row_tiles, segments],
+               merge_grid=-(-Dp.shape[0] // 8) if segments > 1 else 0,
+               slots=fused.fused_capacity(Dp.dtype, k, Dp.device))
+    rows.append(row)
 
     # K2 against its plain version on the same padded inputs and worklist.
     kw2 = dict(block_m=bm, block_n=bm, n_valid=n)
@@ -1017,12 +1039,19 @@ def k4_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
     check(c["ok"], f"{row_name}: K4 disagrees with its plain version: {c}")
     flop, nbytes = rect_work(np, wl, B=B, n=index.n, bq=bq, bc=index.block_rows,
                              depth=index.m, k=k)
-    return kernel_row(
+    row = kernel_row(
         np, torch, "rect_tile_candidates", row_name, launches, c,
         lambda: fused.rect_tile_candidates_kernel(Qp, index.corpus, ij, t, k, **kw),
         lambda: fused.rect_tile_candidates_plain(Qp, index.corpus, ij, t, k, **kw),
         lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes,
     )
+    split = fused.rect_work_split(ij.shape[1], Qp.shape[1], bq, index.block_rows)
+    row.update(tiles=split.n_tiles, work_items=split.n_items, n_chunks=split.n_chunks,
+               strip_rows=split.strip_rows, passes=-(-split.n_tiles // split.pass_tiles),
+               grid=[split.pass_tiles * split.n_chunks * split.strips,
+                     -(-split.pass_tiles * bq // 8)],
+               scratch_bytes=split.scratch_bytes)
+    return row
 
 
 def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
@@ -1051,7 +1080,7 @@ def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
                                                             **kw),
         lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes + 8 * len(skipped),
     )
-    split = fused.ee_split_for(Qp, block_q=bq, block_c=index.block_rows, k=k)
+    split = fused.ee_split_for(Qp, index.corpus, block_q=bq, block_c=index.block_rows, k=k)
     row.update(live_tiles=len(skipped), scored_tiles=int((~skipped).sum()),
                grid_blocks=split.grid, n_chunks=split.n_chunks, strip_rows=split.strip_rows,
                work_items=len(split.items))
@@ -1185,6 +1214,55 @@ def serving_edge_probes(np, torch) -> None:
             tie[f"{kind}_{way}"] = tiles
     results["tie_probe"] = tie
     emit("serving_edge_probes", probes=results)
+
+
+def f1_probe(np, torch) -> None:
+    """F1 on the card: a bf16 dense index scores f32 queries unrounded. A
+    standard-normal corpus of 4096 rows x 2560 features (2.5 FK chunks),
+    normalised and stored in bf16, and 64 f32 queries (its first rows plus
+    0.05-scaled noise, normalised), t = 0.05, k = 16, block_q 64: K4 (its
+    f32 x bf16 entry) and K5 through ``query_topk`` must give exactly the
+    plain path's counts, and both the float64 count on the bf16 corpus in
+    every row with no pair within TOL of t."""
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import build_index, query_topk
+
+    rng = np.random.default_rng(0)
+    C = rng.standard_normal((4096, 2560)).astype(np.float32)
+    C /= np.linalg.norm(C, axis=1, keepdims=True)
+    Q = C[:64] + 0.05 * rng.standard_normal((64, 2560)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+    Qt = torch.from_numpy(Q).cuda()
+    index = build_index(torch.from_numpy(C).cuda().bfloat16(), block_rows=256,
+                        normalize=False)
+    check(index.corpus.dtype == torch.bfloat16, "F1 probe: the index is not bf16")
+    t, k = 0.05, 16
+    kw = dict(block_q=64)
+    reset_launches()
+    full = matches_to_numpy(query_topk(index, Qt, t, k, use_kernel=True, **kw))
+    ee = matches_to_numpy(query_topk(index, Qt, t, k, use_kernel=True, early_exit=True, **kw))
+    torch.cuda.synchronize()
+    launches = launches_now()
+    plain = matches_to_numpy(query_topk(index, Qt, t, k, use_kernel=False, **kw))
+    rounded = matches_to_numpy(query_topk(index, Qt.bfloat16(), t, k, use_kernel=False, **kw))
+    S = Qt.double() @ index.corpus[:4096, :2560].double().T
+    clear = ((S - t).abs() > TOL).all(dim=1).cpu().numpy()
+    want = (S >= t).sum(dim=1).cpu().numpy()
+    near = ((S - t).abs() <= TOL).sum(dim=1).cpu().numpy()
+    c = compare(np, full, plain, t, near)
+    emit("f1_probe", n=4096, m=2560, queries=64, threshold=t, k=k,
+         launches={n: launches[n] for n in ("rect_tile_candidates", "rect_tile_candidates_ee")},
+         clear_rows=int(clear.sum()), matches=int(plain[2].sum()),
+         rows_where_bf16_queries_count_otherwise=int((rounded[2] != plain[2]).sum()),
+         kernel_vs_plain=c)
+    check(launches["rect_tile_candidates"] > 0 and launches["rect_tile_candidates_ee"] > 0,
+          f"F1 probe: a kernel never ran: {launches}")
+    check(clear.sum() >= 48, f"F1 probe: only {int(clear.sum())} rows clear of t")
+    check(np.array_equal(full[2], plain[2]), "F1 probe: kernel and plain counts differ")
+    check(np.array_equal(full[2][clear], want[clear]),
+          "F1 probe: counts differ from the float64 count on the bf16 corpus")
+    check(c["ok"], f"F1 probe: the kernel path disagrees with the plain path: {c}")
+    check(identical(np, ee, saturated(np, full, k)), "F1 probe: K5 differs from K4")
 
 
 def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
@@ -1619,6 +1697,8 @@ def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
         del got, want
     ms_f32 = time_ms(np, torch, lambda: k8.flash_attention_kernel(q32, k32, v32))
     scale = 1.0 / D ** 0.5
+    library_ms_f32 = time_ms(np, torch, lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, scale=scale, enable_gqa=True))
     flop = 4.0 * D * (S * (S + 1) / 2) * B * Hq
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     row = kernel_row(
@@ -1630,6 +1710,7 @@ def k8_row(np, torch, phase, launches, B, Hq, Hkv, S, D) -> dict:
         flop, nbytes, peak=PEAK_BF16_TC_FLOPS)
     row.update(shape=[B, Hq, Hkv, S, D], dtype="bfloat16", max_abs_err_f32=errs["float32"],
                ms_f32=ms_f32, bound_ms_f32=bound(flop, 2 * nbytes)[0],
+               library_ms_f32=library_ms_f32,
                per_prefill_bound_ms=row["bound_ms"] * launches["flash_attention"])
     return row
 
@@ -1782,7 +1863,9 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,
                flop, nbytes, peak=PEAK_F32_FLOPS) -> dict:
+    clocks_before = clocks()
     ms = time_ms(np, torch, kernel)
+    clocks_after = clocks()
     plain_ms = time_ms(np, torch, plain)
     library_ms = time_ms(np, torch, library)
     bound_ms, bound_by = bound(flop, nbytes, peak)
@@ -1792,7 +1875,18 @@ def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=library_ms, flop=flop, bytes=nbytes,
         near_tie_swaps=cmp.get("near_tie_swaps"),
+        clocks=[clocks_before, clocks_after],
     )
+
+
+CLOCK_QUERY = "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+
+
+def clocks() -> str:
+    """The card's SM clock, its maximum, power draw and temperature, as
+    ``nvidia-smi`` prints them (``CLOCK_QUERY``)."""
+    return subprocess.run(["nvidia-smi", CLOCK_QUERY, "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 if __name__ == "__main__":

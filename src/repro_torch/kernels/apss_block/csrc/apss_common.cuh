@@ -1,5 +1,13 @@
 // Shared pieces of the APSS self-join kernels for Hopper (sm_90a).
 //
+// ring_tile: the pipelined body of K1 and K4 (bottom of this file): a BM x
+//   BN tile of X . Y^T over a feature range, streamed through a ring of
+//   cp.async stages in shared memory (the next stages' copies in flight
+//   while one is multiplied), each thread owning RM x RN scores and reading
+//   its rows and columns four features at a time. Each score is one fmaf
+//   chain from 0 in increasing feature order, the order of score_tile and
+//   score_strip_part below.
+//
 // score_tile: one 64 x 64 tile of X . Y^T in float32, by plain FMA in
 //   registers. 256 threads each own a 4 x 4 block of the tile. Feature
 //   chunks of 32 are staged in shared memory, transposed so that each
@@ -29,8 +37,8 @@
 //   tile's 2 * block_m * block_n * m FLOP. Tiles are at most 256 x 256
 //   (eight register slots per lane in phase 2).
 //
-// rect_tile_packet: the forward-only body of the rectangular (serving)
-//   kernels K4 and K6: a block_q x block_c tile of query rows against
+// rect_tile_packet: the forward-only body of the sparse rectangular
+//   (serving) kernel K6: a block_q x block_c tile of query rows against
 //   corpus rows (block_q a multiple of 8 up to 128, block_c 64, 128 or
 //   256). The f32 tile is at most 128 KB, so it stays in dynamic shared
 //   memory (no device scratch). It is scored in strips of 16, 32 or 64
@@ -39,16 +47,17 @@
 //   most half of its strip instead of seven eighths of a 64-row one), then
 //   one warp per tile row keeps s >= t and gcol < nc_valid (no
 //   self-exclusion: queries are not corpus rows), counts them and selects
-//   the row's top-k (rect_row_packet, select_packet). K5 scores the same
-//   strips on many thread blocks and selects with the same rect_row_packet.
+//   the row's top-k (rect_row_packet, select_packet). K6 runs it per tile;
+//   K5 scores the same strips on many thread blocks and K4 through
+//   ring_tile, and both select with the same rect_row_packet.
 //
 // Summation order of a rectangular score (K4, K5, K6): the features are cut
 //   into chunks of FK (the last one ragged); each chunk's partial is one
-//   fmaf chain from 0 in increasing feature order (score_strip_part), and
-//   the score is 0 + partial_0 + partial_1 + ... in increasing chunk order.
-//   This order is part of the K4 = K5 contract: K5 computes the partials of
-//   a tile on different thread blocks and adds them in the same order, so
-//   its packets are bit-identical to K4's.
+//   fmaf chain from 0 in increasing feature order (score_strip_part in K5
+//   and K6, ring_tile in K4), and the score is 0 + partial_0 + partial_1 +
+//   ... in increasing chunk order. This order is part of the K4 = K5
+//   contract: both compute a tile's partials on different thread blocks and
+//   add them in the same order, so their packets are bit-identical.
 //
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
@@ -329,9 +338,10 @@ __device__ __forceinline__ void store_strip(float* dst, const float4 (&reg)[2]) 
 // [0, len) for a strip of 16 * RM rows at x (rows at or past x_rows are 0)
 // and the 64 rows at y, both at row stride m: one fmaf chain from 0 in
 // increasing feature order, as score_tile sums. len is a multiple of 32.
-template <int RM, typename T>
-__device__ __forceinline__ void score_strip_part(const T* __restrict__ x, int x_rows,
-                                                 const T* __restrict__ y, long long m, int len,
+// x and y may differ in type (f32 queries against a bf16 corpus).
+template <int RM, typename TX, typename TY>
+__device__ __forceinline__ void score_strip_part(const TX* __restrict__ x, int x_rows,
+                                                 const TY* __restrict__ y, long long m, int len,
                                                  Staged& st, float (&acc)[RM][4]) {
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
@@ -512,6 +522,133 @@ __device__ void rect_tile_packet(const T* __restrict__ x, const T* __restrict__ 
   for (int r = warp; r < block_q; r += WARPS)
     rect_row_packet<false>(s + r * block_c, block_c, gcol0, nc_valid, threshold, k,
                            fv + (long long)r * k, fi + (long long)r * k, fc + r);
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Pipelined tiles (K1, K4): a ring of cp.async stages
+// ---------------------------------------------------------------------------
+
+constexpr int PK = 32;  // features per stage of the ring
+
+// 16 bytes from global to shared memory, asynchronously; with !valid the 16
+// bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared-memory layout of a ring of STAGES stages, each holding features
+// [k0, k0 + PK) of BM rows of X (type TX) and BN rows of Y (type TY), row
+// by row. A row is padded by 16 bytes (36 floats, 40 bf16 words), so the 8
+// (f32) or 16 (bf16) threads of one access phase reading 8 consecutive rows
+// at one feature hit distinct banks (f32; bf16 at most two-way).
+template <int BM, int BN, int STAGES, typename TX, typename TY>
+struct Ring {
+  static constexpr int LDX = PK + 16 / (int)sizeof(TX);
+  static constexpr int LDY = PK + 16 / (int)sizeof(TY);
+  static constexpr size_t X_BYTES = size_t(BM) * LDX * sizeof(TX);
+  static constexpr size_t STAGE = X_BYTES + size_t(BN) * LDY * sizeof(TY);
+  static constexpr size_t BYTES = STAGES * STAGE;
+};
+
+// Stage `stage` := features [k0, k0 + PK) of the BM rows at x (row stride
+// m; rows at or past x_rows zero) and the BN rows at y (past y_rows zero),
+// as NT threads' 16-byte cp.async copies, consecutive threads along a row.
+template <int BM, int BN, int STAGES, int NT, typename TX, typename TY>
+__device__ __forceinline__ void ring_load(unsigned char* ring, int stage,
+                                          const TX* __restrict__ x, int x_rows,
+                                          const TY* __restrict__ y, int y_rows, long long m,
+                                          long long k0) {
+  using R = Ring<BM, BN, STAGES, TX, TY>;
+  TX* sx = reinterpret_cast<TX*>(ring + stage * R::STAGE);
+  TY* sy = reinterpret_cast<TY*>(ring + stage * R::STAGE + R::X_BYTES);
+  constexpr int EX = 16 / sizeof(TX), EY = 16 / sizeof(TY);  // elements per copy
+  constexpr int UX = PK / EX, UY = PK / EY;                    // copies per row
+  for (int u = threadIdx.x; u < BM * UX; u += NT) {
+    const int r = u / UX, p = (u % UX) * EX;
+    const bool ok = r < x_rows;
+    cp_async16(sx + r * R::LDX + p, ok ? x + (long long)r * m + k0 + p : x, ok);
+  }
+  for (int u = threadIdx.x; u < BN * UY; u += NT) {
+    const int r = u / UY, p = (u % UY) * EY;
+    const bool ok = r < y_rows;
+    cp_async16(sy + r * R::LDY + p, ok ? y + (long long)r * m + k0 + p : y, ok);
+  }
+}
+
+// acc[i][j] = X[ty + TYN*i] . Y[tx + TXN*j] over features [0, len) of the
+// BM rows at x (rows at or past x_rows read as 0) and the BN rows at y (past
+// y_rows 0), both at row stride m, for the thread (ty, tx) = (tid / TXN,
+// tid % TXN) of NT = (BM / RM) * (BN / RN): one fmaf chain from 0 in
+// increasing feature order per score, the order of score_tile and
+// score_strip_part, so the bits are theirs. len is a multiple of PK; x, y
+// and m * sizeof are 16-byte aligned.
+//
+// The features stream through STAGES ring stages by cp.async: while stage
+// c is multiplied, the copies of stages c + 1 .. c + STAGES - 1 are in
+// flight, and one barrier per stage both publishes the landed copies and
+// frees the stage the next copy overwrites. Each thread reads its RM rows
+// and RN columns four features at a time (one 16-byte load each), so a
+// stage costs RM + RN loads per 4 * RM * RN fmaf. Rows are strided by TYN
+// and columns by TXN, so a warp's loads of one row fall on consecutive
+// padded rows (distinct banks). Ends with every copy landed and every
+// thread past its last read of the ring.
+template <int BM, int BN, int RM, int RN, int STAGES, typename TX, typename TY>
+__device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
+                                          const TY* __restrict__ y, int y_rows, long long m,
+                                          int len, unsigned char* ring, float (&acc)[RM][RN]) {
+  using R = Ring<BM, BN, STAGES, TX, TY>;
+  constexpr int TXN = BN / RN, TYN = BM / RM, NT = TXN * TYN;
+  static_assert(STAGES >= 2, "a ring has at least two stages");
+  const int tx = threadIdx.x % TXN, ty = threadIdx.x / TXN;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  const int nk = len / PK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      ring_load<BM, BN, STAGES, NT>(ring, s, x, x_rows, y, y_rows, m, (long long)s * PK);
+    cp_async_commit();  // an empty group keeps the count of groups uniform
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage c have landed
+    __syncthreads();  // everyone's have, and everyone is done with stage c - 1
+    const int nxt = c + STAGES - 1;
+    if (nxt < nk)
+      ring_load<BM, BN, STAGES, NT>(ring, nxt % STAGES, x, x_rows, y, y_rows, m,
+                                    (long long)nxt * PK);
+    cp_async_commit();
+    const unsigned char* st = ring + (c % STAGES) * R::STAGE;
+    const TX* sx = reinterpret_cast<const TX*>(st) + ty * R::LDX;
+    const TY* sy = reinterpret_cast<const TY*>(st + R::X_BYTES) + tx * R::LDY;
+#pragma unroll
+    for (int kk = 0; kk < PK; kk += 4) {
+      float4 a[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = load4(sx + i * TYN * R::LDX + kk);
+#pragma unroll
+      for (int j = 0; j < RN; ++j) {
+        const float4 b = load4(sy + j * TXN * R::LDY + kk);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
   __syncthreads();
 }
 

@@ -75,15 +75,16 @@ struct EeArgs {
   float threshold;
 };
 
-// RM: query rows per thread of a strip (16 * RM rows by 64 corpus rows).
-template <int RM, typename T>
+// RM: query rows per thread of a strip (16 * RM rows by 64 corpus rows);
+// TQ, TC: the types of the queries and of the corpus.
+template <int RM, typename TQ, typename TC>
 __global__ void __launch_bounds__(THREADS)
 rect_ee_kernel(const EeArgs a) {
   __shared__ __align__(16) Staged st;
   extern __shared__ __align__(16) float dyn[];  // per warp: its buffer row, its packet row
   cg::grid_group grid = cg::this_grid();
-  const T* Q = static_cast<const T*>(a.Q);
-  const T* C = static_cast<const T*>(a.C);
+  const TQ* Q = static_cast<const TQ*>(a.Q);
+  const TC* C = static_cast<const TC*>(a.C);
   const int nb = gridDim.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const long long gtid = (long long)blockIdx.x * THREADS + threadIdx.x;
@@ -115,8 +116,8 @@ rect_ee_kernel(const EeArgs a) {
     }
     if (gtid == 0) a.skipped[t] = 0;
     const int cj = a.ij[a.n_tiles + t];
-    const T* qb = Q + (long long)qi * a.block_q * m;
-    const T* cb = C + (long long)cj * a.block_c * m;
+    const TQ* qb = Q + (long long)qi * a.block_q * m;
+    const TC* cb = C + (long long)cj * a.block_c * m;
 
     // A: partial strips, one work item at a time.
     for (int it = blockIdx.x; it < a.n_items; it += nb) {
@@ -166,11 +167,11 @@ rect_ee_kernel(const EeArgs a) {
   }
 }
 
-template <int RM, typename T>
+template <int RM, typename TQ, typename TC>
 cudaError_t capacity_rm(int k, int* blocks) {
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, rect_ee_kernel<RM, T>, THREADS, sizeof(float) * WARPS * 2 * k);
+      &per_sm, rect_ee_kernel<RM, TQ, TC>, THREADS, sizeof(float) * WARPS * 2 * k);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -178,27 +179,29 @@ cudaError_t capacity_rm(int k, int* blocks) {
   return err;
 }
 
-// Thread blocks of K5 the card holds at once, for every strip height.
-template <typename T>
+// Thread blocks of K5 the card holds at once, for every strip height, of
+// the instantiation for these operand types.
+template <typename TQ, typename TC>
 int capacity(int k, int* blocks) {
   if (k < 1 || k > MAX_EE_K) return cudaErrorInvalidValue;
   int b1 = 0, b2 = 0, b4 = 0;
-  cudaError_t err = capacity_rm<1, T>(k, &b1);
-  if (err == cudaSuccess) err = capacity_rm<2, T>(k, &b2);
-  if (err == cudaSuccess) err = capacity_rm<4, T>(k, &b4);
+  cudaError_t err = capacity_rm<1, TQ, TC>(k, &b1);
+  if (err == cudaSuccess) err = capacity_rm<2, TQ, TC>(k, &b2);
+  if (err == cudaSuccess) err = capacity_rm<4, TQ, TC>(k, &b4);
   if (err != cudaSuccess) return err;
   *blocks = b1 < b2 ? (b1 < b4 ? b1 : b4) : (b2 < b4 ? b2 : b4);
   return cudaSuccess;
 }
 
-template <int RM, typename T>
+template <int RM, typename TQ, typename TC>
 cudaError_t launch_rm(EeArgs& a, int grid, cudaStream_t stream) {
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel((const void*)rect_ee_kernel<RM, T>, grid, THREADS, args,
+  return cudaLaunchCooperativeKernel((const void*)rect_ee_kernel<RM, TQ, TC>, grid, THREADS,
+                                     args,
                                      sizeof(float) * WARPS * 2 * a.k, stream);
 }
 
-template <typename T>
+template <typename TQ, typename TC>
 int launch(EeArgs a, int strip_rows, int grid, void* stream) {
   if (a.block_q % 8 || a.block_q < 8 || a.block_q > MAX_QBLOCK || a.block_c % TILE ||
       a.block_c > MAX_BLOCK || a.m % TK || a.m < TK || a.k < 1 || a.k > MAX_EE_K ||
@@ -207,9 +210,9 @@ int launch(EeArgs a, int strip_rows, int grid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (strip_rows) {
-    case 16: err = launch_rm<1, T>(a, grid, s); break;
-    case 32: err = launch_rm<2, T>(a, grid, s); break;
-    case 64: err = launch_rm<4, T>(a, grid, s); break;
+    case 16: err = launch_rm<1, TQ, TC>(a, grid, s); break;
+    case 32: err = launch_rm<2, TQ, TC>(a, grid, s); break;
+    case 64: err = launch_rm<4, TQ, TC>(a, grid, s); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
@@ -247,40 +250,34 @@ EeArgs args(const void* Q, const void* C, const void* ij, const void* ub, int n_
 
 }  // namespace apss
 
-// The co-resident grid of K5 (thread blocks over all SMs) for a given k.
-extern "C" int apss_rect_tile_candidates_ee_capacity_f32(int k, int* blocks) {
-  return apss::capacity<float>(k, blocks);
-}
-
-extern "C" int apss_rect_tile_candidates_ee_capacity_bf16(int k, int* blocks) {
-  return apss::capacity<uint16_t>(k, blocks);
-}
-
-// Q (grid_q * block_q, m) and C (nc, m) row-major, one dtype; ij (2, n_tiles)
+// The entries' suffix names the query type, then the corpus type.
+//
+// capacity: the co-resident grid of K5 (thread blocks over all SMs) for a
+// given k.
+//
+// launch: Q (grid_q * block_q, m) and C (nc, m) row-major; ij (2, n_tiles)
 // int32; ub (n_tiles,) f32; fv/fi (n_tiles, block_q, k), fc (n_tiles,
 // block_q), skipped (n_tiles,) int32; topv (grid_q * block_q, k) f32 and
 // part (ceil(m / FK), block_q, block_c) f32 scratch; items (n_items, 3)
 // int32, strips of strip_rows (16, 32 or 64) query rows by 64 corpus rows;
 // grid thread blocks, at most the capacity above. A cooperative launch on
-// `stream`. Returns a cudaError_t code.
-extern "C" int apss_rect_tile_candidates_ee_f32(
-    const void* Q, const void* C, const void* ij, const void* ub, int n_tiles, int grid_q,
-    void* fv, void* fi, void* fc, void* skipped, void* topv, void* part, const void* items,
-    int n_items, int strip_rows, int grid, int m, int block_q, int block_c, int nc_valid,
-    int nq_valid, float threshold, int k, void* stream) {
-  return apss::launch<float>(
-      apss::args(Q, C, ij, ub, n_tiles, grid_q, fv, fi, fc, skipped, topv, part, items,
-                 n_items, m, block_q, block_c, nc_valid, nq_valid, threshold, k),
-      strip_rows, grid, stream);
-}
+// `stream`. Both return a cudaError_t code.
+#define APSS_EE_ENTRIES(SUFFIX, TQ, TC)                                                       \
+  extern "C" int apss_rect_tile_candidates_ee_capacity_##SUFFIX(int k, int* blocks) {          \
+    return apss::capacity<TQ, TC>(k, blocks);                                                 \
+  }                                                                                           \
+  extern "C" int apss_rect_tile_candidates_ee_##SUFFIX(                                       \
+      const void* Q, const void* C, const void* ij, const void* ub, int n_tiles, int grid_q,  \
+      void* fv, void* fi, void* fc, void* skipped, void* topv, void* part, const void* items, \
+      int n_items, int strip_rows, int grid, int m, int block_q, int block_c, int nc_valid,   \
+      int nq_valid, float threshold, int k, void* stream) {                                   \
+    return apss::launch<TQ, TC>(                                                              \
+        apss::args(Q, C, ij, ub, n_tiles, grid_q, fv, fi, fc, skipped, topv, part, items,     \
+                   n_items, m, block_q, block_c, nc_valid, nq_valid, threshold, k),           \
+        strip_rows, grid, stream);                                                            \
+  }
 
-extern "C" int apss_rect_tile_candidates_ee_bf16(
-    const void* Q, const void* C, const void* ij, const void* ub, int n_tiles, int grid_q,
-    void* fv, void* fi, void* fc, void* skipped, void* topv, void* part, const void* items,
-    int n_items, int strip_rows, int grid, int m, int block_q, int block_c, int nc_valid,
-    int nq_valid, float threshold, int k, void* stream) {
-  return apss::launch<uint16_t>(
-      apss::args(Q, C, ij, ub, n_tiles, grid_q, fv, fi, fc, skipped, topv, part, items,
-                 n_items, m, block_q, block_c, nc_valid, nq_valid, threshold, k),
-      strip_rows, grid, stream);
-}
+APSS_EE_ENTRIES(f32_f32, float, float)
+APSS_EE_ENTRIES(bf16_bf16, uint16_t, uint16_t)
+APSS_EE_ENTRIES(f32_bf16, float, uint16_t)
+APSS_EE_ENTRIES(bf16_f32, uint16_t, float)

@@ -2,7 +2,10 @@
 
 1. :func:`apss_fused_kernel` (K1, ``csrc/apss_fused.cu``) -- streaming fused
    extraction: per-row top-k and exact counts of ``X·Yᵀ ≥ t`` over every
-   live column tile, with the score matrix never in device memory.
+   live column tile, with the score matrix never in device memory. The
+   columns go in the segments of :func:`fused_segments`, one thread block
+   per (128-row tile, segment), and a second launch merges the segments'
+   lists as :func:`merge_segments_plain` does.
 2. :func:`apss_tile_candidates_kernel` (K2, ``csrc/tile_candidates.cu``) --
    per live upper-triangular tile of a ``(2, T)`` worklist, a forward packet
    (rows of block i) and a mirror packet (rows of block j), which
@@ -10,7 +13,10 @@
 3. :func:`rect_tile_candidates_kernel` (K4, ``csrc/rect_tile_candidates.cu``)
    -- query-time serving: per live (query block, corpus block) tile of a
    rectangular worklist, the forward packet of the query rows only (no
-   mirror, no self-exclusion), folded by ``ops.fold_rect_packets``.
+   mirror, no self-exclusion), folded by ``ops.fold_rect_packets``. Each
+   tile is spread over the card in the work items of
+   :func:`rect_work_split`, whose partials a second launch adds and
+   selects from.
 4. :func:`rect_tile_candidates_early_exit_kernel` (K5,
    ``csrc/rect_tile_candidates_ee.cu``) -- K4 walking the worklist in its
    upper-bound-descending order with a running per-row values buffer, and
@@ -18,7 +24,10 @@
    strictly above the tile's bound. One cooperative grid over every SM
    scores each tile in the work items of :func:`ee_work_split`.
 
-Each wrapper takes the kernel's padded inputs. On a CUDA tensor it checks
+K4 and K5 take queries and corpus in either of float32 and bfloat16, each
+in its own (a bf16 index scores f32 queries unrounded, as the reference
+promotes); every score is a float32 sum. Each wrapper takes the kernel's
+padded inputs. On a CUDA tensor it checks
 device, dtype, shape and contiguity, allocates the outputs, launches on the
 current stream, raises on a non-zero status and adds one to
 ``LAUNCHES[name]``. On a CPU tensor it returns the plain PyTorch version of
@@ -59,6 +68,12 @@ LAUNCHES = {
 
 _TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
 _TK = 32    # their feature chunk
+FUSED_TILE = 128    # K1's score tile, rows and columns (csrc/apss_fused.cu, FT)
+FUSED_MAX_K = 1024  # K1's largest k (its per-warp merge area in shared memory)
+_MAX_SEGMENTS = 32  # K1's merge holds one segment per lane
+SEGMENT_SLACK = 0.05  # K1 takes fewer segments for at most 5 % more tile steps
+# Scratch K4 keeps live at once; a longer worklist runs in passes of tiles.
+RECT_SCRATCH_BYTES = 1 << 28
 _RECT_CHUNK = 64  # rectangular tiles selected together by the plain versions
 _MAX_EE_K = 256  # K5's values buffer (csrc/apss_common.cuh, MAX_EE_K)
 # Features per partial sum of a rectangular score (csrc/apss_common.cuh, FK):
@@ -137,6 +152,91 @@ def apss_fused_plain(
         )
         outs.append((v, i, ok.sum(dim=1, keepdim=True, dtype=torch.int32)))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def fused_segments(row_tiles: int, col_tiles: int, slots: int) -> int:
+    """K1's number of column segments for a grid of ``row_tiles`` 128-row
+    tiles by ``col_tiles`` 128-column tiles on a card that holds ``slots``
+    thread blocks at once.
+
+    At least enough segments for the grid to cover every slot twice (or
+    every column tile its own segment, at most 32); among those, the lowest
+    count (the fewest lists to merge, and the fewest runs of a segment's
+    running top-k to refill) whose tile steps on the busiest slot,
+    ``ceil(row_tiles · S / slots) · ceil(col_tiles / S)``, come within
+    ``SEGMENT_SLACK`` of the fewest.
+    """
+    if row_tiles < 1 or col_tiles < 1 or slots < 1:
+        raise ValueError(f"no segments for {row_tiles} x {col_tiles} tiles on {slots} slots")
+    hi = min(col_tiles, _MAX_SEGMENTS)
+    lo = min(hi, -(-2 * slots // row_tiles))
+    steps = {s: -(-row_tiles * s // slots) * -(-col_tiles // s) for s in range(lo, hi + 1)}
+    best = min(steps.values())
+    return min(s for s, n in steps.items() if n <= (1 + SEGMENT_SLACK) * best)
+
+
+def segment_bounds(col_tiles: int, n_segments: int) -> list[tuple[int, int]]:
+    """The column tiles ``[ct0, ct1)`` of each K1 segment, as the kernel cuts
+    them."""
+    return [(s * col_tiles // n_segments, (s + 1) * col_tiles // n_segments)
+            for s in range(n_segments)]
+
+
+def merge_segments_plain(values: torch.Tensor, indices: torch.Tensor, counts: torch.Tensor):
+    """K1's merge in plain PyTorch: per row, the first ``k`` of the union of
+    the segments' top-k lists ``values, indices (S, n, k)`` by (value desc,
+    id asc), and the sum of the segments' counts ``(S, n)``.
+
+    Exact: the segments hold disjoint columns, and a member of the top-k of
+    the union is in the top-k of its own segment. Returns ``(values (n, k),
+    indices (n, k) i32, counts (n, 1) i32)`` with ``NEG_LARGE`` / ``-1``
+    empties.
+    """
+    S, n, k = values.shape
+    v = values.permute(1, 0, 2).reshape(n, S * k)
+    i = indices.permute(1, 0, 2).reshape(n, S * k)
+    i = torch.where(v > _VALID, i, torch.iinfo(torch.int32).max)  # empties last
+    v, i = topk_by_id(v, i, k)
+    valid = v > _VALID
+    return (torch.where(valid, v, NEG_LARGE), torch.where(valid, i, -1).to(torch.int32),
+            counts.sum(dim=0, dtype=torch.int32)[:, None])
+
+
+def apss_fused_segmented_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    block_mask: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    n_segments: int,
+    block_m: int,
+    block_n: int,
+    n_valid_cols: int,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    exclude_self: bool = True,
+):
+    """K1's launch shape in plain PyTorch: :func:`apss_fused_plain` on each
+    of ``n_segments`` column segments of 128-column tiles (the columns of
+    ``y`` passed with their own ``col_offset``, ``n_valid_cols`` and mask
+    columns, at 64-column mask granularity), then
+    :func:`merge_segments_plain`. Equals :func:`apss_fused_plain` on the
+    whole of ``y``."""
+    n_cols = y.shape[0]
+    if n_cols % block_n or block_n % _TILE:
+        raise ValueError(f"{n_cols} columns are not tiles of {block_n}")
+    mask = block_mask.to(x.device, torch.int32).repeat_interleave(block_n // _TILE, dim=1)
+    col_tiles = -(-n_cols // FUSED_TILE)
+    parts = []
+    for ct0, ct1 in segment_bounds(col_tiles, n_segments):
+        c0, c1 = ct0 * FUSED_TILE, min(ct1 * FUSED_TILE, n_cols)
+        parts.append(apss_fused_plain(
+            x, y[c0:c1], mask[:, c0 // _TILE:c1 // _TILE], threshold, k,
+            block_m=block_m, block_n=_TILE, n_valid_cols=min(max(n_valid_cols - c0, 0), c1 - c0),
+            row_offset=row_offset, col_offset=col_offset + c0, exclude_self=exclude_self))
+    v, i, c = (torch.stack(p) for p in zip(*parts))
+    return merge_segments_plain(v, i, c[..., 0])
 
 
 def _tile_packets(
@@ -397,20 +497,84 @@ def ee_work_split(m: int, block_q: int, block_c: int, capacity: int) -> EeSplit:
     return EeSplit(n_chunks, rows, items, min(capacity, work))
 
 
-def ee_capacity(dtype: torch.dtype, k: int, device: torch.device) -> int:
-    """Thread blocks of K5 that ``device`` holds at once (occupancy × SMs)."""
+def ee_capacity(q_dtype: torch.dtype, c_dtype: torch.dtype, k: int,
+                device: torch.device) -> int:
+    """Thread blocks of K5 that ``device`` holds at once (occupancy × SMs),
+    for the instantiation of queries of ``q_dtype`` against a corpus of
+    ``c_dtype``."""
     fn, check = _entry("rect_tile_candidates_ee",
-                       f"apss_rect_tile_candidates_ee_capacity_{_suffix(dtype)}", [_I, _VP])
+                       f"apss_rect_tile_candidates_ee_capacity_{_pair(q_dtype, c_dtype)}",
+                       [_I, _VP])
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
         check(fn(k, ctypes.byref(blocks)))
     return blocks.value
 
 
-def ee_split_for(Q: torch.Tensor, *, block_q: int, block_c: int, k: int) -> EeSplit:
+def ee_split_for(Q: torch.Tensor, C: torch.Tensor, *, block_q: int, block_c: int,
+                 k: int) -> EeSplit:
     """The split :func:`rect_tile_candidates_early_exit_kernel` launches
-    with for queries ``Q`` on the card."""
-    return ee_work_split(Q.shape[1], block_q, block_c, ee_capacity(Q.dtype, k, Q.device))
+    with for queries ``Q`` against corpus ``C`` on the card."""
+    return ee_work_split(Q.shape[1], block_q, block_c,
+                         ee_capacity(Q.dtype, C.dtype, k, Q.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class RectSplit:
+    """K4's work split of a worklist of ``n_tiles`` tiles.
+
+    One work item (thread block) per (tile, feature chunk of FK, strip of
+    ``strip_c`` corpus rows), its query strip the whole query block in
+    ``strip_rows`` rows, numbered ``((t - t0) * n_chunks + f) * strips +
+    strip`` within a pass of ``pass_tiles`` tiles. ``scratch_bytes`` is the
+    partial-sum scratch, ``(pass_tiles, n_chunks, block_q, block_c)`` f32."""
+
+    n_tiles: int
+    n_chunks: int
+    strip_rows: int
+    strip_c: int
+    strips: int
+    pass_tiles: int
+    scratch_bytes: int
+
+    @property
+    def n_items(self) -> int:
+        return self.n_tiles * self.n_chunks * self.strips
+
+    def items(self) -> np.ndarray:
+        """``(n_items, 4)`` int32 rows (tile, chunk, first query row, first
+        corpus row), in the kernel's order: by pass, then by the item
+        number within it."""
+        t, f, c = np.meshgrid(np.arange(self.n_tiles), np.arange(self.n_chunks),
+                              np.arange(self.strips) * self.strip_c, indexing="ij")
+        return np.stack([t.ravel(), f.ravel(), np.zeros(t.size, np.int64),
+                         c.ravel()], 1).astype(np.int32)
+
+
+def rect_work_split(n_tiles: int, m: int, block_q: int, block_c: int,
+                    budget: int = RECT_SCRATCH_BYTES) -> RectSplit:
+    """K4's work items for ``n_tiles`` tiles of width ``m``: FK-feature
+    chunks (the summation order K5 and K6 share) × corpus strips × one query
+    strip, and the passes that keep the scratch within ``budget`` bytes (at
+    least one tile a pass).
+
+    The query strip is the query block rounded up to 8, 16, 32, 64 or 128
+    rows and to at least ``2048 / block_c``: each of the kernel's 256
+    threads owns 8 strip rows, so ``2048 / strip_rows`` threads lie along
+    the corpus strip, which is ``block_c`` rows or 8 a thread, the fewer
+    (``csrc/rect_tile_candidates.cu``)."""
+    if n_tiles < 1 or m < 1 or not 1 <= block_q <= 128 or block_c not in (64, 128, 256):
+        raise ValueError(f"no split for T={n_tiles}, m={m}, block_q={block_q}, "
+                         f"block_c={block_c}")
+    n_chunks = -(-m // EE_FK)
+    strip_rows = 8
+    while strip_rows < block_q or strip_rows * block_c < 8 * _THREADS:
+        strip_rows *= 2
+    strip_c = min(block_c, 8 * (8 * _THREADS // strip_rows))
+    per_tile = 4 * n_chunks * block_q * block_c
+    pass_tiles = max(1, min(n_tiles, budget // per_tile))
+    return RectSplit(n_tiles, n_chunks, strip_rows, strip_c, block_c // strip_c, pass_tiles,
+                     pass_tiles * per_tile)
 
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -436,6 +600,28 @@ def _suffix(dtype: torch.dtype) -> str:
     return "bf16" if dtype == torch.bfloat16 else "f32"
 
 
+def _pair(q_dtype: torch.dtype, c_dtype: torch.dtype) -> str:
+    """Entry suffix of a rectangular kernel: query type, then corpus type."""
+    return f"{_suffix(q_dtype)}_{_suffix(c_dtype)}"
+
+
+def fused_capacity(dtype: torch.dtype, k: int, device: torch.device) -> int:
+    """Thread blocks of K1 that ``device`` holds at once at this ``k``
+    (blocks an SM × SMs)."""
+    fn, check = _entry("apss_fused", f"apss_fused_capacity_{_suffix(dtype)}", [_I, _VP, _VP])
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(fn(k, ctypes.byref(per_sm), ctypes.byref(sms)))
+    return per_sm.value * sms.value
+
+
+def fused_segments_for(x: torch.Tensor, n_cols: int, k: int) -> int:
+    """The segment count :func:`apss_fused_kernel` launches with for rows
+    ``x`` against ``n_cols`` columns on the card."""
+    return fused_segments(-(-x.shape[0] // FUSED_TILE), -(-n_cols // FUSED_TILE),
+                          fused_capacity(x.dtype, k, x.device))
+
+
 def apss_fused_kernel(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -455,7 +641,9 @@ def apss_fused_kernel(
 
     ``row_offset``/``col_offset`` are the global ids of ``x[0]``/``y[0]``
     and ``n_valid_cols`` the count of non-padding rows of ``y``; all three
-    are runtime arguments of the kernel. Returns ``(values (n_rows, k) f32,
+    are runtime arguments of the kernel. The columns run in
+    :func:`fused_segments_for` segments; ``k`` above ``FUSED_MAX_K`` raises
+    ``ValueError``. Returns ``(values (n_rows, k) f32,
     indices (n_rows, k) i32, counts (n_rows, 1) i32)``.
     """
     kw = dict(
@@ -479,23 +667,34 @@ def apss_fused_kernel(
             f"block_m, block_n must be multiples of {_TILE} and m of {_TK}; "
             f"got {block_m}, {block_n}, {m}"
         )
+    if not 1 <= k <= FUSED_MAX_K:
+        raise ValueError(f"k must be in [1, {FUSED_MAX_K}] for K1's merge area; got {k}")
     mask = block_mask.to(x.device, torch.int32).contiguous()
     if tuple(mask.shape) != (n_rows // block_m, n_cols // block_n):
         raise ValueError(f"block_mask shape {tuple(mask.shape)} is not the grid")
-    values = torch.empty((n_rows, k), dtype=torch.float32, device=x.device)
-    indices = torch.empty((n_rows, k), dtype=torch.int32, device=x.device)
-    counts = torch.empty((n_rows, 1), dtype=torch.int32, device=x.device)
+    dev = x.device
+    values = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    indices = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_rows, 1), dtype=torch.int32, device=dev)
+    S = fused_segments_for(x, n_cols, k)
+    if S > 1:
+        seg = (torch.empty((S, n_rows, k), dtype=torch.float32, device=dev),
+               torch.empty((S, n_rows, k), dtype=torch.int32, device=dev),
+               torch.empty((S, n_rows), dtype=torch.int32, device=dev))
+    else:  # one segment: the kernel writes the output itself
+        seg = (values, indices, counts)
     fn, check = _entry(
         "apss_fused", f"apss_fused_{_suffix(x.dtype)}",
-        [_VP] * 6 + [_I] * 8 + [_F, _I, _I, _VP],
+        [_VP] * 9 + [_I] * 8 + [_F, _I, _I, _I, _VP],
     )
     status = fn(
         x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+        *(a.data_ptr() for a in seg),
         values.data_ptr(), indices.data_ptr(), counts.data_ptr(),
         n_rows, n_cols, m, block_m, block_n,
         int(row_offset), int(col_offset), int(n_valid_cols),
-        _f32(threshold), k, int(bool(exclude_self)),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        _f32(threshold), k, int(bool(exclude_self)), S,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status)
     LAUNCHES["apss_fused"] += 1
@@ -589,8 +788,8 @@ def _check_rect_operands(Q: torch.Tensor, C: torch.Tensor, block_q: int, block_c
     _check_operand("Q", Q)
     _check_operand("C", C)
     nq, m = Q.shape
-    if C.device != Q.device or C.dtype != Q.dtype or C.shape[1] != m:
-        raise ValueError("Q and C must share device, dtype and width")
+    if C.device != Q.device or C.shape[1] != m:
+        raise ValueError("Q and C must share device and width")
     _check_rect_blocks(block_q, block_c, m)
     if nq % block_q or C.shape[0] % block_c:
         raise ValueError(
@@ -612,7 +811,9 @@ def rect_tile_candidates_kernel(
 ):
     """K4 on padded queries ``Q (nq, m)``, a padded corpus ``C (nc, m)`` and
     a ``(2, T)`` or ``(3, T)`` worklist of live (query block, corpus block)
-    tiles; packet column ids come from the worklist's last row.
+    tiles; packet column ids come from the worklist's last row. ``Q`` and
+    ``C`` are each float32 or bfloat16. The work goes in the items of
+    :func:`rect_work_split`.
 
     Returns ``(fv, fi, fc)`` shaped ``(T, block_q, k|k|1)``.
     """
@@ -623,15 +824,17 @@ def rect_tile_candidates_kernel(
     ij = _worklist_on(ij, Q.device, (2, 3), (grid_q, grid_c, None))
     R, T = ij.shape
     dev = Q.device
+    split = rect_work_split(T, Q.shape[1], block_q, block_c)
+    part = torch.empty(split.scratch_bytes // 4, dtype=torch.float32, device=dev)
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
     fn, check = _entry(
-        "rect_tile_candidates", f"apss_rect_tile_candidates_{_suffix(Q.dtype)}",
-        [_VP, _VP, _VP, _I, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
+        "rect_tile_candidates", f"apss_rect_tile_candidates_{_pair(Q.dtype, C.dtype)}",
+        [_VP, _VP, _VP, _I, _I, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
     )
     status = fn(
-        Q.data_ptr(), C.data_ptr(), ij.data_ptr(), R, T,
+        Q.data_ptr(), C.data_ptr(), ij.data_ptr(), R, T, part.data_ptr(), split.pass_tiles,
         fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
         Q.shape[1], block_q, block_c, int(nc_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,
@@ -673,7 +876,7 @@ def rect_tile_candidates_early_exit_kernel(
     ub = torch.as_tensor(ub).to(dev, torch.float32).contiguous()
     if tuple(ub.shape) != (T,):
         raise ValueError(f"ub shape {tuple(ub.shape)} is not ({T},)")
-    split = ee_split_for(Q, block_q=block_q, block_c=block_c, k=k)
+    split = ee_split_for(Q, C, block_q=block_q, block_c=block_c, k=k)
     items = torch.from_numpy(split.items).to(dev)
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
@@ -682,7 +885,7 @@ def rect_tile_candidates_early_exit_kernel(
     topv = torch.empty((grid_q * block_q, k), dtype=torch.float32, device=dev)
     part = torch.empty((split.n_chunks, block_q, block_c), dtype=torch.float32, device=dev)
     fn, check = _entry(
-        "rect_tile_candidates_ee", f"apss_rect_tile_candidates_ee_{_suffix(Q.dtype)}",
+        "rect_tile_candidates_ee", f"apss_rect_tile_candidates_ee_{_pair(Q.dtype, C.dtype)}",
         [_VP] * 4 + [_I, _I] + [_VP] * 7 + [_I] * 8 + [_F, _I, _VP],
     )
     status = fn(

@@ -69,7 +69,10 @@ def query_topk(
 
     ``Q`` is ``(B, m)`` dense (numpy or a tensor; a :class:`SparseCorpus`
     batch is densified) and is scored as given (the server normalizes).
-    A dense index scores it in the corpus's dtype. Returns ``Matches`` with
+    Float32 and bfloat16 queries keep their dtype (other dtypes become
+    float32) and every score is a float32 product of both operands widened
+    exactly, whatever the corpus's dtype, as the reference promotes
+    f32 × bf16. Returns ``Matches`` with
     global corpus row ids on the index's device, exact against the oracle
     ``extract_matches(Q @ Cᵀ, t, k, exclude_self=False)`` at every
     threshold, ``t ≤ 0`` included (pruned tiles are provably matchless).
@@ -110,8 +113,9 @@ def query_topk(
 
 
 def _queries(index: APSSIndex, Q) -> torch.Tensor:
-    """The batch as a dense tensor on the index's device: the corpus dtype and
-    lane-padded width for a dense index, f32 for a sparse one."""
+    """The batch as a dense tensor on the index's device: f32 or bf16 as given
+    (never rounded to the corpus's dtype) at the lane-padded width for a
+    dense index, f32 for a sparse one."""
     if isinstance(Q, SparseCorpus):
         if Q.m != index.m:
             raise ValueError(f"dimension mismatch: Q.m={Q.m} vs index m={index.m}")
@@ -121,7 +125,8 @@ def _queries(index: APSSIndex, Q) -> torch.Tensor:
         raise ValueError(f"Q must be (B, {index.m}); got {tuple(Q.shape)}")
     if index.is_sparse:
         return Q.float()
-    Q = Q.to(index.corpus.dtype)
+    if Q.dtype not in (torch.float32, torch.bfloat16):
+        Q = Q.float()
     width = index.corpus.shape[1]
     return torch.nn.functional.pad(Q, (0, width - index.m)).contiguous()
 

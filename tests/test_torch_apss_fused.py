@@ -104,6 +104,91 @@ def test_plain_k1_matches_pallas_interpret(case):
     assert int(np.asarray(ref[2]).sum()) > 0
 
 
+# -- K1's launch shape: column segments and their merge -----------------------
+
+
+def _dyadic(n, m, seed):
+    """Rows of quarter-steps 0..0.75 (every product and sum exact in f32, so
+    the order of a sum cannot change a score), with rows 10-19 copies of
+    row 3 (ties broken by id)."""
+    X = np.random.default_rng(seed).integers(0, 4, (n, m)).astype(np.float32) / 4
+    X[10:20] = X[3]
+    return X
+
+
+@pytest.mark.parametrize("n_segments", [1, 2, 5])
+@pytest.mark.parametrize("case", ["self_join", "no_exclude", "ring_offsets", "k_gt_n",
+                                  "dead_mask", "fine_mask"])
+def test_k1_segment_merge_equals_unsplit(n_segments, case):
+    """K1's column segments (each through ``col_offset``) merged equal the
+    unsplit plain version exactly in values, ids and counts."""
+    Y = torch.from_numpy(_dyadic(640, 64, seed=3))
+    X = Y[:256]
+    block, k, t = 128, 8, 9.0
+    kw = dict(n_valid_cols=600, row_offset=0, col_offset=0, exclude_self=True)
+    if case == "no_exclude":
+        kw["exclude_self"] = False
+    elif case == "ring_offsets":  # rows 1000.., the visiting columns 744.. (self pairs inside)
+        kw.update(row_offset=1000, col_offset=744)
+    elif case == "k_gt_n":
+        k, t = 700, 0.0
+    elif case == "fine_mask":  # 64-row blocks, a mask that cuts segments
+        block = 64
+    mask = torch.ones((256 // block, 640 // block), dtype=torch.int32)
+    if case == "dead_mask":
+        mask.zero_()
+    elif block == 64:
+        mask[::2, 1::3] = 0
+    kw.update(block_m=block, block_n=block)
+    ref = fused.apss_fused_plain(X, Y, mask, t, k, **kw)
+    got = fused.apss_fused_segmented_plain(X, Y, mask, t, k, n_segments=n_segments, **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert (int(ref[2].sum()) == 0) == (case == "dead_mask")
+    if case == "k_gt_n":  # every valid column but the row itself
+        assert (ref[2] == 599).all()
+
+
+def test_k1_merge_breaks_ties_by_id_across_segments():
+    """Equal values in two segments: the lower id first, wherever it lies."""
+    v = torch.tensor([[[2.0, 1.0, fused.NEG_LARGE]], [[2.0, 2.0, fused.NEG_LARGE]]])
+    i = torch.tensor([[[7, 8, -1]], [[1, 3, -1]]], dtype=torch.int32)
+    c = torch.tensor([[2], [5]], dtype=torch.int32)
+    gv, gi, gc = fused.merge_segments_plain(v, i, c)
+    assert gi.tolist() == [[1, 3, 7]] and gv.tolist() == [[2.0, 2.0, 2.0]]
+    assert gc.tolist() == [[7]]
+
+
+@pytest.mark.parametrize("row_tiles,col_tiles,slots,want", [
+    (54, 54, 132, 7),    # radikal_full: 6,912 padded rows on an H100
+    (512, 512, 132, 1),  # clustered_65k
+    (2, 2, 132, 2),      # a corpus of two tiles
+    (1, 40, 132, 32),    # one row tile, more columns than lanes of the merge
+    (54, 54, 264, 14),
+])
+def test_k1_segments_fill_the_card_and_fit_the_merge(row_tiles, col_tiles, slots, want):
+    """Enough segments for every slot twice, as far as columns and the
+    merge's 32 lanes allow; the fewest whose steps on the busiest slot come
+    within the slack of the fewest steps any count allows."""
+    S = fused.fused_segments(row_tiles, col_tiles, slots)
+    assert S == want
+    hi = min(col_tiles, 32)
+    lo = min(hi, -(-2 * slots // row_tiles))
+    assert lo <= S <= hi
+
+    def steps(s):
+        return -(-row_tiles * s // slots) * -(-col_tiles // s)
+
+    best = min(steps(s) for s in range(lo, hi + 1))
+    assert steps(S) <= (1 + fused.SEGMENT_SLACK) * best
+    assert all(steps(s) > (1 + fused.SEGMENT_SLACK) * best for s in range(lo, S))
+    bounds = fused.segment_bounds(col_tiles, S)
+    assert bounds[0][0] == 0 and bounds[-1][1] == col_tiles
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(bounds, bounds[1:]))
+    with pytest.raises(ValueError, match="no segments"):
+        fused.fused_segments(0, col_tiles, slots)
+
+
 # -- K2: live-tile worklist kernel + host worklist + fold --------------------
 
 

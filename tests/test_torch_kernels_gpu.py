@@ -105,6 +105,41 @@ def test_k1_kernel_runtime_offsets(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 32, "cap"])
+@pytest.mark.parametrize("live", ["all", "masked"])
+def test_k1_segments_match_plain(card, dtype, k, live):
+    """K1 over 40 column tiles in 32 segments (which 40 does not divide), a
+    row count off the 128-row tile (64-row blocks), ring-step offsets, a
+    masked or all-live grid, k from 1 to the cap: equal to the unsplit plain
+    version."""
+    from repro_torch.kernels.apss_block import fused
+
+    k = fused.FUSED_MAX_K if k == "cap" else k
+    # Quarter steps (exact in bf16; every product and sum exact in f32, so
+    # no order of summation moves a score across t = 9), rows 1010-1019
+    # copies of row 1003 (ties broken by id).
+    D = np.random.default_rng(5).integers(0, 4, (5100, 64)).astype(np.float32) / 4
+    D[1010:1020] = D[1003]
+    x = torch.from_numpy(_pad(D[1000:1300], 64, 64)).to(card, dtype)
+    y = torch.from_numpy(_pad(D, 128, 64)).to(card, dtype)
+    assert x.shape[0] % 128 and y.shape[0] // 128 == 40
+    assert fused.fused_segments_for(x, y.shape[0], k) == 32
+    mask = torch.ones((x.shape[0] // 64, y.shape[0] // 64), dtype=torch.int32)
+    if live == "masked":
+        mask[::2, 1::3] = 0
+        mask[:, :4] = 0
+    kw = dict(block_m=64, block_n=64, n_valid_cols=5100, row_offset=1000, col_offset=0,
+              exclude_self=True)
+    before = fused.LAUNCHES["apss_fused"]
+    got = fused.apss_fused_kernel(x, y, mask, 9.0, k, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["apss_fused"] == before + 1
+    ref = fused.apss_fused_plain(x, y, mask, 9.0, k, **kw)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_kernel_matches_plain(card, dtype):
     from repro_torch.core.pruning import block_prune_mask
     from repro_torch.kernels.apss_block import fused
@@ -150,9 +185,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused.apss_fused_kernel(D.half(), D.half(), mask, 0.3, 8, block_m=128,
                                 block_n=128, n_valid_cols=256)
-    with pytest.raises(RuntimeError, match="launch failed"):  # shared memory for k
-        fused.apss_fused_kernel(D, D, mask, 0.3, 4096, block_m=128, block_n=128,
-                                n_valid_cols=256)
+    with pytest.raises(ValueError, match="merge area"):  # past FUSED_MAX_K, never the plain path
+        fused.apss_fused_kernel(D, D, mask, 0.3, fused.FUSED_MAX_K + 1, block_m=128,
+                                block_n=128, n_valid_cols=256)
     with pytest.raises(ValueError, match="outside the corpus"):
         fused.apss_tile_candidates_kernel(
             D, torch.tensor([[0], [2]], dtype=torch.int32), 0.3, 8,
@@ -294,27 +329,38 @@ def test_k3_k7_wrappers_reject_what_the_kernels_do_not_take(card):
 # -- serving: K4, K5, K6 -------------------------------------------------------
 
 
-def _rect_inputs(dtype, nq, seed, t=0.3):
+def _rounded(a, dtype):
+    return torch.from_numpy(a).to(dtype).float().numpy()
+
+
+def _rect_inputs(dtype, nq, seed, t=0.3, c_dtype=None):
     """Queries and a 512-row corpus of width 256, both clear of t in the
-    dtype the kernel reads."""
-    C = _corp(500, 230, seed=seed)
-    Q = _corp(nq, 230, seed=seed + 100)
-    if dtype == torch.bfloat16:
-        C = torch.from_numpy(C).bfloat16().float().numpy()
-        Q = torch.from_numpy(Q).bfloat16().float().numpy()
+    dtypes the kernel reads (the corpus in ``c_dtype``, default ``dtype``)."""
+    C = _rounded(_corp(500, 230, seed=seed), c_dtype or dtype)
+    Q = _rounded(_corp(nq, 230, seed=seed + 100), dtype)
     assert_clear_of_threshold(Q, C, t)
     return _pad(Q, 128, 256), _pad(C, 256, 256)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block_c", [64, 256])
-@pytest.mark.parametrize("block_q", [8, 64, 128])
-def test_k4_kernel_matches_plain(card, dtype, block_q, block_c):
+# (query dtype, corpus dtype): K4 and K5 take each operand in either type.
+PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+# The seed of K4's inputs per pair: the first from 11 whose float64 scores
+# all lie more than 1e-5 from t in that pair's rounding.
+PAIR_SEED = {PAIRS[0]: 11, PAIRS[1]: 11, PAIRS[2]: 12, PAIRS[3]: 13}
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}".replace("torch.", ""))
+@pytest.mark.parametrize("block_c", [64, 128, 256])
+@pytest.mark.parametrize("block_q", [8, 16, 24, 64, 128])
+def test_k4_kernel_matches_plain(card, pair, block_q, block_c):
     from repro_torch.kernels.apss_block import fused
 
-    Qn, Cn = _rect_inputs(dtype, 100, seed=11)
-    Q = torch.from_numpy(Qn).to(card, dtype)
-    C = torch.from_numpy(Cn).to(card, dtype)
+    qd, cd = pair
+    Qn, Cn = _rect_inputs(qd, 100, seed=PAIR_SEED[pair], c_dtype=cd)
+    Qn = _pad(Qn[:100], block_q, 256)  # whole query blocks (block_q 24: 120 rows)
+    Q = torch.from_numpy(Qn).to(card, qd)
+    C = torch.from_numpy(Cn).to(card, cd)
     gq, gc = Q.shape[0] // block_q, C.shape[0] // block_c
     qi, cj = torch.meshgrid(torch.arange(gq), torch.arange(gc), indexing="ij")
     ij = torch.stack([qi.flatten(), cj.flatten()]).int()
@@ -359,18 +405,19 @@ def test_k5_kernel_matches_plain_with_padding(card):
         assert got[3][-2:].tolist() == [[1], [1]]
 
 
-def _k5_case(dtype, m, block_q, block_c, *, grid_q=3, nc_blocks=4, seed=0):
-    """Queries and a corpus whose blocks are scaled by 1, 1/2, 1/4, 1/8, the
-    (2, T) worklist of every tile ordered by its bound descending (query
-    blocks interleaved), the bounds (each tile's largest score plus 0.1 %)
-    and the count of valid query rows (the last block has three)."""
+def _k5_case(dtype, m, block_q, block_c, *, grid_q=3, nc_blocks=4, seed=0, c_dtype=None):
+    """Queries (rounded to ``dtype``) and a corpus (to ``c_dtype``, default
+    ``dtype``) whose blocks are scaled by 1, 1/2, 1/4, 1/8, the (2, T)
+    worklist of every tile ordered by its bound descending (query blocks
+    interleaved), the bounds (each tile's largest score plus 0.1 %) and the
+    count of valid query rows (the last block has three)."""
     rng = np.random.default_rng(seed)
     Q = np.abs(rng.standard_normal((grid_q * block_q, m))).astype(np.float32)
     C = np.abs(rng.standard_normal((nc_blocks * block_c, m))).astype(np.float32)
     C *= (0.5 ** np.repeat(np.arange(nc_blocks), block_c)).astype(np.float32)[:, None]
     nq_valid = (grid_q - 1) * block_q + 3
     Q[nq_valid:] = 0
-    Q, C = (torch.from_numpy(a).to(dtype).float().numpy() for a in (Q, C))
+    Q, C = _rounded(Q, dtype), _rounded(C, c_dtype or dtype)
     S = (Q.astype(np.float64) @ C.astype(np.float64).T).reshape(
         grid_q, block_q, nc_blocks, block_c)
     tmax = S.max(axis=(1, 3)).ravel() * 1.001
@@ -449,7 +496,7 @@ def test_k5_single_tile_padding_worklist_and_grid(card):
     assert bool((sk == 1).all()) and bool((fi == -1).all()) and bool((fc == 0).all())
     assert bool((fv == fused.NEG_LARGE).all())
     wide = torch.empty((64, 136704), device=card)
-    split = fused.ee_split_for(wide, block_q=64, block_c=256, k=32)
+    split = fused.ee_split_for(wide, wide, block_q=64, block_c=256, k=32)
     assert split.n_chunks == 134
     assert split.grid >= torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -473,6 +520,68 @@ def test_k5_tie_probe_on_card(card):
     assert full.indices.tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]
     assert torch.equal(ee.indices, full.indices) and torch.equal(ee.values, full.values)
     assert query.TILES["scored"] == 2
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}".replace("torch.", ""))
+@pytest.mark.parametrize("block_c", [64, 128, 256])
+@pytest.mark.parametrize("block_q", [8, 16, 24, 64, 128])
+def test_k4_bit_identical_to_k5_without_skips(card, pair, block_q, block_c):
+    """K4's two-phase packets equal K5's bit for bit when K5's bounds never
+    let it skip, at a width of 2.5 FK chunks (the last ragged), and a (3, T)
+    worklist gives K4's packets the ids of its last row."""
+    from repro_torch.kernels.apss_block import fused
+
+    qd, cd = pair
+    Qn, Cn, wl, _, nq_valid = _k5_case(qd, 2560, block_q, block_c, c_dtype=cd)
+    Q = torch.from_numpy(Qn).to(card, qd)
+    C = torch.from_numpy(Cn).to(card, cd)
+    ij = torch.from_numpy(wl).to(card)
+    never = torch.full((ij.shape[1],), 1e30, device=card)
+    t = float(np.float32(0.5 * float((Q.float() @ C.float().T).median())))
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=C.shape[0] - 5)
+    k4 = fused.rect_tile_candidates_kernel(Q, C, ij, t, 8, **kw)
+    k5 = fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, never, t, 8,
+                                                      nq_valid=nq_valid, **kw)
+    assert (k5[3] == 0).all()
+    for a, b in zip(k4, k5[:3]):
+        assert torch.equal(a, b)
+    assert int(k4[2].sum()) > 0
+    ij3 = torch.cat([ij, ij[1:2] + 2])  # the packet ids come from the last row
+    wide = dict(kw, nc_valid=10**6)
+    k42 = fused.rect_tile_candidates_kernel(Q, C, ij, t, 8, **wide)
+    k43 = fused.rect_tile_candidates_kernel(Q, C, ij3, t, 8, **wide)
+    assert torch.equal(k43[0], k42[0]) and torch.equal(k43[2], k42[2])
+    assert torch.equal(k43[1], torch.where(k42[1] >= 0, k42[1] + 2 * block_c, -1))
+
+
+def test_k5_mixed_dtypes_match_plain(card):
+    """K5 on f32 queries against a bf16 index (the pair F1 serves), with
+    the bounds query_topk computes, against its plain version: packets and
+    skip flags."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.kernels.apss_block.ops import compact_rect_worklist
+    from repro_torch.serving import build_index
+    from repro_torch.serving.query import _query_mask
+
+    pair = (torch.float32, torch.bfloat16)
+    Qn, Cn = _rect_inputs(pair[0], 100, seed=PAIR_SEED[pair], c_dtype=pair[1])
+    index = build_index(torch.from_numpy(Cn[:500]).to(card, torch.bfloat16), block_rows=64,
+                        normalize=False)
+    Q = torch.from_numpy(Qn).to(card)
+    for block_q, k in ((64, 8), (8, 1)):
+        Qp = Q[: -(-100 // block_q) * block_q].contiguous()
+        mask, ub = _query_mask(Qp, index.stats, threshold=0.3, block_q=block_q,
+                               use_minsize=True, normalized=True)
+        wl = compact_rect_worklist(mask, ub)
+        ij = torch.from_numpy(wl).to(card)
+        ubw = torch.from_numpy(ub.cpu().numpy()[wl[0], wl[1]].astype(np.float32)).to(card)
+        kw = dict(block_q=block_q, block_c=64, nc_valid=500, nq_valid=100)
+        got = fused.rect_tile_candidates_early_exit_kernel(Qp, index.corpus, ij, ubw, 0.3, k,
+                                                           **kw)
+        want = fused.rect_tile_candidates_early_exit_plain(Qp, index.corpus, ij, ubw, 0.3, k,
+                                                           **kw)
+        assert torch.equal(got[3].cpu(), want[3].cpu())
+        _assert_close(got[:3], want[:3])
 
 
 @pytest.mark.parametrize("block_q", [8, 64])
@@ -550,8 +659,10 @@ def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):
                                           block_c=96, nc_valid=192)
     with pytest.raises(ValueError, match="contiguous"):
         fused.rect_tile_candidates_kernel(Q.T, C, ij, 0.3, 8, **kw)
-    with pytest.raises(ValueError, match="share device, dtype"):
-        fused.rect_tile_candidates_kernel(Q.bfloat16(), C, ij, 0.3, 8, **kw)
+    with pytest.raises(ValueError, match="share device and width"):
+        fused.rect_tile_candidates_kernel(Q[:, :96].contiguous(), C, ij, 0.3, 8, **kw)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused.rect_tile_candidates_kernel(Q.half(), C, ij, 0.3, 8, **kw)
     with pytest.raises(ValueError, match="outside"):
         fused.rect_tile_candidates_kernel(Q, C, torch.tensor([[0], [1]]), 0.3, 8, **kw)
     with pytest.raises(ValueError, match="worklist"):

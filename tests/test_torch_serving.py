@@ -325,6 +325,57 @@ def test_k5_work_split_covers_every_chunk_and_strip_once(m, block_q, block_c, ca
         fused.ee_work_split(m, block_q, 96, capacity)
 
 
+@pytest.mark.parametrize(
+    "T,m,block_q,block_c,budget,strip_rows,pass_tiles",
+    [
+        (27, 136704, 64, 256, fused.RECT_SCRATCH_BYTES, 64, 27),  # radikal, B = 64
+        (27, 136704, 8, 256, fused.RECT_SCRATCH_BYTES, 8, 27),    # radikal, B = 8
+        (3, 2048, 8, 64, fused.RECT_SCRATCH_BYTES, 32, 3),        # 32 threads span 64 rows
+        (5, int(2.5 * fused.EE_FK), 24, 64, fused.RECT_SCRATCH_BYTES, 32, 5),  # ragged chunk
+        (7, 64, 128, 128, fused.RECT_SCRATCH_BYTES, 128, 7),     # one short chunk
+        (9, 3 * fused.EE_FK, 72, 128, 3 * 4 * 3 * 72 * 128, 128, 3),  # passes of 3 tiles
+        (4, 3 * fused.EE_FK, 40, 256, 1, 64, 1),                 # a budget below one tile
+    ],
+)
+def test_k4_work_split_covers_every_tile_chunk_and_strip_once(T, m, block_q, block_c, budget,
+                                                              strip_rows, pass_tiles):
+    """K4's work items: each (tile, feature chunk, corpus strip) once with
+    the whole query block in its strip, a corpus strip of 8 rows a thread
+    at most, the chunks of the summation order K5 shares, and scratch of
+    the pass's partial tiles."""
+    split = fused.rect_work_split(T, m, block_q, block_c, budget)
+    assert split.n_chunks == -(-m // fused.EE_FK)
+    assert split.strip_rows == strip_rows and split.strip_rows >= block_q
+    threads_c = 8 * 256 // strip_rows  # each of 256 threads owns 8 strip rows
+    assert split.strip_c == min(block_c, 8 * threads_c) and split.strip_c >= threads_c
+    assert split.strips * split.strip_c == block_c
+    assert split.pass_tiles == pass_tiles
+    assert split.scratch_bytes == 4 * pass_tiles * split.n_chunks * block_q * block_c
+    items = split.items()
+    assert items.dtype == np.int32 and items.shape == (split.n_items, 4)
+    assert split.n_items == T * split.n_chunks * split.strips
+    cover = np.zeros((T, split.n_chunks, block_q, block_c), np.int32)
+    for t, f, r0, c0 in items.tolist():
+        assert r0 == 0 and c0 % split.strip_c == 0
+        cover[t, f, r0:r0 + split.strip_rows, c0:c0 + split.strip_c] += 1
+    assert (cover == 1).all()
+    # The kernel numbers a pass's items ((t - t0) * n_chunks + f) * strips + strip.
+    n = ((items[:, 0] % pass_tiles) * split.n_chunks + items[:, 1]) * split.strips \
+        + items[:, 3] // split.strip_c
+    per_pass = items[:, 0] // pass_tiles
+    for p in np.unique(per_pass):
+        assert (n[per_pass == p] == np.arange((per_pass == p).sum())).all()
+    with pytest.raises(ValueError, match="no split"):
+        fused.rect_work_split(T, m, block_q, 96)
+
+
+def test_k4_work_split_scratch_on_radikal():
+    """The scratch the K4 design states: 237 MB at B = 64 and 29.6 MB at
+    B = 8 for radikal's 27 live tiles of 136,704 features."""
+    assert fused.rect_work_split(27, 136704, 64, 256).scratch_bytes == 237_109_248
+    assert fused.rect_work_split(27, 136704, 8, 256).scratch_bytes == 29_638_656
+
+
 # -- index and query path against the JAX package -----------------------------
 
 
@@ -387,6 +438,46 @@ def test_query_topk_matches_jax_and_oracle(kind, t, k, nq):
             assert_same_matches(got, ref)
     if t < 0:  # every real corpus row matches every query, padding never
         assert (host(got.counts) == 200).all()
+
+
+def _f1_case():
+    """A standard-normal corpus of 512 x 96 rows, normalised and stored in
+    bf16, and 16 queries: its first rows plus 0.05-scaled noise, normalised
+    and kept in f32 (``default_rng(0)``)."""
+    rng = np.random.default_rng(0)
+    C = rng.standard_normal((512, 96)).astype(np.float32)
+    C /= np.linalg.norm(C, axis=1, keepdims=True)
+    Q = C[:16] + 0.05 * rng.standard_normal((16, 96)).astype(np.float32)
+    Q /= np.linalg.norm(Q, axis=1, keepdims=True)
+    return C, Q.astype(np.float32)
+
+
+@pytest.mark.parametrize("index_dtype,query_dtype", [
+    ("bfloat16", "float32"),  # a bf16 index scores f32 queries unrounded
+    ("float32", "bfloat16"),  # a bf16 query is widened exactly, not the index rounded
+])
+def test_query_topk_mixed_dtypes_match_jax(index_dtype, query_dtype):
+    """Neither operand is rounded to the other's dtype: the reference's
+    einsum and K4's dot promote f32 x bf16 to an f32 product, so counts,
+    match sets and order equal the JAX package's, values to f32 rounding,
+    and counts equal the float64 count on the bf16-rounded operands in
+    every row with no pair within 1e-5 of t."""
+    t, k = 0.1, 8
+    C, Q = _f1_case()
+    cj = jnp.asarray(C).astype(index_dtype)
+    qj = jnp.asarray(Q).astype(query_dtype)
+    jref = jquery.query_topk(jindex.build_index(cj, block_rows=128, normalize=False), qj, t, k,
+                             block_q=16, use_kernel=False)
+    index = build_index(torch.from_numpy(C).to(getattr(torch, index_dtype)), block_rows=128,
+                        normalize=False, device="cpu")
+    assert index.corpus.dtype == getattr(torch, index_dtype)
+    q = torch.from_numpy(Q).to(getattr(torch, query_dtype))
+    got = query_topk(index, q, t, k, block_q=16, use_kernel=False)
+    assert_same_matches(got, jref)
+    S = (q.double() @ index.corpus[:512, :96].double().T).numpy()
+    clear = (np.abs(S - t) > 1e-5).all(axis=1)
+    assert clear.sum() >= 12
+    np.testing.assert_array_equal(host(got.counts)[clear], (S >= t).sum(axis=1)[clear])
 
 
 def test_query_topk_all_pruned_and_input_checks():

@@ -116,6 +116,29 @@ def test_batched_equals_one_shot_and_jax(case, server):
                                    atol=VAL_TOL)
 
 
+def test_server_on_bf16_index_equals_one_shot_and_jax():
+    """The server's batch is f32 and a bf16 index scores it unrounded: each
+    answer equals one-shot ``query_topk`` and the JAX package's result on
+    the same bf16 index."""
+    C, Q = _corpus_queries(300, 96, 0.3, 12, seed=9)
+    index = build_index(torch.from_numpy(C).bfloat16(), block_rows=64, normalize=False,
+                        device="cpu")
+    jidx = jbuild(jnp.asarray(C).astype(jnp.bfloat16), block_rows=64, normalize=False)
+    srv = RetrievalServer(index, threshold=T, k=K, max_batch=8, normalize=False, block_q=8)
+    with contextlib.closing(srv):
+        results = srv.serve([Q[i] for i in range(12)])
+    assert all(r.status == "ok" for r in results)
+    for i, res in enumerate(results):
+        one = query_topk(index, Q[i][None], T, K, block_q=8)
+        assert res.count == int(one.counts[0])
+        np.testing.assert_array_equal(res.indices, one.indices[0].numpy())
+        np.testing.assert_array_equal(res.values, one.values[0].numpy())
+        j = jquery(jidx, jnp.asarray(Q[i][None]), T, K, block_q=8)
+        assert res.count == int(np.asarray(j.counts)[0])
+        np.testing.assert_array_equal(res.indices, np.asarray(j.indices)[0])
+        np.testing.assert_allclose(res.values, np.asarray(j.values)[0], rtol=0, atol=VAL_TOL)
+
+
 def test_lru_cache_hit_and_frozen_results(case):
     C, Q, index = case
     srv = RetrievalServer(index, threshold=T, k=K, cache_size=2)

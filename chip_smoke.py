@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    started together) into ``build/repro_torch/``; build seconds, each
    kernel's registers, shared memory and spills from ``-Xptxas -v``, and
    the tensor-core instructions in K8's SASS (``cuobjdump -sass``): it
-   fails if the library holds no ``HGMMA``, or if K1 or K4 spill registers.
+   fails if the library holds no ``HGMMA``, or if K1, K4, K6 or K9 spill
+   registers.
 3. ``edge_probes``: n=130 m=100; t=-0.1 with padded zero columns; k > n;
    bf16 input; an all-pruned mask (t=1.5), through both dense kernel
    paths, against the port's oracle on the card.
@@ -66,6 +67,10 @@ Phases, each printing one JSON line:
     multiple of the tile, q heads per kv head of 1, 2 and 8, head dims 16,
     64 and 128, non-causal at a divisible S, and the non-causal
     ``ValueError``; cache lengths 0, 1 and L with L not a multiple of a tile.
+    Then ``r1_probe`` (ROADMAP R1): K8 and K9 in bf16 with V from 4 · (1 +
+    |N(0, 1)|), every output ≥ 4, against their plain versions and the f32
+    references: largest |Δ|, in bf16 ulps too; K8 within 2 ulps, K9 within
+    a relative 1e-5.
 15. ``lm_prefill_qwen3_1_7b``: the full qwen3-1.7b config in bf16, weights
     from ``torch.Generator`` seed 0 on the card, tokens (2, 4096) from numpy
     seed 0. ``prefill`` (K8 in every layer) against ``use_kernel=False``;
@@ -97,9 +102,11 @@ Phases, each printing one JSON line:
     its maximum, power draw and temperature just before and after the
     kernel's timed runs (``clocks``; one such line also comes before the
     first and after the last timed row); K1's rows add its grid (row tiles
-    × segments) and segment count, K4's its work items, grid, passes and
-    scratch bytes, K5's its cooperative grid (``grid_blocks``) and feature
-    chunks, K8's the f32 kernel's time (``ms_f32``) beside SDPA's in f32
+    × segments) and segment count, K4's and K6's their work items, grid,
+    passes and scratch bytes (K6's also its support width ``support_S``),
+    K5's its cooperative grid (``grid_blocks``) and feature chunks, K9's its
+    split, ``n_splits``, grid and live split blocks (``live_blocks``), K8's
+    the f32 kernel's time (``ms_f32``) beside SDPA's in f32
     (``library_ms_f32``).
 
 The main-path phases (6-13 and 15-17) drive the port's entry points
@@ -187,7 +194,8 @@ KERNEL_INFO = {
     ),
 }
 LM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # K8/K9 against their plain versions
-NO_SPILL = ("apss_fused", "rect_tile_candidates")  # the build fails on their spills
+NO_SPILL = ("apss_fused", "rect_tile_candidates", "rect_sparse_tile_candidates",
+            "decode_attention")  # the build fails on their spills
 
 
 class PhaseFailed(Exception):
@@ -277,6 +285,7 @@ def main() -> int:
     rows.append(serve_early_exit_phase(np, torch, "serve_early_exit_overlap"))
     torch.cuda.empty_cache()
     lm_edge_probes(np, torch)
+    r1_probe(np, torch)
     cfg, model = lm_model(torch)
     rows.append(lm_prefill_phase(np, torch, "lm_prefill_qwen3_1_7b", cfg, model))
     row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_qwen3_1_7b_32k", cfg, model)
@@ -1045,13 +1054,19 @@ def k4_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
         lambda: fused.rect_tile_candidates_plain(Qp, index.corpus, ij, t, k, **kw),
         lambda: library_rect(torch, Qp[:B], index.corpus, t, k), flop, nbytes,
     )
-    split = fused.rect_work_split(ij.shape[1], Qp.shape[1], bq, index.block_rows)
-    row.update(tiles=split.n_tiles, work_items=split.n_items, n_chunks=split.n_chunks,
-               strip_rows=split.strip_rows, passes=-(-split.n_tiles // split.pass_tiles),
-               grid=[split.pass_tiles * split.n_chunks * split.strips,
-                     -(-split.pass_tiles * bq // 8)],
-               scratch_bytes=split.scratch_bytes)
+    row.update(rect_split_fields(fused.rect_work_split(ij.shape[1], Qp.shape[1], bq,
+                                                       index.block_rows), bq))
     return row
+
+
+def rect_split_fields(split, bq: int) -> dict:
+    """K4's and K6's launch shape: work items, the two grids of a pass
+    (items; selection blocks of 8 warps), passes and scratch bytes."""
+    return dict(tiles=split.n_tiles, work_items=split.n_items, n_chunks=split.n_chunks,
+                strip_rows=split.strip_rows, passes=-(-split.n_tiles // split.pass_tiles),
+                grid=[split.pass_tiles * split.n_chunks * split.strips,
+                      -(-split.pass_tiles * bq // 8)],
+                scratch_bytes=split.scratch_bytes)
 
 
 def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
@@ -1089,7 +1104,7 @@ def k5_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
 
 def k6_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
     """K6 against its plain version on the main path's inputs, timed."""
-    from repro_torch.kernels.apss_block import sparse
+    from repro_torch.kernels.apss_block import fused, sparse
     from repro_torch.kernels.apss_block.fused import _rect_tile_packets
 
     B = Q.shape[0]
@@ -1116,7 +1131,8 @@ def k6_row(np, torch, row_name, launches, index, Q, near, *, bq, t, k):
         lambda: sparse.rect_sparse_tile_candidates_plain(qg, index.bx, ij, t, k, **kw),
         library, flop, nbytes,
     )
-    row.update(support_S=S, tiles=int(wl.shape[1]))
+    row.update(support_S=S, **rect_split_fields(
+        fused.rect_work_split(qg.shape[0], S, bq, bc, sparse.RECT_SCRATCH_BYTES), bq))
     return row
 
 
@@ -1598,6 +1614,53 @@ def lm_edge_probes(np, torch) -> None:
     check(noncausal_raises, "lm_edge_probes: non-causal ragged S did not raise")
 
 
+def _bf16_ulps(torch, got, want) -> float:
+    """Largest |got - want| in bf16 ulps of want (8 significant bits)."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def r1_probe(np, torch) -> None:
+    """ROADMAP R1: K8 and K9 in bf16 with V from 4 * (1 + |N(0, 1)|), so
+    every output lies at or above 4, where one bf16 ulp (0.031) passes the
+    absolute 2e-2 bound. Each against its plain version and the f32
+    reference: the largest |Δ|, in bf16 ulps of the output too. Held to the
+    card test's bounds: K8 within 2 ulps, K9 within a relative 1e-5."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+    from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+
+    k8, k9 = _attention_modules()
+    g = torch.Generator("cuda").manual_seed(4)
+
+    def normal(shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    bf = torch.bfloat16
+    q, k = normal((2, 16, 1024, 128)).to(bf), normal((2, 8, 1024, 128)).to(bf)
+    v = (4 * (1 + normal((2, 8, 1024, 128)).abs())).to(bf)
+    qd = normal((2, 16, 128)).to(bf)
+    lens = torch.tensor([1024, 333], dtype=torch.int32, device="cuda")
+    got8 = flash_attention(q, k, v).float()
+    acc, _, l = k9.decode_attention_kernel(qd, k, v, lens)
+    got9 = acc / l[..., None]
+    pacc, _, pl = k9.decode_attention_plain(qd, k, v, lens)
+    wants = {
+        "k8_vs_plain": (got8, k8.flash_attention_plain(q, k, v).float()),
+        "k8_vs_f32_reference": (got8, attention_reference(q.float(), k.float(), v.float())),
+        "k9_vs_plain": (got9, pacc / pl[..., None]),
+        "k9_vs_f32_reference": (got9, decode_attention_reference(
+            qd.float(), k.float(), v.float(), lens)),
+    }
+    out = {name: dict(max_abs_err=(a - b).abs().max().item(), max_ulps=_bf16_ulps(torch, a, b),
+                      max_rel_err=((a - b).abs() / b.abs()).max().item(),
+                      out_min=b.min().item(), out_max=b.max().item())
+           for name, (a, b) in wants.items()}
+    emit("r1_probe", **out)
+    for name, r in out.items():
+        bound_ok = r["max_ulps"] <= 2 if name.startswith("k8") else r["max_rel_err"] <= 1e-5
+        check(r["out_min"] >= 4 and bound_ok, f"r1_probe: {name} outside its bound: {r}")
+
+
 def _top1(a, b) -> int:
     """Positions whose top-1 token is the same in two logit tensors."""
     return int((a.argmax(-1) == b.argmax(-1)).sum())
@@ -1794,9 +1857,13 @@ def k9_row(np, torch, phase, launches, cfg, cache, lens_t) -> dict:
         lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
                                                scale=1.0 / D ** 0.5, enable_gqa=True),
         flop, nbytes)
+    sp = k9.decode_split(L, D, batch=B, q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+    live_splits = sum(-(-min(n, L) // sp.split) for n in lens_t.tolist())
     row.update(shape=[B, cfg.n_heads, cfg.n_kv_heads, L, D], dtype="bfloat16",
                live_positions=live, m_err=cmp["m_err"], l_rel_err=cmp["l_rel_err"],
-               per_step_bound_ms=row["bound_ms"] * launches["decode_attention"])
+               per_step_bound_ms=row["bound_ms"] * launches["decode_attention"],
+               split=sp.split, n_splits=sp.n_splits, grid=list(sp.grid),
+               live_blocks=live_splits * cfg.n_kv_heads, scratch_bytes=sp.scratch_bytes)
     return row
 
 

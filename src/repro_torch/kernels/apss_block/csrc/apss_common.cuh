@@ -1,6 +1,6 @@
 // Shared pieces of the APSS self-join kernels for Hopper (sm_90a).
 //
-// ring_tile: the pipelined body of K1 and K4 (bottom of this file): a BM x
+// ring_tile: the pipelined body of K1, K4 and K6 (bottom of this file): a BM x
 //   BN tile of X . Y^T over a feature range, streamed through a ring of
 //   cp.async stages in shared memory (the next stages' copies in flight
 //   while one is multiplied), each thread owning RM x RN scores and reading
@@ -37,27 +37,22 @@
 //   tile's 2 * block_m * block_n * m FLOP. Tiles are at most 256 x 256
 //   (eight register slots per lane in phase 2).
 //
-// rect_tile_packet: the forward-only body of the sparse rectangular
-//   (serving) kernel K6: a block_q x block_c tile of query rows against
-//   corpus rows (block_q a multiple of 8 up to 128, block_c 64, 128 or
-//   256). The f32 tile is at most 128 KB, so it stays in dynamic shared
-//   memory (no device scratch). It is scored in strips of 16, 32 or 64
-//   query rows by 64 corpus rows (score_strip<RM>, RM = 1, 2 or 4 rows per
-//   thread, chosen from block_q so that a block of 8 query rows wastes at
-//   most half of its strip instead of seven eighths of a 64-row one), then
-//   one warp per tile row keeps s >= t and gcol < nc_valid (no
-//   self-exclusion: queries are not corpus rows), counts them and selects
-//   the row's top-k (rect_row_packet, select_packet). K6 runs it per tile;
-//   K5 scores the same strips on many thread blocks and K4 through
-//   ring_tile, and both select with the same rect_row_packet.
+// score_strip_part: K5's strip of 16 * RM query rows by 64 corpus rows
+//   over one feature chunk (RM = 1, 2 or 4 rows a thread, chosen from
+//   block_q so that a block of 8 query rows wastes at most half of its
+//   strip), staged through shared memory as score_tile. K4 and K6 score
+//   through ring_tile instead (rect_tiles.cuh); all three select a row's
+//   packet with rect_row_packet: keep s >= t and gcol < nc_valid (no
+//   self-exclusion: queries are not corpus rows), count them and select
+//   the top-k (select_packet).
 //
 // Summation order of a rectangular score (K4, K5, K6): the features are cut
 //   into chunks of FK (the last one ragged); each chunk's partial is one
-//   fmaf chain from 0 in increasing feature order (score_strip_part in K5
-//   and K6, ring_tile in K4), and the score is 0 + partial_0 + partial_1 +
-//   ... in increasing chunk order. This order is part of the K4 = K5
-//   contract: both compute a tile's partials on different thread blocks and
-//   add them in the same order, so their packets are bit-identical.
+//   fmaf chain from 0 in increasing feature order (score_strip_part in K5,
+//   ring_tile in K4 and K6), and the score is 0 + partial_0 + partial_1 +
+//   ... in increasing chunk order. This order is part of the K4 = K5 = K6
+//   contract: each computes a tile's partials on different thread blocks
+//   and adds them in the same order, so their packets are bit-identical.
 //
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
@@ -386,60 +381,6 @@ __device__ __forceinline__ void score_strip_part(const TX* __restrict__ x, int x
   }
 }
 
-// acc[i][j] = X[ty*RM + i] . Y[tx*4 + j] over all m features, in the
-// chunked order of the header comment: the FK-feature partials added to 0
-// in increasing chunk order.
-template <int RM, typename T>
-__device__ __forceinline__ void score_strip(const T* __restrict__ x, int x_rows,
-                                            const T* __restrict__ y, long long m, Staged& st,
-                                            float (&acc)[RM][4]) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (long long f0 = 0; f0 < m; f0 += FK) {
-    float part[RM][4];
-    score_strip_part<RM>(x + f0, x_rows, y + f0, m, (int)(m - f0 < FK ? m - f0 : FK), st,
-                         part);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-  }
-}
-
-// s[r * block_c + c] = X[r] . Y[c] for the block_q rows at x and the block_c
-// rows at y (both at row stride m), in strips of 16 * RM rows by 64 columns.
-template <int RM, typename T>
-__device__ void rect_scores_rm(const T* __restrict__ x, const T* __restrict__ y, long long m,
-                               int block_q, int block_c, Staged& st, float* s) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int r0 = 0; r0 < block_q; r0 += 16 * RM) {
-    for (int c0 = 0; c0 < block_c; c0 += TILE) {
-      float acc[RM][4];
-      score_strip<RM>(x + (long long)r0 * m, block_q - r0, y + (long long)c0 * m, m, st, acc);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = r0 + ty * RM + i;
-        if (r < block_q)
-          *reinterpret_cast<float4*>(&s[r * block_c + c0 + tx * 4]) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-    }
-  }
-}
-
-template <typename T>
-__device__ void rect_scores(const T* __restrict__ x, const T* __restrict__ y, long long m,
-                            int block_q, int block_c, Staged& st, float* s) {
-  if (block_q <= 16)
-    rect_scores_rm<1>(x, y, m, block_q, block_c, st, s);
-  else if (block_q <= 32)
-    rect_scores_rm<2>(x, y, m, block_q, block_c, st, s);
-  else
-    rect_scores_rm<4>(x, y, m, block_q, block_c, st, s);
-}
-
 // a[0, k) := the k largest of a[0, k) and b[0, k), both sorted descending
 // (values only). One warp: each entry's place in the merged order is its
 // own index plus the entries of the other list before it (a first on
@@ -505,28 +446,8 @@ __device__ __forceinline__ void rect_row_packet(const float* srow, int block_c, 
   select_packet(v, id, count, k, out_v, out_i, out_c);
 }
 
-// The forward packet of one rectangular tile: x holds its block_q query rows
-// and y its block_c corpus rows (row stride m), gcol0 the global id of y's
-// first row. s is block_q * block_c floats of shared memory; fv/fi are
-// (block_q, k) and fc (block_q,) of this tile's packet. Ends with every
-// thread past its last read of s.
-template <typename T>
-__device__ void rect_tile_packet(const T* __restrict__ x, const T* __restrict__ y, long long m,
-                                 int block_q, int block_c, int gcol0, int nc_valid,
-                                 float threshold, int k, Staged& st, float* s,
-                                 float* __restrict__ fv, int* __restrict__ fi,
-                                 int* __restrict__ fc) {
-  rect_scores(x, y, m, block_q, block_c, st, s);
-  __syncthreads();  // the whole tile is in s
-  const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < block_q; r += WARPS)
-    rect_row_packet<false>(s + r * block_c, block_c, gcol0, nc_valid, threshold, k,
-                           fv + (long long)r * k, fi + (long long)r * k, fc + r);
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
-// Pipelined tiles (K1, K4): a ring of cp.async stages
+// Pipelined tiles (K1, K4, K6): a ring of cp.async stages
 // ---------------------------------------------------------------------------
 
 constexpr int PK = 32;  // features per stage of the ring

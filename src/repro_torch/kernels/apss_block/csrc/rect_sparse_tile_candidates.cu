@@ -14,76 +14,42 @@
 // product over S is exact: every nonzero of the corpus block lies in its
 // support, and query components outside it multiply stored zeros.
 //
-// Design. K4's: one thread block per worklist entry t reads ij[1, t] and
-// runs rect_tile_packet (apss_common.cuh) with x = qg[t] and y = bx[cj] at
-// row stride S: the block_q x block_c tile in dynamic shared memory, scored
-// by f32 FMA over the support in the chunked order of apss_common.cuh
-// (K4's), then one warp per query row selects by (value desc, id asc).
+// Design. K4's two launches (rect_tiles.cuh) with QueryAt::Entry: the query
+// operand of entry t is qg[t], the corpus operand bx[ij[1, t]], both at row
+// stride S. rect_part_kernel runs one thread block per work item (tile x
+// FK-feature chunk of the support x corpus strip, fused.py::rect_work_split
+// with m = S), streaming the chunk through K4's cp.async ring into K4's
+// Tall thread layout and writing the partial strip to device scratch;
+// rect_select_kernel adds each score's partials from 0 in chunk order and
+// selects by (value desc, id asc), one warp per tile row, ids and validity
+// from ij[1, t]. The summation order is K4's, so on a corpus whose blocks
+// span every feature (support arange(m), zero-padded) K6's packets are
+// K4's bit for bit. Worklists whose scratch passes the wrapper's budget run
+// in passes of pass_tiles tiles.
 //
 // Bound: 2 * block_q * block_c * S FLOP per tile against 4 * (block_q +
 // block_c) * S bytes of operands: about block_q / 2 FLOP per byte of bx,
 // under the card's ridge of about 20 until block_q nears 40, so a batch of
-// small query blocks is bound by reading bx and qg. One thread block per
-// tile, as K4.
-#include "apss_common.cuh"
-
-namespace apss {
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rect_sparse_tile_candidates_kernel(const T* __restrict__ qg, const T* __restrict__ bx,
-                                   const int* __restrict__ ij, int n_tiles,
-                                   float* __restrict__ fv, int* __restrict__ fi,
-                                   int* __restrict__ fc, int S, int block_q, int block_c,
-                                   int nc_valid, float threshold, int k) {
-  __shared__ __align__(16) Staged st;
-  extern __shared__ __align__(16) float dyn[];
-  const int t = blockIdx.x;
-  const int cj = ij[n_tiles + t];
-  const long long row = (long long)t * block_q;
-  rect_tile_packet(qg + row * S, bx + (long long)cj * block_c * S, S, block_q, block_c,
-                   cj * block_c, nc_valid, threshold, k, st, dyn, fv + row * k, fi + row * k,
-                   fc + row);
-}
-
-template <typename T>
-int launch(const void* qg, const void* bx, const void* ij, int n_tiles, void* fv, void* fi,
-           void* fc, int S, int block_q, int block_c, int nc_valid, float threshold, int k,
-           void* stream) {
-  if (block_q % 8 || block_q < 8 || block_q > MAX_QBLOCK || block_c % TILE ||
-      block_c > MAX_BLOCK || S % TK || S < TK || k < 1 || n_tiles < 1)
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * block_q * block_c;
-  auto kernel = rect_sparse_tile_candidates_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_tiles, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(qg), static_cast<const T*>(bx), static_cast<const int*>(ij),
-      n_tiles, static_cast<float*>(fv), static_cast<int*>(fi), static_cast<int*>(fc), S,
-      block_q, block_c, nc_valid, threshold, k);
-  return cudaGetLastError();
-}
-
-}  // namespace apss
+// small query blocks is bound by reading bx and qg. Radikal's sparse index
+// at 64 queries (27 live tiles, S about 13.8k, 12 GFLOP, 0.18 ms at 67
+// TFLOP/s) gives 27 * 14 = 378 items of one FK chunk, about 3 an SM, and
+// 25 MB of scratch written once and read once; the one-block-per-tile
+// design it replaces kept 27 of the 132 SMs busy.
+#include "rect_tiles.cuh"
 
 // qg (n_tiles, block_q, S) and bx (nb, block_c, S) row-major, one dtype; ij
-// (2, n_tiles) int32; fv/fi (n_tiles, block_q, k), fc (n_tiles, block_q).
-// Returns a cudaError_t code.
-extern "C" int apss_rect_sparse_tile_candidates_f32(const void* qg, const void* bx,
-                                                    const void* ij, int n_tiles, void* fv,
-                                                    void* fi, void* fc, int S, int block_q,
-                                                    int block_c, int nc_valid, float threshold,
-                                                    int k, void* stream) {
-  return apss::launch<float>(qg, bx, ij, n_tiles, fv, fi, fc, S, block_q, block_c, nc_valid,
-                             threshold, k, stream);
-}
+// (2, n_tiles) int32; part (pass_tiles, ceil(S / FK), block_q, block_c) f32
+// scratch; fv/fi (n_tiles, block_q, k), fc (n_tiles, block_q). Returns a
+// cudaError_t code.
+#define APSS_RECT_SPARSE_ENTRY(SUFFIX, T)                                                 \
+  extern "C" int apss_rect_sparse_tile_candidates_##SUFFIX(                              \
+      const void* qg, const void* bx, const void* ij, int n_tiles, void* part,           \
+      int pass_tiles, void* fv, void* fi, void* fc, int S, int block_q, int block_c,     \
+      int nc_valid, float threshold, int k, void* stream) {                              \
+    return apss::launch_rect<apss::QueryAt::Entry, T, T>(                                \
+        qg, bx, ij, 2, n_tiles, part, pass_tiles, fv, fi, fc, S, block_q, block_c,       \
+        nc_valid, threshold, k, stream);                                                 \
+  }
 
-extern "C" int apss_rect_sparse_tile_candidates_bf16(const void* qg, const void* bx,
-                                                     const void* ij, int n_tiles, void* fv,
-                                                     void* fi, void* fc, int S, int block_q,
-                                                     int block_c, int nc_valid,
-                                                     float threshold, int k, void* stream) {
-  return apss::launch<uint16_t>(qg, bx, ij, n_tiles, fv, fi, fc, S, block_q, block_c,
-                                nc_valid, threshold, k, stream);
-}
+APSS_RECT_SPARSE_ENTRY(f32, float)
+APSS_RECT_SPARSE_ENTRY(bf16, uint16_t)

@@ -33,8 +33,9 @@
 //     each writes its chunk's partial strip (score_strip_part,
 //     apss_common.cuh) to the device scratch (n_chunks, block_q, block_c)
 //     f32. B1: every element of the tile adds its partials in increasing
-//     chunk order, from 0, into chunk 0's slot -- the order score_strip
-//     uses in K4, so the scores are K4's bits (no float atomics). B2: one
+//     chunk order, from 0, into chunk 0's slot -- the order K4's
+//     selection pass adds in, so the scores are K4's bits (no float
+//     atomics). B2: one
 //     warp per tile row selects the row's packet (rect_row_packet, K4's
 //     rule) and merges its values into the buffer in shared memory
 //     (merge_values).

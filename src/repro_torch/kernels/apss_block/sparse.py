@@ -46,6 +46,7 @@ from repro_torch.kernels.apss_block.fused import (
     _I,
     _RECT_CHUNK,
     _TILE,
+    RECT_SCRATCH_BYTES,
     _TK,
     _VP,
     _F,
@@ -58,6 +59,7 @@ from repro_torch.kernels.apss_block.fused import (
     _suffix,
     _tile_packets,
     _worklist_on,
+    rect_work_split,
 )
 from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
 
@@ -304,7 +306,9 @@ def rect_sparse_tile_candidates_kernel(
 ):
     """K6 on ``qg (T, block_q, S)`` (:func:`gather_query_tiles`), the index's
     ``bx (nb, block_c, S)`` corpus blocks on their own supports and a
-    ``(2, T)`` worklist of live (query block, corpus block) tiles.
+    ``(2, T)`` worklist of live (query block, corpus block) tiles. The work
+    goes in K4's items (:func:`fused.rect_work_split` with ``m = S``), in
+    passes that keep the scratch within ``RECT_SCRATCH_BYTES``.
 
     Returns ``(fv, fi, fc)`` shaped ``(T, block_q, k|k|1)``.
     """
@@ -321,16 +325,18 @@ def rect_sparse_tile_candidates_kernel(
     if ij.shape[1] != T:
         raise ValueError(f"qg holds {T} tiles but ij {ij.shape[1]}")
     dev = bx.device
+    split = rect_work_split(T, S, block_q, block_c, RECT_SCRATCH_BYTES)
+    part = torch.empty(split.scratch_bytes // 4, dtype=torch.float32, device=dev)
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
     fi = torch.empty((T, block_q, k), dtype=torch.int32, device=dev)
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
     fn, check = _entry(
         "rect_sparse_tile_candidates",
         f"apss_rect_sparse_tile_candidates_{_suffix(bx.dtype)}",
-        [_VP, _VP, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
+        [_VP, _VP, _VP, _I, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
     )
     status = fn(
-        qg.data_ptr(), bx.data_ptr(), ij.data_ptr(), T,
+        qg.data_ptr(), bx.data_ptr(), ij.data_ptr(), T, part.data_ptr(), split.pass_tiles,
         fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
         S, block_q, block_c, int(nc_valid), _f32(threshold), k,
         torch.cuda.current_stream(dev).cuda_stream,

@@ -20,6 +20,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attention import ops as jdops  # noqa: E402
+from repro.kernels.decode_attention.decode_attention import (  # noqa: E402
+    decode_attention_pallas as jdecode_pallas,
+)
 from repro.kernels.decode_attention import ref as jdref  # noqa: E402
 from repro.kernels.flash_attention.ops import flash_attention as jflash  # noqa: E402
 from repro.kernels.flash_attention.ref import attention_reference as jattn  # noqa: E402
@@ -201,3 +204,81 @@ def test_k9_wrapper_on_cpu_runs_the_plain_version_without_counting():
     for a, b in zip(got, k9.decode_attention_plain(q, k, v, lens)):
         assert torch.equal(a, b)
     assert k9.LAUNCHES["decode_attention"] == before
+
+
+# -- K9's split of the KV length ---------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "L,D,split,n_splits",
+    [
+        (32768, 128, 2048, 16),   # the decode cell: 2048 positions a block
+        (32767, 128, 2048, 16),   # a ragged last split
+        (512, 128, 2048, 1),      # the LM server's cache: one split
+        (5000, 64, 4096, 2),
+        (32768, 16, 16384, 2),    # 16384 positions of D = 16 per block
+        (100, 32, 8192, 1),
+    ],
+)
+def test_decode_split(L, D, split, n_splits):
+    """The split the kernel uses: a fixed number of cache values a block, so
+    the grid (n_splits, Hkv, B) and the scratch depend on L, never on the
+    lengths."""
+    sp = k9.decode_split(L, D, batch=8, q_heads=16, kv_heads=8)
+    assert (sp.split, sp.n_splits) == (split, n_splits)
+    assert sp.split * D == k9.DECODE_SPLIT_VALUES and sp.n_splits * sp.split >= L
+    assert sp.grid == (n_splits, 8, 8)
+    assert sp.scratch_bytes == 4 * 8 * 16 * n_splits * (D + 2)
+    if (L, D) == (32768, 128):
+        assert sp.scratch_bytes == 1_064_960  # 1.1 MB at the decode cell
+    with pytest.raises(ValueError, match="no split"):
+        k9.decode_split(0, D)
+    with pytest.raises(ValueError, match="no split"):
+        k9.decode_split(L, D, q_heads=12, kv_heads=8)
+
+
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,L,D,split,lengths",
+    [
+        (4, 4, 2, 3000, 64, 1000, [0, 1, 2999, 3000]),        # a ragged last split
+        (6, 8, 2, 2048, 32, 512, [511, 512, 513, 2048, 1, 0]),  # split - 1, split, + 1
+        (2, 2, 2, 300, 16, None, [300, 37]),                 # one split (the default)
+    ],
+)
+def test_decode_split_plain_matches_whole_cache_plain(B, Hq, Hkv, L, D, split, lengths):
+    """The splits merged in split order give the plain version's partial of
+    the whole cache: m equal, l within a relative 1e-6, the normalised
+    output within 2e-6 (f32 sums in another order)."""
+    q, k, v = (_t(a) for a in _decode_inputs(B, Hq, Hkv, L, D, seed=40 + L))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    acc, m, l = k9.decode_attention_split_plain(q, k, v, lens, split=split)
+    pacc, pm, pl = k9.decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(m.numpy(), pm.numpy(), atol=2e-6, rtol=0)
+    np.testing.assert_allclose(l.numpy(), pl.numpy(), rtol=1e-6, atol=0)
+    out = (acc / torch.where(l == 0, 1.0, l)[..., None]).numpy()
+    want = (pacc / torch.where(pl == 0, 1.0, pl)[..., None]).numpy()
+    np.testing.assert_allclose(out, want, atol=2e-6, rtol=0)
+    empty = lens.numpy() == 0
+    assert (acc.numpy()[empty] == 0).all() and (l.numpy()[empty] == 0).all()
+    assert (m.numpy()[empty] == -0.5e30).all()
+
+
+def test_decode_split_plain_matches_pallas_splits_merged_by_jax_combine():
+    """The reference's decomposition of the same split: the Pallas kernel
+    (interpret mode, block_k 128) on each split of 256 positions, the
+    lengths clipped to the split, merged by the reference's
+    ``combine_partials``, against the port's split stand-in."""
+    B, Hq, Hkv, L, D, split = 3, 4, 2, 768, 16, 256
+    q, k, v = _decode_inputs(B, Hq, Hkv, L, D, seed=50)
+    lens = np.asarray([768, 257, 255], np.int32)
+    parts = []
+    for r0 in range(0, L, split):
+        sl = slice(r0, r0 + split)
+        parts.append(jdecode_pallas(
+            jnp.asarray(q), jnp.asarray(k[:, :, sl]), jnp.asarray(v[:, :, sl]),
+            jnp.asarray(np.clip(lens - r0, 0, split).astype(np.int32)), block_k=128,
+            interpret=True))
+    want = np.asarray(jdops.combine_partials(*(jnp.stack(x) for x in zip(*parts))))
+    acc, _, l = k9.decode_attention_split_plain(_t(q), _t(k), _t(v), torch.tensor(lens),
+                                                split=split)
+    np.testing.assert_allclose((acc / l[..., None]).numpy(), want, atol=2e-5, rtol=0)

@@ -606,6 +606,138 @@ def test_k6_kernel_matches_plain(card, block_q):
     assert int(ref[2].sum()) > 0
 
 
+def _k6_case(block_q, block_c, S, *, T=5, nb=3, seed=0):
+    """Gathered query blocks ``qg (T, block_q, S)`` and corpus blocks ``bx
+    (nb, block_c, S)`` with unit rows (30 % nonzero), a (2, T) worklist
+    over them, and a threshold between two float64 scores near the median
+    that lie more than 1e-5 apart from each other (none within 1e-5 of it)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(shape):
+        x = np.abs(rng.standard_normal(shape)) * (rng.random(shape) < 0.3)
+        return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)).astype(
+            np.float32)
+
+    qg, bx = unit((T, block_q, S)), unit((nb, block_c, S))
+    ij = np.stack([np.arange(T) // nb, np.arange(T) % nb]).astype(np.int32)
+    s = np.sort(np.einsum("tqs,tcs->tqc", qg.astype(np.float64),
+                          bx[ij[1]].astype(np.float64)).ravel())
+    gaps = np.flatnonzero(np.diff(s) > 3e-5)
+    i = gaps[np.argmin(np.abs(gaps - s.size // 2))]
+    return qg, bx, ij, float(np.float32((s[i] + s[i + 1]) / 2))
+
+
+@pytest.mark.parametrize("S", [256, 1024, 2560])  # below one FK chunk, one, 2.5 (ragged)
+@pytest.mark.parametrize("block_c", [64, 128, 256])
+@pytest.mark.parametrize("block_q", [8, 16, 64, 128])
+def test_k6_work_items_match_plain(card, block_q, block_c, S):
+    """K6's work items and selection pass against its plain version at every
+    strip shape, over support widths of one short, one whole and 2.5 FK
+    chunks, with padded corpus rows past nc_valid; k = 256 keeps every
+    candidate of a row."""
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    qgn, bxn, ijn, t = _k6_case(block_q, block_c, S)
+    qg, bx = torch.from_numpy(qgn).to(card), torch.from_numpy(bxn).to(card)
+    ij = torch.from_numpy(ijn).to(card)
+    kw = dict(nc_valid=3 * block_c - 5)
+    before = fused.LAUNCHES["rect_sparse_tile_candidates"]
+    got = sparse.rect_sparse_tile_candidates_kernel(qg, bx, ij, t, 256, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rect_sparse_tile_candidates"] == before + 1
+    ref = sparse.rect_sparse_tile_candidates_plain(qg, bx, ij, t, 256, **kw)
+    _assert_same_candidates(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+def _assert_same_candidates(got, ref):
+    """Packets that keep every candidate (k >= block_c) hold the same ids per
+    row and, id by id, values within 1e-5; counts equal. Their order may
+    differ where two values lie within f32 noise of each other (wide
+    supports give many such near ties)."""
+    (gv, gi, gc), (rv, ri, rc) = ([a.cpu().numpy() for a in p] for p in (got, ref))
+    np.testing.assert_array_equal(gc, rc)
+    go, ro = np.argsort(gi, axis=-1, kind="stable"), np.argsort(ri, axis=-1, kind="stable")
+    np.testing.assert_array_equal(np.take_along_axis(gi, go, -1), np.take_along_axis(ri, ro, -1))
+    np.testing.assert_allclose(np.take_along_axis(gv, go, -1), np.take_along_axis(rv, ro, -1),
+                               atol=TOL, rtol=0)
+
+
+def test_k6_one_tile_and_forced_passes_are_bit_identical(card, monkeypatch):
+    """A one-tile worklist (the sparse early-exit scan's call) gives that
+    tile's packet of the whole worklist's call bit for bit, and so does a
+    scratch budget that forces a pass per two tiles."""
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    qgn, bxn, ijn, t = _k6_case(64, 256, 2560, T=7)
+    qg, bx = torch.from_numpy(qgn).to(card), torch.from_numpy(bxn).to(card)
+    ij = torch.from_numpy(ijn).to(card)
+    full = sparse.rect_sparse_tile_candidates_kernel(qg, bx, ij, t, 8, nc_valid=768)
+    for e in (0, 3, 6):
+        one = sparse.rect_sparse_tile_candidates_kernel(qg[e:e + 1].contiguous(), bx,
+                                                        ij[:, e:e + 1], t, 8, nc_valid=768)
+        for a, b in zip(one, full):
+            assert torch.equal(a[0], b[e])
+    budget = 2 * 4 * 3 * 64 * 256  # two tiles of three chunks
+    assert fused.rect_work_split(7, 2560, 64, 256, budget).pass_tiles == 2
+    monkeypatch.setattr(sparse, "RECT_SCRATCH_BYTES", budget)
+    before = fused.LAUNCHES["rect_sparse_tile_candidates"]
+    passes = sparse.rect_sparse_tile_candidates_kernel(qg, bx, ij, t, 8, nc_valid=768)
+    assert fused.LAUNCHES["rect_sparse_tile_candidates"] == before + 1
+    for a, b in zip(passes, full):
+        assert torch.equal(a, b)
+    assert int(full[2].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_c", [64, 256])
+@pytest.mark.parametrize("block_q", [8, 64, 128])
+def test_k6_bit_identical_to_k4_on_full_support(card, dtype, block_q, block_c):
+    """On a corpus whose blocks span every feature, K6's packets are K4's bit
+    for bit: the query blocks of the worklist gathered per entry and the
+    corpus blocks as they are (support arange(m)), 2.5 FK chunks wide."""
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    Qn, Cn, wl, _, _ = _k5_case(dtype, 2560, block_q, block_c)
+    Q = torch.from_numpy(Qn).to(card, dtype)
+    C = torch.from_numpy(Cn).to(card, dtype)
+    ij = torch.from_numpy(wl).to(card)
+    t = float(np.float32(0.5 * float((Q.float() @ C.float().T).median())))
+    nc = C.shape[0] - 5
+    qg = Q.view(-1, block_q, 2560)[ij[0].long()].contiguous()
+    k6 = sparse.rect_sparse_tile_candidates_kernel(qg, C.view(-1, block_c, 2560), ij, t, 8,
+                                                   nc_valid=nc)
+    k4 = fused.rect_tile_candidates_kernel(Q, C, ij, t, 8, block_q=block_q, block_c=block_c,
+                                           nc_valid=nc)
+    for a, b in zip(k6, k4):
+        assert torch.equal(a, b)
+    assert int(k4[2].sum()) > 0
+
+
+def test_k6_through_the_index_bit_identical_to_k4(card):
+    """The same through a sparse index of a corpus with no zero entry: each
+    block's support is arange(m) padded with the sentinel to S = 2560 > m =
+    2464, whose zero columns add nothing, so K6's packets on the gathered
+    queries equal K4's on the dense corpus bit for bit."""
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.kernels.apss_block import fused, sparse
+    from repro_torch.serving import build_index
+
+    Qn, Cn, wl, _, _ = _k5_case(torch.float32, 2464, 64, 256)
+    index = build_index(from_dense(Cn), block_rows=256, normalize=False)
+    Q = torch.from_numpy(Qn).to(card)
+    ij = torch.from_numpy(wl).to(card)
+    assert index.bdims.shape[1] == 2560 and index.bx.shape == (4, 256, 2560)
+    t = float(np.float32(0.5 * float((Q @ torch.from_numpy(Cn).to(card).T).median())))
+    qg = sparse.gather_query_tiles(Q, index.bdims, ij, 64)
+    k6 = sparse.rect_sparse_tile_candidates_kernel(qg, index.bx, ij, t, 8, nc_valid=1000)
+    k4 = fused.rect_tile_candidates_kernel(Q, torch.from_numpy(Cn).to(card), ij, t, 8,
+                                           block_q=64, block_c=256, nc_valid=1000)
+    for a, b in zip(k6, k4):
+        assert torch.equal(a, b)
+    assert int(k4[2].sum()) > 0
+
+
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
 def test_query_topk_on_card_matches_plain_path(card, kind):
     from repro_torch.core.sparse import from_dense
@@ -838,6 +970,95 @@ def test_k9_refuses_instead_of_running_the_plain_version(card):
         decode_attention_kernel(torch.zeros((2, 2, 64), device=card), kv.transpose(2, 3)
                                 .contiguous().transpose(2, 3), kv, lens)
     assert LAUNCHES["decode_attention"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,D", [(1, 16), (2, 32), (4, 64), (8, 128), (2, 128)])
+def test_k9_split_lengths_match_plain(card, dtype, group, D):
+    """K9's split over a 32,768-position cache at skewed lengths: 32,767, 1,
+    0 and one split less one, one split and one split plus one position,
+    against its plain version at the tolerances above."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        LAUNCHES,
+        decode_attention_kernel,
+        decode_attention_plain,
+        decode_split,
+    )
+
+    L, Hkv = 32768, 2
+    split = decode_split(L, D).split
+    lengths = [L - 1, 1, 0, split - 1, split, split + 1]
+    B = len(lengths)
+    q = _normal((B, group * Hkv, D), 7, dtype, card)
+    k = _normal((B, Hkv, L, D), 8, dtype, card)
+    v = _normal((B, Hkv, L, D), 9, dtype, card)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = LAUNCHES["decode_attention"]
+    acc, m, l = decode_attention_kernel(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert LAUNCHES["decode_attention"] == before + 1
+    pacc, pm, pl = decode_attention_plain(q, k, v, lens)
+    np.testing.assert_allclose(m.cpu().numpy(), pm.cpu().numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(l.cpu().numpy(), pl.cpu().numpy(), rtol=1e-5, atol=0)
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    want = pacc / torch.where(pl == 0, 1.0, pl)[..., None]
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), atol=ATOL[dtype], rtol=0)
+    assert (acc[2] == 0).all() and (l[2] == 0).all() and (m[2] == -0.5e30).all()
+
+
+def test_k9_repeated_call_is_bit_identical(card):
+    """No atomics: the splits merge in a fixed order, so two calls give the
+    same bits."""
+    from repro_torch.kernels.decode_attention.decode_attention import decode_attention_kernel
+
+    q = _normal((4, 16, 128), 10, torch.bfloat16, card)
+    k = _normal((4, 8, 8192, 128), 11, torch.bfloat16, card)
+    v = _normal((4, 8, 8192, 128), 12, torch.bfloat16, card)
+    lens = torch.tensor([8191, 3000, 1025, 7], dtype=torch.int32, device=card)
+    first = decode_attention_kernel(q, k, v, lens)
+    second = decode_attention_kernel(q, k, v, lens)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits): 2 ** (floor(log2 |x|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def test_r1_bf16_outputs_of_magnitude_four_within_two_ulps(card):
+    """R1's probe: V drawn from 4 * (1 + |N(0, 1)|), so every output lies at
+    or above 4, where one bf16 ulp (0.031) passes the absolute 2e-2 bound.
+    K8 rounds its output and P to bf16, so it stays within 2 bf16 ulps of
+    the output of its plain version and of the f32 reference (half an ulp
+    for each output's rounding, the rest for P's); K9 keeps f32 partials of
+    exactly widened inputs, so it stays within a relative 1e-5 of both."""
+    from repro_torch.kernels.decode_attention.decode_attention import (
+        decode_attention_kernel,
+        decode_attention_plain,
+    )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_reference
+    from repro_torch.kernels.flash_attention import attention_reference, flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+
+    bf = torch.bfloat16
+    q = _normal((2, 16, 1024, 128), 13, bf, card)
+    k = _normal((2, 8, 1024, 128), 14, bf, card)
+    v = (4 * (1 + _normal((2, 8, 1024, 128), 15, torch.float32, card).abs())).to(bf)
+    got = flash_attention(q, k, v).float()
+    for want in (flash_attention_plain(q, k, v).float(),
+                 attention_reference(q.float(), k.float(), v.float())):
+        assert want.min() >= 4
+        assert ((got - want).abs() / _bf16_ulp(want)).max() <= 2
+    qd = _normal((2, 16, 128), 16, bf, card)
+    lens = torch.tensor([1024, 333], dtype=torch.int32, device=card)
+    acc, _, l = decode_attention_kernel(qd, k, v, lens)
+    out = acc / l[..., None]
+    pacc, _, pl = decode_attention_plain(qd, k, v, lens)
+    for want in (pacc / pl[..., None],
+                 decode_attention_reference(qd.float(), k.float(), v.float(), lens)):
+        assert want.min() >= 4
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=0)
 
 
 def test_lm_kernel_path_matches_plain_path_on_card(card):

@@ -369,6 +369,25 @@ def test_k4_work_split_covers_every_tile_chunk_and_strip_once(T, m, block_q, blo
         fused.rect_work_split(T, m, block_q, 96)
 
 
+@pytest.mark.parametrize(
+    "T,S,block_q,items,scratch_bytes",
+    [
+        (27, 13824, 64, 378, 24_772_608),  # radikal's sparse index, B = 64: 14 chunks
+        (27, 13824, 8, 378, 3_096_576),    # the same at B = 8
+        (60, 384, 64, 60, 3_932_160),      # a narrow support: one chunk, one item a tile
+        (1, 2560, 64, 3, 196_608),         # one tile (the sparse early-exit scan's call)
+    ],
+)
+def test_k6_work_split_on_support_widths(T, S, block_q, items, scratch_bytes):
+    """K6 runs K4's split with the support width S for m: T x ceil(S / FK)
+    items of one chunk and the whole 256-row corpus block, in one pass at
+    serving sizes."""
+    split = fused.rect_work_split(T, S, block_q, 256, fused.RECT_SCRATCH_BYTES)
+    assert split.n_chunks == -(-S // fused.EE_FK) and split.strips == 1
+    assert split.n_items == items and split.pass_tiles == T
+    assert split.scratch_bytes == scratch_bytes
+
+
 def test_k4_work_split_scratch_on_radikal():
     """The scratch the K4 design states: 237 MB at B = 64 and 29.6 MB at
     B = 8 for radikal's 27 live tiles of 136,704 features."""

@@ -13,9 +13,9 @@ Phases, each printing one JSON line:
 2. ``build``: compiles every kernel source (one ``nvcc`` per source, all
    started together) into ``build/repro_torch/``; build seconds, each
    kernel's registers, shared memory and spills from ``-Xptxas -v``, and
-   the tensor-core instructions in K8's SASS (``cuobjdump -sass``): it
-   fails if the library holds no ``HGMMA``, or if K1, K4, K6 or K9 spill
-   registers.
+   the tensor-core instructions in K8's and K7's SASS (``cuobjdump -sass``):
+   it fails if either library holds no ``HGMMA``, or if K1, K3, K4, K6, K7
+   or K9 spill registers.
 3. ``edge_probes``: n=130 m=100; t=-0.1 with padded zero columns; k > n;
    bf16 input; an all-pruned mask (t=1.5), through both dense kernel
    paths, against the port's oracle on the card.
@@ -40,7 +40,9 @@ Phases, each printing one JSON line:
    (n=6883, m=136447, 155.8 nnz/row), t=0.2, k=32: nearly every tile live,
    the unpruned worst case with a 267-chunk feature loop, K1 and K2.
 8. ``k7_radikal_full``: ``apss_block_matmul`` (K7) with the auto mask on the
-   same corpus, held against ``apss_block_plain`` element by element.
+   same corpus, held against ``apss_block_plain`` element by element, and
+   K7 on the corpus's first 1,024 rows against the float64 product (f32:
+   within 2e-6).
 9. ``serve_radikal_full``: a dense index (K4 at B=64 and B=8, K5) and a
    sparse index (K6) of the same corpus, 64 ``perturbed_queries``, t=0.2,
    k=32, held against the plain path on the card and the oracle.
@@ -97,12 +99,15 @@ Phases, each printing one JSON line:
     phase 16's largest |Δlogit|.
 18. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound (f32
-    FMA peak; K8's bf16 row the bf16 tensor-core peak), and the largest
+    FMA peak; K7's row and K8's bf16 row the tensor-core peak), and the largest
     value difference from the plain version, and ``nvidia-smi``'s SM clock,
     its maximum, power draw and temperature just before and after the
     kernel's timed runs (``clocks``; one such line also comes before the
     first and after the last timed row); K1's rows add its grid (row tiles
-    × segments) and segment count, K4's and K6's their work items, grid,
+    × segments) and segment count, K3's its work items and grid (scoring
+    items, selection blocks), K7's its tensor-core passes, output tile, the
+    f32 FMA bound beside the tensor-core one (``bound_ms_fma``) and the
+    float64 slice error, K4's and K6's their work items, grid,
     passes and scratch bytes (K6's also its support width ``support_S``),
     K5's its cooperative grid (``grid_blocks``) and feature chunks, K9's its
     split, ``n_splits``, grid and live split blocks (``live_blocks``), K8's
@@ -145,6 +150,7 @@ TOL = 1e-5
 REPS = 5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 without tensor cores (TF32 off)
 PEAK_BF16_TC_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+PEAK_TF32_TC_FLOPS = 495e12  # H100 SXM, tf32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 KERNEL_INFO = {
     "apss_fused": dict(
@@ -194,8 +200,9 @@ KERNEL_INFO = {
     ),
 }
 LM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # K8/K9 against their plain versions
-NO_SPILL = ("apss_fused", "rect_tile_candidates", "rect_sparse_tile_candidates",
-            "decode_attention")  # the build fails on their spills
+NO_SPILL = ("apss_fused", "sparse_tile_candidates", "apss_block", "rect_tile_candidates",
+            "rect_sparse_tile_candidates", "decode_attention")  # the build fails on their spills
+TENSOR_CORE_KERNELS = ("flash_attention", "apss_block")  # the build fails without HGMMA
 
 
 class PhaseFailed(Exception):
@@ -238,11 +245,12 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     build_s = time.perf_counter() - t0
-    mma = sass_mma_counts(libs["flash_attention"])
+    mma = {name: sass_mma_counts(libs[name]) for name in TENSOR_CORE_KERNELS}
     ptxas = {name: _build.ptxas_report(name) for name in _build.sources()}
-    emit("build", seconds=build_s, flash_attention_sass=mma, ptxas=ptxas)
-    check(mma is None or mma["HGMMA"] > 0,
-          f"K8's library holds no warpgroup MMA (HGMMA) in its SASS: {mma}")
+    emit("build", seconds=build_s, sass_mma=mma, ptxas=ptxas)
+    for name, counts in mma.items():
+        check(counts is None or counts["HGMMA"] > 0,
+              f"{name}'s library holds no warpgroup MMA (HGMMA) in its SASS: {counts}")
     for name in NO_SPILL:
         spilled = [r for r in ptxas[name] if r.get("spill_stores") or r.get("spill_loads")]
         check(not spilled, f"{name} spills registers: {spilled}")
@@ -843,12 +851,24 @@ def k7_phase(np, torch, phase, D, *, threshold) -> dict:
         s = torch.matmul(D, D.T)
         return torch.where(s >= t, s, 0.0)
 
+    # The tensor cores' passes: three tf32 (f32 split hi/lo) or one bf16.
+    passes = apss_block.K7_PASSES[Dp.dtype]
+    tc_peak = PEAK_TF32_TC_FLOPS if Dp.dtype == torch.float32 else PEAK_BF16_TC_FLOPS
     row = kernel_row(
         np, torch, "apss_block", phase, launches, cmp,
         lambda: apss_block.apss_block_kernel(Dp, Dp, mask, t, **kw),
         lambda: apss_block.apss_block_plain(Dp, Dp, t, block_mask=mask, **kw),
-        library, flop, nbytes,
+        library, passes * flop, nbytes, peak=tc_peak,
     )
+    # Every score of a 1,024-row slice against its float64 product.
+    xs = Dp[:1024]
+    ones = torch.ones((xs.shape[0] // bm,) * 2, dtype=torch.int32)
+    err64 = float((apss_block.apss_block_kernel(xs, xs, ones, -2.0, **kw).double()
+                   - xs.double() @ xs.double().T).abs().max())
+    row.update(passes=passes, tile=list(apss_block.K7_TILE), flop_scores=flop,
+               bound_ms_fma=bound(flop, nbytes)[0], max_abs_err_f64_slice=err64)
+    check(Dp.dtype != torch.float32 or err64 <= 2e-6,
+          f"{phase}: K7 f32 is {err64:.3g} from the float64 product on 1,024 rows")
     del Dp, out, pk, pp
     torch.cuda.empty_cache()
     return row
@@ -958,6 +978,8 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
         lambda: sparse.sparse_tile_candidates_plain(bx, yg, ij, t, k, **kw),
         library, flop, nbytes,
     )
+    items = len(sparse.sparse_work_items(T, bm))
+    row.update(work_items=items, grid=[items, T], support_S=S)
     del got, ref, bx, yg, pk, pp
     torch.cuda.empty_cache()
     return row

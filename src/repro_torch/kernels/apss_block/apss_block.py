@@ -7,6 +7,13 @@
 dense-output path behind ``ops.apss_block_matmul``; its ``O(n²)`` output
 makes it a validation and benchmark tool, not the self-join's main path.
 
+The kernel runs on the tensor cores in 128 × 128 output tiles
+(``K7_TILE``): bf16 inputs in one bf16 pass, f32 inputs split into TF32
+parts ``x = hi + lo`` and summed as ``hi·hi + hi·lo + lo·hi`` in three
+passes (``K7_PASSES``), which keeps every score of unit vectors within
+about 1e-6 of the exact product. :func:`apss_block_split_plain` computes
+that split in plain PyTorch; only the tests call it.
+
 On a CPU tensor the wrapper returns :func:`apss_block_plain`, a copy of the
 reference package's ``apss_block_reference``; on a CUDA tensor it launches
 the kernel or raises, and adds one to ``LAUNCHES["apss_block"]``.
@@ -31,6 +38,47 @@ from repro_torch.kernels.apss_block.fused import (
 )
 
 
+K7_TILE = (128, 128)  # rows and columns of the kernel's output tile (csrc/apss_block.cu)
+K7_PASSES = {torch.float32: 3, torch.bfloat16: 1}  # tensor-core passes a score
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the
+    dropped 13 bits' range to the magnitude bits and clear them."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def apss_block_split_plain(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    threshold: float,
+    *,
+    block_mask: torch.Tensor | None = None,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """:func:`apss_block_plain` with the kernel's f32 arithmetic: each operand
+    split as ``hi = tf32(v)``, ``lo = tf32(v - hi)`` and the scores summed as
+    ``hi·hi + hi·lo + lo·hi`` (products of TF32 parts are exact in f32).
+    A bf16 operand has ``lo = 0`` and gives the plain product."""
+    xh = tf32_round(x)
+    yh = tf32_round(y)
+    xl = tf32_round(x.float() - xh)
+    yl = tf32_round(y.float() - yh)
+    s = dot_f32(xh, yh) + dot_f32(xh, yl) + dot_f32(xl, yh)
+    return _masked(torch.where(s >= _f32(threshold), s, 0.0), block_mask, block_m, block_n)
+
+
+def _masked(out, block_mask, block_m, block_n):
+    if block_mask is not None:
+        live = torch.as_tensor(block_mask).to(out.device, torch.bool)
+        live = live.repeat_interleave(block_m, 0).repeat_interleave(block_n, 1)
+        out = torch.where(live, out, 0.0)
+    return out
+
+
 def apss_block_plain(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -43,12 +91,7 @@ def apss_block_plain(
     """Thresholded similarity scores ``where(S ≥ t, S, 0)``, zeroed on the
     tiles where ``block_mask`` is 0."""
     s = dot_f32(x, y)
-    out = torch.where(s >= _f32(threshold), s, 0.0)
-    if block_mask is not None:
-        live = torch.as_tensor(block_mask).to(out.device, torch.bool)
-        live = live.repeat_interleave(block_m, 0).repeat_interleave(block_n, 1)
-        out = torch.where(live, out, 0.0)
-    return out
+    return _masked(torch.where(s >= _f32(threshold), s, 0.0), block_mask, block_m, block_n)
 
 
 def apss_block_kernel(

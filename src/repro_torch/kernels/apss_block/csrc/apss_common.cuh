@@ -1,6 +1,6 @@
 // Shared pieces of the APSS self-join kernels for Hopper (sm_90a).
 //
-// ring_tile: the pipelined body of K1, K4 and K6 (bottom of this file): a BM x
+// ring_tile: the pipelined body of K1, K3, K4 and K6 (bottom of this file): a BM x
 //   BN tile of X . Y^T over a feature range, streamed through a ring of
 //   cp.async stages in shared memory (the next stages' copies in flight
 //   while one is multiplied), each thread owning RM x RN scores and reading
@@ -17,14 +17,15 @@
 //   feature order, one fmaf at a time. Inputs are float32 or bfloat16
 //   (as raw 16-bit words, widened exactly to float32); the sum is float32.
 //
-// tile_packets: the two-phase body of the worklist kernels K2 and K3 (one
-//   thread block per worklist entry t; the caller passes the operand
-//   pointers of the tile's row and column blocks). A block_m x block_n tile
+// tile_packets: the two-phase body of the worklist kernel K2 (one thread
+//   block per worklist entry t; the caller passes the operand pointers of
+//   the tile's row and column blocks). A block_m x block_n tile
 //   of f32 scores (256 KB at 256 x 256) does not fit a block's 227 KB of
 //   shared memory, so it goes to a device scratch buffer the wrapper
 //   allocates, (T, block_m, block_n) f32. Phase 1 computes the tile as
 //   64 x 64 sub-tiles with score_tile and writes them to scratch; after a
-//   block barrier, phase 2 selects from it:
+//   block barrier, phase 2 (tile_select; K3 runs it as a launch of its
+//   own after its ring_tile work items) selects from it:
 //     forward: one warp per tile row: keep s >= t, grow != gcol,
 //       grow < n_valid, gcol < n_valid; count them; top-k by
 //       (value desc, gcol asc) in min(k, count) rounds of warp-wide
@@ -60,8 +61,9 @@
 //
 // Bound: the self-join kernels are bound by float32 FMA throughput at the shapes of
 //   the self-join (2 m FLOP per score against 8 bytes of input per row
-//   pair, m in the hundreds to the hundred thousands); TF32 and the tensor
-//   cores are not used, so the card's non-tensor f32 peak is the bound.
+//   pair, m in the hundreds to the hundred thousands); the pieces here use
+//   neither TF32 nor the tensor cores, so the card's non-tensor f32 peak is
+//   their bound. (K7, apss_block.cu, has its own tensor-core body.)
 #pragma once
 
 #include <cstdint>
@@ -210,33 +212,16 @@ __device__ __forceinline__ void select_packet(float (&v)[MAX_BLOCK / 32],
   if (lane == 0) *out_c = count;
 }
 
-// Forward and mirror packets of worklist entry t, tile (ib, jb): xb holds
-// the tile's block_m rows and yb its block_n columns, both with row stride m.
-// fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T, block_n, k|k|1).
-template <typename T>
-__device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb, long long m,
-                             int t, int ib, int jb, int block_m, int block_n, int n_valid,
-                             float threshold, int k, Staged& st, float* scratch,
-                             float* __restrict__ fv, int* __restrict__ fi,
-                             int* __restrict__ fc, float* __restrict__ bv,
-                             int* __restrict__ bi, int* __restrict__ bc) {
-  float* s = scratch + (long long)t * block_m * block_n;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+// Phase 2 of tile_packets: the forward and mirror packets of worklist
+// entry t, tile (ib, jb), from its block_m x block_n f32 scores at s (row
+// stride block_n), written by this block before a barrier or by an
+// earlier launch. fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T,
+// block_n, k|k|1).
+__device__ void tile_select(const float* s, int t, int ib, int jb, int block_m, int block_n,
+                            int n_valid, float threshold, int k, float* __restrict__ fv,
+                            int* __restrict__ fi, int* __restrict__ fc, float* __restrict__ bv,
+                            int* __restrict__ bi, int* __restrict__ bc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int r0 = 0; r0 < block_m; r0 += TILE) {
-    for (int c0 = 0; c0 < block_n; c0 += TILE) {
-      float acc[4][4];
-      score_tile(xb + (long long)r0 * m, yb + (long long)c0 * m, m, st, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        *reinterpret_cast<float4*>(&s[(long long)(r0 + ty * 4 + i) * block_n + c0 + tx * 4]) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-    }
-  }
-  __syncthreads();  // the block's scratch writes are visible to all its threads
-
   const int grow0 = ib * block_m, gcol0 = jb * block_n;
   for (int r = warp; r < block_m; r += WARPS) {  // forward packet: rows of block ib
     const int grow = grow0 + r;
@@ -295,6 +280,34 @@ __device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb,
     }
     select_packet(v, id, count, k, bv + row * k, bi + row * k, bc + row);
   }
+}
+
+// Forward and mirror packets of worklist entry t, tile (ib, jb): xb holds
+// the tile's block_m rows and yb its block_n columns, both with row stride m.
+// fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T, block_n, k|k|1).
+template <typename T>
+__device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb, long long m,
+                             int t, int ib, int jb, int block_m, int block_n, int n_valid,
+                             float threshold, int k, Staged& st, float* scratch,
+                             float* __restrict__ fv, int* __restrict__ fi,
+                             int* __restrict__ fc, float* __restrict__ bv,
+                             int* __restrict__ bi, int* __restrict__ bc) {
+  float* s = scratch + (long long)t * block_m * block_n;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+
+  for (int r0 = 0; r0 < block_m; r0 += TILE) {
+    for (int c0 = 0; c0 < block_n; c0 += TILE) {
+      float acc[4][4];
+      score_tile(xb + (long long)r0 * m, yb + (long long)c0 * m, m, st, acc);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(&s[(long long)(r0 + ty * 4 + i) * block_n + c0 + tx * 4]) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+  }
+  __syncthreads();  // the block's scratch writes are visible to all its threads
+  tile_select(s, t, ib, jb, block_m, block_n, n_valid, threshold, k, fv, fi, fc, bv, bi, bc);
 }
 
 // ---------------------------------------------------------------------------
@@ -447,7 +460,7 @@ __device__ __forceinline__ void rect_row_packet(const float* srow, int block_c, 
 }
 
 // ---------------------------------------------------------------------------
-// Pipelined tiles (K1, K4, K6): a ring of cp.async stages
+// Pipelined tiles (K1, K3, K4, K6): a ring of cp.async stages
 // ---------------------------------------------------------------------------
 
 constexpr int PK = 32;  // features per stage of the ring

@@ -18,7 +18,9 @@ form of the paper's partial indexing):
    lies in its own support and dimensions outside it contribute zero.
 4. :func:`sparse_tile_candidates_kernel` (K3, ``csrc/sparse_tile_candidates.cu``)
    turns ``(bx, yg, ij)`` into forward and mirror candidate packets exactly
-   as K2 does, and ``ops.fold_packets`` folds them into ``Matches``.
+   as K2 does, and ``ops.fold_packets`` folds them into ``Matches``. It
+   scores the tiles in the work items of :func:`sparse_work_items` (up to
+   128 × 128 scores each), then selects the packets in a second launch.
 
 Query-time serving scores dense query blocks against the same per-block
 supports: :func:`gather_query_tiles` gathers, per live (query block, corpus
@@ -178,6 +180,22 @@ def sparse_tile_candidates_plain(
             n_valid=n_valid,
         ))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+K3_ITEM = 128  # rows and columns of a K3 work item (csrc/sparse_tile_candidates.cu)
+
+
+def sparse_work_items(n_tiles: int, block_m: int) -> np.ndarray:
+    """K3's scoring work items, one thread block each, in launch order:
+    ``(t, r0, c0)`` int32 rows, each worklist tile cut into parts of up to
+    ``K3_ITEM`` rows (of block ``ij[0, t]``, from ``r0``) by ``K3_ITEM``
+    columns (of block ``ij[1, t]``, from ``c0``): 4 a tile at ``block_m``
+    256, 1 at 128 or 64."""
+    if n_tiles < 1 or block_m < 1:
+        raise ValueError(f"no work items for T={n_tiles}, block_m={block_m}")
+    starts = np.arange(0, block_m, K3_ITEM)
+    t, r0, c0 = np.meshgrid(np.arange(n_tiles), starts, starts, indexing="ij")
+    return np.stack([t.ravel(), r0.ravel(), c0.ravel()], axis=1).astype(np.int32)
 
 
 def _check_blocks(name: str, a: torch.Tensor) -> None:

@@ -271,6 +271,134 @@ def test_k7_kernel_matches_plain_and_zeroes_dead_tiles(card, dtype):
         np.testing.assert_array_equal(g != 0, ref.cpu().numpy() != 0)
 
 
+def _k7_case(case, dtype, seed):
+    """``(x, y, mask, t, block)`` of one K7 edge case: x and y unit rows
+    (rounded to ``dtype`` and back), t < 0 or between two float64 scores near
+    the 80th percentile that lie more than 3e-5 apart (none within 1e-5)."""
+    if case == "mask64_under_tile":  # 64-entries of the mask inside one 128 x 256 tile
+        nx, ny, m, block = 256, 512, 128, 64
+    elif case == "negative_t_dead_tiles":
+        nx, ny, m, block = 256, 512, 128, 64
+    elif case == "ragged_m":  # 96 features: 3 f32 stages, 1.5 bf16 stages
+        nx, ny, m, block = 192, 320, 96, 64
+    else:  # non_square: a partial row tile (320 = 2.5 x 128), partial column tile
+        nx, ny, m, block = 320, 448, 160, 64
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((nx // block, ny // block)) < 0.6).astype(np.int32)
+    mask[0, 0], mask[0, 1] = 1, 0
+    x, y = (torch.from_numpy(_corp(n, m, seed=seed + i)).to(dtype).float().numpy()
+            for i, n in ((1, nx), (2, ny)))
+    t = -0.5
+    if case != "negative_t_dead_tiles":
+        sc = np.sort((x.astype(np.float64) @ y.astype(np.float64).T).ravel())
+        gaps = np.flatnonzero(np.diff(sc) > 3e-5)
+        i = gaps[np.argmin(np.abs(gaps - int(0.8 * sc.size)))]
+        t = float(np.float32((sc[i] + sc[i + 1]) / 2))
+    return x, y, mask, t, block
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "case", ["mask64_under_tile", "negative_t_dead_tiles", "ragged_m", "non_square"])
+def test_k7_tensor_core_edges_match_plain(card, dtype, case):
+    """K7's 128 x 256 tensor-core tiles against its plain version: mask
+    entries of 64 under one tile (each score held to its own entry), dead
+    entries all zero at t < 0, m a multiple of 32 but not of the 64-feature
+    bf16 stage, and row and column counts that leave partial tiles."""
+    from repro_torch.kernels.apss_block import apss_block, fused
+
+    xn, yn, maskn, t, block = _k7_case(case, dtype, seed=31)
+    assert_clear_of_threshold(xn, yn, t)
+    x, y = torch.from_numpy(xn).to(card, dtype), torch.from_numpy(yn).to(card, dtype)
+    mask = torch.from_numpy(maskn)
+    before = fused.LAUNCHES["apss_block"]
+    got = apss_block.apss_block_kernel(x, y, mask, t, block_m=block, block_n=block)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["apss_block"] == before + 1
+    ref = apss_block.apss_block_plain(x, y, t, block_mask=mask, block_m=block, block_n=block)
+    _assert_close((got,), (ref,))
+    g = got.cpu().numpy()
+    np.testing.assert_array_equal(g != 0, ref.cpu().numpy() != 0)
+    dead = np.repeat(np.repeat(maskn == 0, block, 0), block, 1)
+    assert not g[dead].any() and g[~dead].any()
+    if t < 0:  # every live score passes t
+        assert (g[~dead] != 0).all()
+
+
+def test_k7_f32_within_2e6_of_float64(card):
+    """The three-pass TF32 split on 1,024 rows at radikal's 155.8 nonzeros a
+    row: every score within 2e-6 of the float64 product."""
+    from repro_torch.data.synthetic import synthetic_corpus
+    from repro_torch.kernels.apss_block import apss_block
+
+    D = synthetic_corpus(1024, 16384, 1072472 / 6883, seed=3)
+    x = torch.from_numpy(D).to(card)
+    got = apss_block.apss_block_kernel(x, x, torch.ones((4, 4), dtype=torch.int32), -2.0)
+    exact = D.astype(np.float64) @ D.astype(np.float64).T
+    assert np.abs(got.cpu().numpy() - exact).max() <= 2e-6
+
+
+def _full_support_case(dtype, bm, card, seed, m=2560):
+    """Unit rows with every entry nonzero (so each row block's support is
+    every feature), padded to whole blocks, and the worklist of all upper
+    tiles."""
+    rng = np.random.default_rng(seed)
+    D = np.abs(rng.standard_normal((3 * bm - 20, m))).astype(np.float32) + 0.01
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+    Dp = torch.from_numpy(_pad(D, bm, 32)).to(card, dtype)
+    nb = Dp.shape[0] // bm
+    ij = torch.tensor([[i, j] for i in range(nb) for j in range(i, nb)],
+                      dtype=torch.int32).T.contiguous().to(card)
+    t = float(torch.quantile((Dp[:512].float() @ Dp[:512].float().T).ravel(), 0.6))
+    return D, Dp, ij, t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_k3_bit_identical_to_k2_on_full_support(card, dtype, bm):
+    """Where every row block's support is every feature, K3's operands are
+    K2's row blocks (bx = D's blocks, yg[t] = block ij[1, t]) and both sum
+    each score as one fmaf chain in feature order: the packets are equal
+    bit for bit, mirrors and diagonal tiles included."""
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    D, Dp, ij, t = _full_support_case(dtype, bm, card, seed=41)
+    blocks = Dp.view(-1, bm, Dp.shape[1])
+    yg = blocks[ij[1].long()].contiguous()
+    kw = dict(n_valid=D.shape[0])
+    before = fused.LAUNCHES["sparse_tile_candidates"]
+    k3 = sparse.sparse_tile_candidates_kernel(blocks, yg, ij, t, 16, **kw)
+    assert fused.LAUNCHES["sparse_tile_candidates"] == before + 1
+    k2 = fused.apss_tile_candidates_kernel(Dp, ij, t, 16, block_m=bm, block_n=bm, **kw)
+    for a, b in zip(k3, k2):
+        assert torch.equal(a, b)
+    assert int(k2[2].sum()) > 0 and int(k2[5].sum()) > 0
+
+
+def test_k3_through_the_support_gather_bit_identical_to_k2(card):
+    """The same through the sparse path's own operands: a CSR corpus with no
+    zero entry (m = 2464), its block supports (every feature, padded to S =
+    2560 with the sentinel's zero columns, which add +0) and gathered
+    tiles."""
+    from repro_torch.core.sparse import from_dense, pad_rows_sparse
+    from repro_torch.kernels.apss_block import fused, sparse
+
+    D, Dp, ij, t = _full_support_case(torch.float32, 256, card, seed=42, m=2464)
+    spp = pad_rows_sparse(from_dense(D, device=card), 256)[0]
+    bdims, bx = sparse.block_support_gather(spp, 256)
+    nb = spp.n // 256
+    yg = sparse.gather_tiles(torch.from_numpy(bdims).to(card), spp.indices.reshape(nb, 256, -1),
+                             spp.values.reshape(nb, 256, -1), ij)
+    bx = torch.from_numpy(bx).to(card)
+    assert bx.shape[2] == 2560 and (bdims[:, :2464] == np.arange(2464)).all()
+    k3 = sparse.sparse_tile_candidates_kernel(bx, yg, ij, t, 16, n_valid=D.shape[0])
+    k2 = fused.apss_tile_candidates_kernel(Dp, ij, t, 16, block_m=256, block_n=256,
+                                           n_valid=D.shape[0])
+    for a, b in zip(k3, k2):
+        assert torch.equal(a, b)
+    assert int(k2[2].sum()) > 0
+
+
 def test_sparse_entry_points_on_card_match_plain_path(card):
     from repro_torch import apss_block_matmul, apss_blocked, from_dense
 

@@ -456,3 +456,24 @@ def test_apss_sparse_compacted_matches_jax_kernel_interpret(k3_case):
     got = tks.apss_sparse_compacted(t, 0.35, K, block_m=32, lane_pad=32, device="cpu")
     assert_same_matches(got, ref, order=False)
     assert_same_matches(got, japss.apss_reference(jsparse.to_dense(j), 0.35, K))
+
+
+@pytest.mark.parametrize("T,block_m,per_tile", [(378, 256, 4), (5, 128, 1), (3, 64, 1), (2, 192, 4)])
+def test_k3_work_items_cover_each_tile_once(T, block_m, per_tile):
+    """K3's scoring launch: parts of up to 128 x 128 scores, numbered as the
+    kernel numbers its blocks (t, then row part, then column part), that
+    cover every score of every worklist tile exactly once."""
+    items = tks.sparse_work_items(T, block_m)
+    assert items.dtype == np.int32 and items.shape == (T * per_tile, 3)
+    parts = -(-block_m // tks.K3_ITEM)
+    n = np.arange(len(items))
+    np.testing.assert_array_equal(items[:, 0], n // parts**2)
+    np.testing.assert_array_equal(items[:, 1], (n % parts**2) // parts * tks.K3_ITEM)
+    np.testing.assert_array_equal(items[:, 2], n % parts * tks.K3_ITEM)
+    if T <= 5:
+        cover = np.zeros((T, block_m, block_m), np.int32)
+        for t, r0, c0 in items.tolist():
+            cover[t, r0:r0 + tks.K3_ITEM, c0:c0 + tks.K3_ITEM] += 1
+        assert (cover == 1).all()
+    with pytest.raises(ValueError, match="no work items"):
+        tks.sparse_work_items(0, block_m)

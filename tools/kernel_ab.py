@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Same-card A/B of design variants of the port's K1, K4, K6 and K9 kernels.
+"""Same-card A/B of design variants of the port's K1, K3, K4, K6, K7 and K9 kernels.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 ``nvcc``:
@@ -9,6 +9,9 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
     python3 tools/kernel_ab.py k4_strip     # K4: corpus strips of up to 8 or 4 rows a thread
     python3 tools/kernel_ab.py k6_strip     # K6: the same strips on its support-width operands
     python3 tools/kernel_ab.py k9_split     # K9: 4 or 8 rows a lane in flight x split 512-4096
+    python3 tools/kernel_ab.py k7_tile      # K7: 128 x 128 or 128 x 256 tiles, 4 or 3 stages,
+                                            #     grouped or row-major order, stage sums or one
+    python3 tools/kernel_ab.py k3_tile      # K3: 4 or 3 stages, 128 x 128 or 128 x 64 work items
 
 Each variant is the kernel's sources in this checkout (the ``.cu`` and the
 headers beside it) with one text substitution, built by ``nvcc`` with the
@@ -16,14 +19,19 @@ port's flags into ``build/kernel_ab/<experiment>/<variant>/`` and loaded in
 place of the port's library, so the wrapper, the inputs and the launch
 shape are the port's own (K9's split is the wrapper's
 ``DECODE_SPLIT_VALUES``, set per run). The variants run in turns, two (K1)
-or three (K4, K6, K9) rounds, each time the median of 5 (K1) or 7 CUDA-event
-runs after a warm-up, on the cells of ``chip_smoke.py``: K1 on clustered_65k
-and radikal_full, K4 on serve_radikal_full at B = 64 and 8, K6 on the
-sparse index of serve_radikal_full at B = 64 and 8 and on
+or three (K3, K4, K6, K7, K9) rounds, each time the median of 5 (K1, K7) or 7
+CUDA-event runs after a warm-up, on the cells of ``chip_smoke.py``: K1 on
+clustered_65k and radikal_full, K4 on serve_radikal_full at B = 64 and 8,
+K6 on the sparse index of serve_radikal_full at B = 64 and 8 and on
 serve_sparse_clustered_65k at B = 64, K9 at the decode cell's shapes
-(8, 16, 8, 32768, 128) bf16 and lengths. Every variant's output is held to
+(8, 16, 8, 32768, 128) bf16 and lengths, K7 on k7_radikal_full (f32) and
+K3 on sparse_radikal_full and sparse_clustered_65k, with the operands the
+main paths build. Every variant's output is held to
 the first variant's (``same``; the variant without a merge only in its
-counts; K9's to the plain version's at the smoke run's tolerances). The
+counts; K9's to the plain version's at the smoke run's tolerances; K7's
+largest |difference|, ``max_abs_diff``, since its variants sum in other
+orders, and
+each K7 variant's largest error on 1,024 rows against float64). The
 library call of each cell is timed beside them. The card's name, power
 limit and SM clock are printed before and after; each variant's ``-Xptxas
 -v`` registers and spills after its build.
@@ -120,6 +128,34 @@ def k9_rows(src: dict) -> dict:
         src["decode_attention.cu"], "constexpr int U = 4;", "constexpr int U = 8;")}}
 
 
+def k7_tile(src: dict) -> dict:
+    """K7's output tile (128 x 128, or 128 x 256 as two accumulator halves),
+    ring stages of its f32 path (4 or 3; 4 do not fit 128 x 256), tile order
+    (groups of 8 row tiles, or row-major: groups of 1), and the per-stage
+    sums against one tensor-core sum over all features."""
+    cu = src["apss_block.cu"]
+    return {"t128_s4": {},
+            "t128_s3": {"apss_block.cu": _sub(cu, "constexpr int F32_STAGES = BN == NH ? 4 : 3;",
+                                              "constexpr int F32_STAGES = 3;")},
+            "t128_s4_rowmajor": {"apss_block.cu": _sub(cu, "constexpr int GROUP = 8;",
+                                                       "constexpr int GROUP = 1;")},
+            "t256_s3": {"apss_block.cu": _sub(cu, "constexpr int BN = 128;",
+                                              "constexpr int BN = 256;")},
+            "t128_s4_onesum": {"apss_block.cu": _sub(cu, "constexpr bool STAGE_SUMS = true;",
+                                                     "constexpr bool STAGE_SUMS = false;")}}
+
+
+def k3_tile(src: dict) -> dict:
+    """K3's ring stages (4 or 3) and work items (128 x 128 or 128 x 64
+    scores)."""
+    cu = src["sparse_tile_candidates.cu"]
+    return {"i128_s4": {},
+            "i128_s3": {"sparse_tile_candidates.cu": _sub(cu, "constexpr int K3_STAGES = 4;",
+                                                          "constexpr int K3_STAGES = 3;")},
+            "i64_s4": {"sparse_tile_candidates.cu": _sub(cu, "constexpr int K3_IC = 128;",
+                                                         "constexpr int K3_IC = 64;")}}
+
+
 EXPERIMENTS = {  # name: (library, source, variants, segment counts to force)
     "k1_merge": ("apss_fused", "apss_block/csrc/apss_fused.cu", k1_merge,
                  {"clustered": 9, "radikal": 5}),
@@ -129,6 +165,9 @@ EXPERIMENTS = {  # name: (library, source, variants, segment counts to force)
     "k6_strip": ("rect_sparse_tile_candidates",
                  "apss_block/csrc/rect_sparse_tile_candidates.cu", rect_strip, {}),
     "k9_split": ("decode_attention", "decode_attention/csrc/decode_attention.cu", k9_rows, {}),
+    "k7_tile": ("apss_block", "apss_block/csrc/apss_block.cu", k7_tile, {}),
+    "k3_tile": ("sparse_tile_candidates", "apss_block/csrc/sparse_tile_candidates.cu",
+                k3_tile, {}),
 }
 K9_SPLITS = (512, 1024, 2048, 4096)  # positions a block at D = 128
 
@@ -326,6 +365,99 @@ def run_k9(np, torch, libs: dict) -> None:
     print("lm_decode_qwen3_1_7b_32k", json.dumps(res), flush=True)
 
 
+def run_k7(np, torch, libs: dict) -> None:
+    from repro_torch.core.pruning import block_prune_mask
+    from repro_torch.data.synthetic import synthetic_corpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apss_block import apss_block
+    from repro_torch.kernels.apss_block.ops import _pad_to
+
+    D = torch.from_numpy(synthetic_corpus(6883, 136447, 1072472 / 6883, seed=0)).cuda()
+    Dp = _pad_to(D, 256, 512)  # apss_block_matmul's padding
+    mask = block_prune_mask(Dp, Dp, 0.2, 256, 256, use_minsize=False)
+    xs = Dp[:1024]  # every score of 1,024 rows against the float64 product
+    exact = xs.double() @ xs.double().T
+    ones = torch.ones((4, 4), dtype=torch.int32)
+    res, ref = {}, None
+    for _ in range(3):
+        for v, lib in libs.items():
+            _build._LIBS["apss_block"] = lib
+            fn = lambda: apss_block.apss_block_kernel(Dp, Dp, mask, 0.2)  # noqa: E731
+            out = fn()
+            torch.cuda.synchronize()
+            ref = out if ref is None else ref
+            res.setdefault(v, []).append(dict(ms=time_ms(np, torch, fn, 5),
+                                              max_abs_diff=float((out - ref).abs().max())))
+            del out
+            if v + "_f64_err" not in res:
+                s64 = apss_block.apss_block_kernel(xs, xs, ones, -2.0).double()
+                res[v + "_f64_err"] = float((s64 - exact).abs().max())
+
+    def library():
+        s = torch.matmul(D, D.T)
+        return torch.where(s >= 0.2, s, 0.0)
+
+    res["library"] = time_ms(np, torch, library, 5)
+    print("k7_radikal_full", json.dumps(res), flush=True)
+
+
+def k3_inputs(np, torch, sp, t: float, bm: int = 256):
+    """K3's operands as ``apss_blocked(sp, use_kernel=True)`` builds them."""
+    from repro_torch.core.pruning import live_tile_mask, sparse_block_stats
+    from repro_torch.core.sparse import pad_rows_sparse
+    from repro_torch.kernels.apss_block import sparse
+    from repro_torch.kernels.apss_block.ops import compact_worklist
+
+    spp, _ = pad_rows_sparse(sp, bm)
+    grid = spp.n // bm
+    stats = sparse_block_stats(spp, bm)
+    mask, ub = live_tile_mask(stats, stats, t, return_ub=True)
+    ij = torch.as_tensor(compact_worklist(mask, ub)).cuda()
+    bdims, bx = sparse.block_support_gather(spp, bm)
+    bx, bdims = torch.from_numpy(bx).cuda(), torch.from_numpy(bdims).cuda()
+    yg = sparse.gather_tiles(bdims, spp.indices.reshape(grid, bm, spp.cap),
+                             spp.values.reshape(grid, bm, spp.cap), ij)
+    return bx, yg, ij
+
+
+def run_k3(np, torch, libs: dict) -> None:
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.data.sparse import sparse_clustered_corpus
+    from repro_torch.data.synthetic import synthetic_corpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apss_block import sparse
+    from repro_torch.kernels.apss_block.fused import _tile_packets
+
+    cells = {  # cell: (corpus, threshold)
+        "sparse_radikal_full": (lambda: from_dense(torch.from_numpy(synthetic_corpus(
+            6883, 136447, 1072472 / 6883, seed=0)).cuda()), 0.2),
+        "sparse_clustered_65k": (lambda: sparse_clustered_corpus(
+            65536, 8192, 16.0, n_clusters=32, seed=0), 0.5),
+    }
+    for cell, (make, t) in cells.items():
+        sp = make()
+        bx, yg, ij = k3_inputs(np, torch, sp, t)
+        res, ref = {}, None
+        for _ in range(3):
+            for v, lib in libs.items():
+                _build._LIBS["sparse_tile_candidates"] = lib
+                fn = lambda: sparse.sparse_tile_candidates_kernel(  # noqa: E731
+                    bx, yg, ij, t, 32, n_valid=sp.n)
+                out = fn()
+                torch.cuda.synchronize()
+                ref = out if ref is None else ref
+                same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                res.setdefault(v, []).append(dict(ms=time_ms(np, torch, fn, 7), same=same))
+        ib = ij[0].long()
+        res["library"] = time_ms(np, torch, lambda: _tile_packets(
+            torch.bmm(bx[ib], yg.transpose(1, 2)), ij[0], ij[1], threshold=t, k=32,
+            block_m=256, block_n=256, n_valid=sp.n), 7)
+        res["support_S"], res["worklist_T"] = bx.shape[2], ij.shape[1]
+        print(cell, json.dumps(res), flush=True)
+        del sp, bx, yg, ij
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -348,7 +480,9 @@ def main() -> int:
     run = {"apss_fused": lambda: run_k1(np, torch, libs, forced),
            "rect_tile_candidates": lambda: run_k4(np, torch, libs),
            "rect_sparse_tile_candidates": lambda: run_k6(np, torch, libs),
-           "decode_attention": lambda: run_k9(np, torch, libs)}
+           "decode_attention": lambda: run_k9(np, torch, libs),
+           "apss_block": lambda: run_k7(np, torch, libs),
+           "sparse_tile_candidates": lambda: run_k3(np, torch, libs)}
     run[lib]()
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

@@ -161,11 +161,13 @@ KERNEL_INFO = {
     "apss_tile_candidates": dict(
         route="cuda",
         source="src/repro_torch/kernels/apss_block/csrc/tile_candidates.cu",
+        header="src/repro_torch/kernels/apss_block/csrc/tile_items.cuh",
         replaces="src/repro/kernels/apss_block/fused.py:739",
     ),
     "sparse_tile_candidates": dict(
         route="cuda",
         source="src/repro_torch/kernels/apss_block/csrc/sparse_tile_candidates.cu",
+        header="src/repro_torch/kernels/apss_block/csrc/tile_items.cuh",
         replaces="src/repro/kernels/apss_block/sparse.py:198",
     ),
     "apss_block": dict(
@@ -200,8 +202,9 @@ KERNEL_INFO = {
     ),
 }
 LM_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}  # K8/K9 against their plain versions
-NO_SPILL = ("apss_fused", "sparse_tile_candidates", "apss_block", "rect_tile_candidates",
-            "rect_sparse_tile_candidates", "decode_attention")  # the build fails on their spills
+NO_SPILL = ("apss_fused", "tile_candidates", "sparse_tile_candidates", "apss_block",
+            "rect_tile_candidates", "rect_sparse_tile_candidates",
+            "decode_attention")  # libraries whose spills fail the build
 TENSOR_CORE_KERNELS = ("flash_attention", "apss_block")  # the build fails without HGMMA
 
 
@@ -440,13 +443,13 @@ def wall_ms(np, torch, fn, reps: int = REPS) -> dict:
 PROFILED_KERNELS = {"flash_attention": "fa::flash_forward", "decode_attention": "da::decode_partials"}
 
 
-def _profile_stats(torch, prof, wall_ms: float, top: int) -> dict:
+def _profile_stats(torch, prof, wall_ms: float, top: int, kernels: dict) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
     host_ops = sum(1 for e in prof.events() if e.device_type != cuda and e.cpu_parent is None)
     events = [e for e in prof.key_averages()  # kernels, memcpys and memsets, not the ops
               if e.device_type == cuda and e.self_device_time_total > 0]
     records = {name: sum(e.count for e in events if key in e.key)
-               for name, key in PROFILED_KERNELS.items()}
+               for name, key in kernels.items()}
     if not events:  # the profiler saw no device time: not measured
         return dict(host_ops=host_ops, device_busy_ms=None, idle_share=None, records=records,
                     top=[])
@@ -458,17 +461,19 @@ def _profile_stats(torch, prof, wall_ms: float, top: int) -> dict:
                      for e in events[:top]])
 
 
-def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3) -> dict:
+def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3,
+             kernels: dict = PROFILED_KERNELS) -> dict:
     """One call of ``fn`` under ``torch.profiler``: the number of top-level
     host ops, the device launches and their summed device time (the
     device's busy time, kernels not overlapping), the idle share against
     ``wall_ms`` (the path's unprofiled host-clock time: the profiler slows
     the host), the ``top`` kernels by device time, and per kernel of
-    ``PROFILED_KERNELS`` its device records beside the launches counted
-    around the call. The profiler now and then loses a contiguous block of
-    device records (on an H100, one decode layer's hundred in one of twelve
-    traces), so a trace whose records differ from the counted launches is
-    taken again, up to ``attempts`` calls. ``device_busy_ms`` is ``None``
+    ``kernels`` (launch-count name: a key of its device records) its device
+    records beside the launches counted around the call. The profiler now
+    and then loses a contiguous block of device records (on an H100, one
+    decode layer's hundred in one of twelve traces), so a trace whose
+    records differ from the counted launches is taken again, up to
+    ``attempts`` calls. ``device_busy_ms`` is ``None``
     where the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -482,8 +487,8 @@ def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3) -> dict
             torch.cuda.synchronize()
             profiled_ms = (time.perf_counter() - t0) * 1e3
         after = launches_now()
-        launched = {name: after[name] - before[name] for name in PROFILED_KERNELS}
-        stats = _profile_stats(torch, prof, wall_ms, top)
+        launched = {name: after[name] - before[name] for name in kernels}
+        stats = _profile_stats(torch, prof, wall_ms, top, kernels)
         if stats["device_busy_ms"] is None or stats["records"] == launched:
             break
         lost.append(dict(records=stats["records"], device_launches=stats["device_launches"]))
@@ -572,7 +577,42 @@ def edge_probes(np, torch) -> None:
     check(int(got.counts.sum()) == 0 and bool((got.indices == -1).all()),
           "explicit all-zero mask produced matches")
     results["explicit_zero_mask"] = dict(matches=0)
+    results.update(k2_probes(np, torch, corpus))
     emit("edge_probes", probes=results)
+
+
+def k2_probes(np, torch, corpus) -> dict:
+    """K2 against its plain version at tile shapes and widths the entry
+    points do not reach: non-square tiles, 64-row tiles, one ring stage (m =
+    32), m = 96, and a worklist of diagonal tiles only."""
+    from repro_torch.kernels.apss_block import fused
+
+    t, n, results = 0.3, 300, {}
+    for bm, bn, m, diagonal in ((256, 128, 224, False), (128, 256, 224, False),
+                                (64, 64, 32, False), (128, 128, 96, False),
+                                (128, 128, 224, True)):
+        Dp = torch.nn.functional.pad(corpus(n, m, 7), (0, 0, 0, 512 - n))
+        if diagonal:
+            pairs = [(i, i) for i in range(512 // bm)]
+        else:
+            pairs = [(i, j) for i in range(512 // bm) for j in range(512 // bn)]
+        ij = torch.tensor(pairs, dtype=torch.int32).T.contiguous().cuda()
+        near = np.concatenate([near_threshold_counts(torch, Dp[:n], t), np.zeros(512 - n, int)])
+        wl = ij.cpu().numpy().astype(np.int64)
+        kw = dict(block_m=bm, block_n=bn, n_valid=n)
+        pk = fused.apss_tile_candidates_kernel(Dp, ij, t, 16, **kw)
+        pp = fused.apss_tile_candidates_plain(Dp, ij, t, 16, **kw)
+        r = {}
+        for part, a, b, blocks, bs in (("forward", pk[:3], pp[:3], wl[0], bm),
+                                       ("mirror", pk[3:], pp[3:], wl[1], bn)):
+            rows = (blocks[:, None] * bs + np.arange(bs)[None, :]).reshape(-1)
+            c = compare(np, as_rows(np, *a), as_rows(np, *b), t, near[rows])
+            check(c["ok"], f"K2 probe {bm}x{bn} m={m} diagonal={diagonal} {part}: {c}")
+            r[part] = {key: v for key, v in c.items() if key != "ok"}
+        check(int(pp[2].sum()) > 0, f"K2 probe {bm}x{bn} m={m}: no candidates")
+        check(not diagonal or int(pk[5].sum()) == 0, "K2 probe: a diagonal mirror packet")
+        results[f"k2_{bm}x{bn}_m{m}{'_diagonal' if diagonal else ''}"] = r
+    return results
 
 
 def sparse_edge_probes(np, torch) -> None:
@@ -799,12 +839,17 @@ def main_path_phase(np, torch, phase, D, gen_s, *, threshold, k):
                           t=t, near_p=near_p)
     flop2 = 2.0 * m * float((valid[wl[0]] * valid[wl[1]]).sum())
     bytes2 = 4.0 * n * m + 8 * T + T * 2 * bm * (8 * k + 4)
-    rows.append(kernel_row(
+    row = kernel_row(
         np, torch, "apss_tile_candidates", phase, launches, cmp2,
         lambda: fused.apss_tile_candidates_kernel(Dp, ij, t, k, **kw2),
         lambda: fused.apss_tile_candidates_plain(Dp, ij, t, k, **kw2),
         lambda: library_topk(torch, D, t, k), flop2, bytes2,
-    ))
+    )
+    items = len(fused.tile_work_items(T, bm, bm))
+    row.update(work_items=items, grid=[items, T], profile=profiled(  # scoring vs selection
+        torch, lambda: fused.apss_tile_candidates_kernel(Dp, ij, t, k, **kw2), row["ms"],
+        top=3, kernels={"apss_tile_candidates": "tile_part_kernel"}))
+    rows.append(row)
     del Dp, m_k1, m_k2, ref, out_k, out_p, pk, pp
     torch.cuda.empty_cache()
     return rows, dict(k2=k2_np, near=near)
@@ -979,7 +1024,9 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
         library, flop, nbytes,
     )
     items = len(sparse.sparse_work_items(T, bm))
-    row.update(work_items=items, grid=[items, T], support_S=S)
+    row.update(work_items=items, grid=[items, T], support_S=S, profile=profiled(
+        torch, lambda: sparse.sparse_tile_candidates_kernel(bx, yg, ij, t, k, **kw), row["ms"],
+        top=3, kernels={"sparse_tile_candidates": "tile_part_kernel"}))
     del got, ref, bx, yg, pk, pp
     torch.cuda.empty_cache()
     return row

@@ -2,7 +2,8 @@
 
 - :mod:`repro_torch.kernels.apss_block` -- K1 (``csrc/apss_fused.cu``),
   K2 (``csrc/tile_candidates.cu``) and K3
-  (``csrc/sparse_tile_candidates.cu``) of the self-join; K4
+  (``csrc/sparse_tile_candidates.cu``, one body with K2 in
+  ``csrc/tile_items.cuh``) of the self-join; K4
   (``csrc/rect_tile_candidates.cu``), K5 (``csrc/rect_tile_candidates_ee.cu``)
   and K6 (``csrc/rect_sparse_tile_candidates.cu``) of serving; and K7
   (``csrc/apss_block.cu``), the thresholded dense score matrix.

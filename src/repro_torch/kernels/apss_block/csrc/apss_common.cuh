@@ -1,31 +1,18 @@
 // Shared pieces of the APSS self-join kernels for Hopper (sm_90a).
 //
-// ring_tile: the pipelined body of K1, K3, K4 and K6 (bottom of this file): a BM x
-//   BN tile of X . Y^T over a feature range, streamed through a ring of
-//   cp.async stages in shared memory (the next stages' copies in flight
-//   while one is multiplied), each thread owning RM x RN scores and reading
-//   its rows and columns four features at a time. Each score is one fmaf
-//   chain from 0 in increasing feature order, the order of score_tile and
-//   score_strip_part below.
+// ring_tile: the pipelined body of K1, K2, K3, K4 and K6 (bottom of this
+//   file): a BM x BN tile of X . Y^T over a feature range, streamed through
+//   a ring of cp.async stages in shared memory (the next stages' copies in
+//   flight while one is multiplied), each thread owning RM x RN scores and
+//   reading its rows and columns four features at a time. Each score is
+//   one fmaf chain from 0 in increasing feature order, the order of
+//   score_strip_part below. Inputs are float32 or bfloat16 (as raw 16-bit
+//   words, widened exactly to float32); the sum is float32.
 //
-// score_tile: one 64 x 64 tile of X . Y^T in float32, by plain FMA in
-//   registers. 256 threads each own a 4 x 4 block of the tile. Feature
-//   chunks of 32 are staged in shared memory, transposed so that each
-//   thread reads its 4 rows and 4 columns as two float4 loads per feature;
-//   the next chunk is loaded from device memory into registers while the
-//   current one is multiplied. Each score sums its products in increasing
-//   feature order, one fmaf at a time. Inputs are float32 or bfloat16
-//   (as raw 16-bit words, widened exactly to float32); the sum is float32.
-//
-// tile_packets: the two-phase body of the worklist kernel K2 (one thread
-//   block per worklist entry t; the caller passes the operand pointers of
-//   the tile's row and column blocks). A block_m x block_n tile
-//   of f32 scores (256 KB at 256 x 256) does not fit a block's 227 KB of
-//   shared memory, so it goes to a device scratch buffer the wrapper
-//   allocates, (T, block_m, block_n) f32. Phase 1 computes the tile as
-//   64 x 64 sub-tiles with score_tile and writes them to scratch; after a
-//   block barrier, phase 2 (tile_select; K3 runs it as a launch of its
-//   own after its ring_tile work items) selects from it:
+// tile_select: phase 2 of the self-join worklist kernels K2 and K3, whose
+//   launches live in tile_items.cuh (work items of up to 128 x 128 scores
+//   through ring_tile into a (T, block_m, block_n) f32 device scratch, then
+//   one thread block per worklist entry t running tile_select on its tile):
 //     forward: one warp per tile row: keep s >= t, grow != gcol,
 //       grow < n_valid, gcol < n_valid; count them; top-k by
 //       (value desc, gcol asc) in min(k, count) rounds of warp-wide
@@ -33,19 +20,19 @@
 //     mirror (ib != jb): one warp per tile column, the same kept set read
 //       down the column, ids grow (not gcol); on a diagonal tile the mirror
 //       packet is empty with count 0.
-//   Scratch costs 4 * block_m * block_n bytes per worklist entry; its
-//   traffic (written once, read twice, mostly from L2) is small next to the
-//   tile's 2 * block_m * block_n * m FLOP. Tiles are at most 256 x 256
-//   (eight register slots per lane in phase 2).
+//   Tiles are at most 256 x 256 (eight register slots per lane).
 //
 // score_strip_part: K5's strip of 16 * RM query rows by 64 corpus rows
 //   over one feature chunk (RM = 1, 2 or 4 rows a thread, chosen from
 //   block_q so that a block of 8 query rows wastes at most half of its
-//   strip), staged through shared memory as score_tile. K4 and K6 score
-//   through ring_tile instead (rect_tiles.cuh); all three select a row's
-//   packet with rect_row_packet: keep s >= t and gcol < nc_valid (no
-//   self-exclusion: queries are not corpus rows), count them and select
-//   the top-k (select_packet).
+//   strip): TK-feature chunks staged through shared memory (Staged,
+//   load_chunk, store_chunk), transposed so that a thread reads its rows
+//   and columns as float4 loads, the next chunk loaded into registers while
+//   the current one is multiplied. K4 and K6 score through ring_tile
+//   instead (rect_tiles.cuh); all three select a row's packet with
+//   rect_row_packet: keep s >= t and gcol < nc_valid (no self-exclusion:
+//   queries are not corpus rows), count them and select the top-k
+//   (select_packet).
 //
 // Summation order of a rectangular score (K4, K5, K6): the features are cut
 //   into chunks of FK (the last one ragged); each chunk's partial is one
@@ -54,6 +41,8 @@
 //   ... in increasing chunk order. This order is part of the K4 = K5 = K6
 //   contract: each computes a tile's partials on different thread blocks
 //   and adds them in the same order, so their packets are bit-identical.
+//   A self-join score (K1, K2, K3) is one ring_tile chain over all its
+//   features, so K1 = K2 = K3 (on full support) bit for bit.
 //
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
@@ -71,15 +60,15 @@
 
 namespace apss {
 
-constexpr int TILE = 64;           // rows and columns of one score tile
-constexpr int TK = 32;             // feature chunk staged in shared memory
-constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 scores each
+constexpr int TILE = 64;           // block sides of the worklist kernels are multiples of it
+constexpr int TK = 32;             // feature chunk K5 stages in shared memory (Staged)
+constexpr int THREADS = 256;       // threads of a block
 constexpr int WARPS = THREADS / 32;
-constexpr int LDS = TILE + 4;      // padded row of a staged chunk (float4-aligned)
+constexpr int LDS = TILE + 4;      // padded row of a staged chunk (float4-aligned, 64 rows)
 constexpr float NEG_LARGE = -0.5e30f;
 constexpr float VALID = -0.25e30f; // values above this are real candidates
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_BLOCK = 256;     // largest worklist tile side (tile_packets)
+constexpr int MAX_BLOCK = 256;     // largest worklist tile side (tile_select, rect selection)
 constexpr int MAX_QBLOCK = 128;    // largest query block of the rect kernels
 constexpr int MAX_EE_K = 256;      // largest k of the values buffer (merge_values)
 constexpr int FK = 1024;           // features per partial sum of a rectangular score
@@ -119,42 +108,6 @@ __device__ __forceinline__ void store_chunk(float* dst, const float4 (&reg)[2]) 
     d[LDS] = reg[h].y;
     d[2 * LDS] = reg[h].z;
     d[3 * LDS] = reg[h].w;
-  }
-}
-
-// acc[i][j] = X[ty*4 + i] . Y[tx*4 + j] for the 64 rows at x and at y
-// (m a multiple of 32, both row blocks 16-byte aligned).
-template <typename T>
-__device__ __forceinline__ void score_tile(const T* __restrict__ x, const T* __restrict__ y,
-                                           long long m, Staged& st, float (&acc)[4][4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float4 ra[2], rb[2];
-  load_chunk(x, m, 0, ra);
-  load_chunk(y, m, 0, rb);
-  for (long long k0 = 0; k0 < m; k0 += TK) {
-    __syncthreads();  // every thread is done reading the previous chunk
-    store_chunk(st.a, ra);
-    store_chunk(st.b, rb);
-    __syncthreads();
-    if (k0 + TK < m) {
-      load_chunk(x, m, (int)(k0 + TK), ra);
-      load_chunk(y, m, (int)(k0 + TK), rb);
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&st.a[kk * LDS + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&st.b[kk * LDS + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
   }
 }
 
@@ -212,10 +165,9 @@ __device__ __forceinline__ void select_packet(float (&v)[MAX_BLOCK / 32],
   if (lane == 0) *out_c = count;
 }
 
-// Phase 2 of tile_packets: the forward and mirror packets of worklist
-// entry t, tile (ib, jb), from its block_m x block_n f32 scores at s (row
-// stride block_n), written by this block before a barrier or by an
-// earlier launch. fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T,
+// Phase 2 of K2 and K3 (tile_items.cuh): the forward and mirror packets of
+// worklist entry t, tile (ib, jb), from its block_m x block_n f32 scores at
+// s (row stride block_n), written by an earlier launch. fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T,
 // block_n, k|k|1).
 __device__ void tile_select(const float* s, int t, int ib, int jb, int block_m, int block_n,
                             int n_valid, float threshold, int k, float* __restrict__ fv,
@@ -282,34 +234,6 @@ __device__ void tile_select(const float* s, int t, int ib, int jb, int block_m, 
   }
 }
 
-// Forward and mirror packets of worklist entry t, tile (ib, jb): xb holds
-// the tile's block_m rows and yb its block_n columns, both with row stride m.
-// fv/fi/fc are (T, block_m, k|k|1) and bv/bi/bc (T, block_n, k|k|1).
-template <typename T>
-__device__ void tile_packets(const T* __restrict__ xb, const T* __restrict__ yb, long long m,
-                             int t, int ib, int jb, int block_m, int block_n, int n_valid,
-                             float threshold, int k, Staged& st, float* scratch,
-                             float* __restrict__ fv, int* __restrict__ fi,
-                             int* __restrict__ fc, float* __restrict__ bv,
-                             int* __restrict__ bi, int* __restrict__ bc) {
-  float* s = scratch + (long long)t * block_m * block_n;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  for (int r0 = 0; r0 < block_m; r0 += TILE) {
-    for (int c0 = 0; c0 < block_n; c0 += TILE) {
-      float acc[4][4];
-      score_tile(xb + (long long)r0 * m, yb + (long long)c0 * m, m, st, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        *reinterpret_cast<float4*>(&s[(long long)(r0 + ty * 4 + i) * block_n + c0 + tx * 4]) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-    }
-  }
-  __syncthreads();  // the block's scratch writes are visible to all its threads
-  tile_select(s, t, ib, jb, block_m, block_n, n_valid, threshold, k, fv, fi, fc, bv, bi, bc);
-}
-
 // ---------------------------------------------------------------------------
 // Rectangular tiles (K4, K5, K6)
 // ---------------------------------------------------------------------------
@@ -345,7 +269,7 @@ __device__ __forceinline__ void store_strip(float* dst, const float4 (&reg)[2]) 
 // acc[i][j] = the partial of X[ty*RM + i] . Y[tx*4 + j] over features
 // [0, len) for a strip of 16 * RM rows at x (rows at or past x_rows are 0)
 // and the 64 rows at y, both at row stride m: one fmaf chain from 0 in
-// increasing feature order, as score_tile sums. len is a multiple of 32.
+// increasing feature order, as ring_tile sums. len is a multiple of 32.
 // x and y may differ in type (f32 queries against a bf16 corpus).
 template <int RM, typename TX, typename TY>
 __device__ __forceinline__ void score_strip_part(const TX* __restrict__ x, int x_rows,
@@ -521,8 +445,8 @@ __device__ __forceinline__ void ring_load(unsigned char* ring, int stage,
 // BM rows at x (rows at or past x_rows read as 0) and the BN rows at y (past
 // y_rows 0), both at row stride m, for the thread (ty, tx) = (tid / TXN,
 // tid % TXN) of NT = (BM / RM) * (BN / RN): one fmaf chain from 0 in
-// increasing feature order per score, the order of score_tile and
-// score_strip_part, so the bits are theirs. len is a multiple of PK; x, y
+// increasing feature order per score, the order of score_strip_part, so
+// every kernel that sums one feature range through either gets the same bits. len is a multiple of PK; x, y
 // and m * sizeof are 16-byte aligned.
 //
 // The features stream through STAGES ring stages by cp.async: while stage

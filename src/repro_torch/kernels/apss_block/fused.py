@@ -9,7 +9,9 @@
 2. :func:`apss_tile_candidates_kernel` (K2, ``csrc/tile_candidates.cu``) --
    per live upper-triangular tile of a ``(2, T)`` worklist, a forward packet
    (rows of block i) and a mirror packet (rows of block j), which
-   ``ops.fold_packets`` folds into ``Matches``.
+   ``ops.fold_packets`` folds into ``Matches``. The tiles are scored in the
+   work items of :func:`tile_work_items` and selected in a second launch
+   (``csrc/tile_items.cuh``, shared with K3).
 3. :func:`rect_tile_candidates_kernel` (K4, ``csrc/rect_tile_candidates.cu``)
    -- query-time serving: per live (query block, corpus block) tile of a
    rectangular worklist, the forward packet of the query rows only (no
@@ -66,8 +68,9 @@ LAUNCHES = {
     "apss_block": 0,              # K7, apss_block.py
 }
 
-_TILE = 64  # the kernels' score sub-tile (csrc/apss_common.cuh)
-_TK = 32    # their feature chunk
+_TILE = 64  # block sides are multiples of it (csrc/apss_common.cuh, TILE)
+_TK = 32    # widths are multiples of the kernels' feature stage (PK, TK)
+TILE_ITEM = 128  # rows and columns of a K2/K3 work item (csrc/tile_items.cuh)
 FUSED_TILE = 128    # K1's score tile, rows and columns (csrc/apss_fused.cu, FT)
 FUSED_MAX_K = 1024  # K1's largest k (its per-warp merge area in shared memory)
 _MAX_SEGMENTS = 32  # K1's merge holds one segment per lane
@@ -577,6 +580,22 @@ def rect_work_split(n_tiles: int, m: int, block_q: int, block_c: int,
                      pass_tiles * per_tile)
 
 
+def tile_work_items(n_tiles: int, block_m: int, block_n: int) -> np.ndarray:
+    """The scoring work items of K2 and K3, one thread block each, in launch
+    order: ``(t, r0, c0)`` int32 rows, each worklist tile cut into parts of
+    up to ``TILE_ITEM`` rows (of block ``ij[0, t]``, from ``r0``) by
+    ``TILE_ITEM`` columns (of the tile's column block, from ``c0``). The
+    parts of one tile are adjacent, so they meet its operands in L2: 4 a
+    tile at 256 × 256, 2 at 256 × 128 or 128 × 256, 1 at 128 × 128 or
+    below."""
+    if n_tiles < 1 or block_m < 1 or block_n < 1:
+        raise ValueError(f"no work items for T={n_tiles}, block_m={block_m}, "
+                         f"block_n={block_n}")
+    t, r0, c0 = np.meshgrid(np.arange(n_tiles), np.arange(0, block_m, TILE_ITEM),
+                            np.arange(0, block_n, TILE_ITEM), indexing="ij")
+    return np.stack([t.ravel(), r0.ravel(), c0.ravel()], axis=1).astype(np.int32)
+
+
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -712,7 +731,8 @@ def apss_tile_candidates_kernel(
     n_valid: int,
 ):
     """K2 on a padded corpus ``D (n, m)`` and a ``(2, T)`` worklist of live
-    upper-triangular tiles.
+    upper-triangular tiles: the :func:`tile_work_items` of every tile into a
+    ``(T, block_m, block_n)`` f32 scratch, then the packets' selection.
 
     Returns forward packets ``(T, block_m, k)×2 + (T, block_m, 1)`` and
     mirror packets ``(T, block_n, k)×2 + (T, block_n, 1)``.

@@ -18,9 +18,11 @@ form of the paper's partial indexing):
    lies in its own support and dimensions outside it contribute zero.
 4. :func:`sparse_tile_candidates_kernel` (K3, ``csrc/sparse_tile_candidates.cu``)
    turns ``(bx, yg, ij)`` into forward and mirror candidate packets exactly
-   as K2 does, and ``ops.fold_packets`` folds them into ``Matches``. It
-   scores the tiles in the work items of :func:`sparse_work_items` (up to
-   128 × 128 scores each), then selects the packets in a second launch.
+   as K2 does, and ``ops.fold_packets`` folds them into ``Matches``. K2 and
+   K3 share one body (``csrc/tile_items.cuh``): it scores the tiles in the
+   work items of :func:`sparse_work_items` (K2's ``fused.tile_work_items``,
+   up to 128 × 128 scores each), then selects the packets in a second
+   launch.
 
 Query-time serving scores dense query blocks against the same per-block
 supports: :func:`gather_query_tiles` gathers, per live (query block, corpus
@@ -49,6 +51,7 @@ from repro_torch.kernels.apss_block.fused import (
     _RECT_CHUNK,
     _TILE,
     RECT_SCRATCH_BYTES,
+    TILE_ITEM,
     _TK,
     _VP,
     _F,
@@ -62,6 +65,7 @@ from repro_torch.kernels.apss_block.fused import (
     _tile_packets,
     _worklist_on,
     rect_work_split,
+    tile_work_items,
 )
 from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
 
@@ -182,20 +186,14 @@ def sparse_tile_candidates_plain(
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-K3_ITEM = 128  # rows and columns of a K3 work item (csrc/sparse_tile_candidates.cu)
+K3_ITEM = TILE_ITEM  # K3's work items are K2's (csrc/tile_items.cuh)
 
 
 def sparse_work_items(n_tiles: int, block_m: int) -> np.ndarray:
     """K3's scoring work items, one thread block each, in launch order:
-    ``(t, r0, c0)`` int32 rows, each worklist tile cut into parts of up to
-    ``K3_ITEM`` rows (of block ``ij[0, t]``, from ``r0``) by ``K3_ITEM``
-    columns (of block ``ij[1, t]``, from ``c0``): 4 a tile at ``block_m``
-    256, 1 at 128 or 64."""
-    if n_tiles < 1 or block_m < 1:
-        raise ValueError(f"no work items for T={n_tiles}, block_m={block_m}")
-    starts = np.arange(0, block_m, K3_ITEM)
-    t, r0, c0 = np.meshgrid(np.arange(n_tiles), starts, starts, indexing="ij")
-    return np.stack([t.ravel(), r0.ravel(), c0.ravel()], axis=1).astype(np.int32)
+    K2's :func:`~repro_torch.kernels.apss_block.fused.tile_work_items` of
+    square ``block_m`` tiles (4 a tile at 256, 1 at 128 or 64)."""
+    return tile_work_items(n_tiles, block_m, block_m)
 
 
 def _check_blocks(name: str, a: torch.Tensor) -> None:

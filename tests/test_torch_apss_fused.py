@@ -217,6 +217,30 @@ def test_plain_k2_matches_pallas_interpret(k2_case):
     _assert_raw_equal(got, ref)
 
 
+@pytest.mark.parametrize("T_,block_m,block_n,per_tile", [
+    (3, 256, 256, 4), (2, 256, 128, 2), (2, 128, 256, 2), (4, 64, 64, 1)])
+def test_k2_work_items_cover_each_tile_once(T_, block_m, block_n, per_tile):
+    """K2's scoring launch: parts of up to 128 x 128 scores of square and
+    non-square tiles, numbered as the kernel numbers its blocks (t, then row
+    part, then column part: one tile's parts adjacent), that cover every
+    score of every worklist tile exactly once; K3's items are the square
+    case."""
+    from repro_torch.kernels.apss_block import sparse
+
+    items = fused.tile_work_items(T_, block_m, block_n)
+    assert items.dtype == np.int32 and items.shape == (T_ * per_tile, 3)
+    np.testing.assert_array_equal(items[:, 0], np.arange(len(items)) // per_tile)
+    cover = np.zeros((T_, block_m, block_n), np.int32)
+    for t, r0, c0 in items.tolist():
+        cover[t, r0:r0 + fused.TILE_ITEM, c0:c0 + fused.TILE_ITEM] += 1
+    assert (cover == 1).all()
+    if block_m == block_n:
+        np.testing.assert_array_equal(sparse.sparse_work_items(T_, block_m), items)
+    assert sparse.K3_ITEM == fused.TILE_ITEM
+    with pytest.raises(ValueError, match="no work items"):
+        fused.tile_work_items(0, block_m, block_n)
+
+
 @pytest.mark.parametrize("with_ub", [True, False])
 def test_compact_and_pad_worklist_identical(k2_case, with_ub):
     _, _, mask, ub, _, _ = k2_case

@@ -157,6 +157,140 @@ def test_k2_kernel_matches_plain(card, dtype):
     _assert_close(got, fused.apss_tile_candidates_plain(Dp, ij, 0.3, 16, **kw))
 
 
+def _k2_run(D, ij, block_m, block_n, n_valid, *, t=0.3, k=16):
+    """K2 and its plain version on the padded ``D``; one launch counted."""
+    from repro_torch.kernels.apss_block import fused
+
+    kw = dict(block_m=block_m, block_n=block_n, n_valid=n_valid)
+    before = fused.LAUNCHES["apss_tile_candidates"]
+    got = fused.apss_tile_candidates_kernel(D, ij, t, k, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["apss_tile_candidates"] == before + 1
+    return got, fused.apss_tile_candidates_plain(D, ij, t, k, **kw)
+
+
+def _every_pair(n_i, n_j, card):
+    return torch.tensor([[i, j] for i in range(n_i) for j in range(n_j)],
+                        dtype=torch.int32).T.contiguous().to(card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_m,block_n", [(64, 64), (128, 128), (256, 256), (256, 128),
+                                             (128, 256)])
+def test_k2_blocks_match_plain(card, dtype, block_m, block_n):
+    """Square and non-square tiles (1, 2 or 4 work items a tile, parts of
+    64 rows or columns), every (row block, column block) pair as the
+    worklist, m = 224 (not a multiple of 128), n_valid inside the last
+    block."""
+    D = _inputs(dtype, seed=2)
+    Dp = torch.from_numpy(_pad(D, 256, 32)).to(card, dtype)
+    assert Dp.shape[1] == 224
+    ij = _every_pair(Dp.shape[0] // block_m, Dp.shape[0] // block_n, card)
+    got, ref = _k2_run(Dp, ij, block_m, block_n, 300)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0 and int(ref[5].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,seed", [(32, 16), (96, 16), (160, 14)])
+def test_k2_narrow_widths_match_plain(card, dtype, m, seed):
+    """One ring stage (m = 32), three, and five (not a multiple of 128)."""
+    D = _corp(300, m, seed=seed)
+    if dtype == torch.bfloat16:
+        D = torch.from_numpy(D).bfloat16().float().numpy()
+    assert_clear_of_threshold(D, D, 0.3, exclude_self=True)
+    Dp = torch.from_numpy(_pad(D, 128, 32)).to(card, dtype)
+    assert Dp.shape[1] == m
+    ij = torch.tensor([[0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]], dtype=torch.int32).to(card)
+    got, ref = _k2_run(Dp, ij, 128, 128, 300)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["one_tile", "all_diagonal", "n_valid_inside"])
+def test_k2_worklist_edges_match_plain(card, case):
+    """A one-tile worklist, a worklist of diagonal tiles only (every mirror
+    packet empty), and n_valid inside the last block with real rows past
+    it (they must not appear)."""
+    D = _inputs(torch.float32, seed=2)
+    Dp = torch.from_numpy(_pad(D, 128, 32)).to(card)
+    n_valid = 300
+    if case == "one_tile":
+        ij = torch.tensor([[1], [2]], dtype=torch.int32).to(card)
+    elif case == "all_diagonal":
+        ij = torch.tensor([[2, 0, 1], [2, 0, 1]], dtype=torch.int32).to(card)
+    else:
+        n_valid = 270
+        ij = torch.tensor([[0, 0, 1, 2, 1, 0], [0, 2, 2, 2, 1, 1]], dtype=torch.int32).to(card)
+    got, ref = _k2_run(Dp, ij, 128, 128, n_valid)
+    _assert_close(got, ref)
+    if case == "all_diagonal":
+        assert int(got[5].sum()) == 0 and bool((got[4] == -1).all())
+    if case == "n_valid_inside":
+        assert int(ref[2].sum()) > 0
+        for ids in (got[1], got[4]):
+            assert int(ids.max()) < n_valid
+    assert int(ref[2].sum()) > 0
+
+
+def _dense_from_packets(p, ij, n, block_m, block_n):
+    """The (n, n) scores the packets of a full upper-triangular worklist
+    hold (forward at (row, gcol), mirror at (col, grow)), NaN elsewhere."""
+    S = torch.full((n, n), float("nan"), device=p[0].device)
+    for v, i, blocks, bs in ((p[0], p[1], ij[0], block_m), (p[3], p[4], ij[1], block_n)):
+        rows = (blocks.long()[:, None] * bs + torch.arange(bs, device=v.device))[:, :, None]
+        keep = i >= 0
+        S[rows.expand_as(i)[keep], i[keep].long()] = v[keep]
+    return S
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256])
+def test_k2_scores_bit_identical_to_k1(card, dtype, block):
+    """K1 and K2 both sum each score as one ring_tile fmaf chain from 0 over
+    all m features: with k covering every candidate, every (row, column)
+    score in K2's forward and mirror packets equals K1's bit for bit, and
+    K1's counts are the packets' candidates a row."""
+    from repro_torch.kernels.apss_block import fused
+
+    D = _corp(3 * block - 20, 200, seed=8)
+    Dp = torch.from_numpy(_pad(D, block, 32)).to(card, dtype)
+    n = Dp.shape[0]
+    nb = n // block
+    ij = torch.tensor([[i, j] for i in range(nb) for j in range(i, nb)],
+                      dtype=torch.int32).T.contiguous().to(card)
+    k2 = fused.apss_tile_candidates_kernel(Dp, ij, 0.3, n, block_m=block, block_n=block,
+                                           n_valid=D.shape[0])
+    mask = torch.ones((nb, nb), dtype=torch.int32)
+    v1, i1, c1 = fused.apss_fused_kernel(Dp, Dp, mask, 0.3, n, block_m=block, block_n=block,
+                                         n_valid_cols=D.shape[0], exclude_self=True)
+    torch.cuda.synchronize()
+    S1 = torch.full((n, n), float("nan"), device=card)
+    keep = i1 >= 0
+    S1[torch.arange(n, device=card)[:, None].expand_as(i1)[keep], i1[keep].long()] = v1[keep]
+    S2 = _dense_from_packets(k2, ij, n, block, block)
+    live = ~torch.isnan(S1)
+    assert torch.equal(live, ~torch.isnan(S2))
+    assert torch.equal(S1[live], S2[live])
+    assert torch.equal(live.sum(dim=1, dtype=torch.int32), c1[:, 0])  # k held every one
+    assert int(c1.sum()) > 0
+
+
+def test_k2_repeated_call_is_bit_identical(card):
+    from repro_torch.kernels.apss_block import fused
+
+    D = _corp(1000, 512, seed=9)
+    Dp = torch.from_numpy(_pad(D, 256, 32)).to(card)
+    ij = torch.tensor([[i, j] for i in range(4) for j in range(i, 4)],
+                      dtype=torch.int32).T.contiguous().to(card)
+    kw = dict(block_m=256, block_n=256, n_valid=1000)
+    a = fused.apss_tile_candidates_kernel(Dp, ij, 0.2, 32, **kw)
+    b = fused.apss_tile_candidates_kernel(Dp, ij, 0.2, 32, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a[2].sum()) > 0
+
+
 def test_entry_points_on_card_match_plain_path(card):
     from repro_torch import apss_blocked, apss_fused_compacted
 

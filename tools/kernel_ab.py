@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Same-card A/B of design variants of the port's K1, K3, K4, K6, K7 and K9 kernels.
+"""Same-card A/B of design variants of the port's K1, K2, K3, K4, K6, K7 and K9 kernels.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 ``nvcc``:
@@ -11,30 +11,34 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
     python3 tools/kernel_ab.py k9_split     # K9: 4 or 8 rows a lane in flight x split 512-4096
     python3 tools/kernel_ab.py k7_tile      # K7: 128 x 128 or 128 x 256 tiles, 4 or 3 stages,
                                             #     grouped or row-major order, stage sums or one
-    python3 tools/kernel_ab.py k3_tile      # K3: 4 or 3 stages, 128 x 128 or 128 x 64 work items
+    python3 tools/kernel_ab.py k3_tile      # K3: 3 or 4 stages, 128 x 128 or 128 x 64 work items
+    python3 tools/kernel_ab.py k2_tile      # K2: the same variants of their shared tile_items.cuh
+    python3 tools/kernel_ab.py k2_tile --base build/parent  # and the parent's K2 first
 
 Each variant is the kernel's sources in this checkout (the ``.cu`` and the
 headers beside it) with one text substitution, built by ``nvcc`` with the
 port's flags into ``build/kernel_ab/<experiment>/<variant>/`` and loaded in
 place of the port's library, so the wrapper, the inputs and the launch
 shape are the port's own (K9's split is the wrapper's
-``DECODE_SPLIT_VALUES``, set per run). The variants run in turns, two (K1)
-or three (K3, K4, K6, K7, K9) rounds, each time the median of 5 (K1, K7) or 7
-CUDA-event runs after a warm-up, on the cells of ``chip_smoke.py``: K1 on
-clustered_65k and radikal_full, K4 on serve_radikal_full at B = 64 and 8,
-K6 on the sparse index of serve_radikal_full at B = 64 and 8 and on
-serve_sparse_clustered_65k at B = 64, K9 at the decode cell's shapes
-(8, 16, 8, 32768, 128) bf16 and lengths, K7 on k7_radikal_full (f32) and
-K3 on sparse_radikal_full and sparse_clustered_65k, with the operands the
-main paths build. Every variant's output is held to
-the first variant's (``same``; the variant without a merge only in its
-counts; K9's to the plain version's at the smoke run's tolerances; K7's
-largest |difference|, ``max_abs_diff``, since its variants sum in other
-orders, and
-each K7 variant's largest error on 1,024 rows against float64). The
-library call of each cell is timed beside them. The card's name, power
-limit and SM clock are printed before and after; each variant's ``-Xptxas
--v`` registers and spills after its build.
+``DECODE_SPLIT_VALUES``, set per run). With ``--base CHECKOUT`` (another
+checkout of the repo, such as the parent commit unpacked by ``git
+archive``) the kernel's source and headers there run first, as variant
+``base``. The variants run in turns, two (K1) or three (K2, K3, K4, K6,
+K7, K9) rounds, each time the median of 5 (K1, K7) or 7 CUDA-event runs
+after a warm-up, on the cells of ``chip_smoke.py``: K1 on clustered_65k
+and radikal_full, K4 on serve_radikal_full at B = 64 and 8, K6 on the
+sparse index of serve_radikal_full at B = 64 and 8 and on
+serve_sparse_clustered_65k at B = 64, K9 at the decode cell's shapes (8,
+16, 8, 32768, 128) bf16 and lengths, K7 on k7_radikal_full (f32), K3 on
+sparse_radikal_full and sparse_clustered_65k and K2 on radikal_full and
+clustered_65k, with the operands the main paths build. Every variant's
+output is held to the first variant's (``same``; the variant without a
+merge only in its counts; K9's to the plain version's at the smoke run's
+tolerances; K7's largest |difference|, ``max_abs_diff``, since its
+variants sum in other orders, and each K7 variant's largest error on 1,024
+rows against float64). The library call of each cell is timed beside
+them. The card's name, power limit and SM clock are printed before and
+after; each variant's ``-Xptxas -v`` registers and spills after its build.
 """
 
 from __future__ import annotations
@@ -145,15 +149,15 @@ def k7_tile(src: dict) -> dict:
                                                      "constexpr bool STAGE_SUMS = false;")}}
 
 
-def k3_tile(src: dict) -> dict:
-    """K3's ring stages (4 or 3) and work items (128 x 128 or 128 x 64
-    scores)."""
-    cu = src["sparse_tile_candidates.cu"]
-    return {"i128_s4": {},
-            "i128_s3": {"sparse_tile_candidates.cu": _sub(cu, "constexpr int K3_STAGES = 4;",
-                                                          "constexpr int K3_STAGES = 3;")},
-            "i64_s4": {"sparse_tile_candidates.cu": _sub(cu, "constexpr int K3_IC = 128;",
-                                                         "constexpr int K3_IC = 64;")}}
+def tile_items(src: dict) -> dict:
+    """The ring stages (3 or 4) and work items (128 x 128 or 128 x 64
+    scores) of K2 and K3, which share tile_items.cuh."""
+    h = src["tile_items.cuh"]
+    return {"i128_s3": {},
+            "i128_s4": {"tile_items.cuh": _sub(h, "constexpr int ITEM_STAGES = 3;",
+                                               "constexpr int ITEM_STAGES = 4;")},
+            "i64_s3": {"tile_items.cuh": _sub(h, "constexpr int ITEM_C = 128;",
+                                              "constexpr int ITEM_C = 64;")}}
 
 
 EXPERIMENTS = {  # name: (library, source, variants, segment counts to force)
@@ -167,7 +171,8 @@ EXPERIMENTS = {  # name: (library, source, variants, segment counts to force)
     "k9_split": ("decode_attention", "decode_attention/csrc/decode_attention.cu", k9_rows, {}),
     "k7_tile": ("apss_block", "apss_block/csrc/apss_block.cu", k7_tile, {}),
     "k3_tile": ("sparse_tile_candidates", "apss_block/csrc/sparse_tile_candidates.cu",
-                k3_tile, {}),
+                tile_items, {}),
+    "k2_tile": ("tile_candidates", "apss_block/csrc/tile_candidates.cu", tile_items, {}),
 }
 K9_SPLITS = (512, 1024, 2048, 4096)  # positions a block at D = 128
 
@@ -458,31 +463,78 @@ def run_k3(np, torch, libs: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def run_k2(np, torch, libs: dict) -> None:
+    import chip_smoke as cs
+    from repro_torch.core.pruning import block_prune_mask
+    from repro_torch.data.synthetic import clustered_corpus, synthetic_corpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.kernels.apss_block.ops import _pad_to, _pick_bk, compact_worklist
+
+    cells = {  # cell: (corpus, threshold), as chip_smoke.py's main path
+        "radikal_full": (lambda: synthetic_corpus(6883, 136447, 1072472 / 6883, seed=0), 0.2),
+        "clustered_65k": (lambda: clustered_corpus(65536, 768, 8, n_clusters=32, seed=0), 0.5),
+    }
+    for cell, (make, t) in cells.items():
+        D = torch.from_numpy(make()).cuda()
+        n, m = D.shape
+        Dp = _pad_to(D, 256, _pick_bk(m, 512))  # apss_fused_compacted's operands
+        mask, ub = block_prune_mask(Dp, Dp, t, 256, 256, return_ub=True)
+        ij = torch.as_tensor(compact_worklist(mask, ub)).cuda()
+        kw = dict(block_m=256, block_n=256, n_valid=n)
+        res, ref = {}, None
+        for _ in range(3):
+            for v, lib in libs.items():
+                _build._LIBS["tile_candidates"] = lib
+                fn = lambda: fused.apss_tile_candidates_kernel(Dp, ij, t, 32, **kw)  # noqa: E731
+                out = fn()
+                torch.cuda.synchronize()
+                ref = out if ref is None else ref
+                same = all(torch.equal(a, b) for a, b in zip(out, ref))
+                res.setdefault(v, []).append(dict(ms=time_ms(np, torch, fn, 7), same=same))
+        res["library"] = time_ms(np, torch, lambda: cs.library_topk(torch, D, t, 32), 7)
+        res["worklist_T"] = ij.shape[1]
+        print(cell, json.dumps(res), flush=True)
+        del D, Dp, ij, ref
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
 
-    if len(sys.argv) != 2 or sys.argv[1] not in EXPERIMENTS:
-        print(f"usage: {sys.argv[0]} {{{'|'.join(EXPERIMENTS)}}}", file=sys.stderr)
+    args = sys.argv[1:]
+    base = None
+    if len(args) == 3 and args[1] == "--base":
+        base, args = Path(args[2]).resolve(), args[:1]
+    if len(args) != 1 or args[0] not in EXPERIMENTS:
+        print(f"usage: {sys.argv[0]} {{{'|'.join(EXPERIMENTS)}}} [--base CHECKOUT]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    name = sys.argv[1]
+    name = args[0]
     lib, source, variants, forced = EXPERIMENTS[name]
     smi = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     source = KERNELS / source
     files = {p.name: p.read_text() for p in [source, *source.parent.glob("*.cuh")]}
-    libs = build(name, source.name, files, variants(files))
+    runs = variants(files)
+    if base is not None:  # the other checkout's source and headers, timed first
+        other = base / source.relative_to(ROOT)
+        runs = {"base": {p.name: p.read_text()
+                         for p in [other, *other.parent.glob("*.cuh")]}, **runs}
+    libs = build(name, source.name, files, runs)
     run = {"apss_fused": lambda: run_k1(np, torch, libs, forced),
            "rect_tile_candidates": lambda: run_k4(np, torch, libs),
            "rect_sparse_tile_candidates": lambda: run_k6(np, torch, libs),
            "decode_attention": lambda: run_k9(np, torch, libs),
            "apss_block": lambda: run_k7(np, torch, libs),
-           "sparse_tile_candidates": lambda: run_k3(np, torch, libs)}
+           "sparse_tile_candidates": lambda: run_k3(np, torch, libs),
+           "tile_candidates": lambda: run_k2(np, torch, libs)}
     run[lib]()
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip(), flush=True)
     return 0

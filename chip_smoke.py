@@ -63,7 +63,30 @@ Phases, each printing one JSON line:
     through K5 and sparse through the plain scan with K6 tiles; both skip
     tiles and equal their full scans; scored tiles of the kernel and of the
     plain scan side by side.
-14. ``lm_edge_probes`` (not timed): K8 (flash attention, through
+14. ``distributed_radikal_full``: the paper's 1-D and 2-D distributions
+    (``core.distributed.apss``) in 4 ranks on the one card over gloo
+    (``launch.mesh.spawn``; NCCL takes no two ranks on one card), on the
+    radikal corpus of phase 7 padded with zeros to 7,168 × 136,448 (kept
+    on the host since phase 7; written once to ``build/distributed/``,
+    each rank reads its shard memory-mapped): horizontal allgather, ring
+    and halfring on a (4,) ``data`` mesh and hierarchical on (2, 2) (pod,
+    data), dense through K1 at each step's runtime offsets; vertical
+    allreduce, scatter, compressed and recursive on (4,) ``model``; 2-D
+    allreduce and compressed on (2, 2); the same on the corpus's CSR form
+    (gather-dot, no kernel). Compressed and recursive run at the
+    candidate capacity that truncates no row (computed from the partial
+    scores on the card). Per variant: the wall (median of 3 runs, rank
+    0's host clock between barriers and synchronizes), each rank's
+    device time in the first run (under ``torch.profiler``) with its
+    memcpy and K1 parts, each rank's time inside the collective helpers
+    (median of the 3 runs), the bytes each
+    rank sent (equal to the schedule's count, or the phase fails), K1's
+    launches on each rank (each K1 variant launches it on every rank);
+    rows below 6,883 equal phase 7's plain result and its K1 result by
+    the comparison rule below, padded rows empty, no row overflowed. Then K1 alone at a ring step's shape (rank 2's 1,792
+    rows against rank 1's, offsets 3,584 and 1,792) against its plain
+    version, for the ``kernels`` line.
+15. ``lm_edge_probes`` (not timed): K8 (flash attention, through
     ``kernels.flash_attention.flash_attention``) and K9 (flash-decode
     partials) against their plain versions, in f32 and bf16: S = 1, S not a
     multiple of the tile, q heads per kv head of 1, 2 and 8, head dims 16,
@@ -73,7 +96,7 @@ Phases, each printing one JSON line:
     |N(0, 1)|), every output ≥ 4, against their plain versions and the f32
     references: largest |Δ|, in bf16 ulps too; K8 within 2 ulps, K9 within
     a relative 1e-5.
-15. ``lm_prefill_qwen3_1_7b``: the full qwen3-1.7b config in bf16, weights
+16. ``lm_prefill_qwen3_1_7b``: the full qwen3-1.7b config in bf16, weights
     from ``torch.Generator`` seed 0 on the card, tokens (2, 4096) from numpy
     seed 0. ``prefill`` (K8 in every layer) against ``use_kernel=False``;
     ``transformer_logits`` on both paths over all 8,192 positions (largest
@@ -85,19 +108,19 @@ Phases, each printing one JSON line:
     at a few percent of the positions and bf16 agreement is printed, not
     held to 99 %. K8 at one layer's shapes against its plain version in
     bf16 and f32.
-16. ``lm_decode_qwen3_1_7b_32k``: the same model and a seeded random KV
+17. ``lm_decode_qwen3_1_7b_32k``: the same model and a seeded random KV
     cache of 8 sequences × 32,768 positions (30.1 GB), lengths from numpy
     seed 0 in [1, 32767] with one at 32767: ``decode_step`` (K9 in every
     layer, lengths restored between repeats, the update being in place)
     against the plain path (largest |Δlogit|, top-1 agreement); K9 at one
     layer's shapes against its plain version.
-17. ``lm_server_qwen3_1_7b``: the port's ``LMServer`` (max_batch 8, max_len
+18. ``lm_server_qwen3_1_7b``: the port's ``LMServer`` (max_batch 8, max_len
     512) on the same model, 4 requests of a 16-token prompt (numpy seed 1)
     and 32 generated tokens: tokens/s, ms per step, K9 launches (28 per
     step). Its token streams must equal the plain path's server; where they
     part, the plain path's top-2 logit margin at that step must be at most
-    phase 16's largest |Δlogit|.
-18. ``kernels``: per kernel and main-path shape, launches on the main path,
+    phase 17's largest |Δlogit|.
+19. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound (f32
     FMA peak; K7's row and K8's bf16 row the tensor-core peak), and the largest
     value difference from the plain version, and ``nvidia-smi``'s SM clock,
@@ -112,13 +135,15 @@ Phases, each printing one JSON line:
     K5's its cooperative grid (``grid_blocks``) and feature chunks, K9's its
     split, ``n_splits``, grid and live split blocks (``live_blocks``), K8's
     the f32 kernel's time (``ms_f32``) beside SDPA's in f32
-    (``library_ms_f32``).
+    (``library_ms_f32``). K1's ring-step row (phase 14) adds its shape,
+    offsets and launches per rank and variant; its ``launches`` sums them.
 
-The main-path phases (6-13 and 15-17) drive the port's entry points
+The main-path phases (6-14 and 16-18) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6;
-``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9) with the
+``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
+4 ranks for K1 under the ring schedules) with the
 launch counts set to 0 just before and read just after, each serving path
 (batch size, early exit, server) on its own, and hold the
 results against the plain paths on the card. Comparison rule (the
@@ -273,9 +298,11 @@ def main() -> int:
         clustered_corpus(65536, 768, 8, n_clusters=32, seed=0)).cuda())
     rows, _ = main_path_phase(np, torch, "clustered_65k", D, gen_s, threshold=0.5, k=32)
     del D
-    D, gen_s = generated(torch, lambda: torch.from_numpy(
-        synthetic_corpus(6883, 136447, 1072472 / 6883, seed=0)).cuda())
+    radikal, gen_s = generated(torch, lambda: synthetic_corpus(
+        6883, 136447, 1072472 / 6883, seed=0))  # kept on the host for the distributed phase
+    D = torch.from_numpy(radikal).cuda()
     more, dense = main_path_phase(np, torch, "radikal_full", D, gen_s, threshold=0.2, k=32)
+    single = dict(ref=dense["ref"], k1=dense["k1"], near=dense["near"])
     rows += more
     rows.append(k7_phase(np, torch, "k7_radikal_full", D, threshold=0.2))
     sp, conv_s = generated(torch, lambda: from_dense(D))
@@ -294,6 +321,10 @@ def main() -> int:
     del sp
     torch.cuda.empty_cache()
     rows.append(serve_early_exit_phase(np, torch, "serve_early_exit_overlap"))
+    torch.cuda.empty_cache()
+    rows.append(distributed_phase(np, torch, "distributed_radikal_full", radikal, single,
+                                  threshold=0.2, k=32, n_pad=7168, m_pad=136448))
+    del radikal, single
     torch.cuda.empty_cache()
     lm_edge_probes(np, torch)
     r1_probe(np, torch)
@@ -850,9 +881,10 @@ def main_path_phase(np, torch, phase, D, gen_s, *, threshold, k):
         torch, lambda: fused.apss_tile_candidates_kernel(Dp, ij, t, k, **kw2), row["ms"],
         top=3, kernels={"apss_tile_candidates": "tile_part_kernel"}))
     rows.append(row)
+    k1_np = matches_to_numpy(m_k1)
     del Dp, m_k1, m_k2, ref, out_k, out_p, pk, pp
     torch.cuda.empty_cache()
-    return rows, dict(k2=k2_np, near=near)
+    return rows, dict(k2=k2_np, k1=k1_np, ref=ref_np, near=near)
 
 
 def k7_phase(np, torch, phase, D, *, threshold) -> dict:
@@ -1995,6 +2027,244 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
     check(part is None or margin <= max_dlogit,
           f"{phase}: streams part at step {part} where the plain margin {margin} exceeds "
           f"the decode phase's largest |Δlogit| {max_dlogit}")
+
+
+# ---------------------------------------------------------------------------
+# The paper's distributions: 4 ranks on one card (core.distributed)
+# ---------------------------------------------------------------------------
+
+DIST_REPS = 3  # wall-clock runs of each variant (median); the first is profiled
+
+
+def dist_variants(capacity4: int, capacity2: int) -> list:
+    """Every variant of the distributed phase, dense then sparse, as
+    ``launch.apss_mesh`` variants."""
+    row, pods = ((4,), ("data",)), ((2, 2), ("pod", "data"))
+    model, grid = ((4,), ("model",)), ((2, 2), ("data", "model"))
+    out = []
+    for corpus in ("dense", "sparse"):
+        kern = dict(use_kernel=True) if corpus == "dense" else {}
+        for s in ("allgather", "ring", "halfring"):
+            out.append(dict(name=f"{corpus}_horizontal_{s}", distribution="horizontal",
+                            mesh=row, corpus=corpus, gather="data",
+                            kwargs=dict(schedule=s, block_rows=512, **kern)))
+        out.append(dict(name=f"{corpus}_hierarchical", distribution="hierarchical",
+                        mesh=pods, corpus=corpus, gather=("pod", "data"),
+                        kwargs=dict(axes=("pod", "data"), block_rows=512, **kern)))
+        for a in ("allreduce", "scatter", "compressed", "recursive"):
+            out.append(dict(name=f"{corpus}_vertical_{a}", distribution="vertical",
+                            mesh=model, corpus=corpus,
+                            gather="model" if a == "scatter" else None, scatter=a == "scatter",
+                            kwargs=dict(axis_name="model", accumulation=a, block_rows=512,
+                                        candidate_capacity=capacity4, return_stats=True)))
+        for a in ("allreduce", "compressed"):
+            out.append(dict(name=f"{corpus}_2d_{a}", distribution="2d", mesh=grid,
+                            corpus=corpus, gather="data",
+                            kwargs=dict(accumulation=a, block_rows=512,
+                                        candidate_capacity=capacity2, return_stats=True)))
+    return out
+
+
+def candidate_capacity(torch, D, t: float, p: int, rows: int = 512) -> int:
+    """The largest number of columns of a row that any of ``p`` dimension
+    slices proposes at the Lemma-1 threshold ``t/p`` (self included). Every
+    candidate set of the compressed and recursive accumulations is a subset,
+    so a capacity this large truncates none."""
+    from repro_torch.core.precision import dot_f32
+    from repro_torch.core.pruning import local_threshold
+
+    t_loc = float(local_threshold(t, p))
+    w = D.shape[1] // p
+    most = 0
+    for b in range(0, D.shape[0], rows):
+        hit = torch.zeros((min(rows, D.shape[0] - b), D.shape[0]), dtype=torch.bool,
+                          device=D.device)
+        for d in range(p):
+            hit |= dot_f32(D[b:b + rows, d * w:(d + 1) * w], D[:, d * w:(d + 1) * w]) >= t_loc
+        most = max(most, int(hit.sum(dim=1).max()))
+    return most
+
+
+def slice_cap(np, indices, nnz, m: int, p: int) -> int:
+    """``cap_loc`` of the host dimension split: the most stored entries of
+    one row in one of ``p`` dimension slices."""
+    valid = np.arange(indices.shape[1])[None, :] < nnz[:, None]
+    owner = indices // (m // p)
+    return max(1, max(int((valid & (owner == d)).sum(axis=1).max()) for d in range(p)))
+
+
+def dist_expected_bytes(v: dict, *, n: int, m: int, k: int, cap: int, cap_loc4: int,
+                        cap_loc2: int) -> dict:
+    """The bytes one rank sends in a variant, by collective, counted from the
+    schedules of ``core.distributed`` (the tensor a ppermute sends; the input
+    of every other collective)."""
+    kw = v["kwargs"]
+    sparse = v["corpus"] == "sparse"
+    out = dict(ppermute=0, psum=0, psum_scatter=0, all_gather=0, pmax=0)
+    if v["distribution"] in ("horizontal", "hierarchical"):
+        n_loc = n // 4
+        block = n_loc * (8 * cap + 4) if sparse else n_loc * m * 4  # CSR triple or rows
+        caravan = n_loc * (8 * k + 4)                                # a Matches of n_loc rows
+        if v["distribution"] == "hierarchical":  # 2 inner hops, 1 outer, each with its owner id
+            out["ppermute"] = 3 * (block + 4)
+        elif kw["schedule"] == "allgather":
+            out["all_gather"] = block
+        elif kw["schedule"] == "ring":
+            out["ppermute"] = 3 * block
+        else:  # halfring at p = 4: 2 block hops with the caravan, 1 home shift
+            out["ppermute"] = 2 * block + 3 * caravan
+        return out
+    bs, acc = kw["block_rows"], kw["accumulation"]
+    C = kw["candidate_capacity"]
+    if v["distribution"] == "vertical":
+        nb, cols, r = n // bs, n, 4
+        steps = 1
+    else:  # 2-D on (2, 2): two ring steps of the cell over the row axis
+        cols, r, steps = n // 2, 2, 2
+        bs = max(d for d in range(1, min(bs, cols) + 1) if cols % d == 0)  # the block clamp
+        nb = cols // bs
+        out["ppermute"] = (n // 2) * (8 * cap_loc2 if sparse else (m // 2) * 4)
+        out["pmax"] = 8  # the overflow, over the column then the row axis
+    cc = min(C, cols)
+    per_block = {
+        "allreduce": dict(psum=bs * cols * 4),
+        "scatter": dict(psum_scatter=bs * cols * 4),
+        "compressed": dict(all_gather=bs * cc * 4, psum=bs * r * cc * 4),
+        "recursive": dict(ppermute=2 * 3 * bs * cc * 4, all_gather=bs * cc * 4,
+                          psum=bs * r * cc * 4),  # 2 hypercube levels of (ids, values, ub)
+    }[acc]
+    for op, b in per_block.items():
+        out[op] += steps * nb * b
+    if v["distribution"] == "vertical" and acc in ("compressed", "recursive"):
+        out["pmax"] = 4
+    return out
+
+
+def dist_row_check(np, got, single, n0: int, t: float) -> dict:
+    """A gathered distributed result against the single-device reference:
+    rows below ``n0`` by the comparison rule, padded rows empty."""
+    v, i, c = got
+    cmp = compare(np, (v[:n0], i[:n0], c[:n0]), single["ref"], t, single["near"])
+    cmp["vs_k1"] = compare(np, (v[:n0], i[:n0], c[:n0]), single["k1"], t, single["near"])["ok"]
+    cmp["padded_rows_empty"] = bool((c[n0:] == 0).all() and (i[n0:] == -1).all())
+    return cmp
+
+
+def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
+                      m_pad) -> dict:
+    """The paper's 1-D and 2-D distributions (``core.distributed.apss``) in 4
+    ranks on the one card over gloo, dense and sparse, on ``D_host`` padded
+    with zero rows and columns to ``(n_pad, m_pad)``; every variant against
+    the single-device reference ``single`` (its plain result, K1's, and the
+    near-threshold counts). Returns K1's row at a ring step's shape."""
+    import statistics
+
+    from repro_torch.core.precision import dot_f32
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.kernels.apss_block.ops import _padded_pair, _pick_bk
+    from repro_torch.launch.mesh import default_backend, spawn
+
+    n0, m0 = D_host.shape
+    t = threshold
+    run = ROOT / "build" / "distributed"
+    run.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    dense_path = run / "corpus.npy"
+    Dp = np.lib.format.open_memmap(dense_path, mode="w+", dtype=np.float32,
+                                   shape=(n_pad, m_pad))
+    Dp[:n0, :m0] = D_host
+    Dp.flush()
+    Dc = torch.from_numpy(np.asarray(Dp)).cuda()
+    sp = from_dense(Dc, device=Dc.device)
+    idx, val, nnz = (x.cpu().numpy() for x in (sp.indices, sp.values, sp.nnz))
+    sparse_path = run / "corpus.npz"
+    np.savez(sparse_path, indices=idx, values=val, nnz=nnz, m=m_pad)
+    cap4 = candidate_capacity(torch, Dc, t, 4)
+    cap2 = candidate_capacity(torch, Dc, t, 2)
+    del Dc, sp
+    torch.cuda.empty_cache()  # the card's memory goes to the 4 ranks
+    setup_s = time.perf_counter() - t0
+    variants = dist_variants(cap4, cap2)
+
+    # The main path: every variant in 4 ranks on the card, counted and timed.
+    t0 = time.perf_counter()
+    recs = spawn("repro_torch.launch.apss_mesh:run_variants", 4,
+                 {"dense": str(dense_path), "sparse": str(sparse_path)}, variants, t, k,
+                 DIST_REPS, device="cuda", run_dir=run)
+    spawn_s = time.perf_counter() - t0
+    cap = idx.shape[1]
+    sizes = dict(n=n_pad, m=m_pad, k=k, cap=cap, cap_loc4=slice_cap(np, idx, nnz, m_pad, 4),
+                 cap_loc2=slice_cap(np, idx, nnz, m_pad, 2))
+    table, k1_launches, failed = {}, {}, []
+    for v in variants:
+        name = v["name"]
+        per_rank = [r[name] for r in recs]
+        want = dist_expected_bytes(v, **sizes)
+        sent = [rec["wire_bytes"][0] for rec in per_rank]
+        cmp = dist_row_check(np, per_rank[0]["matches"], single, n0, t)
+        uses_k1 = bool(v["kwargs"].get("use_kernel"))
+        k1 = [rec["launches"]["apss_fused"] for rec in per_rank]
+        if uses_k1:
+            k1_launches[name] = k1
+        table[name] = dict(
+            wall_ms=statistics.median(per_rank[0]["wall_ms"]), wall_ms_runs=per_rank[0]["wall_ms"],
+            device_ms=[rec["device_ms"] for rec in per_rank],
+            copy_ms=[rec["copy_ms"] for rec in per_rank],
+            k1_ms=[rec["k1_ms"] for rec in per_rank],
+            wire_ms=[statistics.median(rec["wire_ms"]) for rec in per_rank],
+            bytes_sent=[sum(b.values()) for b in sent], bytes_expected=sum(want.values()),
+            k1_launches=k1, overflow_rows=per_rank[0].get("overflow_rows"),
+            capacity=v["kwargs"].get("candidate_capacity"), vs_single=cmp,
+        )
+        if not (cmp["ok"] and cmp["vs_k1"] and cmp["padded_rows_empty"]):
+            failed.append(f"{name} disagrees with the single-device reference: {cmp}")
+        if any(b != want for b in sent):
+            failed.append(f"{name} sent {sent}, the schedule sends {want}")
+        if uses_k1 and min(k1) == 0:
+            failed.append(f"{name}: K1 never ran on some rank: {k1}")
+        if per_rank[0].get("overflow_rows"):
+            failed.append(f"{name}: {per_rank[0]['overflow_rows']} rows overflowed")
+    emit(phase, n=n0, m=m0, n_pad=n_pad, m_pad=m_pad, ranks=4,
+         backend=default_backend("cuda", 4),
+         threshold=t, k=k, cap=cap, cap_loc=[sizes["cap_loc4"], sizes["cap_loc2"]],
+         candidate_capacity={"p4": cap4, "p2": cap2}, setup_s=setup_s, spawn_s=spawn_s,
+         reps=DIST_REPS, variants=table)
+    check(not failed, f"{phase}: " + "; ".join(failed))
+
+    # K1 alone at a ring step's shape: rank 2's rows against rank 1's block
+    # (step s = 1), against its plain version.
+    n_loc = n_pad // 4
+    x = torch.from_numpy(np.array(Dp[2 * n_loc:3 * n_loc])).cuda()
+    y = torch.from_numpy(np.array(Dp[n_loc:2 * n_loc])).cuda()
+    row_off, col_off = 2 * n_loc, n_loc
+    bm = 256
+    _, nc, xp, yp, mask = _padded_pair(x, y, t, None, True, bm, bm, _pick_bk(m_pad, 512),
+                                       x.device)
+    kw1 = dict(block_m=bm, block_n=bm, n_valid_cols=nc, row_offset=row_off,
+               col_offset=col_off, exclude_self=True)
+    near = ((dot_f32(x, y) - t).abs() <= TOL).sum(dim=1).cpu().numpy()
+    near = np.concatenate([near, np.zeros(xp.shape[0] - n_loc, near.dtype)])
+    cmp1 = compare(np, as_rows(np, *fused.apss_fused_kernel(xp, yp, mask, t, k, **kw1)),
+                   as_rows(np, *fused.apss_fused_plain(xp, yp, mask, t, k, **kw1)), t, near)
+    check(cmp1["ok"], f"{phase}: K1 at the ring step disagrees with its plain version: {cmp1}")
+    launches = {"apss_fused": sum(sum(v) for v in k1_launches.values())}
+    mk = mask.cpu().numpy()
+    valid_r = np.full(mk.shape[0], bm)
+    valid_c = np.minimum(bm, nc - np.arange(mk.shape[1]) * bm)
+    flop = 2.0 * m_pad * float((mk * np.outer(valid_r, valid_c)).sum())
+    nbytes = 4.0 * 2 * n_loc * m_pad + n_loc * (8 * k + 4) + mk.size
+    row = kernel_row(
+        np, torch, "apss_fused", phase, launches, cmp1,
+        lambda: fused.apss_fused_kernel(xp, yp, mask, t, k, **kw1),
+        lambda: fused.apss_fused_plain(xp, yp, mask, t, k, **kw1),
+        lambda: library_rect(torch, x, y, t, k), flop, nbytes,
+    )
+    row.update(shape=[n_loc, n_loc, m_pad], row_offset=row_off, col_offset=col_off,
+               launches_per_rank=k1_launches)
+    del x, y, xp, yp, mask
+    torch.cuda.empty_cache()
+    return row
 
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,

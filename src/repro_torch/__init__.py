@@ -12,8 +12,10 @@ kernel is compiled with ``nvcc`` on its first launch.
 Subpackages:
 
 - :mod:`repro_torch.core`    -- the self-join: oracle, blocked join (dense
-                                and padded-CSR ``SparseCorpus``), matches,
-                                pruning bounds, graph helpers
+                                and padded-CSR ``SparseCorpus``), the
+                                paper's 1-D and 2-D distributions over
+                                ``torch.distributed``, matches, pruning
+                                bounds, graph helpers
 - :mod:`repro_torch.kernels` -- K1 (streaming fused), K2 (live-tile
                                 worklist), K3 (CSR worklist), K4/K5/K6
                                 (rectangular serving tiles, K5 with early
@@ -27,7 +29,8 @@ Subpackages:
                                 layers: prefill, KV-cache decode
 - :mod:`repro_torch.configs` -- architecture registry (qwen3-1.7b)
 - :mod:`repro_torch.launch`  -- ``launch/serve.py`` (LM and retrieval
-                                modes, ``LMServer``)
+                                modes, ``LMServer``), ``launch/mesh.py``
+                                (meshes of ranks, ``spawn``)
 - :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR) and
                                 the serving traffic model
 """

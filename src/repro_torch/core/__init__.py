@@ -1,6 +1,8 @@
 """The self-join of the paper, on dense and padded-CSR corpora.
 
 - :mod:`repro_torch.core.apss`      oracle + blocked self-join
+- :mod:`repro_torch.core.distributed` the paper's 1-D and 2-D distributions
+                                    over ``torch.distributed``
 - :mod:`repro_torch.core.matches`   fixed-capacity match extraction / merging
 - :mod:`repro_torch.core.pruning`   maxweight / minsize block bounds, dense
                                     and sparse (inverted-index candidacy)
@@ -14,6 +16,14 @@ from repro_torch.core.apss import (
     apss_reference,
     normalize_rows,
     similarity_topk,
+)
+from repro_torch.core.distributed import (  # not `apss`: the name of core.apss
+    ApssStats,
+    apss_2d,
+    apss_horizontal,
+    apss_horizontal_hierarchical,
+    apss_vertical,
+    gather_matches,
 )
 from repro_torch.core.matches import Matches, extract_matches, merge_matches
 from repro_torch.core.pruning import (

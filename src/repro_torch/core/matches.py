@@ -41,7 +41,7 @@ class Matches(NamedTuple):
         return self.counts > self.capacity
 
 
-def empty_matches(rows: int, k: int, device="cpu") -> Matches:
+def empty_matches(rows: int, k: int, device: str | torch.device) -> Matches:
     return Matches(
         values=torch.full((rows, k), NEG_INF, dtype=torch.float32, device=device),
         indices=torch.full((rows, k), -1, dtype=torch.int32, device=device),
@@ -134,6 +134,61 @@ def merge_matches(a: Matches, b: Matches) -> Matches:
     top_idx = torch.gather(idx, -1, sel)
     top_idx = torch.where(top_vals > NEG_INF, top_idx, -1)
     return Matches(values=top_vals, indices=top_idx, counts=a.counts + b.counts)
+
+
+def dedupe_candidates(
+    values: torch.Tensor, indices: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Deduplicate per-row ``(value, index)`` candidate lists by index.
+
+    Duplicates arise in the vertical compressed accumulation when several
+    devices propose the same candidate column (each copy carries the same
+    fully accumulated score). Returns the lists sorted by index (stable, so
+    the first occurrence of every index stays), with duplicate and empty
+    slots set to ``(-inf, -1)``.
+
+    Args:
+      values: ``(rows, c)`` scores.
+      indices: ``(rows, c)`` int32 column ids, -1 = empty.
+    """
+    order = torch.argsort(indices, dim=-1, stable=True)  # -1 sentinels first
+    s_idx = torch.gather(indices, -1, order)
+    s_val = torch.gather(values, -1, order)
+    prev = torch.cat([torch.full_like(s_idx[:, :1], -2), s_idx[:, :-1]], dim=-1)
+    first = (s_idx != prev) & (s_idx >= 0)
+    return torch.where(first, s_val, NEG_INF), torch.where(first, s_idx, -1)
+
+
+def matches_from_candidates(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    row_offset: int = 0,
+    exclude_self: bool = True,
+    dedupe: bool = True,
+) -> Matches:
+    """Build :class:`Matches` from per-row ``(value, index)`` candidate lists.
+
+    Used by the vertical compressed and recursive accumulations, whose final
+    scores live in compacted form rather than in a dense tile. The top ``k``
+    are taken by value, ties to the lower position of the (deduplicated)
+    list, as ``lax.top_k`` does for the reference.
+    """
+    values = values.float()
+    if dedupe:
+        values, indices = dedupe_candidates(values, indices)
+    ok = (values >= float(np.float32(threshold))) & (indices >= 0)
+    if exclude_self:
+        grow = torch.arange(values.shape[0], dtype=torch.int32, device=values.device)
+        ok &= indices != grow[:, None] + int(row_offset)
+    masked = torch.where(ok, values, NEG_INF)
+    vals, sel = stable_topk(masked, k)
+    idx = torch.gather(torch.where(ok, indices, -1), -1, sel)
+    idx = torch.where(vals > NEG_INF, idx, -1)
+    vals, idx = _pad_k(vals, idx, k)
+    return Matches(values=vals, indices=idx, counts=ok.sum(dim=-1, dtype=torch.int32))
 
 
 def total_matches(m: Matches) -> torch.Tensor:

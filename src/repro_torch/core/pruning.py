@@ -43,12 +43,27 @@ class BlockStats(NamedTuple):
     max_nnz: torch.Tensor
 
 
+STATS_CHUNK_BYTES = 1 << 28  # the rows dense_block_stats reads at a time
+
+
 def dense_block_stats(
     D: torch.Tensor, block_rows: int, eps: float = 0.0
 ) -> BlockStats:
-    """Block pruning summaries from a dense ``(n, m)`` tensor."""
-    maxw = block_maxweight_bounds(D, block_rows)
-    mw, max_nnz = block_minsize_bounds(D, block_rows, eps)
+    """Block pruning summaries from a dense ``(n, m)`` tensor.
+
+    Taken over whole row blocks of about ``STATS_CHUNK_BYTES`` at a time,
+    so the temporaries (``|D|`` and its nonzero mask) stay that size
+    instead of the corpus's: ranks that share a card hold several corpora.
+    """
+    n, m = D.shape
+    if n % block_rows:
+        raise ValueError(f"rows {n} not a multiple of block_rows {block_rows}")
+    chunk = block_rows * max(1, STATS_CHUNK_BYTES // (block_rows * m * D.element_size()))
+    parts = [
+        (block_maxweight_bounds(c, block_rows), *block_minsize_bounds(c, block_rows, eps))
+        for c in D.split(chunk)
+    ]
+    maxw, mw, max_nnz = (torch.cat(f) for f in zip(*parts))
     return BlockStats(maxw=maxw, mw=mw, max_nnz=max_nnz)
 
 

@@ -174,6 +174,59 @@ def density(sp: SparseCorpus) -> float:
     return float(sp.nnz.sum()) / float(sp.n * sp.m)
 
 
+def shard_dims(
+    sp: SparseCorpus, p: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Host-side vertical (dimension) split into ``p`` contiguous slices.
+
+    The paper's 1-D vertical distribution: device ``d`` owns dimensions
+    ``[d·m/p, (d+1)·m/p)``, a contiguous shard of the inverted index, and
+    sees every row restricted to that slice.
+
+    Returns stacked ``(p, n, cap_loc)`` indices (slice-relative) and values,
+    ``(p, n)`` local nnz, and ``m_loc = m // p``. ``cap_loc`` is the largest
+    per-slice per-row count (one for all slices, so the stack is
+    rectangular).
+    """
+    if sp.m % p:
+        raise ValueError(f"m={sp.m} must be a multiple of p={p}")
+    m_loc = sp.m // p
+    idx = sp.indices.cpu().numpy()
+    val = sp.values.cpu().numpy()
+    nnz = sp.nnz.cpu().numpy()
+    n, cap = idx.shape
+    valid = np.arange(cap)[None, :] < nnz[:, None]
+    owner = idx // m_loc
+    counts = np.stack([(valid & (owner == d)).sum(axis=1) for d in range(p)])  # (p, n)
+    cap_loc = max(1, int(counts.max(initial=1)))
+    out_idx = np.zeros((p, n, cap_loc), np.int32)
+    out_val = np.zeros((p, n, cap_loc), np.float32)
+    for d in range(p):
+        sel = valid & (owner == d)
+        # Stable-pack the selected slots to the front of each row.
+        order = np.argsort(~sel, axis=1, kind="stable")[:, :cap_loc]
+        packed = np.take_along_axis(sel, order, axis=1)
+        out_idx[d] = np.where(packed, np.take_along_axis(idx, order, axis=1) - d * m_loc, 0)
+        out_val[d] = np.where(packed, np.take_along_axis(val, order, axis=1), 0.0)
+    return out_idx, out_val, counts.astype(np.int32), m_loc
+
+
+def dim_slices(sp: SparseCorpus, p: int) -> list[SparseCorpus]:
+    """The ``p`` per-slice corpora of :func:`shard_dims`, on ``sp``'s device.
+
+    Slice ``d`` holds every row restricted to dimensions ``[d·m/p,
+    (d+1)·m/p)`` with slice-relative indices and ``m = m/p``: the cells of
+    one checkerboard column of ``apss_2d``.
+    """
+    idx_s, val_s, nnz_s, m_loc = shard_dims(sp, p)
+    dev = sp.device
+    return [
+        SparseCorpus(torch.from_numpy(idx_s[d]).to(dev), torch.from_numpy(val_s[d]).to(dev),
+                     torch.from_numpy(nnz_s[d]).to(dev), m_loc)
+        for d in range(p)
+    ]
+
+
 # ---------------------------------------------------------------------------
 # Scoring primitives
 # ---------------------------------------------------------------------------

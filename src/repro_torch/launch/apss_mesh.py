@@ -1,0 +1,139 @@
+"""Run the paper's distributions (``core.distributed``) in spawned ranks and
+report each run per rank.
+
+:func:`run_variants` is a rank function for ``launch.mesh.spawn``: every
+rank loads the global corpus from disk (a dense ``.npy``, opened memory-
+mapped so a rank reads only its shard, or a sparse ``.npz`` of ``indices``,
+``values``, ``nnz`` and ``m``), runs each variant through ``apss`` on its
+mesh and returns, per variant:
+
+- ``wall_ms``: host-clock ms of each run, from a barrier and a synchronize
+  to a synchronize and a barrier;
+- ``wire_ms`` and ``wire_bytes``: the time inside the collective helpers and
+  the bytes this rank sent, per run, by collective (``WIRE_SECONDS``,
+  ``WIRE_BYTES``);
+- ``launches``: the kernels' launch counts during the first run;
+- ``device_ms``, ``copy_ms`` and ``k1_ms`` (on a card): the device time
+  of the first run under ``torch.profiler`` (CUDA
+  activity only), its memcpy part and K1's part; ``None`` where the
+  profiler saw no device time. Ranks that share a card are time-sliced
+  on it, and a kernel's device time then takes in the slices of the
+  others: their sum can pass the wall;
+- ``overflow_rows`` where the variant returns stats;
+- ``matches`` (rank 0 only): the global ``Matches`` of the first run
+  (``core.distributed.gather_matches``) as numpy ``(values, indices,
+  counts)``.
+
+A variant is a dict: ``name``; ``distribution``; ``mesh`` as ``(shape,
+names)``; ``corpus``, ``"dense"`` or ``"sparse"``; ``gather``, the axes
+the result's rows are sharded over (``None`` if replicated), and
+``scatter``; ``kwargs`` for the entry point; and optionally ``threshold``
+in place of the run's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import distributed as dd
+from repro_torch.core.sparse import SparseCorpus
+from repro_torch.kernels.apss_block.fused import LAUNCHES
+from repro_torch.launch.mesh import make_mesh
+
+
+def load_corpus(path: str):
+    """A dense corpus (memory-mapped numpy) from ``.npy`` or a CPU
+    ``SparseCorpus`` from ``.npz``."""
+    if path.endswith(".npy"):
+        return np.load(path, mmap_mode="r")
+    with np.load(path) as f:
+        return SparseCorpus(torch.from_numpy(f["indices"]), torch.from_numpy(f["values"]),
+                            torch.from_numpy(f["nnz"]), int(f["m"]))
+
+
+def _profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset() -> None:
+    for counts in (LAUNCHES, dd.WIRE_BYTES, dd.WIRE_SECONDS):
+        for key in counts:
+            counts[key] = 0
+
+
+def _device_ms(prof) -> dict:
+    """Device ms of a profiled run: all of it, the memcpy part and K1's."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if e.device_type == cuda and e.self_device_time_total > 0]
+    if not events:
+        return dict(device_ms=None, copy_ms=None, k1_ms=None)
+
+    def ms(key=""):
+        return sum(e.self_device_time_total for e in events if key in e.key.lower()) / 1e3
+
+    return dict(device_ms=ms(), copy_ms=ms("memcpy"), k1_ms=ms("apss::fused"))
+
+
+def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: float, k: int,
+                 reps: int = 1) -> dict:
+    """Rank function (``launch.mesh.spawn``): run every variant ``reps``
+    times on this rank; see the module docstring for what it returns."""
+    loaded = {name: load_corpus(path) for name, path in corpora.items()}
+    meshes = {}
+    out = {}
+    for v in variants:
+        key = (tuple(v["mesh"][0]), tuple(v["mesh"][1]))
+        if key not in meshes:  # every rank builds the same meshes in the same order
+            meshes[key] = make_mesh(*key)
+        mesh = meshes[key]
+        kw = dict(v.get("kwargs", {}), device=dev)
+
+        def call():
+            return dd.apss(loaded[v["corpus"]], v.get("threshold", threshold), k, mesh,
+                           distribution=v["distribution"], **kw)
+
+        rec = {"wall_ms": [], "wire_ms": [], "wire_bytes": [],
+               "device_ms": None, "copy_ms": None, "k1_ms": None}
+        for rep in range(reps):
+            traced = rep == 0 and dev.type == "cuda"
+            _reset()
+            dist.barrier()
+            _sync(dev)
+            t0 = time.perf_counter()
+            with _profile() if traced else contextlib.nullcontext() as prof:
+                got = call()
+                _sync(dev)
+            dist.barrier()
+            rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["wire_ms"].append(sum(dd.WIRE_SECONDS.values()) * 1e3)
+            rec["wire_bytes"].append(dict(dd.WIRE_BYTES))
+            if traced:
+                rec.update(_device_ms(prof))
+            if rep == 0:
+                rec["launches"] = dict(LAUNCHES)
+                first = got
+        m = first
+        if isinstance(first, tuple) and not isinstance(first, dd.Matches):
+            m, stats = first
+            rec["overflow_rows"] = int(stats.overflow_rows)
+        m = dd.gather_matches(m, mesh, v.get("gather"), scatter=v.get("scatter", False))
+        if rank == 0:
+            rec["matches"] = tuple(x.cpu().numpy() for x in m)
+        out[v["name"]] = rec
+        del got, first, m
+        if dev.type == "cuda":  # hand cached blocks back: the ranks may share a card
+            torch.cuda.empty_cache()
+    return out

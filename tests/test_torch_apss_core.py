@@ -62,7 +62,9 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.kernels.apss_block.apss_block, "
         "repro_torch.serving, repro_torch.serving.server, repro_torch.launch.serve, "
         "repro_torch.models.transformer, repro_torch.kernels.flash_attention, "
-        "repro_torch.kernels.decode_attention, repro_torch.configs; "
+        "repro_torch.kernels.decode_attention, repro_torch.configs, "
+        "repro_torch.core.distributed, repro_torch.launch.mesh, "
+        "repro_torch.launch.apss_mesh; "
         "bad = sorted(m for m in sys.modules "
         "if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro'); "
         "print(bad)"
@@ -85,6 +87,8 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         from_dense,
     )
     from repro_torch.configs.qwen3_1_7b import smoke_config
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.serve import LMServer
     from repro_torch.models.transformer import init_transformer, make_cache
     from repro_torch.serving import build_index, query_topk
@@ -106,6 +110,14 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
         lambda: init_transformer(smoke_config()),
         lambda: make_cache(smoke_config(), 1, 8),
         lambda: LMServer(smoke_config()),
+        # The distributed entry points check the device before the mesh.
+        lambda: tdist.apss_horizontal(corpus, T, K, None),
+        lambda: tdist.apss_horizontal(corpus, T, K, None, use_kernel=True),
+        lambda: tdist.apss_horizontal_hierarchical(corpus, T, K, None),
+        lambda: tdist.apss_vertical(corpus, T, K, None),
+        lambda: tdist.apss_2d(corpus, T, K, None),
+        lambda: tdist.apss(from_dense(corpus, device="cpu"), T, K, None),
+        lambda: spawn("repro_torch.launch.apss_mesh:run_variants", 2),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
@@ -237,6 +249,17 @@ def test_block_stats_and_live_mask_parity(use_minsize):
         host(tpruning.live_tile_mask(carried, carried, t, use_minsize=use_minsize)),
         np.asarray(jl),
     )
+
+
+@pytest.mark.parametrize("chunk_bytes", [1, 3 * 32 * 128 * 4])
+def test_dense_block_stats_in_chunks_equal_jax(monkeypatch, chunk_bytes):
+    """Stats taken a row block (or three) at a time equal the one-pass
+    reference's; the last chunk may hold fewer blocks."""
+    monkeypatch.setattr(tpruning, "STATS_CHUNK_BYTES", chunk_bytes)
+    D = tsynth.clustered_corpus(256, 128, 6, n_clusters=4, seed=2)
+    js = jpruning.dense_block_stats(jnp.asarray(D), 32)
+    for a, b in zip(js, tpruning.dense_block_stats(_cpu(D), 32)):
+        np.testing.assert_array_equal(host(b), np.asarray(a))
 
 
 def test_block_prune_mask_prune_stats_and_bounds_parity(corpus):

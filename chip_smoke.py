@@ -45,7 +45,20 @@ Phases, each printing one JSON line:
    within 2e-6).
 9. ``serve_radikal_full``: a dense index (K4 at B=64 and B=8, K5) and a
    sparse index (K6) of the same corpus, 64 ``perturbed_queries``, t=0.2,
-   k=32, held against the plain path on the card and the oracle.
+   k=32, held against the plain path on the card and the oracle. Then
+   ``serve_sharded_radikal_full``: the corpus as a dense index in 4
+   row-block shards (``devices``, all on the one card), rows padded to
+   7,168, so the last block is all padding and pruned: the same 64
+   queries launch K4 once per shard with live tiles (7/7/7/6), at global
+   ids, and the result must equal phase 9's unsharded K4 result bit for
+   bit and agree with the oracle and the sharded plain path; a
+   ``RetrievalServer(use_kernel=True)`` on the shards answers the 64
+   queries with no retry or degradation, each equal to the one-shot call;
+   the corpus in 4 CSR shards runs the plain gather-dot path against the
+   oracle and refuses ``use_kernel`` and ``early_exit``. The wall (median
+   of 5), one call under ``torch.profiler`` (host ops, device busy time,
+   idle share), each shard's K4 time and their sum, build seconds and
+   bytes of both sharded indexes.
 10. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
     ``apss_blocked(sp, use_kernel=True)`` (K3), held against the plain
     sparse path and against phase 7's K2 result (counts exactly equal: both
@@ -137,11 +150,14 @@ Phases, each printing one JSON line:
     the f32 kernel's time (``ms_f32``) beside SDPA's in f32
     (``library_ms_f32``). K1's ring-step row (phase 14) adds its shape,
     offsets and launches per rank and variant; its ``launches`` sums them.
+    K4's sharded row (``serve_sharded_radikal_full/b64``) times the 4
+    shards' launches together and adds each shard's time and tiles.
 
 The main-path phases (6-14 and 16-18) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
-``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6;
+``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6, on a
+sharded index too for K4;
 ``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
 4 ranks for K1 under the ring schedules) with the
 launch counts set to 0 just before and read just after, each serving path
@@ -306,8 +322,12 @@ def main() -> int:
     rows += more
     rows.append(k7_phase(np, torch, "k7_radikal_full", D, threshold=0.2))
     sp, conv_s = generated(torch, lambda: from_dense(D))
-    rows += serve_radikal_phase(np, torch, "serve_radikal_full", D, sp, threshold=0.2, k=32)
-    del D
+    more, served = serve_radikal_phase(np, torch, "serve_radikal_full", D, sp, threshold=0.2,
+                                       k=32)
+    rows += more
+    rows += serve_sharded_phase(np, torch, "serve_sharded_radikal_full", D, sp, served,
+                                threshold=0.2, k=32)
+    del D, served
     torch.cuda.empty_cache()
     rows.append(sparse_phase(np, torch, "sparse_radikal_full", sp, conv_s,
                              threshold=0.2, k=32, dense=dense))
@@ -1382,10 +1402,12 @@ def f1_probe(np, torch) -> None:
     check(identical(np, ee, saturated(np, full, k)), "F1 probe: K5 differs from K4")
 
 
-def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
+def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> tuple[list, dict]:
     """``query_topk`` on the radikal corpus: a dense index (K4 at B = 64 and
     at B = 8, K5) and a sparse one (K6), 64 perturbed rows as queries; each
-    held against the plain path on the card and the oracle."""
+    held against the plain path on the card and the oracle. Returns the
+    ``kernels`` rows and, for the sharded phase, the queries, the oracle
+    and its near-threshold counts, and the K4 result at B = 64."""
     from repro_torch.data.sparse import perturbed_queries
     from repro_torch.interop import matches_to_numpy
     from repro_torch.serving import build_index, index_nbytes
@@ -1446,7 +1468,145 @@ def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> list:
     ]
     del dense, spidx
     torch.cuda.empty_cache()
-    return rows
+    return rows, dict(Q=Q, oracle=ref_np, near=near, k4_b64=k4, k4_b64_tiles=got["k4_b64"][1])
+
+
+def serve_sharded_phase(np, torch, phase, D, sp, served, *, threshold, k, p=4) -> list:
+    """Sharded serving on the radikal corpus: a dense index in ``p`` row-block
+    shards (``devices``: ``cuda:(s % device_count)``, all on one card
+    here), rows padded to a multiple of ``p · 256``, so the last shard's
+    last block is all padding and pruned; ``query_topk`` on the 64 queries
+    of ``serve_radikal_phase`` (``served``) launches K4 once per shard with
+    live tiles, at global ids. Its result must equal that phase's unsharded
+    K4 result bit for bit and agree with the oracle and the sharded plain
+    path. The same corpus in ``p`` CSR shards runs the plain gather-dot
+    path against the oracle and refuses ``use_kernel`` and ``early_exit``.
+    A ``RetrievalServer(use_kernel=True)`` on the dense shards answers the
+    64 queries with no retry or degradation, equal to the one-shot call."""
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import RetrievalServer, build_index, index_nbytes, query_topk
+    from repro_torch.serving.query import _query_mask, _queries, shard_worklists
+
+    t, bq = threshold, 64
+    Q, oracle, near = served["Q"], served["oracle"], served["near"]
+    B = Q.shape[0]
+    devices = [torch.device("cuda", s % torch.cuda.device_count()) for s in range(p)]
+    dense, build_d = generated(torch, lambda: build_index(D, block_rows=256, normalize=False,
+                                                          devices=devices))
+    check(dense.n_shards == p and dense.n_padded % (p * 256) == 0,
+          f"{phase}: {dense.n_shards} shards of {dense.n_padded} rows")
+    Qp = _queries(dense, Q)
+    Qp = torch.nn.functional.pad(Qp, (0, 0, 0, (-B) % bq))
+    mask, ub = _query_mask(Qp, dense.stats, threshold=t, block_q=bq, use_minsize=True,
+                           normalized=dense.normalized)
+    mask = mask.cpu().numpy()
+    work = shard_worklists(dense, mask, ub.cpu().numpy())
+    shard_tiles = [0] * p
+    for s, ij in work:
+        shard_tiles[s] = ij.shape[1]
+    live_shards = sum(1 for n in shard_tiles if n)
+    real_blocks = -(-dense.n // dense.block_rows)
+    check(not mask[:, real_blocks:].any() and sum(shard_tiles) == served["k4_b64_tiles"]["live"],
+          f"{phase}: per-shard live tiles {shard_tiles} against the unsharded "
+          f"{served['k4_b64_tiles']}, padding blocks live: {mask[:, real_blocks:].any()}")
+
+    def sharded(use_kernel=True):
+        return query_tiles(dense, Q, t, k, block_q=bq, use_kernel=use_kernel)
+
+    reset_launches()
+    (got, tiles), first_ms = timed(torch, sharded)
+    launches = launches_now()
+    check(launches["rect_tile_candidates"] == live_shards,
+          f"{phase}: K4 launched {launches['rect_tile_candidates']} times for "
+          f"{live_shards} shards with live tiles")
+    check(tiles["live"] == tiles["scored"] == sum(shard_tiles)
+          and tiles["total"] == dense.n_blocks, f"{phase}: tiles {tiles}, per shard "
+          f"{shard_tiles}")
+    g = matches_to_numpy(got)
+    plain = matches_to_numpy(sharded(use_kernel=False)[0])
+    cmp = dict(vs_oracle=compare(np, g, oracle, t, near), vs_plain=compare(np, g, plain, t, near),
+               identical_to_unsharded_k4=identical(np, g, served["k4_b64"]))
+    check(cmp["identical_to_unsharded_k4"],
+          f"{phase}: the sharded K4 result differs from the unsharded one")
+    check(cmp["vs_oracle"]["ok"] and cmp["vs_plain"]["ok"], f"{phase}: disagrees: {cmp}")
+    wall = dict(k4=wall_ms(np, torch, sharded),
+                plain=wall_ms(np, torch, lambda: sharded(use_kernel=False), reps=1))
+    profile = profiled(torch, sharded, wall["k4"]["median"],
+                       kernels={"rect_tile_candidates": "rect_part_kernel"})
+    check_profile(phase, profile)
+
+    kw = dict(block_q=bq, block_c=dense.block_rows, nc_valid=dense.n)
+    shard_ij = [(dense.shards[s], torch.from_numpy(ij).cuda()) for s, ij in work]
+
+    def k4_all():
+        return [fused.rect_tile_candidates_kernel(Qp, C, ij, t, k, **kw) for C, ij in shard_ij]
+
+    def plain_all():
+        return [fused.rect_tile_candidates_plain(Qp, C, ij, t, k, **kw) for C, ij in shard_ij]
+
+    shard_ms = [time_ms(np, torch, lambda: fused.rect_tile_candidates_kernel(
+        Qp, C, ij, t, k, **kw)) for C, ij in shard_ij]
+    wl = np.concatenate([ij for _, ij in work], axis=1)
+
+    def rows_of(packets):
+        return as_rows(np, *(torch.cat(f) for f in zip(*packets)))
+
+    pc = compare(np, rows_of(k4_all()), rows_of(plain_all()), t, tile_near(np, near, wl, bq))
+    check(pc["ok"], f"{phase}: K4 disagrees with its plain version on the shards: {pc}")
+    flop, nbytes = rect_work(np, wl[[0, 2]], B=B, n=dense.n, bq=bq, bc=dense.block_rows,
+                             depth=dense.m, k=k)
+    row = kernel_row(
+        np, torch, "rect_tile_candidates", f"{phase}/b64", launches, pc, k4_all, plain_all,
+        lambda: [library_rect(torch, Qp[:B], C, t, k) for C in dense.shards],
+        flop, nbytes + 4 * wl.shape[1],  # the worklists' third row
+    )
+    row.update(shards=p, shard_tiles=shard_tiles, shard_ms=shard_ms,
+               shard_ms_sum=float(sum(shard_ms)))
+
+    srv = RetrievalServer(dense, threshold=t, k=k, max_batch=B, block_q=bq, normalize=False,
+                          cache_size=0, use_kernel=True)
+    reset_launches()
+    results = srv.serve(list(Q.cpu().numpy()))
+    server_launches = launches_now()["rect_tile_candidates"]
+    stats = srv.stats
+    check(all(r.status == "ok" for r in results) and stats.retries == stats.degraded == 0,
+          f"{phase}: the server retried or degraded: {stats}")
+    check(server_launches == live_shards, f"{phase}: the server launched K4 "
+          f"{server_launches} times for one batch")
+    check(all(np.array_equal(r.values, g[0][i]) and np.array_equal(r.indices, g[1][i])
+              and r.count == g[2][i] for i, r in enumerate(results)),
+          f"{phase}: the server's answers differ from the one-shot query")
+    dense_bytes = index_nbytes(dense)
+    del dense, shard_ij, srv
+    torch.cuda.empty_cache()
+
+    spsh, build_s = generated(torch, lambda: build_index(sp, block_rows=256, normalize=False,
+                                                         devices=devices))
+    reset_launches()
+    (gs, sp_tiles), sp_first_ms = timed(torch, lambda: query_tiles(spsh, Q, t, k, block_q=bq))
+    sp_launches = {n: c for n, c in launches_now().items() if c}
+    cmp["sparse_vs_oracle"] = compare(np, matches_to_numpy(gs), oracle, t, near)
+    check(cmp["sparse_vs_oracle"]["ok"], f"{phase}: the sparse shards disagree: {cmp}")
+    refusals = {name: _raises(lambda: query_topk(spsh, Q, t, k, block_q=bq, **kw_),
+                              NotImplementedError)
+                for name, kw_ in (("use_kernel", dict(use_kernel=True)),
+                                  ("early_exit", dict(early_exit=True)))}
+    check(all(refusals.values()), f"{phase}: the sparse shards did not refuse: {refusals}")
+    wall["sparse_plain"] = wall_ms(np, torch, lambda: query_tiles(spsh, Q, t, k, block_q=bq))
+    emit(phase, n=D.shape[0], m=D.shape[1], threshold=t, k=k, queries=B, shards=p,
+         devices=[str(d) for d in devices], n_padded=spsh.n_padded, nb_local=spsh.nb_local,
+         shard_tiles=shard_tiles, tiles=tiles, sparse_tiles=sp_tiles,
+         index_build_s={"dense": build_d, "sparse": build_s},
+         index_bytes={"dense": dense_bytes, "sparse": index_nbytes(spsh)},
+         launches=launches, sparse_launches=sp_launches, server_launches=server_launches,
+         server=dict(requests=len(results), steps=stats.steps, retries=stats.retries,
+                     degraded=stats.degraded),
+         first_call_ms={"k4": first_ms, "sparse_plain": sp_first_ms}, wall_ms=wall,
+         profile=profile, shard_ms=shard_ms, compare=cmp, refusals=refusals)
+    del spsh
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def drive_server(srv, queries, nreq: int, *, step_server: bool):

@@ -759,6 +759,7 @@ def apss_2d(
     candidate_capacity: int | None = None,
     return_stats: bool = False,
     device: str | torch.device = "cuda",
+    ticker=None,
 ) -> Matches | tuple[Matches, ApssStats]:
     """2-D distribution: rows over ``row_axis``, dimensions over
     ``col_axis``; returns this rank's rows.
@@ -767,7 +768,9 @@ def apss_2d(
     the column axis at every ring step (paper Alg. 7). ``D`` may be a
     ``SparseCorpus``: cell ``(i, j)`` holds row shard ``i`` restricted to
     posting-list slice ``j`` (a host ``shard_dims`` split), and its CSR pair
-    rides the row ring.
+    rides the row ring. ``ticker`` (a ``distributed.straggler.StepTicker``)
+    takes one tick per rank per ring step: the seam the reference's sweep
+    has, where its telemetry creates the ticker (ROADMAP queue 1 item 5).
     """
     dev = device_of(device)
     if accumulation not in ("allreduce", "compressed"):
@@ -798,21 +801,23 @@ def apss_2d(
     out, stats = _checkerboard_sweep(
         partials, buf0, n_loc, threshold=threshold, k=k, mesh=mesh, row_axis=row_axis,
         col_axis=col_axis, bs=bs, capacity=candidate_capacity or default_candidate_capacity(k),
-        accumulation=accumulation, device=dev,
+        accumulation=accumulation, device=dev, ticker=ticker,
     )
     return (out, stats) if return_stats else out
 
 
 def _checkerboard_sweep(partials_fn, buf0, n_loc, *, threshold, k, mesh, row_axis,
-                        col_axis, bs, capacity, accumulation, device):
+                        col_axis, bs, capacity, accumulation, device, ticker=None):
     """The 2-D sweep of both representations: a ring of ``buf0`` over
     ``row_axis``; at each step ``partials_fn(buf, blk) -> (bs, n_loc)`` scores
     local query block ``blk`` against the travelling cell in this rank's
     dimension slice, and the block's scores are accumulated over
-    ``col_axis``."""
+    ``col_axis``. ``ticker`` takes one tick per ring step from this rank
+    (``row · r + column``), on the step's merged counts."""
     q = _axis_size(mesh, row_axis)
     r = _axis_size(mesh, col_axis)
     me_r = mesh.get_local_rank(row_axis)
+    rank = me_r * r + mesh.get_local_rank(col_axis)
     row_off = me_r * n_loc
     matches = empty_matches(n_loc, k, device)
     overflow = torch.zeros((), dtype=torch.int32, device=device)
@@ -833,6 +838,8 @@ def _checkerboard_sweep(partials_fn, buf0, n_loc, *, threshold, k, mesh, row_axi
                 parts.append(m)
                 overflow = overflow + ov
         matches = merge_matches(matches, Matches(*(torch.cat(f) for f in zip(*parts))))
+        if ticker is not None:
+            ticker.emit(s, rank, matches.counts.sum())
         buf = nxt
     overflow = _pmax(_pmax(overflow, mesh, col_axis), mesh, row_axis)
     return matches, ApssStats(overflow_rows=overflow)

@@ -16,7 +16,8 @@ candidacy test, since blocks that share no dimension have a zero bound.
 
 Local pruning (paper Lemma 1): if ``sim(x, y) ≥ t`` then at least one of
 ``p`` dimension shards sees a partial score ``≥ t/p``
-(:func:`local_threshold`).
+(:func:`local_threshold`); :func:`checkerboard_live_mask` composes the
+per-slice masks of the 2-D split by it.
 """
 
 from __future__ import annotations
@@ -277,3 +278,32 @@ def sparse_block_prune_mask(
         stats_r, stats_c, threshold,
         use_minsize=use_minsize, normalized=normalized, return_ub=return_ub,
     )
+
+
+def checkerboard_live_mask(
+    cells,
+    threshold: float,
+    block_rows: int,
+    *,
+    use_minsize: bool = True,
+) -> torch.Tensor:
+    """Self-join LIVE mask under a 2-D checkerboard dimension split.
+
+    ``cells`` are the ``r`` dimension slices of one corpus
+    (:func:`~repro_torch.core.sparse.dim_slices`). The mask is the OR over
+    cells of each cell's :func:`sparse_block_prune_mask` at Lemma 1's local
+    threshold ``t/r``: a pair with ``sim ≥ t`` has a partial ``≥ t/r`` in
+    some slice, so its tile is live in that cell's mask. Each cell's minsize
+    bound takes the unit-norm form although a cell's rows have norm ≤ 1,
+    which only over-bounds, so the composed mask stays sound. It is a
+    host-side candidacy check: the exact distributed rescoring needs every
+    cell's partials, so no schedule skips work by it.
+    """
+    t_local = local_threshold(threshold, len(cells))
+    live = None
+    for cell in cells:
+        cell_live = sparse_block_prune_mask(
+            cell, cell, t_local, block_rows, use_minsize=use_minsize, normalized=True,
+        )
+        live = cell_live if live is None else live | cell_live
+    return live

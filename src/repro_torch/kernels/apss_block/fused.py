@@ -791,8 +791,10 @@ def _check_rect_blocks(block_q: int, block_c: int, width: int) -> None:
 def _worklist_on(ij, dev: torch.device, rows: tuple[int, ...], limits) -> torch.Tensor:
     """``ij`` as a contiguous int32 worklist on ``dev``, checked: ``rows`` it
     may have, and per row the exclusive upper bound of its block ids
-    (``None``: any id ≥ 0)."""
-    ij = torch.as_tensor(ij).to(dev, torch.int32).contiguous()
+    (``None``: any id ≥ 0). A worklist given on the host is checked there
+    and copied without waiting for the device's queue, so that launches
+    on several shards do not wait on each other."""
+    ij = torch.as_tensor(ij).to(dtype=torch.int32).contiguous()
     if ij.dim() != 2 or ij.shape[0] not in rows or ij.shape[1] < 1:
         raise ValueError(
             f"ij must be a non-empty ({'|'.join(map(str, rows))}, T) worklist: "
@@ -801,7 +803,7 @@ def _worklist_on(ij, dev: torch.device, rows: tuple[int, ...], limits) -> torch.
     lo, *hi = torch.cat([ij.min()[None], ij.amax(dim=1)]).tolist()
     if lo < 0 or any(lim is not None and h >= lim for h, lim in zip(hi, limits)):
         raise ValueError("ij holds a block index outside the corpus or the queries")
-    return ij
+    return ij.to(dev, non_blocking=True)
 
 
 def _check_rect_operands(Q: torch.Tensor, C: torch.Tensor, block_q: int, block_c: int):

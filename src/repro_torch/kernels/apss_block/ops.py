@@ -193,22 +193,29 @@ def compact_rect_worklist(mask, ub=None) -> np.ndarray | None:
     return np.stack([iu, ju]).astype(np.int32)
 
 
-def _fold_by_block(blk, pv, pi, pc, *, grid, block, k):
+def _fold_by_block(blk, pv, pi, pc, *, grid, block, k, per_block=None):
     """Fold packets ``pv/pi (P, block, k)``, ``pc (P, block)`` into the row
     blocks ``blk (P,)`` they target: counts add, and one top-k per row over
     all of its block's packets by (value desc, id asc), which is exact
     because packets entering one row block come from disjoint column
     ranges. Packets are grouped by target block into a ``(grid, P_max,
-    block, k)`` buffer, ``P_max`` the most any block receives."""
+    block, k)`` buffer, ``P_max`` the most any block receives. A caller
+    that knows the packets per block on the host passes them
+    (``per_block``, numpy): the buffer is then sized without waiting on
+    the device."""
     dev = pv.device
     counts = torch.zeros((grid, block), dtype=torch.int32, device=dev)
     counts.index_add_(0, blk, pc.to(torch.int32))
     order = torch.argsort(blk, stable=True)
     blk = blk[order]
-    per_block = torch.bincount(blk, minlength=grid)
+    if per_block is None:
+        per_block = torch.bincount(blk, minlength=grid)
+        P = int(per_block.max())
+    else:
+        P = int(per_block.max())
+        per_block = torch.from_numpy(per_block).to(dev, non_blocking=True)
     start = torch.cumsum(per_block, 0) - per_block
     slot = torch.arange(blk.numel(), device=dev) - start[blk]
-    P = int(per_block.max())
     shape = (grid, P, block, k)
     buf_v = torch.full(shape, NEG_INF, dtype=torch.float32, device=dev)
     buf_i = torch.full(shape, -1, dtype=torch.int32, device=dev)
@@ -245,17 +252,21 @@ def fold_rect_packets(ij, tvalid, fv, fi, fc, *, grid_q, block_q, k):
 
     ``tvalid (T,)`` marks real worklist entries: padding entries (which may
     alias a real tile) are neutralised (values −inf, ids −1, counts 0)
-    before the merge, so they never count twice.
+    before the merge, so they never count twice. A worklist given as a
+    numpy array sizes the fold on the host, so that the fold does not wait
+    for the packets' kernel (the sharded query folds every shard's packets
+    before any result is read).
     """
     dev = fv.device
-    ij = torch.as_tensor(ij).to(dev, torch.long)
-    dead = ~torch.as_tensor(tvalid).to(dev, torch.bool)
+    per_block = np.bincount(ij[0], minlength=grid_q) if isinstance(ij, np.ndarray) else None
+    ij = torch.as_tensor(ij).to(dev, torch.long, non_blocking=True)
+    dead = ~torch.as_tensor(tvalid).to(dev, torch.bool, non_blocking=True)
     return _fold_by_block(
         ij[0],
         torch.where(dead[:, None, None], NEG_INF, fv),
         torch.where(dead[:, None, None], -1, fi),
         torch.where(dead[:, None], 0, fc),
-        grid=grid_q, block=block_q, k=k,
+        grid=grid_q, block=block_q, k=k, per_block=per_block,
     )
 
 

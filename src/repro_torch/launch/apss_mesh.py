@@ -20,6 +20,8 @@ mesh and returns, per variant:
   on it, and a kernel's device time then takes in the slices of the
   others: their sum can pass the wall;
 - ``overflow_rows`` where the variant returns stats;
+- ``ticks`` for a variant with ``ticks`` set (a 2-D one): the sorted
+  ``(rank, step)`` pairs of every rank's ``StepTicker`` in the first run;
 - ``matches`` (rank 0 only): the global ``Matches`` of the first run
   (``core.distributed.gather_matches``) as numpy ``(values, indices,
   counts)``.
@@ -28,7 +30,7 @@ A variant is a dict: ``name``; ``distribution``; ``mesh`` as ``(shape,
 names)``; ``corpus``, ``"dense"`` or ``"sparse"``; ``gather``, the axes
 the result's rows are sharded over (``None`` if replicated), and
 ``scatter``; ``kwargs`` for the entry point; and optionally ``threshold``
-in place of the run's.
+in place of the run's and ``ticks``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch.distributed as dist
 
 from repro_torch.core import distributed as dd
 from repro_torch.core.sparse import SparseCorpus
+from repro_torch.distributed.straggler import StepTicker
 from repro_torch.kernels.apss_block.fused import LAUNCHES
 from repro_torch.launch.mesh import make_mesh
 
@@ -87,6 +90,13 @@ def _device_ms(prof) -> dict:
     return dict(device_ms=ms(), copy_ms=ms("memcpy"), k1_ms=ms("apss::fused"))
 
 
+def _all_ticks(ticker: StepTicker) -> list:
+    """Every rank's ``(rank, step)`` ticks, gathered to each rank, sorted."""
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, [(r, s) for r, s, _ in ticker.tick_log()])
+    return sorted(tick for ticks in per_rank for tick in ticks)
+
+
 def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: float, k: int,
                  reps: int = 1) -> dict:
     """Rank function (``launch.mesh.spawn``): run every variant ``reps``
@@ -101,9 +111,9 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
         mesh = meshes[key]
         kw = dict(v.get("kwargs", {}), device=dev)
 
-        def call():
+        def call(**extra):
             return dd.apss(loaded[v["corpus"]], v.get("threshold", threshold), k, mesh,
-                           distribution=v["distribution"], **kw)
+                           distribution=v["distribution"], **kw, **extra)
 
         rec = {"wall_ms": [], "wire_ms": [], "wire_bytes": [],
                "device_ms": None, "copy_ms": None, "k1_ms": None}
@@ -112,9 +122,10 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
             _reset()
             dist.barrier()
             _sync(dev)
+            ticked = dict(ticker=StepTicker(dev)) if rep == 0 and v.get("ticks") else {}
             t0 = time.perf_counter()
             with _profile() if traced else contextlib.nullcontext() as prof:
-                got = call()
+                got = call(**ticked)
                 _sync(dev)
             dist.barrier()
             rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -125,6 +136,8 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
             if rep == 0:
                 rec["launches"] = dict(LAUNCHES)
                 first = got
+            if ticked:
+                rec["ticks"] = _all_ticks(ticked["ticker"])
         m = first
         if isinstance(first, tuple) and not isinstance(first, dd.Matches):
             m, stats = first

@@ -18,23 +18,41 @@ full scan's; counts saturate at ``min(count, k)``. K5 runs the rule on the
 card; everywhere else ``fused.early_exit_walk`` runs it, strict (k-th >
 bound) as its doc explains.
 
+On a sharded index (``index.n_shards > 1``) one global mask against the
+home device's block stats yields each shard's live tiles: its block range
+(``index.shard_block_range``) is sliced out and compacted into a ``(3, T)``
+worklist of local block coordinates whose last row carries the global
+block id, so packet ids are global and validity is checked against the
+global ``n``. Every dense shard is scored by K4 (or its plain version) on
+its own device, all launched before any fold, and a sparse shard by
+gather-dot against its CSR blocks; each partial is folded on its device
+and the partials are merged on the home device in ascending shard order,
+which keeps the unsharded fold's tie order (lower ids first). K4's scores
+do not depend on which tiles share a launch, so the sharded K4 result
+equals the unsharded one bit for bit. As in the reference, early exit and
+the kernel on a sparse shard raise ``NotImplementedError``.
+
 The worklist is not bucket-padded: the reference pads it to a power of two
 only so that its jitted inners do not retrace, and eager PyTorch does not
 trace. ``TILES`` counts the tiles of every call, as ``fused.LAUNCHES``
-counts launches; telemetry, metrics and trace hooks wait for ROADMAP queue
-1 item 7; the sharded path (item 4) and ``plan=`` (item 5) are not ported
-yet.
+counts launches. Still to come: ``plan=`` (ROADMAP queue 1 item 5); the
+``ApssStats`` records of the unsharded and the sharded query (items 5 and
+7), with the metrics and trace hooks (item 7).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from repro_torch.core.matches import Matches, empty_matches
+from repro_torch.core.matches import Matches, empty_matches, merge_matches
 from repro_torch.core.pruning import dense_block_stats, live_tile_mask
-from repro_torch.core.sparse import SparseCorpus, to_dense
+from repro_torch.core.sparse import SparseCorpus, gather_dot, to_dense
 from repro_torch.kernels.apss_block.fused import (
+    _RECT_CHUNK,
+    _rect_tile_packets,
     early_exit_walk,
     rect_tile_candidates_early_exit_kernel,
     rect_tile_candidates_kernel,
@@ -83,9 +101,19 @@ def query_topk(
     plain PyTorch (the reference has no kernel for it either) and scores
     each tile it does not skip through K6 or, without ``use_kernel``, its
     plain version. On a CPU index the wrappers run their plain versions.
-    Each call adds its tiles to ``TILES``.
+    A sharded index runs the per-shard path of the module doc. Each call
+    adds its tiles to ``TILES``.
     """
     Q = _queries(index, Q)
+    if index.n_shards > 1:
+        if early_exit:
+            raise NotImplementedError(
+                "early_exit is a single-host worklist optimization; the "
+                "sharded path prunes per shard but scans its full live "
+                "worklist"
+            )
+        return _sharded_query(index, Q, threshold, k, block_q=block_q,
+                              use_kernel=use_kernel, use_minsize=use_minsize)
     B = Q.shape[0]
     dev = index.device
     Qp = torch.nn.functional.pad(Q, (0, 0, 0, (-B) % block_q))
@@ -127,7 +155,7 @@ def _queries(index: APSSIndex, Q) -> torch.Tensor:
         return Q.float()
     if Q.dtype not in (torch.float32, torch.bfloat16):
         Q = Q.float()
-    width = index.corpus.shape[1]
+    width = index.shards[0].shape[1]
     return torch.nn.functional.pad(Q, (0, width - index.m)).contiguous()
 
 
@@ -179,3 +207,87 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
     values, indices, counts = fold_rect_packets(
         ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
     return values, indices, counts, T
+
+
+def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) -> Matches:
+    """The sharded path of the module doc: one global mask, a ``(3, T)``
+    worklist per shard with live tiles, every shard's packets launched,
+    then each folded on its device and the partials merged in shard order
+    on the home device, with no wait on a device after the mask."""
+    if index.is_sparse and use_kernel:
+        raise NotImplementedError(
+            "sharded sparse indexes score via the XLA gather path (no "
+            "bdims/bx support compaction is built per shard); use_kernel "
+            "applies to dense shards"
+        )
+    B = Q.shape[0]
+    Qp = torch.nn.functional.pad(Q, (0, 0, 0, (-B) % block_q))
+    grid_q = Qp.shape[0] // block_q
+    mask, ub = _query_mask(
+        Qp, index.stats, threshold=threshold, block_q=block_q,
+        use_minsize=use_minsize, normalized=index.normalized,
+    )
+    mk, ubh = mask.cpu().numpy(), ub.cpu().numpy()
+    work = shard_worklists(index, mk, ubh)
+    live = sum(ij.shape[1] for _, ij in work)
+    TILES["total"] += int(mk.size)
+    TILES["live"] += live
+    TILES["scored"] += live
+    if not work:
+        return empty_matches(B, k, index.device)
+    # Every shard's launch is enqueued before its fold, and the folds take
+    # host worklists (sized on the host), so nothing here waits on a
+    # device: shards on several cards overlap, shards on one card queue.
+    packets = [_shard_packets(index, s, Qp, ij, threshold, k, block_q=block_q,
+                              use_kernel=use_kernel) for s, ij in work]
+    parts = []
+    for (_, ij), (fv, fi, fc) in zip(work, packets):
+        folded = fold_rect_packets(ij, np.ones(ij.shape[1], bool), fv, fi, fc[..., 0],
+                                   grid_q=grid_q, block_q=block_q, k=k)
+        parts.append(Matches(*(x.to(index.device) for x in folded)))
+    out = functools.reduce(merge_matches, parts)
+    return Matches(values=out.values[:B], indices=out.indices[:B], counts=out.counts[:B])
+
+
+def shard_worklists(index, mask: np.ndarray, ub: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    """``(s, ij)`` for each shard with live tiles of the global host ``mask``
+    and bounds ``ub``: its block range compacted by bound into a ``(3, T)``
+    worklist of query block, local corpus block and global corpus block."""
+    work = []
+    for s in range(index.n_shards):
+        lo, hi = index.shard_block_range(s)
+        wl = compact_rect_worklist(mask[:, lo:hi], ub[:, lo:hi])
+        if wl is not None:
+            work.append((s, np.concatenate([wl, wl[1:2] + lo])))
+    return work
+
+
+def _shard_packets(index, s, Qp, ij, threshold, k, *, block_q, use_kernel):
+    """Shard ``s``'s packets of the ``(3, T)`` host worklist ``ij``."""
+    dev = index.shard_device(s)
+    kw = dict(block_q=block_q, block_c=index.block_rows, nc_valid=index.n)
+    if index.is_sparse:
+        return _sparse_shard_packets(Qp.to(dev), index.shards[s], ij, threshold, k, **kw)
+    score = rect_tile_candidates_kernel if use_kernel else rect_tile_candidates_plain
+    return score(Qp.to(dev), index.shards[s], torch.from_numpy(ij), threshold, k, **kw)
+
+
+def _sparse_shard_packets(Qp, shard, ij, threshold, k, *, block_q, block_c, nc_valid):
+    """K4's packets on a CSR shard: ``gather_dot`` of query block ``ij[0, t]``
+    against the shard's block ``ij[1, t]``, packet ids from the global block
+    ``ij[2, t]`` (the reference's ``sparse_body``); ``_RECT_CHUNK`` tiles are
+    selected at a time."""
+    idx, val, _ = shard  # every slot is summed, padding slots add 0
+    cap = idx.shape[1]
+    ci, cv = idx.view(-1, block_c, cap), val.view(-1, block_c, cap)
+    qb = Qp.float().view(-1, block_q, Qp.shape[1])
+    outs = []
+    for a in range(0, ij.shape[1], _RECT_CHUNK):
+        t = slice(a, a + _RECT_CHUNK)
+        s = torch.stack([gather_dot(qb[qi], ci[cj], cv[cj])
+                         for qi, cj in zip(ij[0, t].tolist(), ij[1, t].tolist())])
+        outs.append(_rect_tile_packets(
+            s, torch.from_numpy(ij[2, t]), threshold=threshold, k=k, block_q=block_q,
+            block_c=block_c, nc_valid=nc_valid,
+        ))
+    return tuple(torch.cat(parts) for parts in zip(*outs))

@@ -22,10 +22,15 @@ prefers a worse answer now over a perfect answer too late:
 
 The ladder absorbs what load and injected faults cause, not faults of the
 code: a :class:`~repro_torch.kernels._build.KernelError` (a kernel that does
-not build, load or launch) or a ``ValueError`` (a wrapper refusing its
-operands) would fail every retry alike, and degrading past it would hide a
-broken kernel behind the plain tier. It propagates from ``step()``, or, in
-the continuous server, stops the workers and re-raises from ``result()``.
+not build, load or launch), a ``ValueError`` (a wrapper refusing its
+operands) or a ``NotImplementedError`` (a tier the index cannot run, such
+as the kernel on a sparse sharded index) would fail every retry alike, and
+degrading past it would hide a kernel that can never run behind the plain
+tier. It propagates from ``step()``, or, in the continuous server, stops
+the workers and re-raises from ``result()``.
+
+Both servers take a sharded index unchanged: each batch goes to the
+index's home device and ``query_topk`` runs the per-shard path.
 
 Each event is counted in :class:`ServerStats`. Adversarial input is
 rejected at ``submit``: non-numeric dtypes, non-finite values and a wrong
@@ -55,7 +60,7 @@ from repro_torch.serving.index import APSSIndex
 from repro_torch.serving.query import query_topk
 
 # Faults of the code, not of the load: never retried, never degraded past.
-_CODE_FAULTS = (KernelError, ValueError)
+_CODE_FAULTS = (KernelError, ValueError, NotImplementedError)
 
 
 class RetrievalResult(NamedTuple):
@@ -79,11 +84,14 @@ class ServerStats(NamedTuple):
 
 
 class RetrievalServer:
-    """Batched online retrieval over a prebuilt :class:`APSSIndex`.
+    """Batched online retrieval over a prebuilt :class:`APSSIndex`, whole or
+    sharded. Not yet ported: the reference's telemetry counters of sheds,
+    degradations and retries and the ``ApssStats`` of each batch's query
+    (ROADMAP queue 1 items 5 and 7), and its live index (item 6).
 
     Args:
-      index: built once by :func:`~repro_torch.serving.index.build_index`;
-        batches are scored on its device.
+      index: built once by :func:`~repro_torch.serving.index.build_index`,
+        whole or in row-block shards; batches go to its (home) device.
       threshold / k: fixed per server.
       max_batch: padded batch width; requests beyond it wait for the next
         step boundary.

@@ -16,9 +16,10 @@ JOIN_TIMEOUT_S = 240.0  # one set of ranks, every variant
 
 
 def variant(name, distribution, shape, names, corpus="dense", *, gather=None,
-            scatter=False, threshold=T, **kwargs) -> dict:
+            scatter=False, threshold=T, ticks=False, **kwargs) -> dict:
     return dict(name=name, distribution=distribution, mesh=(shape, names), corpus=corpus,
-                gather=gather, scatter=scatter, threshold=threshold, kwargs=kwargs)
+                gather=gather, scatter=scatter, threshold=threshold, ticks=ticks,
+                kwargs=kwargs)
 
 
 def run_ranks(run_dir, p: int, corpora: dict, variants: list) -> dict:

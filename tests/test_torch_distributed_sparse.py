@@ -42,7 +42,7 @@ VARIANTS4 = [
               candidate_capacity=128, return_stats=True, **SP)
       for a in ("allreduce", "scatter", "compressed", "recursive")),
     *(variant(f"2d_{a}", "2d", *GRID, gather="data", accumulation=a, block_rows=16,
-              candidate_capacity=128, return_stats=True, **SP)
+              candidate_capacity=128, return_stats=True, ticks=True, **SP)
       for a in ("allreduce", "compressed")),
 ]
 VARIANTS3 = [
@@ -87,6 +87,14 @@ def test_three_ranks_odd_ring_equal_jax(ranks, corpus, v):
     ref, _ = jax_run(jsparse.from_dense(jnp.asarray(D)), v)
     assert_clear_of_threshold(D, D, T, exclude_self=True)
     assert_same_matches(td.Matches(*ranks[v["name"]]["matches"]), ref)
+
+
+@pytest.mark.parametrize("name", ["2d_allreduce", "2d_compressed"])
+def test_step_ticker_ticks_once_per_rank_and_ring_step(ranks, name):
+    """``StepTicker`` through the 2-D sweep's seam: on the (2, 2) grid every
+    one of the 4 ranks ticks each of the q = 2 ring steps exactly once."""
+    assert [tuple(t) for t in ranks[name]["ticks"]] == [(r, s) for r in range(4)
+                                                        for s in range(2)]
 
 
 def test_csr_triple_travels_instead_of_dense_rows(ranks, corpus):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 and K2 (the dense self-join), K3 (the sparse one), K7 (the dense score
-matrix), the serving kernels K4, K5 and K6, and the LM's attention kernels
+matrix), the serving kernels K4 (also per shard of a sharded index), K5
+and K6, and the LM's attention kernels
 K8 (flash attention) and K9 (flash-decode partials). Every test here needs
 an NVIDIA Hopper card and ``nvcc``;
 each decides that inside itself (the ``card`` fixture) and skips with a
@@ -1016,6 +1017,39 @@ def test_query_topk_on_card_matches_plain_path(card, kind):
         assert got.values.device.type == "cuda"
         counts = ref.counts.clamp_max(16) if early_exit else ref.counts
         _assert_close((got.values, got.indices, got.counts), (ref.values, ref.indices, counts))
+
+
+def test_sharded_k4_bit_identical_to_unsharded(card):
+    """K4 per shard at p = 4 on one card: 900 rows pad to 960 unsharded and
+    to 1,024 in 4 shards of 4 blocks of 64, so block 15 is all padding,
+    pruned, and shard 3 scores one tile fewer. One launch per shard, global
+    ids, and the merged result equal to the unsharded K4's bit for bit."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import build_index, query_topk
+    from repro_torch.serving import query as tquery
+
+    C, Q = _corp(900, 300, seed=51), _corp(40, 300, seed=52)
+    assert_clear_of_threshold(Q, C, 0.3)
+    flat = build_index(C, block_rows=64, normalize=False)
+    sharded = build_index(C, block_rows=64, normalize=False, devices=[card] * 4)
+    assert (flat.n_padded, sharded.n_padded, sharded.nb_local) == (960, 1024, 4)
+    assert float(sharded.stats.mw[15]) == 0.0
+    kw = dict(block_q=64, use_kernel=True)
+    tquery.TILES.update(total=0, live=0, scored=0)
+    ref = query_topk(flat, Q, 0.3, 16, **kw)
+    flat_tiles = dict(tquery.TILES)
+    tquery.TILES.update(total=0, live=0, scored=0)
+    before = fused.LAUNCHES["rect_tile_candidates"]
+    got = query_topk(sharded, Q, 0.3, 16, **kw)
+    assert fused.LAUNCHES["rect_tile_candidates"] - before == 4
+    assert tquery.TILES["live"] == flat_tiles["live"] == 15 and tquery.TILES["total"] == 16
+    assert got.values.device.type == "cuda"
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.counts.sum()) > 0 and int(got.indices.max()) >= 3 * 256
+    plain = query_topk(sharded, Q, 0.3, 16, block_q=64)
+    _assert_close((got.values, got.indices, got.counts),
+                  (plain.values, plain.indices, plain.counts))
 
 
 def test_server_raises_when_a_kernel_refuses_its_operands(card):

@@ -59,6 +59,18 @@ Phases, each printing one JSON line:
    of 5), one call under ``torch.profiler`` (host ops, device busy time,
    idle share), each shard's K4 time and their sum, build seconds and
    bytes of both sharded indexes.
+    Then ``planner_auto`` (``planner_auto_phase``): the execution planner
+    calibrated on the card (the profile printed beside the card's name and
+    power limit), ``plan_apss`` on ``radikal_full`` (dense input) and
+    ``clustered_65k`` with the card's kernel candidates: the ranking, the
+    best candidate of each (kind, representation, kernel) timed through
+    the planner's ``execute`` (K1 and K3 launch in their candidates),
+    predicted against measured, whether the choice lands within 2x of the
+    best measured (printed, not gated); ``plan.run()`` held to the phase's
+    plain result, with its telemetry records (live fraction, modeled
+    FLOPs, FLOPs per measured second); ``query_topk(plan="auto")`` on
+    phase 9's dense index at B = 64 and 8 and on its CSR index: the
+    kernel chosen, K4 or K6 launched, the fixed K4 or K6 result equalled.
 10. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
     ``apss_blocked(sp, use_kernel=True)`` (K3), held against the plain
     sparse path and against phase 7's K2 result (counts exactly equal: both
@@ -86,7 +98,10 @@ Phases, each printing one JSON line:
     data), dense through K1 at each step's runtime offsets; vertical
     allreduce, scatter, compressed and recursive on (4,) ``model``; 2-D
     allreduce and compressed on (2, 2); the same on the corpus's CSR form
-    (gather-dot, no kernel). Compressed and recursive run at the
+    (gather-dot, no kernel), and ``distribution="auto"`` on the CSR form
+    (``calibrate(mesh)`` in the ranks, then ``plan_apss`` on each rank:
+    one config chosen on all ranks, each rank's record's ppermute bytes
+    equal to the bytes it sent). Compressed and recursive run at the
     candidate capacity that truncates no row (computed from the partial
     scores on the card). Per variant: the wall (median of 3 runs, rank
     0's host clock between barriers and synchronizes), each rank's
@@ -273,10 +288,7 @@ def main() -> int:
 
     import repro_torch  # noqa: F401  (fails when run outside a checkout)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_name_power()
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     emit("device", kind=kind, nvidia_smi=smi, capability=list(cap),
@@ -312,7 +324,9 @@ def main() -> int:
     emit("clocks_before_timed_rows", nvidia_smi=clocks(), query=CLOCK_QUERY)
     D, gen_s = generated(torch, lambda: torch.from_numpy(
         clustered_corpus(65536, 768, 8, n_clusters=32, seed=0)).cuda())
-    rows, _ = main_path_phase(np, torch, "clustered_65k", D, gen_s, threshold=0.5, k=32)
+    rows, clustered = main_path_phase(np, torch, "clustered_65k", D, gen_s, threshold=0.5,
+                                      k=32)
+    clustered = dict(D=D, sp=None, single=clustered, threshold=0.5)  # for planner_auto
     del D
     radikal, gen_s = generated(torch, lambda: synthetic_corpus(
         6883, 136447, 1072472 / 6883, seed=0))  # kept on the host for the distributed phase
@@ -327,7 +341,10 @@ def main() -> int:
     rows += more
     rows += serve_sharded_phase(np, torch, "serve_sharded_radikal_full", D, sp, served,
                                 threshold=0.2, k=32)
-    del D, served
+    planner_auto_phase(np, torch, "planner_auto", {
+        "radikal_full": dict(D=D, sp=sp, single=single, threshold=0.2),
+        "clustered_65k": clustered}, served, k=32)
+    del D, served, clustered
     torch.cuda.empty_cache()
     rows.append(sparse_phase(np, torch, "sparse_radikal_full", sp, conv_s,
                              threshold=0.2, k=32, dense=dense))
@@ -1406,8 +1423,9 @@ def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> tuple[list,
     """``query_topk`` on the radikal corpus: a dense index (K4 at B = 64 and
     at B = 8, K5) and a sparse one (K6), 64 perturbed rows as queries; each
     held against the plain path on the card and the oracle. Returns the
-    ``kernels`` rows and, for the sharded phase, the queries, the oracle
-    and its near-threshold counts, and the K4 result at B = 64."""
+    ``kernels`` rows and, for the sharded and planner phases, the queries,
+    the oracle and its near-threshold counts, the K4 results at B = 64 and
+    8, the K6 result and both indices."""
     from repro_torch.data.sparse import perturbed_queries
     from repro_torch.interop import matches_to_numpy
     from repro_torch.serving import build_index, index_nbytes
@@ -1466,9 +1484,9 @@ def serve_radikal_phase(np, torch, phase, D, sp, *, threshold, k) -> tuple[list,
         k5_row(np, torch, phase, launches["k5_b64"], dense, Q, near, bq=64, **kw),
         k6_row(np, torch, phase, launches["k6_b64"], spidx, Q, near, bq=64, **kw),
     ]
-    del dense, spidx
-    torch.cuda.empty_cache()
-    return rows, dict(Q=Q, oracle=ref_np, near=near, k4_b64=k4, k4_b64_tiles=got["k4_b64"][1])
+    return rows, dict(Q=Q, oracle=ref_np, near=near, k4_b64=k4, k4_b64_tiles=got["k4_b64"][1],
+                      k4_b8=matches_to_numpy(got["k4_b8"][0]),
+                      k6_b64=matches_to_numpy(got["k6_b64"][0]), dense=dense, spidx=spidx)
 
 
 def serve_sharded_phase(np, torch, phase, D, sp, served, *, threshold, k, p=4) -> list:
@@ -2196,6 +2214,154 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 DIST_REPS = 3  # wall-clock runs of each variant (median); the first is profiled
 
 
+# ---------------------------------------------------------------------------
+# The execution planner
+# ---------------------------------------------------------------------------
+
+PLAN_SLOW_MS = 5000.0  # a candidate whose warm-up takes longer is timed by it alone
+# The calibration's sizes. Its matmul rate is the slope between the plain
+# join at depths m and m/8. At n = m = 4096 the per-score extraction
+# swamped the depth's share, and two runs of this script on an NVIDIA H100
+# 80GB HBM3 at 700 W fitted 105,454 and 556,670 GF/s, above the card's f32
+# peak. At m = 32768 the depth is most of the join, and 10 runs a point
+# tame the host clock.
+CALIBRATION = dict(n=2048, m=32768, cap=64, m_sparse=16384, iters=10)
+
+
+def smi_name_power() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def record_summary(r, ms: float) -> dict:
+    """A telemetry record of a call that took ``ms``: its live fraction,
+    modeled FLOPs and FLOPs per measured second."""
+    return dict(variant=r.variant, n=r.n, m=r.m, block_rows=r.block_rows,
+                live_fraction=r.live_fraction, flops=r.flops, wire_bytes=r.wire_bytes,
+                flops_per_s=r.flops / (ms / 1e3) if ms > 0 else None, ms=ms)
+
+
+def planner_auto_phase(np, torch, phase, cells, served, *, k) -> None:
+    """The execution planner (``repro_torch.planner``) on the card.
+
+    Calibrates (``calibrate(**CALIBRATION)``, cached under
+    ``build/calibration``) and prints the profile beside the card's name
+    and power limit. Per cell (``cells``: the dense corpus, its
+    CSR form or None, the phase's plain result and near-threshold counts,
+    the threshold): ``plan_apss`` with the kernel candidates the card
+    offers, its ranking printed (``describe``); one config of each (kind,
+    sparse, use_kernel) is timed through the planner's ``execute`` on the
+    prepared representation (the chosen config for its own group, the
+    largest block for the others: the plain paths' Python loops run the
+    fewest blocks there), median of 3 after a warm-up (a candidate whose
+    warm-up takes over ``PLAN_SLOW_MS`` by that run alone), each kernel
+    candidate launching its kernel (K1, K3) and no plain one; predicted against measured, their ratio, and whether the
+    chosen config lands within 2x of the best measured (printed, not
+    gated). ``plan.run()`` under a telemetry log is held to the phase's
+    plain result by ``compare()``, and its records printed (live fraction,
+    modeled FLOPs, FLOPs per measured second). Then ``query_topk(plan=
+    "auto")`` on ``served``'s dense index at B = 64 and 8 and on its CSR
+    index: each plan chooses the kernel, K4 or K6 launches, and the result
+    equals its phase's fixed K4 or K6 result and agrees with the oracle."""
+    import functools
+    import os
+    import statistics
+
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.planner import CommLog, execute, plan_apss, plan_query_topk
+    from repro_torch.planner import calibrate as cal
+    from repro_torch.serving import query_topk
+
+    t_phase = time.perf_counter()
+    os.environ["REPRO_CALIB_DIR"] = str(ROOT / "build" / "calibration")  # ranks inherit it
+    cal._MEMO.clear()
+    profile, calib_s = generated(torch, lambda: cal.calibrate(**CALIBRATION))
+    emit(f"{phase}/calibration", seconds=calib_s, nvidia_smi=smi_name_power(),
+         path=str(cal.profile_path().relative_to(ROOT)), profile=dataclasses.asdict(profile))
+    kernel_of = {False: "apss_fused", True: "sparse_tile_candidates"}
+    for cell, c in cells.items():
+        D, t = c["D"], c["threshold"]
+        plan, plan_s = generated(torch, lambda: plan_apss(D, t, k))
+        print(plan.describe(top=len(plan.estimates)), flush=True)
+        data = {False: D}
+        if any(e.config.sparse for e in plan.estimates):
+            data[True] = c["sp"] if c["sp"] is not None else from_dense(D, device=D.device)
+        groups = {}  # (kind, sparse, use_kernel) -> the estimate timed for it
+        for e in plan.estimates:
+            key = (e.config.kind, e.config.sparse, e.config.use_kernel)
+            if key not in groups or (groups[key] is not plan.cost
+                                     and e.config.block_rows > groups[key].config.block_rows):
+                groups[key] = e
+        cands, failed = [], []
+        for e in sorted(groups.values(), key=plan.estimates.index):
+            cfg = e.config
+            fn = functools.partial(execute, cfg, data[cfg.sparse], t, k, prepared=True)
+            reset_launches()
+            _, warm_ms = timed(torch, fn)
+            runs = [warm_ms] if warm_ms > PLAN_SLOW_MS else [timed(torch, fn)[1]
+                                                             for _ in range(3)]
+            launched = launches_now()[kernel_of[cfg.sparse]]
+            if (launched > 0) != cfg.use_kernel:
+                failed.append(f"{cfg.name} launched {kernel_of[cfg.sparse]} {launched} times")
+            e.measured_s = statistics.median(runs) / 1e3
+            cands.append(dict(config=cfg.name, predicted_ms=e.total_s * 1e3,
+                              measured_ms=e.measured_s * 1e3,
+                              predicted_over_measured=e.total_s / e.measured_s,
+                              runs_ms=runs, warmup_ms=warm_ms,
+                              kernel_launches=launched))
+        best = min(cands, key=lambda x: x["measured_ms"])
+        chosen = cands[0]  # the plan's config ranks first and is timed itself
+        reset_launches()
+        with CommLog() as log:
+            res, run_ms = timed(torch, plan.run)
+        cmp = compare(np, matches_to_numpy(res), c["single"]["ref"], t, c["single"]["near"])
+        emit(f"{phase}/{cell}", threshold=t, k=k, chosen=plan.config.name, plan_s=plan_s,
+             summary=plan.summary.as_dict(), candidates=cands, best=best["config"],
+             chosen_ms=chosen["measured_ms"], best_ms=best["measured_ms"],
+             chosen_within_2x_of_best=chosen["measured_ms"] <= 2 * best["measured_ms"],
+             run_ms=run_ms, run_launches=launches_now(), vs_plain=cmp,
+             records=[record_summary(r, run_ms) for r in log.records])
+        check(chosen["config"] == plan.config.name, f"{phase}/{cell}: ranking and timing differ")
+        check(not failed, f"{phase}/{cell}: " + "; ".join(failed))
+        check(cmp["ok"], f"{phase}/{cell}: plan.run() disagrees with the plain path: {cmp}")
+        del data, res
+
+    t = cells["radikal_full"]["threshold"]
+    Q, near = served["Q"], served["near"]
+    queries = {  # name: (index, batch, the phase's fixed result, kernel)
+        "dense_b64": (served["dense"], 64, served["k4_b64"], "rect_tile_candidates"),
+        "dense_b8": (served["dense"], 8, served["k4_b8"], "rect_tile_candidates"),
+        "csr_b64": (served["spidx"], 64, served["k6_b64"], "rect_sparse_tile_candidates"),
+    }
+    for name, (index, B, fixed, kname) in queries.items():
+        qplan = plan_query_topk(index, B, t, k)
+
+        def call():
+            return query_topk(index, Q[:B], t, k, plan="auto")
+
+        reset_launches()
+        with CommLog() as log:
+            got, first_ms = timed(torch, call)
+        launched = launches_now()[kname]
+        g = matches_to_numpy(got)
+        vs_fixed = compare(np, g, fixed, t, near[:B])
+        vs_oracle = compare(np, g, tuple(a[:B] for a in served["oracle"]), t, near[:B])
+        emit(f"{phase}/query_{name}", batch=B, plan=qplan.as_dict(), launches={kname: launched},
+             identical_to_fixed=identical(np, g, fixed), vs_fixed=vs_fixed,
+             vs_oracle=vs_oracle, first_call_ms=first_ms, wall_ms=wall_ms(np, torch, call),
+             records=[record_summary(r, first_ms) for r in log.records])
+        check(qplan.use_kernel, f"{phase}/query_{name}: the plan did not choose the kernel")
+        check(launched > 0, f"{phase}/query_{name}: {kname} never ran")
+        check(vs_fixed["ok"] and vs_oracle["ok"],
+              f"{phase}/query_{name}: planned query disagrees: {vs_fixed} {vs_oracle}")
+    emit(f"{phase}/done", seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+
+
 def dist_variants(capacity4: int, capacity2: int) -> list:
     """Every variant of the distributed phase, dense then sparse, as
     ``launch.apss_mesh`` variants."""
@@ -2222,6 +2388,11 @@ def dist_variants(capacity4: int, capacity2: int) -> list:
                             corpus=corpus, gather="data",
                             kwargs=dict(accumulation=a, block_rows=512,
                                         candidate_capacity=capacity2, return_stats=True)))
+    # The planner's choice on the sparse corpus (the dense one exceeds
+    # MAX_DENSIFY_BYTES, so only sparse configs are candidates), after
+    # calibrate(mesh) in the ranks.
+    out.append(dict(name="sparse_auto", distribution="auto", mesh=row, corpus="sparse",
+                    kwargs={}, calibrate=CALIBRATION))
     return out
 
 
@@ -2300,6 +2471,22 @@ def dist_expected_bytes(v: dict, *, n: int, m: int, k: int, cap: int, cap_loc4: 
     return out
 
 
+def auto_check(per_rank, sent) -> list:
+    """The ``distribution="auto"`` variant: one config chosen on every rank,
+    and each rank's record's ppermute bytes equal to the bytes it sent."""
+    failed = []
+    chosen = per_rank[0]["chosen"]
+    if len(set(chosen)) != 1:
+        failed.append(f"auto: the ranks chose {chosen}")
+    for r, (rec, counted) in enumerate(zip(per_rank, sent)):
+        recorded = sum(h["bytes_per_hop"] * h["hops"] for rr in rec["records"]
+                       for h in rr["hops"] if h["op"] == "ppermute")
+        if recorded != counted["ppermute"]:
+            failed.append(f"auto: rank {r} recorded {recorded} ppermute bytes, sent "
+                          f"{counted['ppermute']}")
+    return failed
+
+
 def dist_row_check(np, got, single, n0: int, t: float) -> dict:
     """A gathered distributed result against the single-device reference:
     rows below ``n0`` by the comparison rule, padded rows empty."""
@@ -2360,8 +2547,12 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
     for v in variants:
         name = v["name"]
         per_rank = [r[name] for r in recs]
-        want = dist_expected_bytes(v, **sizes)
         sent = [rec["wire_bytes"][0] for rec in per_rank]
+        if v["distribution"] == "auto":
+            failed += auto_check(per_rank, sent)
+            want = sent[0]  # the chosen schedule's: its ppermute bytes are held to the record
+        else:
+            want = dist_expected_bytes(v, **sizes)
         cmp = dist_row_check(np, per_rank[0]["matches"], single, n0, t)
         uses_k1 = bool(v["kwargs"].get("use_kernel"))
         k1 = [rec["launches"]["apss_fused"] for rec in per_rank]
@@ -2376,6 +2567,8 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
             bytes_sent=[sum(b.values()) for b in sent], bytes_expected=sum(want.values()),
             k1_launches=k1, overflow_rows=per_rank[0].get("overflow_rows"),
             capacity=v["kwargs"].get("candidate_capacity"), vs_single=cmp,
+            chosen=per_rank[0].get("chosen"), profile=per_rank[0].get("profile"),
+            records=per_rank[0]["records"],
         )
         if not (cmp["ok"] and cmp["vs_k1"] and cmp["padded_rows_empty"]):
             failed.append(f"{name} disagrees with the single-device reference: {cmp}")

@@ -13,8 +13,11 @@ the inverted-index worklist and the CSR tile kernel K3
 
 Entry points take numpy arrays, tensors or a ``SparseCorpus`` and
 ``device=`` (default ``"cuda"``, which raises when there is no card; the
-CPU runs the plain versions of the kernels). The planner's
-``variant="auto"`` is ROADMAP queue 1 item 5.
+CPU runs the plain versions of the kernels). ``similarity_topk(...,
+variant="auto")`` hands the self-join to the execution planner
+(``planner.plan_apss``). With a telemetry log active
+(``planner.telemetry.CommLog``) each ``apss_blocked`` call records one
+``ApssStats``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,16 @@ from repro_torch.core.sparse import (
     sparse_similarity_topk,
 )
 from repro_torch.interop import as_corpus
+from repro_torch.planner import telemetry
+
+
+def _mask_counts(mask):
+    """Host-side live-tile accounting from a mask: (live, total, per-row
+    counts), or Nones without a mask. Read only when telemetry is on."""
+    if mask is None:
+        return None, None, None
+    mk = mask.cpu().numpy()
+    return int(mk.sum()), int(mk.size), tuple(int(x) for x in mk.sum(axis=1))
 
 
 def normalize_rows(D: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -92,6 +105,7 @@ def similarity_topk(
     col_valid: Optional[torch.Tensor] = None,
     use_kernel: bool = False,
     variant: Optional[str] = None,
+    mesh=None,
     device: str | torch.device = "cuda",
 ) -> Matches:
     """Blocked similarity join of queries ``Q (nq, m)`` vs corpus ``C (nc, m)``.
@@ -106,13 +120,31 @@ def similarity_topk(
     Two ``SparseCorpus`` inputs take ``core.sparse.sparse_similarity_topk``
     (no ``use_kernel``, no ``col_valid``: the sparse kernel path is the
     self-join ``apss_blocked``).
+
+    ``variant="auto"`` hands the whole self-join to the execution planner
+    (``planner.plan_apss``): ``Q`` must be ``C`` (the same object) with
+    ``exclude_self=True``, and ``mesh`` (optional; then every rank calls)
+    opens the distributed variants to the candidate set. The plan runs on
+    ``device``; every other argument is chosen by the planner from sampled
+    corpus statistics and the calibrated cost models.
     """
-    if variant == "auto":
-        raise NotImplementedError(
-            "variant='auto' needs the execution planner: ROADMAP queue 1 item 5"
-        )
-    if variant is not None:
+    if variant not in (None, "auto"):
         raise ValueError(f"unknown variant: {variant!r} (only 'auto')")
+    if variant == "auto":
+        if Q is not C:
+            raise ValueError(
+                "variant='auto' plans the APSS self-join: pass the same "
+                "object as Q and C (rectangular retrieval is served by "
+                "serving.query_topk against a prebuilt index)"
+            )
+        if not exclude_self:
+            raise ValueError(
+                "variant='auto' dispatches to self-join variants, which "
+                "exclude self-pairs; pass exclude_self=True"
+            )
+        from repro_torch.planner.plan import plan_apss
+
+        return plan_apss(Q, threshold, k, mesh, device=device).run()
     if isinstance(Q, SparseCorpus) != isinstance(C, SparseCorpus):
         raise ValueError(
             "Q and C must use the same representation "
@@ -186,6 +218,11 @@ def apss_blocked(
     self-join then takes the sparse path, the inverted-index worklist and
     K3 (``use_kernel=True``) or the blocked gather-dot join
     (``use_kernel=False``). Both are exact on the densified corpus.
+
+    Records ``blocked/dense-kernel`` or ``blocked/dense-xla`` (the plain
+    path, under the reference's name), ``blocked/sparse-kernel`` or
+    ``blocked/sparse-xla`` when telemetry is on; live tiles where a mask
+    was computed (``with_prune_stats``, or the sparse kernel's worklist).
     """
     if isinstance(D, SparseCorpus):
         return _apss_blocked_sparse(
@@ -206,10 +243,24 @@ def apss_blocked(
             D, D, threshold, k, block_rows=block_rows, exclude_self=True,
             device=D.device,
         )
+    mask = None
+    if with_prune_stats:
+        Dp, _ = pad_rows(D, block_rows)
+        mask = block_prune_mask(Dp, Dp, threshold, block_rows)
+    if telemetry.enabled():
+        n, mdim = D.shape
+        live, total, counts = _mask_counts(mask)
+        flops = telemetry.dense_join_flops(n, n, mdim)
+        if use_kernel and live is not None and total:
+            flops *= live / total  # K1 skips dead tiles
+        telemetry.record(telemetry.ApssStats(
+            variant="blocked/dense-kernel" if use_kernel else "blocked/dense-xla",
+            n=n, m=mdim, block_rows=block_rows, sparse=False, flops=flops,
+            live_tiles=live, total_tiles=total, tile_counts=counts,
+        ))
     if not with_prune_stats:
         return m
-    Dp, _ = pad_rows(D, block_rows)
-    return m, prune_stats(block_prune_mask(Dp, Dp, threshold, block_rows))
+    return m, prune_stats(mask)
 
 
 def _apss_blocked_sparse(
@@ -240,6 +291,17 @@ def _apss_blocked_sparse(
         m = sparse_similarity_topk(
             D, D, threshold, k, block_rows=block_rows, exclude_self=True
         )
+    if telemetry.enabled():
+        live, total, counts = _mask_counts(mask)
+        flops = telemetry.sparse_join_flops(D.n, D.n, D.cap)
+        if use_kernel and live is not None and total:
+            flops *= live / total  # worklist compaction skips dead tiles
+        telemetry.record(telemetry.ApssStats(
+            variant="blocked/sparse-kernel" if use_kernel else "blocked/sparse-xla",
+            n=D.n, m=D.m, block_rows=bs, sparse=True, flops=flops,
+            live_tiles=live, total_tiles=total, tile_counts=counts,
+            extra={"cap": D.cap},
+        ))
     if not with_prune_stats:
         return m
     return m, prune_stats(mask)

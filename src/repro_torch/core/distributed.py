@@ -36,6 +36,17 @@ two ranks on one card, so ranks that share a card run gloo). They count the
 bytes this rank sends (the logical payload: the tensor a ``_ppermute`` sends,
 the input of the other collectives) in :data:`WIRE_BYTES` and the
 host-clock seconds spent inside them in :data:`WIRE_SECONDS`.
+
+With a telemetry log active (``planner.telemetry.CommLog``) every entry
+point records one ``ApssStats`` on each rank, with the reference's variant
+string, hop formulas and FLOP model; the 2-D and hierarchical sweeps then
+attach a ``StepTicker`` (the caller's ``ticker=``, else one created on the
+rank's device) that takes one tick per (rank, step). A record's
+``ppermute`` bytes equal this rank's ``WIRE_BYTES["ppermute"]`` for the
+call; its ``all_gather`` and ``psum`` bytes price what a rank receives,
+``p - 1`` and ``2·(p-1)/p`` times the input ``WIRE_BYTES`` counts.
+``distribution="auto"`` hands the choice to the planner
+(``planner.plan_apss``).
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from repro_torch.core.sparse import (
     sparse_similarity_topk,
 )
 from repro_torch.interop import as_corpus, device_of
+from repro_torch.planner import telemetry
 
 WIRE_BYTES = {"ppermute": 0, "psum": 0, "psum_scatter": 0, "all_gather": 0, "pmax": 0}
 WIRE_SECONDS = {op: 0.0 for op in WIRE_BYTES}
@@ -295,6 +307,35 @@ def _check_sparse_kernel(D, use_kernel: bool) -> None:
         raise ValueError(_SPARSE_KERNEL)
 
 
+def _wire_itemsize(D) -> int:
+    """Bytes/element of a dense block on the wire: bf16 travels as 2 bytes,
+    every other dtype as the float32 ``as_corpus`` makes of it."""
+    return 2 if isinstance(D, torch.Tensor) and D.dtype == torch.bfloat16 else 4
+
+
+def _axis_label(axis_name) -> str:
+    if isinstance(axis_name, (tuple, list)):
+        return "+".join(axis_name)
+    return str(axis_name)
+
+
+def _block_bytes(D, n_loc: int) -> tuple[int, str]:
+    """Bytes and payload name of a travelling row block of ``n_loc`` rows."""
+    if isinstance(D, SparseCorpus):
+        return telemetry.csr_block_bytes(n_loc, D.cap), "csr_block"
+    return telemetry.dense_block_bytes(n_loc, D.shape[1], _wire_itemsize(D)), "dense_block"
+
+
+def _telemetry_ticker(ticker, dev):
+    """The caller's ticker, else one created for the record when telemetry
+    is on (the reference's sweeps create theirs the same way)."""
+    if ticker is None and telemetry.enabled():
+        from repro_torch.distributed.straggler import StepTicker
+
+        return StepTicker(dev)
+    return ticker
+
+
 # ---------------------------------------------------------------------------
 # 1-D horizontal (paper Alg. 6): rows distributed over `axis_name`
 # ---------------------------------------------------------------------------
@@ -337,6 +378,22 @@ def apss_horizontal(
     me = _axis_index(mesh, axis_name)
     rows = _split(D.shape[0], p, me, "n")
     n_loc = rows.stop - rows.start
+    if telemetry.enabled():
+        n, m = D.shape
+        sparse = isinstance(D, SparseCorpus)
+        block, payload = _block_bytes(D, n_loc)
+        telemetry.record(telemetry.ApssStats(
+            variant=f"horizontal/{schedule}",
+            n=n, m=m, devices=p, block_rows=block_rows, sparse=sparse,
+            hops=telemetry.horizontal_hops(
+                schedule, p, _axis_label(axis_name), block,
+                telemetry.matches_bytes(n_loc, k), payload=payload,
+            ),
+            flops=telemetry.sparse_join_flops(n_loc, n, D.cap) if sparse
+            else telemetry.dense_join_flops(n_loc, n, m)
+            * (0.55 if schedule == "halfring" and not use_kernel else 1.0),
+            extra={"cap": D.cap} if sparse else {"use_kernel": use_kernel},
+        ))
     if isinstance(D, SparseCorpus):
         loc = _sparse_rows(D, rows, dev)
         buf = (loc.indices, loc.values, loc.nnz)
@@ -438,19 +495,29 @@ def _horizontal_halfring(buf, travelling, join, loc, mesh, axis, p, me, n_loc, k
 # ---------------------------------------------------------------------------
 
 
-def _nested_ring_sweep(mesh, axes, buf, owner, matches, join):
+def _nested_ring_sweep(mesh, axes, buf, owner, matches, join, *, ticker=None,
+                       rank=None):
     """The nested-ring sweep of dense blocks and CSR triples alike.
 
     ``buf`` (a tuple of tensors) hops with its one-element int32 ``owner``;
     ``join(buf, owner, matches)`` scores the local rows against the
     travelling block. The innermost axis rings most often; each outer axis
     hops once per full inner sweep. Every rank issues the same hops in the
-    same order.
+    same order. ``ticker`` (with ``rank``, the caller's flat rank) takes
+    one tick per compute: ``∏ sizes`` ticks per rank for a full sweep.
     """
+    step = [0]
+
+    def compute(buf, owner, matches):
+        matches = join(buf, owner, matches)
+        if ticker is not None:
+            ticker.emit(step[0], rank, matches.counts.sum())
+        step[0] += 1
+        return matches
 
     def sweep(level, buf, owner, matches):
         if level == len(axes):
-            return buf, owner, join(buf, owner, matches)
+            return buf, owner, compute(buf, owner, matches)
         axis = axes[level]
         for _ in range(_axis_size(mesh, axis) - 1):
             buf, owner, matches = sweep(level + 1, buf, owner, matches)
@@ -472,6 +539,7 @@ def apss_horizontal_hierarchical(
     block_rows: int = 512,
     use_kernel: bool = False,
     device: str | torch.device = "cuda",
+    ticker=None,
 ) -> Matches:
     """N-level nested ring for hierarchical interconnects; returns this
     rank's rows.
@@ -480,6 +548,8 @@ def apss_horizontal_hierarchical(
     carries its owner id, so the column offset of the current block is
     ``owner · n_loc``. ``use_kernel=True`` scores each block pair with K1.
     ``D`` may be a ``SparseCorpus``: the CSR triple rides the same rings.
+    ``ticker`` (a ``distributed.straggler.StepTicker``) takes one tick per
+    rank per compute.
     """
     dev = device_of(device)
     _check_sparse_kernel(D, use_kernel)
@@ -489,6 +559,21 @@ def apss_horizontal_hierarchical(
     rows = _split(D.shape[0], p, flat, "n")
     n_loc = rows.stop - rows.start
     bs = min(block_rows, n_loc)
+    ticker = _telemetry_ticker(ticker, dev)
+    if telemetry.enabled():
+        n = D.shape[0]
+        sparse = isinstance(D, SparseCorpus)
+        sizes = tuple(_axis_size(mesh, a) for a in axes)
+        block, payload = _block_bytes(D, n_loc)
+        telemetry.record(telemetry.ApssStats(
+            variant="hierarchical",
+            n=n, m=D.shape[1], devices=p, block_rows=block_rows, sparse=sparse,
+            hops=telemetry.hierarchical_hops(sizes, axes, block, payload=payload),
+            flops=telemetry.sparse_join_flops(n_loc, n, D.cap) if sparse
+            else telemetry.dense_join_flops(n_loc, n, D.shape[1]),
+            extra={"axes": dict(zip(axes, sizes)), "use_kernel": use_kernel},
+            step_ticker=ticker,
+        ))
     if isinstance(D, SparseCorpus):
         loc = _sparse_rows(D, rows, dev)
         buf = (loc.indices, loc.values, loc.nnz)
@@ -513,7 +598,8 @@ def apss_horizontal_hierarchical(
         return merge_matches(matches, score(b, int(owner[0]) * n_loc))
 
     owner = torch.tensor([flat], dtype=torch.int32, device=dev)
-    return _nested_ring_sweep(mesh, axes, buf, owner, empty_matches(n_loc, k, dev), join)
+    return _nested_ring_sweep(mesh, axes, buf, owner, empty_matches(n_loc, k, dev), join,
+                              ticker=ticker, rank=flat)
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +634,7 @@ def apss_vertical(
     n = D.shape[0]
     if isinstance(D, SparseCorpus):
         idx_s, val_s, _, m_loc = shard_dims(D, p)  # host split
+        cap_loc = idx_s.shape[-1]
         idx = torch.from_numpy(idx_s[me]).to(dev)
         val = torch.from_numpy(val_s[me]).to(dev)
         partials_fn = _sparse_partials(idx, val, m_loc, n, block_rows)
@@ -557,11 +644,23 @@ def apss_vertical(
         def partials_fn(blk):
             return dot_f32(D_loc[blk * block_rows:(blk + 1) * block_rows], D_loc)
 
-    return _vertical_dispatch(
+    out = _vertical_dispatch(
         partials_fn, n, threshold, k, mesh, axis_name, accumulation=accumulation,
         block_rows=block_rows, candidate_capacity=candidate_capacity,
         return_stats=return_stats, device=dev,
     )
+    if telemetry.enabled():
+        sparse = isinstance(D, SparseCorpus)
+        C = candidate_capacity or default_candidate_capacity(k)
+        telemetry.record(telemetry.ApssStats(
+            variant=f"vertical/{accumulation}",
+            n=n, m=D.shape[1], devices=p, block_rows=block_rows, sparse=sparse,
+            hops=telemetry.vertical_hops(accumulation, str(axis_name), p, n, block_rows, C),
+            flops=telemetry.sparse_join_flops(n, n, cap_loc) if sparse
+            else telemetry.dense_join_flops(n, n, D.shape[1]) / p,
+            extra={"capacity": C, "cap_loc": cap_loc} if sparse else {"capacity": C},
+        ))
+    return out
 
 
 def _sparse_partials(idx, val, m_loc, n, block_rows):
@@ -769,8 +868,8 @@ def apss_2d(
     ``SparseCorpus``: cell ``(i, j)`` holds row shard ``i`` restricted to
     posting-list slice ``j`` (a host ``shard_dims`` split), and its CSR pair
     rides the row ring. ``ticker`` (a ``distributed.straggler.StepTicker``)
-    takes one tick per rank per ring step: the seam the reference's sweep
-    has, where its telemetry creates the ticker (ROADMAP queue 1 item 5).
+    takes one tick per rank per ring step; with telemetry on and no
+    ``ticker``, one is created on ``device`` and attached to the record.
     """
     dev = device_of(device)
     if accumulation not in ("allreduce", "compressed"):
@@ -782,8 +881,12 @@ def apss_2d(
     rows = _split(D.shape[0], q, me_r, "n")
     n_loc = rows.stop - rows.start
     bs = _block_clamp(block_rows, n_loc)
+    C = candidate_capacity or default_candidate_capacity(k)
+    ticker = _telemetry_ticker(ticker, dev)
+    cap_loc = None
     if isinstance(D, SparseCorpus):
         idx_s, val_s, nnz_s, m_loc = shard_dims(D, r)  # host split
+        cap_loc = idx_s.shape[-1]
         idx = torch.from_numpy(idx_s[me_c, rows]).to(dev)
         val = torch.from_numpy(val_s[me_c, rows]).to(dev)
         sp_loc = SparseCorpus(idx, val, torch.from_numpy(nnz_s[me_c, rows]).to(dev), m_loc)
@@ -798,10 +901,27 @@ def apss_2d(
         def partials(buf, blk):
             return dot_f32(D_loc[blk * bs:(blk + 1) * bs], buf[0])
 
+    if telemetry.enabled():
+        n, m = D.shape
+        extra = {"mesh": {str(row_axis): q, str(col_axis): r}}
+        if cap_loc is not None:
+            extra["cap_loc"] = cap_loc
+        telemetry.record(telemetry.ApssStats(
+            variant=f"2d/{accumulation}",
+            n=n, m=m, devices=q * r, block_rows=bs, sparse=cap_loc is not None,
+            hops=telemetry.twod_hops(
+                q, r, str(row_axis), str(col_axis), n_loc, m,
+                4 if cap_loc is not None else _wire_itemsize(D), bs, C, accumulation,
+                cap_loc=cap_loc,
+            ),
+            flops=telemetry.dense_join_flops(n_loc, n, m) / r if cap_loc is None
+            else telemetry.sparse_join_flops(n_loc, n, cap_loc),
+            extra=extra, step_ticker=ticker,
+        ))
     out, stats = _checkerboard_sweep(
         partials, buf0, n_loc, threshold=threshold, k=k, mesh=mesh, row_axis=row_axis,
-        col_axis=col_axis, bs=bs, capacity=candidate_capacity or default_candidate_capacity(k),
-        accumulation=accumulation, device=dev, ticker=ticker,
+        col_axis=col_axis, bs=bs, capacity=C, accumulation=accumulation, device=dev,
+        ticker=ticker,
     )
     return (out, stats) if return_stats else out
 
@@ -861,12 +981,19 @@ def apss(
 ) -> Matches | tuple[Matches, ApssStats]:
     """Top-level entry: pick a data distribution (the paper finds the best
     one dataset-dependent, so all are first-class). ``kwargs`` go to the
-    entry point (``device=`` among them). ``distribution="auto"`` is the
-    execution planner's: ROADMAP queue 1 item 5."""
+    entry point (``device=`` among them).
+
+    ``distribution="auto"`` hands the choice to the execution planner
+    (``planner.plan_apss``, on every rank): corpus statistics are sampled,
+    every valid ``(variant, block_rows, use_kernel)`` configuration is
+    priced by the calibrated cost models, and the cheapest one runs. Extra
+    ``kwargs`` (``profile=``, ``autotune=``, ``block_rows_choices=``,
+    ``device=`` …) go to the planner. The result's layout is the chosen
+    variant's (``Plan.result_layout``)."""
     if distribution == "auto":
-        raise NotImplementedError(
-            "distribution='auto' needs the execution planner: ROADMAP queue 1 item 5"
-        )
+        from repro_torch.planner.plan import plan_apss
+
+        return plan_apss(D, threshold, k, mesh, **kwargs).run()
     if distribution == "horizontal":
         return apss_horizontal(D, threshold, k, mesh, **kwargs)
     if distribution == "vertical":

@@ -6,10 +6,11 @@ records per-step wall times per rank; ranks consistently slower than
 orchestration layer can drain or replace them at the next checkpoint.
 
 :class:`StepTicker` stamps the steps of the ring sweeps
-(``core.distributed._checkerboard_sweep``): the port's ring steps are
-Python loops, so each tick is a plain host call. Creating one when
-telemetry is on, as the reference's ``apss_2d`` does, is ROADMAP queue 1
-item 5.
+(``core.distributed._checkerboard_sweep`` and ``_nested_ring_sweep``): the
+port's ring steps are Python loops, so each tick is a plain host call.
+With telemetry on, ``apss_2d`` and the hierarchical schedule create one
+when the caller passes none and attach it to their ``ApssStats`` record,
+as the reference's do.
 """
 
 from __future__ import annotations

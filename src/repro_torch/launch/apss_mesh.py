@@ -20,8 +20,15 @@ mesh and returns, per variant:
   on it, and a kernel's device time then takes in the slices of the
   others: their sum can pass the wall;
 - ``overflow_rows`` where the variant returns stats;
-- ``ticks`` for a variant with ``ticks`` set (a 2-D one): the sorted
-  ``(rank, step)`` pairs of every rank's ``StepTicker`` in the first run;
+- ``records``: this rank's telemetry records of the first run, which runs
+  under a ``planner.telemetry.CommLog``, as plain dicts (every field but
+  the ticker, the hops as dicts, and ``wire_bytes``, ``hop_count`` and
+  ``step_times``);
+- ``ticks`` for a variant with ``ticks`` set (a 2-D or hierarchical one):
+  the sorted ``(rank, step)`` pairs of every rank's ``StepTicker`` in the
+  first run, the ticker that telemetry created for the record;
+- ``chosen`` for ``distribution="auto"``: the planned config's name on
+  every rank, in rank order;
 - ``matches`` (rank 0 only): the global ``Matches`` of the first run
   (``core.distributed.gather_matches``) as numpy ``(values, indices,
   counts)``.
@@ -30,12 +37,19 @@ A variant is a dict: ``name``; ``distribution``; ``mesh`` as ``(shape,
 names)``; ``corpus``, ``"dense"`` or ``"sparse"``; ``gather``, the axes
 the result's rows are sharded over (``None`` if replicated), and
 ``scatter``; ``kwargs`` for the entry point; and optionally ``threshold``
-in place of the run's and ``ticks``.
+in place of the run's and ``ticks``. A variant with ``distribution=
+"auto"`` is planned once on every rank (``planner.plan_apss``, its
+``kwargs`` the planner's), outside the timed runs, after
+``calibrate(mesh, **v["calibrate"])`` where the variant has that key (the
+agreed profile is returned as ``profile``); each run is ``Plan.run()``,
+and the result is gathered by the plan's ``result_layout()`` in place of
+``gather`` and ``scatter``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -47,6 +61,7 @@ from repro_torch.core.sparse import SparseCorpus
 from repro_torch.distributed.straggler import StepTicker
 from repro_torch.kernels.apss_block.fused import LAUNCHES
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.planner import telemetry
 
 
 def load_corpus(path: str):
@@ -97,6 +112,17 @@ def _all_ticks(ticker: StepTicker) -> list:
     return sorted(tick for ticks in per_rank for tick in ticks)
 
 
+def record_dict(r: telemetry.ApssStats) -> dict:
+    """A telemetry record as plain, picklable values (no ticker)."""
+    out = {f.name: getattr(r, f.name) for f in dataclasses.fields(r)
+           if f.name != "step_ticker"}
+    out["hops"] = [dataclasses.asdict(h) for h in r.hops]
+    times = r.step_times
+    out.update(wire_bytes=r.wire_bytes, hop_count=r.hop_count,
+               step_times=None if times is None else list(times))
+    return out
+
+
 def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: float, k: int,
                  reps: int = 1) -> dict:
     """Rank function (``launch.mesh.spawn``): run every variant ``reps``
@@ -110,22 +136,36 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
             meshes[key] = make_mesh(*key)
         mesh = meshes[key]
         kw = dict(v.get("kwargs", {}), device=dev)
-
-        def call(**extra):
-            return dd.apss(loaded[v["corpus"]], v.get("threshold", threshold), k, mesh,
-                           distribution=v["distribution"], **kw, **extra)
-
+        corpus, t = loaded[v["corpus"]], v.get("threshold", threshold)
         rec = {"wall_ms": [], "wire_ms": [], "wire_bytes": [],
                "device_ms": None, "copy_ms": None, "k1_ms": None}
+        layout = v.get("gather"), v.get("scatter", False)
+        if v["distribution"] == "auto":
+            from repro_torch.planner.calibrate import calibrate
+            from repro_torch.planner.plan import plan_apss
+
+            if "calibrate" in v:  # measured on this mesh; every rank takes rank 0's
+                kw["profile"] = calibrate(mesh, device=dev, save=False, **v["calibrate"])
+                rec["profile"] = dataclasses.asdict(kw["profile"])
+            plan = plan_apss(corpus, t, k, mesh, **kw)
+            rec["chosen"] = [None] * dist.get_world_size()
+            dist.all_gather_object(rec["chosen"], plan.config.name)
+            layout = plan.result_layout()
+            call = plan.run
+        else:
+            def call():
+                return dd.apss(corpus, t, k, mesh, distribution=v["distribution"], **kw)
+
         for rep in range(reps):
             traced = rep == 0 and dev.type == "cuda"
             _reset()
             dist.barrier()
             _sync(dev)
-            ticked = dict(ticker=StepTicker(dev)) if rep == 0 and v.get("ticks") else {}
             t0 = time.perf_counter()
-            with _profile() if traced else contextlib.nullcontext() as prof:
-                got = call(**ticked)
+            with contextlib.ExitStack() as stack:
+                prof = stack.enter_context(_profile()) if traced else None
+                log = stack.enter_context(telemetry.CommLog()) if rep == 0 else None
+                got = call()
                 _sync(dev)
             dist.barrier()
             rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -135,14 +175,17 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
                 rec.update(_device_ms(prof))
             if rep == 0:
                 rec["launches"] = dict(LAUNCHES)
+                rec["records"] = [record_dict(r) for r in log.records]
                 first = got
-            if ticked:
-                rec["ticks"] = _all_ticks(ticked["ticker"])
+                if v.get("ticks"):
+                    ticker = next(r.step_ticker for r in reversed(log.records)
+                                  if r.step_ticker is not None)
+                    rec["ticks"] = _all_ticks(ticker)
         m = first
         if isinstance(first, tuple) and not isinstance(first, dd.Matches):
             m, stats = first
             rec["overflow_rows"] = int(stats.overflow_rows)
-        m = dd.gather_matches(m, mesh, v.get("gather"), scatter=v.get("scatter", False))
+        m = dd.gather_matches(m, mesh, layout[0], scatter=layout[1])
         if rank == 0:
             rec["matches"] = tuple(x.cpu().numpy() for x in m)
         out[v["name"]] = rec

@@ -1,4 +1,4 @@
-"""Serving entry point, two modes:
+"""Serving entry point, three modes:
 
 - ``--mode lm``: continuous-batch LM decode (:class:`LMServer`) over the
   transformer of ``--arch`` at its smoke config, attention through K9 on
@@ -16,9 +16,17 @@
       PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \\
           --corpus-n 4096 --corpus-m 2048 --requests 64 --batch 8
 
-``--device cpu`` runs the kernels' plain versions. The reference's
-``--mode auto`` waits for ROADMAP queue 1 item 5, ``--chaos`` and the
-trace/metrics exports for item 7.
+- ``--mode auto``: calibrate the planner on the device (cached under
+  ``$REPRO_CALIB_DIR``), plan the self-join of a synthetic sparse corpus
+  (``planner.plan_apss``; ``--autotune`` times the top candidates), print
+  the ranking, then run the chosen config cold and warm:
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode auto \
+          --corpus-n 4096 --corpus-m 2048
+
+``--device cpu`` runs the kernels' plain versions (and plans without
+them). The reference's ``--chaos`` and the trace/metrics exports are
+ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -178,9 +186,62 @@ def run_retrieval(args) -> dict:
     return report
 
 
+def run_auto(args) -> dict:
+    """Auto mode: calibrate → plan (print it) → run the chosen config."""
+    import torch
+
+    from repro_torch.data.sparse import sparse_clustered_corpus
+    from repro_torch.planner.calibrate import calibrate, profile_path
+    from repro_torch.planner.plan import plan_apss
+
+    dev = torch.device(args.device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    sp = sparse_clustered_corpus(
+        args.corpus_n, args.corpus_m, args.avg_nnz, n_clusters=16, seed=0,
+        device=args.device,
+    )
+    print(f"[auto] corpus n={sp.n} m={sp.m} cap={sp.cap} "
+          f"(gen {time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    profile = calibrate(save=True, device=args.device)
+    print(
+        f"[auto] calibrated {profile.device_kind} in {time.perf_counter() - t0:.1f}s "
+        f"(matmul {profile.matmul_gflops:.1f} GF/s, gather "
+        f"{profile.gather_gflops:.2f} GF/s, wire "
+        f"{profile.collective_gbps:.2f} GB/s) -> {profile_path()}"
+    )
+    t0 = time.perf_counter()
+    plan = plan_apss(sp, args.threshold, args.k, None, profile=profile,
+                     autotune=args.autotune, device=args.device)
+    print(f"[auto] planned in {time.perf_counter() - t0:.2f}s")
+    print(plan.describe())
+    t0 = time.perf_counter()
+    plan.run()
+    sync()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = plan.run()
+    sync()
+    warm = time.perf_counter() - t0
+    n_match = int(res.counts.sum())
+    print(
+        f"[auto] ran {plan.config.name}: {warm * 1e3:.1f}ms warm "
+        f"({cold * 1e3:.0f}ms cold), {n_match} matches; predicted "
+        f"{plan.cost.total_s * 1e3:.1f}ms "
+        f"({plan.cost.total_s / max(warm, 1e-9):.2f}x of measured)"
+    )
+    return dict(chosen=plan.config.name, profile=profile, cold_s=cold, warm_s=warm,
+                predicted_s=plan.cost.total_s, matches=n_match, plan=plan.as_dict())
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["lm", "retrieval"], default="retrieval")
+    ap.add_argument("--mode", choices=["lm", "retrieval", "auto"], default="retrieval")
     ap.add_argument("--arch", default="qwen3-1.7b", help="lm mode: the architecture")
     ap.add_argument("--gen-tokens", type=int, default=8, help="lm mode: tokens per request")
     ap.add_argument("--requests", type=int, default=None,
@@ -200,10 +261,14 @@ def main(argv=None) -> dict:
                     help="per-request deadline; late requests are shed, not served")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' runs the kernels; 'cpu' runs their plain versions")
+    ap.add_argument("--autotune", action="store_true",
+                    help="auto mode: time the top planned candidates and run the fastest")
     args = ap.parse_args(argv)
     if args.mode == "lm":
         args.requests = 2 if args.requests is None else args.requests
         return run_lm(args)
+    if args.mode == "auto":
+        return run_auto(args)
     args.requests = 64 if args.requests is None else args.requests
     return run_retrieval(args)
 

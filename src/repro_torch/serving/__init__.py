@@ -12,9 +12,10 @@
   :class:`ContinuousRetrievalServer` (worker threads claim batches the
   moment requests arrive).
 
-Not yet ported: the planner's ``plan=`` (ROADMAP queue 1 item 5), the
-``ApssStats`` records of the queries, sharded or not (items 5 and 7), and
-the live index (item 6).
+``build_index(plan=)`` and ``query_topk(plan=)`` take the planner's
+decisions (``repro_torch.planner``), and with a telemetry log active the
+queries record ``ApssStats`` and the servers count their events. Not yet
+ported: the live index (ROADMAP queue 1 item 6).
 """
 
 from repro_torch.serving.index import APSSIndex, build_index, index_nbytes  # noqa: F401

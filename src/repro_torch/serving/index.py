@@ -26,7 +26,8 @@ worklist. A sparse shard holds its slice of the CSR triple and no support
 compaction (the sharded path scores it by gather-dot, as the reference's
 does). PyTorch has no single-process counterpart of a sharded array, so
 the shards are per-device tensors; several shards may share one device.
-The planner's ``plan=`` is ROADMAP queue 1 item 5.
+``build_index(..., plan=...)`` takes a planner decision's block size and
+representation.
 """
 
 from __future__ import annotations
@@ -152,6 +153,7 @@ def build_index(
     lane_pad: int = 128,
     device: str | torch.device | None = None,
     devices=None,
+    plan=None,
 ) -> APSSIndex:
     """Build every corpus-side structure once, on ``device`` (default
     ``"cuda"``), or split into row-block shards over ``devices``.
@@ -169,8 +171,26 @@ def build_index(
     doc) pads rows to ``p · block_rows`` and places shard ``s`` on
     ``devices[s]``; ``devices[0]`` is the home device, and ``device``, if
     given too, must name it. One device builds the unsharded index.
+
+    ``plan=`` takes a planner decision (a ``planner.Plan`` or bare
+    ``VariantConfig``): its ``block_rows`` becomes the index block size and
+    the corpus is converted to the planned representation (dense ↔ padded
+    CSR, with ``from_dense``/``to_dense`` on the corpus's device; a numpy
+    corpus on the home device) before building, so ``build_index(corpus,
+    plan=plan_apss(corpus, t, k))`` materializes the layout the cost model
+    priced.
     """
     home, devices = _placement(device, devices)
+    if plan is not None:
+        from repro_torch.core.sparse import from_dense, to_dense
+
+        cfg = getattr(plan, "config", plan)
+        block_rows = cfg.block_rows
+        if cfg.sparse and not isinstance(corpus, SparseCorpus):
+            on = corpus.device if isinstance(corpus, torch.Tensor) else home
+            corpus = from_dense(corpus, device=on)
+        elif not cfg.sparse and isinstance(corpus, SparseCorpus):
+            corpus = to_dense(corpus)
     normalized = True if normalize else assume_normalized
     p = len(devices)
     if isinstance(corpus, SparseCorpus):

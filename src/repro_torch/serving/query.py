@@ -35,9 +35,12 @@ the kernel on a sparse shard raise ``NotImplementedError``.
 The worklist is not bucket-padded: the reference pads it to a power of two
 only so that its jitted inners do not retrace, and eager PyTorch does not
 trace. ``TILES`` counts the tiles of every call, as ``fused.LAUNCHES``
-counts launches. Still to come: ``plan=`` (ROADMAP queue 1 item 5); the
-``ApssStats`` records of the unsharded and the sharded query (items 5 and
-7), with the metrics and trace hooks (item 7).
+counts launches. ``plan="auto"`` (or a ``planner.costmodel.QueryPlan``)
+lets the cost model choose ``block_q`` and the kernel per batch. With a
+telemetry log active, a call records ``serving/query`` (or
+``serving/query-sharded``) and, with ``early_exit``, ``serving/early-exit``,
+as the reference does; its metrics and trace hooks are ROADMAP queue 1
+item 7.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from repro_torch.kernels.apss_block.sparse import (
     rect_sparse_tile_candidates_kernel,
     rect_sparse_tile_candidates_plain,
 )
+from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex
 
 
@@ -82,6 +86,7 @@ def query_topk(
     use_kernel: bool = False,
     use_minsize: bool = True,
     early_exit: bool = False,
+    plan=None,
 ) -> Matches:
     """Top-k corpus neighbours ≥ ``threshold`` for a batch of queries.
 
@@ -103,8 +108,23 @@ def query_topk(
     plain version. On a CPU index the wrappers run their plain versions.
     A sharded index runs the per-shard path of the module doc. Each call
     adds its tiles to ``TILES``.
+
+    ``plan="auto"`` (or an explicit ``planner.costmodel.QueryPlan``)
+    delegates the ``block_q`` / kernel choice to the cost model, priced
+    per batch from the index's exact block stats; its decision overrides
+    the ``block_q`` and ``use_kernel`` arguments. On an index on a card
+    the kernel is a candidate, on the CPU it is not.
     """
     Q = _queries(index, Q)
+    if plan is not None:
+        from repro_torch.planner.costmodel import plan_query_topk
+
+        if isinstance(plan, str):
+            if plan != "auto":
+                raise ValueError(f"plan must be 'auto' or a QueryPlan; got {plan!r}")
+            plan = plan_query_topk(index, Q.shape[0], float(threshold), k)
+        block_q = int(plan.block_q)
+        use_kernel = bool(plan.use_kernel)
     if index.n_shards > 1:
         if early_exit:
             raise NotImplementedError(
@@ -124,20 +144,44 @@ def query_topk(
     )
     mk, ubh = mask.cpu().numpy(), ub.cpu().numpy()
     wl = compact_rect_worklist(mk, ubh)
+    T = 0 if wl is None else wl.shape[1]
+    if telemetry.enabled():
+        telemetry.record(telemetry.ApssStats(
+            variant="serving/query",
+            n=index.n, m=index.m, block_rows=index.block_rows, sparse=index.is_sparse,
+            flops=2.0 * T * block_q * index.block_rows * _depth(index),
+            live_tiles=T, total_tiles=int(mk.size),
+            tile_counts=tuple(int(x) for x in mk.sum(axis=1)),
+            extra={"batch": B, "use_kernel": use_kernel},
+        ))
     if wl is None:
-        out, T, scored = empty_matches(B, k, dev), 0, 0
+        out, scored = empty_matches(B, k, dev), 0
     else:
-        T = wl.shape[1]
         ubw = ubh[wl[0], wl[1]].astype(np.float32)
         values, indices, counts, scored = _score(
             index, Qp, wl, ubw, threshold, k, B=B, block_q=block_q,
             grid_q=grid_q, use_kernel=use_kernel, early_exit=early_exit,
         )
         out = Matches(values=values[:B], indices=indices[:B], counts=counts[:B])
+        if early_exit and telemetry.enabled():
+            telemetry.record(telemetry.ApssStats(
+                variant="serving/early-exit",
+                n=index.n, m=index.m, block_rows=index.block_rows,
+                sparse=index.is_sparse, live_tiles=T, total_tiles=int(mk.size),
+                extra={"batch": B, "skipped_tiles": T - scored},
+            ))
     TILES["total"] += int(mk.size)
     TILES["live"] += T
     TILES["scored"] += scored
     return out
+
+
+def _depth(index: APSSIndex) -> int:
+    """Features a scored tile reads: the support width of a sparse index's
+    blocks (its cap when sharded), the lane-padded width of a dense one."""
+    if index.is_sparse:
+        return int(index.bdims.shape[1] if index.n_shards == 1 else index.shards[0][0].shape[1])
+    return int(index.shards[0].shape[1])
 
 
 def _queries(index: APSSIndex, Q) -> torch.Tensor:
@@ -230,6 +274,17 @@ def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) 
     mk, ubh = mask.cpu().numpy(), ub.cpu().numpy()
     work = shard_worklists(index, mk, ubh)
     live = sum(ij.shape[1] for _, ij in work)
+    if telemetry.enabled():
+        per_shard = dict((s, ij.shape[1]) for s, ij in work)
+        telemetry.record(telemetry.ApssStats(
+            variant="serving/query-sharded",
+            n=index.n, m=index.m, devices=index.n_shards, block_rows=index.block_rows,
+            sparse=index.is_sparse,
+            flops=2.0 * live * block_q * index.block_rows * _depth(index),
+            live_tiles=live, total_tiles=int(mk.size),
+            tile_counts=tuple(per_shard.get(s, 0) for s in range(index.n_shards)),
+            extra={"batch": B, "use_kernel": use_kernel},
+        ))
     TILES["total"] += int(mk.size)
     TILES["live"] += live
     TILES["scored"] += live

@@ -32,14 +32,18 @@ the workers and re-raises from ``result()``.
 Both servers take a sharded index unchanged: each batch goes to the
 index's home device and ``query_topk`` runs the per-shard path.
 
-Each event is counted in :class:`ServerStats`. Adversarial input is
+Each event is counted in :class:`ServerStats` and in the active telemetry
+logs (``planner.telemetry.incr``: ``serving.requests`` /
+``serving.cache_hits`` / ``serving.shed`` / ``serving.degraded`` /
+``serving.retries`` / ``serving.stale``), at the reference's events, and
+each batch's ``query_topk`` records its ``ApssStats``. Adversarial input is
 rejected at ``submit``: non-numeric dtypes, non-finite values and a wrong
 dimension raise ``ValueError``; an all-zero query is served (it normalizes
 to zero and matches nothing). ``fault_plan`` is any object with
 ``fail_point(scope)`` (raising, scopes ``serving.kernel`` /
 ``serving.plain``) and ``delay(scope, step=)`` (scope ``serving``), the
 contract of the reference's ``robust.faults.FaultPlan``, whose port is
-ROADMAP queue 1 item 7, as are telemetry and trace hooks. A live
+ROADMAP queue 1 item 7, as are the trace and metrics hooks. A live
 (mutable) index is item 6.
 """
 
@@ -56,6 +60,7 @@ import torch
 
 from repro_torch.core.apss import normalize_rows
 from repro_torch.kernels._build import KernelError
+from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex
 from repro_torch.serving.query import query_topk
 
@@ -85,9 +90,8 @@ class ServerStats(NamedTuple):
 
 class RetrievalServer:
     """Batched online retrieval over a prebuilt :class:`APSSIndex`, whole or
-    sharded. Not yet ported: the reference's telemetry counters of sheds,
-    degradations and retries and the ``ApssStats`` of each batch's query
-    (ROADMAP queue 1 items 5 and 7), and its live index (item 6).
+    sharded. Not yet ported: the reference's live index (ROADMAP queue 1
+    item 6).
 
     Args:
       index: built once by :func:`~repro_torch.serving.index.build_index`,
@@ -188,6 +192,7 @@ class RetrievalServer:
 
     def _shed_request(self, rid: int) -> None:
         self._shed += 1
+        telemetry.incr("serving.shed")
         self._results[rid] = self._empty_result("shed")
 
     def _admit(self, q: np.ndarray, key: str, deadline_s) -> int:
@@ -195,9 +200,11 @@ class RetrievalServer:
         rid = self._next_id
         self._next_id += 1
         self._requests += 1
+        telemetry.incr("serving.requests")
         hit = self._cache_get(key)
         if hit is not None:
             self._cache_hits += 1
+            telemetry.incr("serving.cache_hits")
             self._results[rid] = hit._replace(cached=True)
             return rid
         if self.max_pending is not None and len(self._pending) >= self.max_pending:
@@ -243,6 +250,7 @@ class RetrievalServer:
                     if nth > 0:
                         with self._ladder_lock:
                             self._degraded += 1
+                        telemetry.incr("serving.degraded")
                     return m, tier
                 except _CODE_FAULTS:
                     raise
@@ -250,10 +258,12 @@ class RetrievalServer:
                     if attempt < self.max_retries:
                         with self._ladder_lock:
                             self._retries += 1
+                        telemetry.incr("serving.retries")
                         time.sleep(delay)
                         delay *= 2
         with self._ladder_lock:
             self._degraded += 1
+        telemetry.incr("serving.degraded")
         return None, "stale"
 
     def _batch_queries(self, batch) -> torch.Tensor:
@@ -304,6 +314,7 @@ class RetrievalServer:
                 stale = self._cache_get(key, stale_ok=True)
                 if stale is not None:
                     self._stale += 1
+                    telemetry.incr("serving.stale")
                     self._latch(rid, stale._replace(cached=True, status="stale"))
                 else:
                     self._latch(rid, self._empty_result("failed"))

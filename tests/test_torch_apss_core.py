@@ -124,8 +124,14 @@ def test_entry_points_default_to_cuda_and_raise_without_card(corpus):
 
 
 def test_auto_variant_raises_not_implemented(corpus):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tapss.similarity_topk(corpus, corpus, T, K, variant="auto", device="cpu")
+    """``variant="auto"`` runs the planner (``test_torch_planner.py``); what
+    it still refuses: the default device without a card (no CPU fallback),
+    a rectangular join and any other variant."""
+    with pytest.raises(RuntimeError, match="is_available"):
+        tapss.similarity_topk(corpus, corpus, T, K, variant="auto", exclude_self=True)
+    with pytest.raises(ValueError, match="self-join"):
+        tapss.similarity_topk(corpus[:8], corpus, T, K, variant="auto", exclude_self=True,
+                              device="cpu")
     with pytest.raises(ValueError, match="unknown variant"):
         tapss.similarity_topk(corpus, corpus, T, K, variant="ring", device="cpu")
 

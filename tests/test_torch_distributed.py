@@ -6,6 +6,9 @@ and one set of 3 ranks the odd-p ring, halfring and allgather; each case holds o
 variant's gathered ``Matches`` against the reference's ``apss`` on a JAX
 mesh over the same number of virtual CPU devices: counts and match sets
 exact, values within ``VAL_TOL``, rows in (value desc, id asc) order.
+Each variant's first run is under a telemetry log: rank 0's records equal
+the reference's for the same call, and they relate to the bytes each rank
+counted as the hop formulas state.
 """
 
 from types import SimpleNamespace
@@ -17,7 +20,7 @@ pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from _torch_dist import K, T, jax_run, run_ranks, variant  # noqa: E402
+from _torch_dist import K, T, assert_same_records, jax_run, run_ranks, variant  # noqa: E402
 from _torch_parity import assert_clear_of_threshold, assert_same_matches  # noqa: E402
 from repro_torch.core import distributed as td  # noqa: E402
 
@@ -33,7 +36,7 @@ VARIANTS4 = [
     variant("horizontal_allgather_pods", "horizontal", *PODS, gather=("pod", "data"),
             axis_name=("pod", "data"), schedule="allgather", block_rows=16),
     variant("hierarchical", "hierarchical", *PODS, gather=("pod", "data"),
-            axes=("pod", "data"), block_rows=16),
+            axes=("pod", "data"), block_rows=16, ticks=True),
     *(variant(f"vertical_{a}", "vertical", *MODEL4, gather="model" if a == "scatter" else None,
               scatter=a == "scatter", axis_name="model", accumulation=a, **STATS)
       for a in ("allreduce", "scatter", "compressed", "recursive")),
@@ -112,6 +115,64 @@ def test_wire_bytes_follow_the_schedules(ranks, corpus):
     assert sent["vertical_allreduce"]["psum"] == n * n * 4
 
 
+@pytest.mark.parametrize("v", VARIANTS4 + VARIANTS3, ids=lambda v: v["name"])
+def test_records_equal_jax(ranks, corpus, v):
+    """Rank 0's telemetry record of each variant equals the reference's
+    record of the same ``apss`` call: variant, hops, bytes, FLOPs, counts."""
+    D = corpus if v in VARIANTS4 else _padded(corpus)
+    *_, ref = jax_run(jnp.asarray(D), v, records=True)
+    assert_same_records(ranks[v["name"]]["records"], ref)
+
+
+def _record(ranks, name):
+    (rec,) = ranks[name]["records"]
+    return rec
+
+
+def _by(rec, key):
+    out = {}
+    for h in rec["hops"]:
+        out[h[key]] = out.get(h[key], 0) + h["bytes_per_hop"] * h["hops"]
+    return out
+
+
+def test_halfring_halves_ring_bytes(ranks):
+    """S = Sᵀ: the halfring's block makes p//2 hops against the ring's p-1."""
+    ring = _by(_record(ranks, "horizontal_ring"), "payload")["dense_block"]
+    half = _by(_record(ranks, "horizontal_halfring"), "payload")["dense_block"]
+    assert half * (4 - 1) == ring * (4 // 2)
+
+
+def test_hierarchical_hop_economy(ranks):
+    """Nested (2, 2) ring: the flat ring's p - 1 = 3 block hops, of which the
+    outer (pod) axis carries one."""
+    by_axis = {h["axis"]: h["hops"] for h in _record(ranks, "hierarchical")["hops"]}
+    assert by_axis == {"pod": 1, "data": 2}
+
+
+@pytest.mark.parametrize("name, op, scale", [
+    ("horizontal_ring", "ppermute", 1), ("horizontal_halfring", "ppermute", 1),
+    ("hierarchical", "ppermute", 1), ("horizontal_allgather", "all_gather", 3),
+    ("vertical_allreduce", "psum", 2 * 3 / 4), ("2d_allreduce", "ppermute", 1),
+])
+def test_record_bytes_against_counted_bytes(ranks, name, op, scale):
+    """A record's ppermute bytes are the bytes this rank sent (the owner
+    id's 4 bytes included); its all_gather and psum bytes price what a rank
+    receives in a ring algorithm: (p - 1) and 2·(p-1)/p times the input
+    the collective helpers count."""
+    rec = ranks[name]
+    assert _by(_record(ranks, name), "op")[op] == int(scale * rec["wire_bytes"][0][op])
+
+
+def test_hierarchical_ticks_once_per_rank_and_compute(ranks):
+    """No ``ticker=`` was passed: the one telemetry created for the record
+    takes a tick per rank per compute, ∏ sizes = 4 computes on (2, 2)."""
+    ticks = [tuple(t) for t in ranks["hierarchical"]["ticks"]]
+    assert ticks == [(r, s) for r in range(4) for s in range(4)]
+    times = _record(ranks, "hierarchical")["step_times"]
+    assert len(times) == 4 and all(t >= 0 for t in times)
+
+
 def _mesh(shape, names, me=0):
     """A stand-in mesh: the entry points check shapes before any collective."""
     return SimpleNamespace(shape=shape, mesh_dim_names=names, get_local_rank=lambda a: me)
@@ -134,7 +195,9 @@ def _mesh(shape, names, me=0):
                                 block_rows=32, device="cpu"), ValueError, "unknown vertical"),
     (lambda D: td.apss_2d(D, T, K, _mesh((2, 2), ("data", "model")), accumulation="scatter",
                           device="cpu"), ValueError, "unknown 2-D"),
-    (lambda D: td.apss(D, T, K, None, distribution="auto"), NotImplementedError, "item 5"),
+    # "auto" plans (test_torch_planner.py) for the default device, which
+    # needs a card: no fallback to the CPU
+    (lambda D: td.apss(D, T, K, None, distribution="auto"), RuntimeError, "is_available"),
     (lambda D: td.apss(D, T, K, None, distribution="star"), ValueError, "unknown distribution"),
 ], ids=["rows", "ring_axes", "schedule", "block_rows", "scatter", "recursive", "accumulation",
         "2d_accumulation", "auto", "distribution"])

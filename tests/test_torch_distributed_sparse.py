@@ -6,7 +6,10 @@ recursive accumulations.
 As in ``test_torch_distributed.py``: one set of 4 gloo ranks and one of 3
 run every variant once; each case holds one variant against the
 reference's ``apss`` on the same ``SparseCorpus`` (the port's made from the
-reference's arrays).
+reference's arrays). Rank 0's telemetry records of each variant's first
+run equal the reference's. ``distribution="auto"`` runs as one more
+variant: every rank plans (``default_profile()``, no kernels: the CPU) and
+must choose the reference planner's config, and its result is exact.
 """
 
 from types import SimpleNamespace
@@ -19,7 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_dist import K, T, jax_run, run_ranks, variant  # noqa: E402
+from _torch_dist import K, T, assert_same_records, jax_run, run_ranks, variant  # noqa: E402
 from _torch_parity import assert_clear_of_threshold, assert_same_matches  # noqa: E402
 from repro.core import distributed as jd  # noqa: E402
 from repro.core import matches as jm  # noqa: E402
@@ -28,6 +31,7 @@ from repro_torch.core import distributed as td  # noqa: E402
 from repro_torch.core import matches as tm  # noqa: E402
 from repro_torch.core import sparse as tsparse  # noqa: E402
 from repro_torch.interop import sparse_corpus_from_numpy, sparse_corpus_to_numpy  # noqa: E402
+from repro_torch.planner import default_profile  # noqa: E402
 
 ROW4, MODEL4, GRID = ((4,), ("data",)), ((4,), ("model",)), ((2, 2), ("data", "model"))
 SP = dict(corpus="sparse")
@@ -44,7 +48,14 @@ VARIANTS4 = [
     *(variant(f"2d_{a}", "2d", *GRID, gather="data", accumulation=a, block_rows=16,
               candidate_capacity=128, return_stats=True, ticks=True, **SP)
       for a in ("allreduce", "compressed")),
+    # The planner's choice on the mesh (kwargs are the planner's).
+    variant("auto", "auto", *ROW4, profile=default_profile(), include_kernel=False, **SP),
 ]
+# The planner after calibrate(mesh) in the ranks: its choice is this run's
+# own, so it is held to the oracle and to agreement across ranks, not to
+# the reference's choice.
+CALIBRATED = dict(variant("auto_calibrated", "auto", *ROW4, include_kernel=False, **SP),
+                  calibrate=dict(n=64, m=64, cap=8, m_sparse=512, iters=1))
 VARIANTS3 = [
     variant(f"odd_{s}", "horizontal", (3,), ("data",), gather="data", schedule=s,
             block_rows=13, **SP) for s in ("ring", "halfring")
@@ -65,7 +76,8 @@ def _save_csr(path, D) -> str:
 @pytest.fixture(scope="module")
 def ranks(corpus, tmp_path_factory):
     run = tmp_path_factory.mktemp("torch_distributed_sparse")
-    out = run_ranks(run, 4, {"sparse": _save_csr(run / "s4.npz", corpus)}, VARIANTS4)
+    out = run_ranks(run, 4, {"sparse": _save_csr(run / "s4.npz", corpus)},
+                    VARIANTS4 + [CALIBRATED])
     out.update(run_ranks(run, 3, {"sparse": _save_csr(run / "s3.npz", _padded(corpus))},
                          VARIANTS3))
     return out
@@ -79,6 +91,39 @@ def test_four_ranks_equal_jax(ranks, corpus, v):
     assert_same_matches(td.Matches(*rec["matches"]), ref)
     if stats is not None:
         assert rec["overflow_rows"] == int(stats.overflow_rows) == 0
+
+
+@pytest.mark.parametrize("v", VARIANTS4 + VARIANTS3, ids=lambda v: v["name"])
+def test_records_equal_jax(ranks, corpus, v):
+    D = corpus if v in VARIANTS4 else _padded(corpus)
+    *_, ref = jax_run(jsparse.from_dense(jnp.asarray(D)), v, records=True)
+    assert_same_records(ranks[v["name"]]["records"], ref)
+
+
+def test_auto_chooses_one_config_on_every_rank_as_jax(ranks, corpus):
+    from _torch_dist import jax_mesh
+    from repro.planner import costmodel as jcost
+    from repro.planner.plan import plan_apss as jplan_apss
+
+    ref = jplan_apss(jsparse.from_dense(jnp.asarray(corpus)), T, K, jax_mesh(*ROW4),
+                     profile=jcost.default_profile(), include_kernel=False)
+    assert ranks["auto"]["chosen"] == [ref.config.name] * 4
+
+
+def test_calibrated_auto_agrees_across_ranks_and_is_exact(ranks, corpus):
+    """calibrate(mesh) measures on every rank, which then take rank 0's
+    profile, so every rank plans the same config; the result is exact."""
+    from repro.core.apss import apss_reference
+
+    rec = ranks["auto_calibrated"]
+    assert len(set(rec["chosen"])) == 1
+    prof = rec["profile"]
+    for key in ("matmul_gflops", "gather_gflops", "sharded_matmul_gflops",
+                "collective_gbps", "collective_latency_us"):
+        assert np.isfinite(prof[key]) and prof[key] > 0, key
+    assert prof["device_kind"] == "cpu_x1"
+    assert_same_matches(td.Matches(*rec["matches"]), apss_reference(jnp.asarray(corpus), T, K),
+                        order=False)
 
 
 @pytest.mark.parametrize("v", VARIANTS3, ids=lambda v: v["name"])

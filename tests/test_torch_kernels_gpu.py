@@ -1380,3 +1380,85 @@ def test_lm_kernel_path_matches_plain_path_on_card(card):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol)
     with pytest.raises(ValueError, match="bf16_probs"):
         tt.prefill(model, dataclasses.replace(cfg, bf16_probs=True), tokens)
+
+
+# -- the planner on the card -----------------------------------------------------------
+
+
+def test_planner_offers_the_kernels_on_the_card(card):
+    """Kernel candidates are offered where the data lives on the card (K1
+    dense, K3 sparse; K4/K6 for a query plan), and on no other device."""
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.planner import default_profile, plan_apss, plan_query_topk
+    from repro_torch.planner.plan import candidate_configs, summarize_corpus
+    from repro_torch.serving import build_index
+
+    D = torch.from_numpy(_corp(256, 96, seed=51)).cuda()
+    s = summarize_corpus(D, 0.3)
+    names = [c.name for c in candidate_configs(s)]  # the port's default device: cuda
+    assert "blocked[dense,b=128,kernel]" in names
+    assert not any(c.use_kernel for c in candidate_configs(s, device="cpu"))
+    plan = plan_apss(D, 0.3, 8, profile=default_profile())
+    assert plan.device.type == "cuda" and any(e.config.use_kernel for e in plan.estimates)
+    for corpus in (D, from_dense(D, device=D.device)):
+        index = build_index(corpus, block_rows=64, normalize=False)
+        assert plan_query_topk(index, 8, 0.3, 8).use_kernel
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_query_plan_auto_launches_k4_or_k6(card, kind):
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import build_index, query_topk
+
+    C = _corp(300, 96, seed=52)
+    Q = _corp(12, 96, seed=53)
+    assert_clear_of_threshold(Q, C, 0.3)
+    Ct = torch.from_numpy(C).cuda()
+    index = build_index(Ct if kind == "dense" else from_dense(Ct, device=Ct.device),
+                        block_rows=64, normalize=False)
+    name = "rect_tile_candidates" if kind == "dense" else "rect_sparse_tile_candidates"
+    before = fused.LAUNCHES[name]
+    got = query_topk(index, torch.from_numpy(Q).cuda(), 0.3, 8, plan="auto")
+    assert fused.LAUNCHES[name] == before + 1
+    plain = query_topk(index, torch.from_numpy(Q).cuda(), 0.3, 8, block_q=16)
+    _assert_close((got.values, got.indices, got.counts),
+                  (plain.values, plain.indices, plain.counts))
+
+
+def test_plan_runs_the_kernel_and_is_exact(card):
+    from repro_torch.core.apss import apss_reference
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.planner import VariantConfig, execute
+
+    D = _corp(300, 96, seed=68)  # every score clear of t
+    assert_clear_of_threshold(D, D, 0.3, exclude_self=True)
+    Dt = torch.from_numpy(D).cuda()
+    ref = apss_reference(Dt, 0.3, 8)
+    for cfg, name in ((VariantConfig("blocked", False, 128, use_kernel=True), "apss_fused"),
+                      (VariantConfig("blocked", True, 128, use_kernel=True),
+                       "sparse_tile_candidates")):
+        before = fused.LAUNCHES[name]
+        got = execute(cfg, Dt, 0.3, 8)
+        assert fused.LAUNCHES[name] == before + 1
+        assert got.values.device.type == "cuda"
+        _assert_close((got.indices, got.counts), (ref.indices, ref.counts))
+
+
+def test_autotune_raises_a_kernel_error_instead_of_pricing_it_inf(card, monkeypatch):
+    from repro_torch.kernels._build import KernelError
+    from repro_torch.kernels.apss_block import ops
+    from repro_torch.planner import default_profile, plan_apss
+
+    D = np.zeros((256, 128), np.float32)  # two clusters: the kernel is the dense favourite
+    D[:128, :64] = np.random.default_rng(4).random((128, 64))
+    D[128:, 64:] = np.random.default_rng(5).random((128, 64))
+    D /= np.linalg.norm(D, axis=1, keepdims=True)
+
+    def broken(*a, **kw):
+        raise KernelError("apss_fused failed to launch")
+
+    monkeypatch.setattr(ops, "apss_fused_kernel", broken)
+    with pytest.raises(KernelError, match="failed to launch"):
+        plan_apss(torch.from_numpy(D).cuda(), 0.5, 16, profile=default_profile(),
+                  autotune=True, block_rows_choices=(128,))

@@ -87,7 +87,34 @@ Phases, each printing one JSON line:
     corpus (8192 × 2048, overlap_dims=8), t=0.01, k=8, B=64: densified
     through K5 and sparse through the plain scan with K6 tiles; both skip
     tiles and equal their full scans; scored tiles of the kernel and of the
-    plain scan side by side.
+    plain scan side by side. Then ``live_corpus``, the live index
+    (``serving.MutableAPSSIndex``) on the card in three parts, each op
+    (setup, append, delete, queries, compact, reopen, rebuild) run on its
+    own with the launch counts set to 0 before it, its host-clock wall and
+    the time of its ``checkpoint/save`` spans (WAL entry and snapshot)
+    under an ``obs.Tracer``: ``live_clustered_65k``
+    (``clustered_corpus(65536, 768, 8)``, t=0.5, k=32, block_rows 128, a
+    WAL under ``build/live/``; four rounds of an append of 256 rows of
+    seed 1, a delete of 128 random live ids and 64 queries through a
+    ``RetrievalServer(use_kernel=True)``, whose LRU must miss after each
+    mutation and hit within a version and whose K4 lane must equal the
+    index's masked-K4 lane; then compact, a reopen from the WAL and a
+    fresh rebuild), ``live_radikal_full`` (phase 7's corpus as the first
+    append, one delta join over every live tile, block_rows 256, no WAL;
+    two appends of 64 perturbed rows, two deletes of 32, 64 queries through
+    ``query(use_kernel=True)`` equal to the masked-K4 lane and the oracle;
+    a fresh rebuild) and ``live_sparse_clustered_65k``
+    (``sparse_clustered_corpus(65536, 8192, 16)``, t=0.5, its ELL width
+    pinned at the corpus's, 36 (the generator's rows hold up to 36
+    nonzeros, so 16 would not fit); two rounds of an append of 256 and a
+    delete of 128 on the plain slot-order scorer, a fresh rebuild;
+    ``query(use_kernel=True)`` must raise). Each mutated graph must equal
+    its rebuild's bit for bit (and the reopened one the one before) and
+    agree with the port's oracle on the survivors; the masked K4 must
+    launch in the dense parts, and the masked calls of one delta join
+    (forward and reverse, captured with their inputs) are held to the
+    plain version and timed for the ``kernels`` line. Cut to fit: the
+    sparse part runs two rounds, not four.
 14. ``distributed_radikal_full``: the paper's 1-D and 2-D distributions
     (``core.distributed.apss``) in 4 ranks on the one card over gloo
     (``launch.mesh.spawn``; NCCL takes no two ranks on one card), on the
@@ -160,7 +187,9 @@ Phases, each printing one JSON line:
     f32 FMA bound beside the tensor-core one (``bound_ms_fma``) and the
     float64 slice error, K4's and K6's their work items, grid,
     passes and scratch bytes (K6's also its support width ``support_S``),
-    K5's its cooperative grid (``grid_blocks``) and feature chunks, K9's its
+    K5's its cooperative grid (``grid_blocks``) and feature chunks, the
+    masked K4's its calls (query rows, blocks, tiles and passes of the
+    forward and the reverse join), K9's its
     split, ``n_splits``, grid and live split blocks (``live_blocks``), K8's
     the f32 kernel's time (``ms_f32``) beside SDPA's in f32
     (``library_ms_f32``). K1's ring-step row (phase 14) adds its shape,
@@ -172,7 +201,7 @@ The main-path phases (6-14 and 16-18) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6, on a
-sharded index too for K4;
+sharded index too for K4; ``MutableAPSSIndex`` for K4's masked entry;
 ``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
 4 ranks for K1 under the ring schedules) with the
 launch counts set to 0 just before and read just after, each serving path
@@ -234,6 +263,12 @@ KERNEL_INFO = {
     "rect_tile_candidates": dict(
         route="cuda",
         source="src/repro_torch/kernels/apss_block/csrc/rect_tile_candidates.cu",
+        replaces="src/repro/kernels/apss_block/fused.py:501",
+    ),
+    "rect_tile_candidates_masked": dict(  # K4's masked entry: the live index's delta joins
+        route="cuda",
+        source="src/repro_torch/kernels/apss_block/csrc/rect_tile_candidates.cu",
+        header="src/repro_torch/kernels/apss_block/csrc/rect_tiles.cuh",
         replaces="src/repro/kernels/apss_block/fused.py:501",
     ),
     "rect_tile_candidates_ee": dict(
@@ -359,6 +394,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.append(serve_early_exit_phase(np, torch, "serve_early_exit_overlap"))
     torch.cuda.empty_cache()
+    rows += live_corpus_phase(np, torch, radikal)
     rows.append(distributed_phase(np, torch, "distributed_radikal_full", radikal, single,
                                   threshold=0.2, k=32, n_pad=7168, m_pad=136448))
     del radikal, single
@@ -2618,6 +2654,406 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
     del x, y, xp, yp, mask
     torch.cuda.empty_cache()
     return row
+
+
+# ---------------------------------------------------------------------------
+# Live corpus (K4's masked entry)
+# ---------------------------------------------------------------------------
+
+LIVE_ROOT = ROOT / "build" / "live"  # the WAL of live_clustered_65k, on local disk
+
+
+class MaskedCalls:
+    """While ``on``, keeps copies of the arguments of the live index's K4
+    calls (made on the card before each call, so later mutations of the
+    index's tensors do not reach them); each tensor is copied once."""
+
+    def __init__(self, torch):
+        from repro_torch.serving import mutable
+
+        self.torch, self.mutable = torch, mutable
+        self.real = mutable.rect_tile_candidates_kernel
+        self.on, self.calls = False, []
+
+    def __enter__(self):
+        self.mutable.rect_tile_candidates_kernel = self._spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mutable.rect_tile_candidates_kernel = self.real
+
+    def _spy(self, *args, **kw):
+        if self.on:
+            seen = {}
+
+            def copy_(x):
+                if not isinstance(x, self.torch.Tensor):
+                    return x
+                return seen.setdefault(id(x), x.clone())
+
+            self.calls.append((tuple(copy_(a) for a in args),
+                               {n: copy_(v) for n, v in kw.items()}))
+        return self.real(*args, **kw)
+
+
+def masked_near(np, torch, Q, C, ij, bq, col_live, qpos, t):
+    """Per packet row of a masked K4 call, its query row's pairs with
+    |s - t| <= TOL among the live columns other than its own position."""
+    from repro_torch.core.precision import dot_f32
+
+    rows = (ij[0].numpy()[:, None] * bq + np.arange(bq)[None, :]).reshape(-1)
+    urows = np.unique(rows)
+    live = col_live.to(C.device).bool()
+    per = {}
+    for a in range(0, len(urows), 512):
+        r = torch.from_numpy(urows[a:a + 512]).to(Q.device)
+        near = ((dot_f32(Q[r], C) - t).abs() <= TOL) & live[None, :]
+        own = qpos.to(Q.device)[r].long()
+        has = own >= 0
+        near[torch.arange(len(r), device=Q.device)[has], own[has]] = False
+        per.update(zip(urows[a:a + 512].tolist(), near.sum(dim=1).cpu().tolist()))
+    return np.array([per[r] for r in rows])
+
+
+def masked_work(np, calls, k, m):
+    """FLOP and bytes of the masked K4 calls of one delta join: products of
+    each tile's non-zero query rows (the delta's rows, or the live rows of
+    a corpus block) with its live corpus rows at the index's width ``m``
+    (not the lane-padded one), each of those rows read once, both masks
+    read, every packet written."""
+    flop = nbytes = 0.0
+    for (Q, C, ij, *_), kw in calls:
+        bq, bc, depth = kw["block_q"], kw["block_c"], m
+        wl = ij.numpy()
+        qnz = Q.ne(0).any(dim=1).cpu().numpy().reshape(-1, bq)
+        live = kw["col_live"].cpu().numpy().astype(bool).reshape(-1, bc)
+        flop += 2.0 * depth * float((qnz.sum(1)[wl[0]] * live.sum(1)[wl[1]]).sum())
+        rows = qnz[np.unique(wl[0])].sum() + live[np.unique(wl[1])].sum()
+        nbytes += (4.0 * depth * rows + live.size + 4 * Q.shape[0] + 8 * wl.shape[1]
+                   + wl.shape[1] * bq * (8 * k + 4))
+    return flop, nbytes
+
+
+def library_masked(torch, Q, C, ij, t, k, *, block_q, block_c, nc_valid, col_live, qpos):
+    """Yardstick of the masked K4: ``torch.bmm`` of the same tiles (in
+    chunks of at most 256 MB of operands), the masks, and a stable-sort
+    top-k. The port never calls it."""
+    from repro_torch.kernels.apss_block.fused import _rect_tile_packets, live_masked
+
+    m = Q.shape[1]
+    qb, cb = Q.view(-1, block_q, m), C.view(-1, block_c, m)
+    ij = ij.to(Q.device).long()
+    step = max(1, (1 << 28) // (4 * (block_q + block_c) * m))
+    outs = []
+    for a in range(0, ij.shape[1], step):
+        i, j = ij[0, a:a + step], ij[1, a:a + step]
+        s = live_masked(torch.bmm(qb[i], cb[j].transpose(1, 2)), i, j, col_live, qpos,
+                        block_q=block_q, block_c=block_c)
+        outs.append(_rect_tile_packets(s, j, threshold=t, k=k, block_q=block_q,
+                                       block_c=block_c, nc_valid=nc_valid))
+    return [torch.cat(p) for p in zip(*outs)]
+
+
+def masked_k4_row(np, torch, row_name, launches, calls, t, k, m):
+    """The masked K4 calls of one delta join (forward and reverse) held
+    against the plain version on the same inputs and timed together; the
+    bound counts the work at the index's width ``m``."""
+    from repro_torch.kernels.apss_block import fused
+
+    got, ref, near = [], [], []
+    for (Q, C, ij, *_), kw in calls:
+        got.append(as_rows(np, *fused.rect_tile_candidates_kernel(Q, C, ij, t, k, **kw)))
+        ref.append(as_rows(np, *fused.rect_tile_candidates_plain(Q, C, ij, t, k, **kw)))
+        near.append(masked_near(np, torch, Q, C, ij, kw["block_q"], kw["col_live"],
+                                kw["qpos"], t))
+    cmp = compare(np, *(tuple(np.concatenate(x) for x in zip(*side)) for side in (got, ref)),
+                  t, np.concatenate(near))
+    check(cmp["ok"], f"{row_name}: the masked K4 disagrees with its plain version: {cmp}")
+    flop, nbytes = masked_work(np, calls, k, m)
+    row = kernel_row(
+        np, torch, "rect_tile_candidates_masked", row_name, launches, cmp,
+        lambda: [fused.rect_tile_candidates_kernel(Q, C, ij, t, k, **kw)
+                 for (Q, C, ij, *_), kw in calls],
+        lambda: [fused.rect_tile_candidates_plain(Q, C, ij, t, k, **kw)
+                 for (Q, C, ij, *_), kw in calls],
+        lambda: [library_masked(torch, Q, C, ij, t, k, **kw) for (Q, C, ij, *_), kw in calls],
+        flop, nbytes,
+    )
+    row.update(calls=[dict(query_rows=int(Q.shape[0]), block_q=kw["block_q"],
+                           block_c=kw["block_c"], tiles=int(ij.shape[1]),
+                           passes=-(-int(ij.shape[1]) // fused.rect_work_split(
+                               int(ij.shape[1]), Q.shape[1], kw["block_q"],
+                               kw["block_c"]).pass_tiles))
+                      for (Q, C, ij, *_), kw in calls])
+    return row
+
+
+class LiveOps:
+    """Runs the live index's ops, each on its own: the launch counts set to
+    0 before and added up after, the host-clock wall (ending in a
+    synchronize), and, from a tracer around the op, the time in its
+    ``checkpoint/save`` spans (the WAL entry and the snapshot)."""
+
+    def __init__(self, np, torch):
+        self.np, self.torch = np, torch
+        self.walls: dict = {}
+        self.io: dict = {}
+        self.launches: dict = {}
+
+    def run(self, name, fn):
+        from repro_torch.obs import Tracer
+
+        reset_launches()
+        with Tracer() as tr:
+            out, ms = timed(self.torch, fn)
+        for key, n in launches_now().items():
+            self.launches[key] = self.launches.get(key, 0) + n
+        io = sum(s.duration_s for s in tr.walk() if s.name == "checkpoint/save") * 1e3
+        self.walls.setdefault(name, []).append(ms)
+        self.io.setdefault(name, []).append(io)
+        return out
+
+    def summary(self) -> dict:
+        return dict(walls_ms=self.walls, wal_snapshot_ms=self.io,
+                    append_io_share=sum(self.io.get("append", [0.0])) / max(
+                        1e-9, sum(self.walls.get("append", [0.0]))))
+
+
+def live_graph_checks(np, phase, idx, fresh, surv, ref, near, t, *, reopened=None):
+    """The final graph: equal bit for bit to the fresh rebuild's (its ids
+    translated to gids) and to the reopened index's, and exact against the
+    port's oracle on the survivors by the comparison rule."""
+    gids, g = idx.graph()
+    check(np.array_equal(gids, surv), f"{phase}: the live gids are not the survivors")
+    _, fg = fresh.graph()
+    fi = np.where(fg.indices >= 0, surv[np.maximum(fg.indices, 0)], -1)
+    check(np.array_equal(g.values, fg.values) and np.array_equal(g.indices, fi)
+          and np.array_equal(g.counts, fg.counts),
+          f"{phase}: the mutated graph differs from the fresh rebuild's")
+    if reopened is not None:
+        rg, rm = reopened
+        check(np.array_equal(rg, gids) and all(np.array_equal(a, b) for a, b in zip(rm, g)),
+              f"{phase}: the reopened index differs from the one before")
+    rv, ri, rc = ref
+    ri = np.where(ri >= 0, surv[np.maximum(ri, 0)], -1)
+    c = compare(np, (g.values, g.indices, g.counts), (rv, ri, rc), t, near)
+    check(c["ok"], f"{phase}: the live graph disagrees with the oracle: {c}")
+    return c
+
+
+def live_clustered_phase(np, torch, phase, *, n=65536, m=768, delta=256, dels=128) -> dict:
+    """``clustered_corpus(65536, 768, 8)`` as a live index on the card with a
+    WAL on local disk: four rounds of an append of 256 rows (seed 1), a
+    delete of 128 random live ids and 64 queries through a
+    ``RetrievalServer(use_kernel=True)`` (the version-keyed LRU checked),
+    then compact, reopen and a fresh rebuild."""
+    import shutil
+
+    from repro_torch.core.apss import apss_blocked, normalize_rows
+    from repro_torch.data.synthetic import clustered_corpus
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import MutableAPSSIndex, RetrievalServer
+    from repro_torch.serving.mutable import _normalize_host
+
+    t0 = time.perf_counter()
+    t, k, br, rounds = 0.5, 32, 128, 4
+    d = LIVE_ROOT / phase
+    shutil.rmtree(d, ignore_errors=True)
+    D0 = clustered_corpus(n, m, 8, n_clusters=32, seed=0)
+    extra = clustered_corpus(rounds * delta, m, 8, n_clusters=32, seed=1)
+    raw = np.concatenate([D0, extra])
+    alive = np.zeros(raw.shape[0], bool)
+    alive[:D0.shape[0]] = True
+    rng = np.random.default_rng(0)
+    kw = dict(threshold=t, k=k, block_rows=br)
+    ops = LiveOps(np, torch)
+    with MaskedCalls(torch) as spy:
+        idx = ops.run("setup", lambda: MutableAPSSIndex(D0, directory=str(d), **kw))
+        srv = RetrievalServer(idx, threshold=t, k=k, max_batch=64, use_kernel=True)
+        lru, q = [], None
+        for r in range(rounds):
+            spy.on = r == 0
+            gids = ops.run("append", lambda: idx.append(extra[r * delta:(r + 1) * delta]))
+            spy.on = False
+            check(gids == list(range(D0.shape[0] + r * delta, D0.shape[0] + (r + 1) * delta)),
+                  f"{phase}: unexpected gids")
+            alive[gids] = True
+            victims = sorted(rng.choice(np.nonzero(alive)[0], dels, replace=False).tolist())
+            ops.run("delete", lambda: idx.delete(victims))
+            alive[victims] = False
+            stale = [] if q is None else srv.serve(list(q))  # last round's, cached before
+            q = raw[rng.choice(np.nonzero(alive)[0], 64, replace=False)]
+            q = q + 0.01 * np.abs(rng.standard_normal(q.shape)).astype(np.float32) * (q > 0)
+            res = ops.run("queries", lambda: srv.serve(list(q)))
+            again = srv.serve(list(q))
+            check(not any(x.cached for x in stale + res) and all(x.cached for x in again)
+                  and all(x.status == "ok" for x in stale + res + again),
+                  f"{phase}: the version-keyed LRU hit across a mutation or missed within "
+                  f"a version")
+            own = idx.query(normalize_rows(torch.from_numpy(q).cuda()))  # the server's batch
+            check(all(np.array_equal(x.values, v) and np.array_equal(x.indices, i)
+                      for x, v, i in zip(res, own.values, own.indices)),
+                  f"{phase}: the server's K4 lane differs from the masked K4 lane")
+            lru.append(dict(version=idx.version, misses_after_mutation=len(stale),
+                            hits_within_version=sum(x.cached for x in again)))
+        check(srv.stats.degraded == srv.stats.retries == 0, f"{phase}: the server degraded")
+        ops.run("compact", idx.compact)
+        reopened = ops.run("reopen", lambda: MutableAPSSIndex(None, directory=str(d), **kw))
+        reopened_graph = reopened.graph()
+        del reopened
+        surv = np.nonzero(alive)[0]
+        fresh = ops.run("rebuild", lambda: MutableAPSSIndex(raw[surv], **kw))
+    launches = ops.launches
+    check(launches["rect_tile_candidates_masked"] > 0 and launches["rect_tile_candidates"] > 0,
+          f"{phase}: the masked K4 or K4 never ran: {launches}")
+    check(len(spy.calls) >= 1, f"{phase}: no masked K4 call captured")
+    Dn = torch.from_numpy(_normalize_host(raw[surv])).cuda()
+    ref = matches_to_numpy(apss_blocked(Dn, t, k, use_kernel=False))
+    near = near_threshold_counts(torch, Dn, t)
+    del Dn
+    cmp = live_graph_checks(np, phase, idx, fresh, surv, ref, near, t,
+                            reopened=reopened_graph)
+    del fresh
+    row = masked_k4_row(np, torch, phase, launches, spy.calls, t, k, m)
+    emit(phase, n=int(alive.sum()), m=m, threshold=t, k=k, block_rows=br, rounds=rounds,
+         capacity=idx._ncap, lanes=idx._mlanes, launches=launches, lru=lru,
+         vs_oracle=cmp, seconds=time.perf_counter() - t0, **ops.summary())
+    del idx, srv
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def live_radikal_phase(np, torch, phase, radikal) -> dict:
+    """The radikal corpus as the first append of a live index on the card
+    (one delta join over every live tile), then two appends of 64 rows, two
+    deletes of 32, 64 queries through ``query(use_kernel=True)`` and a
+    fresh rebuild. No WAL: a snapshot would copy all of C to the host on
+    every op."""
+    from repro_torch.core.apss import apss_reference
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.data.sparse import perturbed_queries
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import MutableAPSSIndex
+    from repro_torch.serving.mutable import _normalize_host
+
+    t0 = time.perf_counter()
+    t, k, br = 0.2, 32, 256
+    sp = from_dense(torch.from_numpy(radikal).cuda())
+    extra = [perturbed_queries(sp, 64, seed=s) for s in (2, 3)]
+    Q = perturbed_queries(sp, 64, seed=1)
+    del sp
+    torch.cuda.empty_cache()
+    raw = np.concatenate([radikal] + extra)
+    alive = np.zeros(raw.shape[0], bool)
+    alive[:radikal.shape[0]] = True
+    rng = np.random.default_rng(0)
+    kw = dict(threshold=t, k=k, block_rows=br)
+    ops = LiveOps(np, torch)
+    with MaskedCalls(torch) as spy:
+        idx = ops.run("setup", lambda: MutableAPSSIndex(radikal, **kw))
+        first_join = dict(launches=dict(ops.launches))
+        for r, rows in enumerate(extra):
+            spy.on = r == 0
+            gids = ops.run("append", lambda: idx.append(rows))
+            spy.on = False
+            alive[gids] = True
+            victims = sorted(rng.choice(np.nonzero(alive)[0], 32, replace=False).tolist())
+            ops.run("delete", lambda: idx.delete(victims))
+            alive[victims] = False
+        got = ops.run("queries", lambda: idx.query(Q, use_kernel=True))
+        own = idx.query(Q)
+        check(np.array_equal(got.values, own.values) and np.array_equal(got.indices, own.indices)
+              and np.array_equal(got.counts, own.counts),
+              f"{phase}: query(use_kernel=True) differs from the masked K4 lane")
+        surv = np.nonzero(alive)[0]
+        fresh = ops.run("rebuild", lambda: MutableAPSSIndex(raw[surv], **kw))
+    launches = ops.launches
+    check(launches["rect_tile_candidates_masked"] > 0 and launches["rect_tile_candidates"] > 0,
+          f"{phase}: the masked K4 or K4 never ran: {launches}")
+    Dn = torch.from_numpy(_normalize_host(raw[surv])).cuda()
+    ref = matches_to_numpy(apss_reference(Dn, t, k))
+    near = near_threshold_counts(torch, Dn, t)
+    cmp = live_graph_checks(np, phase, idx, fresh, surv, ref, near, t)
+    qref, qnear = rect_reference(torch, torch.from_numpy(Q).cuda(), Dn, t, k)
+    qv, qi, qc = matches_to_numpy(qref)
+    qcmp = compare(np, tuple(got), (qv, np.where(qi >= 0, surv[np.maximum(qi, 0)], -1), qc),
+                   t, qnear)
+    check(qcmp["ok"], f"{phase}: the queries disagree with the oracle: {qcmp}")
+    del Dn, fresh
+    torch.cuda.empty_cache()
+    row = masked_k4_row(np, torch, phase, launches, spy.calls, t, k, int(radikal.shape[1]))
+    emit(phase, n=int(alive.sum()), m=int(radikal.shape[1]), threshold=t, k=k, block_rows=br,
+         capacity=idx._ncap, lanes=idx._mlanes, launches=launches, first_join=first_join,
+         vs_oracle=cmp, queries_vs_oracle=qcmp, seconds=time.perf_counter() - t0,
+         **ops.summary())
+    del idx, spy
+    torch.cuda.empty_cache()
+    return row
+
+
+def live_sparse_phase(np, torch, phase, *, n=65536, m=8192) -> None:
+    """``sparse_clustered_corpus(65536, 8192, 16, n_clusters=32)`` as a sparse
+    live index on the card (the plain slot-order scorer, no kernel), its ELL
+    width pinned at the corpus's: two rounds of an append of 256 rows and a
+    delete of 128, then a fresh rebuild; ``query(use_kernel=True)`` must
+    raise."""
+    from repro_torch.core.apss import apss_blocked
+    from repro_torch.core.sparse import from_dense, to_dense
+    from repro_torch.data.sparse import sparse_clustered_corpus
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.serving import MutableAPSSIndex
+    from repro_torch.serving.mutable import _normalize_sparse_host
+
+    t0 = time.perf_counter()
+    t, k, br, rounds = 0.5, 32, 256, 2
+    sp = sparse_clustered_corpus(n, m, 16.0, n_clusters=32, seed=0)
+    add = sparse_clustered_corpus(rounds * 256, m, 16.0, n_clusters=32, seed=1)
+    cap = sp.cap
+    check(add.cap <= cap, f"{phase}: the appended rows need a wider ELL than {cap}")
+    raw = np.concatenate([to_dense(sp).cpu().numpy(), to_dense(add).cpu().numpy()])
+    del add
+    alive = np.zeros(raw.shape[0], bool)
+    alive[:sp.n] = True
+    rng = np.random.default_rng(0)
+    kw = dict(threshold=t, k=k, block_rows=br, kind="sparse", cap=cap)
+    ops = LiveOps(np, torch)
+    idx = ops.run("setup", lambda: MutableAPSSIndex(sp, **kw))
+    n0 = sp.n
+    del sp
+    for r in range(rounds):
+        gids = ops.run("append", lambda: idx.append(raw[n0 + r * 256:n0 + (r + 1) * 256]))
+        alive[gids] = True
+        victims = sorted(rng.choice(np.nonzero(alive)[0], 128, replace=False).tolist())
+        ops.run("delete", lambda: idx.delete(victims))
+        alive[victims] = False
+    q = raw[rng.choice(np.nonzero(alive)[0], 64, replace=False)]
+    ops.run("queries", lambda: idx.query(q))
+    check(_raises(lambda: idx.query(q, use_kernel=True), NotImplementedError),
+          f"{phase}: query(use_kernel=True) on a sparse live index did not raise")
+    surv = np.nonzero(alive)[0]
+    fresh = ops.run("rebuild", lambda: MutableAPSSIndex(raw[surv], **kw))
+    check(ops.launches["rect_tile_candidates_masked"] == 0, f"{phase}: a kernel ran")
+    spn = _normalize_sparse_host(from_dense(raw[surv], cap=cap, device="cpu")).to("cuda")
+    ref = matches_to_numpy(apss_blocked(spn, t, k, use_kernel=False))
+    near = near_threshold_counts(torch, to_dense(spn), t)
+    cmp = live_graph_checks(np, phase, idx, fresh, surv, ref, near, t)
+    emit(phase, n=int(alive.sum()), m=m, cap=cap, threshold=t, k=k, block_rows=br,
+         rounds=rounds, capacity=idx._ncap, launches=ops.launches, vs_oracle=cmp,
+         seconds=time.perf_counter() - t0, **ops.summary())
+    del idx, fresh, spn
+    torch.cuda.empty_cache()
+
+
+def live_corpus_phase(np, torch, radikal) -> list:
+    """The three parts of the ``live_corpus`` phase; returns the masked K4's
+    rows."""
+    t0 = time.perf_counter()
+    rows = [live_clustered_phase(np, torch, "live_clustered_65k"),
+            live_radikal_phase(np, torch, "live_radikal_full", radikal)]
+    live_sparse_phase(np, torch, "live_sparse_clustered_65k")
+    emit("live_corpus", seconds=time.perf_counter() - t0)
+    return rows
 
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,

@@ -24,15 +24,21 @@ Subpackages:
                                 partials) with their wrappers and plain
                                 versions
 - :mod:`repro_torch.serving` -- build-once index, ``query_topk``, the
+                                live corpus (``MutableAPSSIndex``), the
                                 retrieval servers
 - :mod:`repro_torch.models`  -- the dense GQA transformer (qwen3) and its
                                 layers: prefill, KV-cache decode
 - :mod:`repro_torch.configs` -- architecture registry (qwen3-1.7b)
 - :mod:`repro_torch.launch`  -- ``launch/serve.py`` (LM and retrieval
-                                modes, ``LMServer``), ``launch/mesh.py``
+                                modes, ``LMServer``), ``launch/live.py``
+                                (the live-corpus demo), ``launch/mesh.py``
                                 (meshes of ranks, ``spawn``)
 - :mod:`repro_torch.data`    -- synthetic corpora (dense numpy, CSR) and
                                 the serving traffic model
+- :mod:`repro_torch.obs`, :mod:`repro_torch.robust`,
+  :mod:`repro_torch.checkpoint` -- tracing, metrics and the flight
+                                recorder; fault injection; atomic verified
+                                checkpoints (the live corpus's WAL)
 """
 
 from repro_torch.core.apss import (

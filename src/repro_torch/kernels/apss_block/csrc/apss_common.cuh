@@ -31,7 +31,8 @@
 //   the current one is multiplied. K4 and K6 score through ring_tile
 //   instead (rect_tiles.cuh); all three select a row's packet with
 //   rect_row_packet: keep s >= t and gcol < nc_valid (no self-exclusion:
-//   queries are not corpus rows), count them and select the top-k
+//   queries are not corpus rows; K4's masked entry adds the live index's
+//   dead-column and own-position masks), count them and select the top-k
 //   (select_packet).
 //
 // Summation order of a rectangular score (K4, K5, K6): the features are cut
@@ -355,11 +356,17 @@ __device__ __forceinline__ void merge_values(float* a, const float* b, int k) {
 // Row r's forward packet from its block_c scores srow: keep s >= t and
 // gcol < nc_valid, count them and select the top-k (one warp). With Global,
 // srow lies in device memory written by other thread blocks of this launch
-// and is read through L2 (__ldcg), never from a stale L1 line.
+// and is read through L2 (__ldcg), never from a stale L1 line. The live
+// index's masks (K4's masked entry; null / -1 elsewhere): a column whose
+// col_live byte is 0, or whose id is the row's own corpus position qpos,
+// scores NEG_LARGE before the threshold, so it fails any real one, t <= 0
+// included.
 template <bool Global>
 __device__ __forceinline__ void rect_row_packet(const float* srow, int block_c, int gcol0,
                                                 int nc_valid, float threshold, int k,
-                                                float* out_v, int* out_i, int* out_c) {
+                                                float* out_v, int* out_i, int* out_c,
+                                                const unsigned char* col_live = nullptr,
+                                                int qpos = -1) {
   const int lane = threadIdx.x & 31;
   float v[MAX_BLOCK / 32];
   int id[MAX_BLOCK / 32];
@@ -372,6 +379,7 @@ __device__ __forceinline__ void rect_row_packet(const float* srow, int block_c, 
     if (c < block_c) {
       const int gcol = gcol0 + c;
       sv = Global ? __ldcg(srow + c) : srow[c];
+      if ((col_live != nullptr && !col_live[gcol]) || gcol == qpos) sv = NEG_LARGE;
       ok = sv >= threshold && gcol < nc_valid;
       id[q] = ok ? gcol : -1;
     } else {

@@ -10,7 +10,10 @@
 // carries from tile to tile), rect_part_kernel over work items of (tile x
 // FK feature chunk x corpus strip) and rect_select_kernel, one warp per
 // tile row; rect_tiles.cuh holds both, shared with K6 (QueryAt::Block
-// here: the query operand of entry t is query block ij[0, t] of Q).
+// here: the query operand of entry t is query block ij[0, t] of Q). With
+// its two mask operands the same two launches apply the live index's masks
+// in the selection (the reference's serving/mutable.py _mut_dense_inner, a
+// jnp scan over the same tiles).
 // Rows 0 and 1 of the worklist address the operands; column ids and
 // validity come from its LAST row. Q and C may differ in type (f32
 // queries against a bf16 corpus, as the reference promotes). The summation
@@ -29,15 +32,21 @@
 // Q (nq, m) and C (nc, m) row-major, each float32 or bfloat16 (the entry's
 // suffix: query type, corpus type); ij (ij_rows, n_tiles) int32; part
 // (pass_tiles, ceil(m / FK), block_q, block_c) f32 scratch; fv/fi (n_tiles,
-// block_q, k), fc (n_tiles, block_q). Returns a cudaError_t code.
+// block_q, k), fc (n_tiles, block_q). The masks, each null for none (the
+// live index's delta joins, serving/mutable.py, pass both): col_live (nc,)
+// uint8, 0 = a dead column, and qpos (nq,) int32, each query row's own
+// corpus position or -1; both columns score NEG_LARGE before the threshold
+// (rect_row_packet).
+// Returns a cudaError_t code.
 #define APSS_RECT_ENTRY(SUFFIX, TQ, TC)                                                  \
   extern "C" int apss_rect_tile_candidates_##SUFFIX(                                     \
       const void* Q, const void* C, const void* ij, int ij_rows, int n_tiles, void* part, \
       int pass_tiles, void* fv, void* fi, void* fc, int m, int block_q, int block_c,     \
-      int nc_valid, float threshold, int k, void* stream) {                              \
+      int nc_valid, float threshold, int k, void* stream, const void* col_live,          \
+      const void* qpos) {                                                                \
     return apss::launch_rect<apss::QueryAt::Block, TQ, TC>(                              \
         Q, C, ij, ij_rows, n_tiles, part, pass_tiles, fv, fi, fc, m, block_q, block_c,   \
-        nc_valid, threshold, k, stream);                                                 \
+        nc_valid, threshold, k, stream, col_live, qpos);                                 \
   }
 
 APSS_RECT_ENTRY(f32_f32, float, float)

@@ -19,7 +19,11 @@
 //   2. rect_select_kernel: one warp per tile row adds each score's partials
 //      from 0 in increasing chunk order, then keeps s >= t and gcol <
 //      nc_valid and selects the row's top-k by (value desc, id asc)
-//      (rect_row_packet, K5's rule).
+//      (rect_row_packet, K5's rule). K4's masked entry (the live index's
+//      delta joins) also hands it col_live (one byte per corpus row, 0 =
+//      dead) and qpos (per query row of Q, its own corpus position or -1):
+//      those columns score NEG_LARGE before the threshold. The masks touch
+//      the selection only, so the scores keep their bits.
 // Worklists whose scratch would pass the caller's budget run in passes of
 // `pass_tiles` tiles, each pass both launches. Row 1 of the worklist
 // addresses the corpus block (and row 0 K4's query block); column ids and
@@ -92,7 +96,8 @@ __global__ void __launch_bounds__(THREADS)
 rect_select_kernel(const float* __restrict__ part, const int* __restrict__ ij, int ij_rows,
                    int n_tiles, int t0, int tiles, float* __restrict__ fv,
                    int* __restrict__ fi, int* __restrict__ fc, int block_q, int block_c,
-                   int n_chunks, int nc_valid, float threshold, int k) {
+                   int n_chunks, int nc_valid, float threshold, int k,
+                   const unsigned char* __restrict__ col_live, const int* __restrict__ qpos) {
   __shared__ float rows[WARPS][MAX_BLOCK];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long lrow = (long long)blockIdx.x * WARPS + warp;
@@ -113,8 +118,9 @@ rect_select_kernel(const float* __restrict__ part, const int* __restrict__ ij, i
     if (q * 32 < block_c) rows[warp][q * 32 + lane] = s[q];
   __syncwarp();
   const long long row = (long long)(t0 + tl) * block_q + r;
+  const int own = qpos != nullptr ? qpos[(long long)ij[t0 + tl] * block_q + r] : -1;
   rect_row_packet<false>(rows[warp], block_c, gj * block_c, nc_valid, threshold, k,
-                         fv + row * k, fi + row * k, fc + row);
+                         fv + row * k, fi + row * k, fc + row, col_live, own);
 }
 
 template <QueryAt QA, int SR, int SC, typename TQ, typename TC>
@@ -166,7 +172,8 @@ cudaError_t launch_parts(const void* Q, const void* C, const int* ij, int n_tile
 template <QueryAt QA, typename TQ, typename TC>
 int launch_rect(const void* Q, const void* C, const void* ij_, int ij_rows, int n_tiles,
                 void* part_, int pass_tiles, void* fv, void* fi, void* fc, int m, int block_q,
-                int block_c, int nc_valid, float threshold, int k, void* stream_) {
+                int block_c, int nc_valid, float threshold, int k, void* stream_,
+                const void* col_live = nullptr, const void* qpos = nullptr) {
   if (block_q % 8 || block_q < 8 || block_q > MAX_QBLOCK || block_c % TILE ||
       block_c > MAX_BLOCK || m % PK || m < PK || k < 1 || n_tiles < 1 || pass_tiles < 1 ||
       (ij_rows != 2 && ij_rows != 3))
@@ -183,7 +190,8 @@ int launch_rect(const void* Q, const void* C, const void* ij_, int ij_rows, int 
     const long long rows = (long long)tiles * block_q;
     rect_select_kernel<<<(unsigned)((rows + WARPS - 1) / WARPS), THREADS, 0, stream>>>(
         part, ij, ij_rows, n_tiles, t0, tiles, static_cast<float*>(fv), static_cast<int*>(fi),
-        static_cast<int*>(fc), block_q, block_c, n_chunks, nc_valid, threshold, k);
+        static_cast<int*>(fc), block_q, block_c, n_chunks, nc_valid, threshold, k,
+        static_cast<const unsigned char*>(col_live), static_cast<const int*>(qpos));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

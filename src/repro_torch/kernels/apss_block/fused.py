@@ -18,7 +18,9 @@
    mirror, no self-exclusion), folded by ``ops.fold_rect_packets``. Each
    tile is spread over the card in the work items of
    :func:`rect_work_split`, whose partials a second launch adds and
-   selects from.
+   selects from. Its masked entry (``col_live``/``qpos``) adds the live
+   index's dead-column and own-position masks to that selection
+   (``serving/mutable.py``'s delta joins).
 4. :func:`rect_tile_candidates_early_exit_kernel` (K5,
    ``csrc/rect_tile_candidates_ee.cu``) -- K4 walking the worklist in its
    upper-bound-descending order with a running per-row values buffer, and
@@ -63,6 +65,7 @@ LAUNCHES = {
     "apss_tile_candidates": 0,    # K2, this module
     "sparse_tile_candidates": 0,  # K3, sparse.py
     "rect_tile_candidates": 0,       # K4, this module
+    "rect_tile_candidates_masked": 0,  # K4's masked entry (the live index), this module
     "rect_tile_candidates_ee": 0,    # K5, this module
     "rect_sparse_tile_candidates": 0,  # K6, sparse.py
     "apss_block": 0,              # K7, apss_block.py
@@ -331,6 +334,24 @@ def _rect_tile_packets(
     return fv, fi, ok.sum(dim=2, keepdim=True, dtype=torch.int32)
 
 
+def live_masked(s, ib, jb, col_live, qpos, *, block_q: int, block_c: int):
+    """The live index's masks on a batch of tile scores ``s (B, block_q,
+    block_c)`` of query blocks ``ib`` and corpus blocks ``jb``: a column
+    whose ``col_live`` is False, or that is the query row's own corpus
+    position ``qpos[row]`` (−1: none), scores ``NEG_LARGE``, which fails any
+    real threshold, t ≤ 0 included (the reference's ``_mut_dense_inner``).
+    ``None`` leaves a mask out."""
+    dev = s.device
+    gcol = jb.to(dev, torch.long)[:, None] * block_c + torch.arange(block_c, device=dev)
+    if col_live is not None:
+        s = torch.where(col_live.to(dev, torch.bool)[gcol][:, None, :], s, NEG_LARGE)
+    if qpos is not None:
+        grow = ib.to(dev, torch.long)[:, None] * block_q + torch.arange(block_q, device=dev)
+        own = qpos.to(dev, torch.long)[grow][:, :, None] == gcol[:, None, :]
+        s = torch.where(own, NEG_LARGE, s)
+    return s
+
+
 def rect_tile_candidates_plain(
     Q: torch.Tensor,
     C: torch.Tensor,
@@ -341,8 +362,11 @@ def rect_tile_candidates_plain(
     block_q: int,
     block_c: int,
     nc_valid: int,
+    col_live: torch.Tensor | None = None,
+    qpos: torch.Tensor | None = None,
 ):
-    """K4's function in plain PyTorch.
+    """K4's function in plain PyTorch, with its masked entry's masks
+    (:func:`live_masked`; ``None``: unmasked).
 
     Rows 0 and 1 of ``ij (2|3, T)`` address the query and corpus blocks;
     packet column ids come from its last row. Each tile is one product, so
@@ -363,6 +387,9 @@ def rect_tile_candidates_plain(
             dot_f32(qb[qi], cb[cj])
             for qi, cj in zip(wl[0][a:a + step], wl[1][a:a + step])
         ])
+        if col_live is not None or qpos is not None:
+            s = live_masked(s, ij[0, a:a + step], ij[-1, a:a + step], col_live, qpos,
+                            block_q=block_q, block_c=block_c)
         outs.append(_rect_tile_packets(
             s, ij[-1, a:a + step], threshold=threshold, k=k, block_q=block_q,
             block_c=block_c, nc_valid=nc_valid,
@@ -830,6 +857,8 @@ def rect_tile_candidates_kernel(
     block_q: int = 128,
     block_c: int = 256,
     nc_valid: int,
+    col_live: torch.Tensor | None = None,
+    qpos: torch.Tensor | None = None,
 ):
     """K4 on padded queries ``Q (nq, m)``, a padded corpus ``C (nc, m)`` and
     a ``(2, T)`` or ``(3, T)`` worklist of live (query block, corpus block)
@@ -837,15 +866,35 @@ def rect_tile_candidates_kernel(
     ``C`` are each float32 or bfloat16. The work goes in the items of
     :func:`rect_work_split`.
 
+    ``col_live (nc,)`` (bool, False = a dead column) and ``qpos (nq,)``
+    (int, each query row's own corpus position or −1), given together and
+    with a ``(2, T)`` worklist, are K4's masked entry (the live index's
+    delta joins): those columns score ``NEG_LARGE`` before the threshold,
+    in the selection launch only, so every score keeps the unmasked
+    bits. Its launches count under ``"rect_tile_candidates_masked"``.
+
     Returns ``(fv, fi, fc)`` shaped ``(T, block_q, k|k|1)``.
     """
     kw = dict(block_q=block_q, block_c=block_c, nc_valid=nc_valid)
     if Q.device.type == "cpu":
-        return rect_tile_candidates_plain(Q, C, ij, threshold, k, **kw)
+        return rect_tile_candidates_plain(Q, C, ij, threshold, k, col_live=col_live,
+                                          qpos=qpos, **kw)
     grid_q, grid_c = _check_rect_operands(Q, C, block_q, block_c)
-    ij = _worklist_on(ij, Q.device, (2, 3), (grid_q, grid_c, None))
+    masked = col_live is not None or qpos is not None
+    if masked and (col_live is None or qpos is None):
+        raise ValueError("col_live and qpos go together")
+    ij = _worklist_on(ij, Q.device, (2,) if masked else (2, 3), (grid_q, grid_c, None))
     R, T = ij.shape
     dev = Q.device
+    masks = [None, None]
+    if masked:
+        col_live = torch.as_tensor(col_live).to(dev, torch.uint8).contiguous()
+        qpos = torch.as_tensor(qpos).to(dev, torch.int32).contiguous()
+        if tuple(col_live.shape) != (C.shape[0],) or tuple(qpos.shape) != (Q.shape[0],):
+            raise ValueError(
+                f"col_live {tuple(col_live.shape)} and qpos {tuple(qpos.shape)} must be "
+                f"({C.shape[0]},) and ({Q.shape[0]},)")
+        masks = [col_live.data_ptr(), qpos.data_ptr()]
     split = rect_work_split(T, Q.shape[1], block_q, block_c)
     part = torch.empty(split.scratch_bytes // 4, dtype=torch.float32, device=dev)
     fv = torch.empty((T, block_q, k), dtype=torch.float32, device=dev)
@@ -853,16 +902,16 @@ def rect_tile_candidates_kernel(
     fc = torch.empty((T, block_q, 1), dtype=torch.int32, device=dev)
     fn, check = _entry(
         "rect_tile_candidates", f"apss_rect_tile_candidates_{_pair(Q.dtype, C.dtype)}",
-        [_VP, _VP, _VP, _I, _I, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I, _VP],
+        [_VP, _VP, _VP, _I, _I, _VP, _I] + [_VP] * 3 + [_I] * 4 + [_F, _I] + [_VP] * 3,
     )
     status = fn(
         Q.data_ptr(), C.data_ptr(), ij.data_ptr(), R, T, part.data_ptr(), split.pass_tiles,
         fv.data_ptr(), fi.data_ptr(), fc.data_ptr(),
         Q.shape[1], block_q, block_c, int(nc_valid), _f32(threshold), k,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream, *masks,
     )
     check(status)
-    LAUNCHES["rect_tile_candidates"] += 1
+    LAUNCHES["rect_tile_candidates_masked" if masked else "rect_tile_candidates"] += 1
     return fv, fi, fc
 
 

@@ -25,8 +25,10 @@
           --corpus-n 4096 --corpus-m 2048
 
 ``--device cpu`` runs the kernels' plain versions (and plans without
-them). The reference's ``--chaos`` and the trace/metrics exports are
-ROADMAP queue 1 item 7.
+them). The servers already take a ``repro_torch.robust.FaultPlan`` and
+fire ``repro_torch.obs`` events; this script's ``--chaos``, ``--trace-out``
+and ``--metrics-out`` (the reference's) are ROADMAP queue 1 item 7. The
+live-corpus demo is ``repro_torch.launch.live``.
 """
 
 from __future__ import annotations

@@ -191,10 +191,10 @@ class CommLog:
 
 _STACK: list[CommLog] = []
 
-# Observability hooks (the reference's ``obs``; the port's is ROADMAP queue
-# 1 item 7): the tracer subscribes to records and the metrics registry to
-# counters, so one ``incr`` call feeds both. Hooks keep the dependency
-# one-way: ``obs`` imports this module, never the reverse.
+# Observability hooks (``repro_torch.obs``): the tracer subscribes to
+# records and the metrics registry to counters, so one ``incr`` call feeds
+# both. Hooks keep the dependency one-way: ``obs`` imports this module,
+# never the reverse.
 _RECORD_HOOKS: list = []
 _COUNTER_HOOKS: list = []
 

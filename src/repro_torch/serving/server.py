@@ -30,21 +30,28 @@ tier. It propagates from ``step()``, or, in the continuous server, stops
 the workers and re-raises from ``result()``.
 
 Both servers take a sharded index unchanged: each batch goes to the
-index's home device and ``query_topk`` runs the per-shard path.
+index's home device and ``query_topk`` runs the per-shard path. A live
+:class:`~repro_torch.serving.mutable.MutableAPSSIndex` is served through
+its own ``query`` (result ids are its global row ids, stable across
+compaction); each mutation bumps its ``version``, which the LRU keys on.
 
 Each event is counted in :class:`ServerStats` and in the active telemetry
 logs (``planner.telemetry.incr``: ``serving.requests`` /
 ``serving.cache_hits`` / ``serving.shed`` / ``serving.degraded`` /
-``serving.retries`` / ``serving.stale``), at the reference's events, and
-each batch's ``query_topk`` records its ``ApssStats``. Adversarial input is
-rejected at ``submit``: non-numeric dtypes, non-finite values and a wrong
-dimension raise ``ValueError``; an all-zero query is served (it normalizes
-to zero and matches nothing). ``fault_plan`` is any object with
+``serving.retries`` / ``serving.stale``), traced at the reference's points
+(``obs.trace``: the ``serving/step`` and ``serving/score`` spans and the
+``shed`` / ``cache_hit`` / ``admit`` / ``retry`` / ``degrade`` / ``batch``
+/ ``merge`` events, the continuous server's ``slot`` / ``exit``), observed
+into the active metrics registry (``serving.latency_s``,
+``serving.batch_occupancy``), and a tier going down dumps the active flight
+recorders (``obs.recorder``, reason ``serving.tier_down``). Each batch's
+``query_topk`` records its ``ApssStats``. Adversarial input is rejected at
+``submit``: non-numeric dtypes, non-finite values and a wrong dimension
+raise ``ValueError``; an all-zero query is served (it normalizes to zero
+and matches nothing). ``fault_plan`` is a
+:class:`~repro_torch.robust.faults.FaultPlan`, or any object with
 ``fail_point(scope)`` (raising, scopes ``serving.kernel`` /
-``serving.plain``) and ``delay(scope, step=)`` (scope ``serving``), the
-contract of the reference's ``robust.faults.FaultPlan``, whose port is
-ROADMAP queue 1 item 7, as are the trace and metrics hooks. A live
-(mutable) index is item 6.
+``serving.plain``) and ``delay(scope, step=)`` (scope ``serving``).
 """
 
 from __future__ import annotations
@@ -59,9 +66,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.apss import normalize_rows
+from repro_torch.interop import _host
 from repro_torch.kernels._build import KernelError
+from repro_torch.obs import metrics, recorder, trace
 from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex
+from repro_torch.serving.mutable import MutableAPSSIndex
 from repro_torch.serving.query import query_topk
 
 # Faults of the code, not of the load: never retried, never degraded past.
@@ -90,12 +100,13 @@ class ServerStats(NamedTuple):
 
 class RetrievalServer:
     """Batched online retrieval over a prebuilt :class:`APSSIndex`, whole or
-    sharded. Not yet ported: the reference's live index (ROADMAP queue 1
-    item 6).
+    sharded, or a live :class:`MutableAPSSIndex`.
 
     Args:
       index: built once by :func:`~repro_torch.serving.index.build_index`,
-        whole or in row-block shards; batches go to its (home) device.
+        whole or in row-block shards, or a live ``MutableAPSSIndex``
+        (mutations bump its ``version``, which invalidates every cached
+        answer); batches go to its (home) device.
       threshold / k: fixed per server.
       max_batch: padded batch width; requests beyond it wait for the next
         step boundary.
@@ -150,9 +161,9 @@ class RetrievalServer:
         self._cache: collections.OrderedDict[
             str, tuple[RetrievalResult, float, int]
         ] = collections.OrderedDict()
-        # pending: (rid, query, cache key, absolute deadline | inf)
+        # pending: (rid, query, cache key, absolute deadline | inf, submit time)
         self._pending: collections.deque[
-            tuple[int, np.ndarray, str, float]
+            tuple[int, np.ndarray, str, float, float]
         ] = collections.deque()
         self._results: dict[int, RetrievalResult] = {}
         self._next_id = 0
@@ -193,10 +204,12 @@ class RetrievalServer:
     def _shed_request(self, rid: int) -> None:
         self._shed += 1
         telemetry.incr("serving.shed")
+        trace.event("shed", rid=rid)
         self._results[rid] = self._empty_result("shed")
 
-    def _admit(self, q: np.ndarray, key: str, deadline_s) -> int:
-        """Cache hit, shed or enqueue one coerced query; returns its id."""
+    def _admit(self, q: np.ndarray, key: str, deadline_s, **admit_attrs) -> int:
+        """Cache hit, shed or enqueue one coerced query; returns its id.
+        ``admit_attrs`` go on the ``admit`` trace event beside the id."""
         rid = self._next_id
         self._next_id += 1
         self._requests += 1
@@ -205,15 +218,19 @@ class RetrievalServer:
         if hit is not None:
             self._cache_hits += 1
             telemetry.incr("serving.cache_hits")
+            trace.event("cache_hit", rid=rid)
+            if metrics.enabled():
+                metrics.observe("serving.latency_s", 0.0)
             self._results[rid] = hit._replace(cached=True)
             return rid
         if self.max_pending is not None and len(self._pending) >= self.max_pending:
             self._shed_request(rid)
             return rid
+        trace.event("admit", rid=rid, **admit_attrs)
         budget = deadline_s if deadline_s is not None else self.deadline_s
         now = time.monotonic()
         deadline = now + budget if budget is not None else np.inf
-        self._pending.append((rid, q, key, deadline))
+        self._pending.append((rid, q, key, deadline, now))
         return rid
 
     # -- request lifecycle --------------------------------------------------
@@ -243,14 +260,18 @@ class RetrievalServer:
                 try:
                     if self.fault_plan is not None:
                         self.fault_plan.fail_point(f"serving.{tier}")
-                    m = query_topk(
-                        self.index, Q, self.threshold, self.k,
-                        block_q=self.block_q, use_kernel=use_k,
-                    )
+                    if isinstance(self.index, MutableAPSSIndex):
+                        m = self.index.query(
+                            Q, self.threshold, self.k,
+                            block_q=self.block_q, use_kernel=use_k,
+                        )
+                    else:
+                        m = query_topk(
+                            self.index, Q, self.threshold, self.k,
+                            block_q=self.block_q, use_kernel=use_k,
+                        )
                     if nth > 0:
-                        with self._ladder_lock:
-                            self._degraded += 1
-                        telemetry.incr("serving.degraded")
+                        self._tier_down(tier)
                     return m, tier
                 except _CODE_FAULTS:
                     raise
@@ -259,17 +280,24 @@ class RetrievalServer:
                         with self._ladder_lock:
                             self._retries += 1
                         telemetry.incr("serving.retries")
+                        trace.event("retry", tier=tier, attempt=attempt + 1)
                         time.sleep(delay)
                         delay *= 2
+        self._tier_down("stale")
+        return None, "stale"
+
+    def _tier_down(self, tier: str) -> None:
+        """Count, trace and flight-record the ladder landing on ``tier``."""
         with self._ladder_lock:
             self._degraded += 1
         telemetry.incr("serving.degraded")
-        return None, "stale"
+        trace.event("degrade", tier=tier)
+        recorder.trigger("serving.tier_down", tier=tier)
 
     def _batch_queries(self, batch) -> torch.Tensor:
         Q = np.zeros((self.max_batch, self.index.m), np.float32)
-        for slot, (_, q, _, _) in enumerate(batch):
-            Q[slot] = q
+        for slot, entry in enumerate(batch):
+            Q[slot] = entry[1]
         Q = torch.from_numpy(Q).to(self.index.device)
         return normalize_rows(Q) if self.normalize else Q
 
@@ -282,6 +310,10 @@ class RetrievalServer:
         """
         if not self._pending:
             return 0
+        with trace.span("serving/step", step=self._steps):
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
         if self.fault_plan is not None:
             self.fault_plan.delay("serving", step=self._steps)  # a slow step
         now = time.monotonic()
@@ -301,28 +333,35 @@ class RetrievalServer:
             self._pending.popleft()
             for _ in range(min(self.max_batch, len(self._pending)))
         ]
-        m, _tier = self._score_batch(self._batch_queries(batch))
+        trace.event("batch", size=len(batch), queued=len(self._pending))
+        if metrics.enabled():
+            metrics.observe("serving.batch_occupancy", len(batch) / self.max_batch)
+        Q = self._batch_queries(batch)
+        with trace.span("serving/score", batch=len(batch)):
+            m, tier = self._score_batch(Q)
+            trace.annotate(tier=tier)
         self._steps += 1
-        self._latch_batch(batch, m)
+        self._latch_batch(batch, m, tier)
         return len(batch) + shed_count
 
-    def _latch_batch(self, batch, m) -> None:
+    def _latch_batch(self, batch, m, tier: str, seq: Optional[int] = None) -> None:
         """Latch each request's result (or, with ``m`` None, its stale cache
         entry, else ``"failed"``)."""
         if m is None:
-            for rid, _, key, _ in batch:
+            for rid, _, key, _, born in batch:
                 stale = self._cache_get(key, stale_ok=True)
                 if stale is not None:
                     self._stale += 1
                     telemetry.incr("serving.stale")
-                    self._latch(rid, stale._replace(cached=True, status="stale"))
+                    self._latch(rid, born, stale._replace(cached=True, status="stale"),
+                                tier, seq)
                 else:
-                    self._latch(rid, self._empty_result("failed"))
+                    self._latch(rid, born, self._empty_result("failed"), tier, seq)
             return
-        values = m.values.cpu().numpy()
-        indices = m.indices.cpu().numpy()
-        counts = m.counts.cpu().numpy()
-        for slot, (rid, _, key, _) in enumerate(batch):
+        values, indices, counts = (_host(x) for x in m)
+        if seq is None:
+            trace.event("merge", batch=len(batch))
+        for slot, (rid, _, key, _, born) in enumerate(batch):
             # Frozen per-request copies: the cache and every client hold the
             # same arrays, so an in-place edit by one caller raises instead.
             v = values[slot].copy()
@@ -330,11 +369,14 @@ class RetrievalServer:
             v.setflags(write=False)
             i.setflags(write=False)
             res = RetrievalResult(values=v, indices=i, count=int(counts[slot]), cached=False)
-            self._latch(rid, res)
+            self._latch(rid, born, res, tier, seq)
             self._cache_put(key, res)
 
-    def _latch(self, rid: int, res: RetrievalResult) -> None:
+    def _latch(self, rid: int, born: float, res: RetrievalResult, tier: str,
+               seq: Optional[int]) -> None:
         self._results[rid] = res
+        if metrics.enabled():
+            metrics.observe("serving.latency_s", time.monotonic() - born)
 
     def result(self, rid: int) -> RetrievalResult:
         """Pop a finished request's result (steps until it is ready)."""
@@ -453,7 +495,7 @@ class ContinuousRetrievalServer(RetrievalServer):
         q = self._coerce_query(query)
         key = self._cache_key(q)
         with self._lock:
-            rid = self._admit(q, key, deadline_s)
+            rid = self._admit(q, key, deadline_s, queued=len(self._pending))
             if rid in self._results:
                 self._done.notify_all()
             else:
@@ -515,15 +557,18 @@ class ContinuousRetrievalServer(RetrievalServer):
         while True:
             with self._lock:
                 taken = self._take_batch()
-            if taken is None:
-                return
-            batch, seq = taken
+                if taken is None:
+                    return
+                batch, seq = taken
+                trace.event("slot", seq=seq, size=len(batch), queued=len(self._pending))
+                if metrics.enabled():
+                    metrics.observe("serving.batch_occupancy", len(batch) / self.max_batch)
             # Scoring runs unlocked: a straggling batch must not stop the
             # other workers from draining arrivals.
             if self.fault_plan is not None:
                 self.fault_plan.delay("serving", step=seq)
             try:
-                m, _tier = self._score_batch(self._batch_queries(batch))
+                m, tier = self._score_batch(self._batch_queries(batch))
             except BaseException as e:
                 with self._lock:
                     self._error, self._stop = e, True
@@ -532,9 +577,13 @@ class ContinuousRetrievalServer(RetrievalServer):
                 return
             with self._lock:
                 self._steps += 1
-                self._latch_batch(batch, m)
+                self._latch_batch(batch, m, tier, seq)
                 self._done.notify_all()
 
-    def _latch(self, rid: int, res: RetrievalResult) -> None:
+    def _latch(self, rid: int, born: float, res: RetrievalResult, tier: str,
+               seq: Optional[int]) -> None:
         self._results[rid] = res
         self._inflight.discard(rid)
+        trace.event("exit", rid=rid, seq=seq, status=res.status, tier=tier)
+        if metrics.enabled():
+            metrics.observe("serving.latency_s", time.monotonic() - born)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 and K2 (the dense self-join), K3 (the sparse one), K7 (the dense score
-matrix), the serving kernels K4 (also per shard of a sharded index), K5
-and K6, and the LM's attention kernels
+matrix), the serving kernels K4 (also per shard of a sharded index, and
+its masked entry under the live index), K5 and K6, and the LM's attention
+kernels
 K8 (flash attention) and K9 (flash-decode partials). Every test here needs
 an NVIDIA Hopper card and ``nvcc``;
 each decides that inside itself (the ``card`` fixture) and skips with a
@@ -1122,6 +1123,138 @@ def test_rect_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="outside"):
         sparse.rect_sparse_tile_candidates_kernel(qg, bx, torch.tensor([[0], [2]]), 0.3, 8,
                                                   nc_valid=512)
+
+
+# -- K4's masked entry: the live index's delta joins -----------------------------
+
+
+def _masks(nq, nc, seed):
+    """col_live with dead columns and padding rows; qpos naming each of the
+    first query rows' own corpus positions (the rest -1)."""
+    rng = np.random.default_rng(seed)
+    col_live = rng.random(nc) > 0.1
+    col_live[500:] = False
+    qpos = np.full(nq, -1, np.int32)
+    qpos[: nq // 2] = rng.choice(500, nq // 2, replace=False)
+    return torch.from_numpy(col_live), torch.from_numpy(qpos)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("block_c", [64, 128, 256])
+@pytest.mark.parametrize("block_q", [8, 64, 128])
+def test_k4_masked_entry_matches_plain(card, block_q, block_c, masked):
+    """f32: the masked entry against its plain version (ids and counts
+    equal, values within 1e-5). Without masks (all columns live, no own
+    positions) it is the unmasked K4 bit for bit, and with masks every
+    surviving (row, id) pair keeps the unmasked K4's value bit for bit:
+    the masks touch the selection, never the scores."""
+    from repro_torch.kernels.apss_block import fused
+
+    Qn, Cn = _rect_inputs(torch.float32, 100, seed=PAIR_SEED[PAIRS[0]])
+    Qn = _pad(Qn[:100], block_q, 256)
+    Q, C = torch.from_numpy(Qn).to(card), torch.from_numpy(Cn).to(card)
+    gq, gc = Q.shape[0] // block_q, C.shape[0] // block_c
+    qi, cj = torch.meshgrid(torch.arange(gq), torch.arange(gc), indexing="ij")
+    ij = torch.stack([qi.flatten(), cj.flatten()]).int()
+    if masked:
+        col_live, qpos = _masks(Q.shape[0], C.shape[0], seed=block_q + block_c)
+    else:
+        col_live = torch.ones(C.shape[0], dtype=torch.bool)
+        qpos = torch.full((Q.shape[0],), -1, dtype=torch.int32)
+    kw = dict(block_q=block_q, block_c=block_c, nc_valid=C.shape[0])
+    before = dict(fused.LAUNCHES)
+    got = fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, 16, col_live=col_live,
+                                            qpos=qpos, **kw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["rect_tile_candidates_masked"] == (
+        before["rect_tile_candidates_masked"] + 1)
+    assert fused.LAUNCHES["rect_tile_candidates"] == before["rect_tile_candidates"]
+    ref = fused.rect_tile_candidates_plain(Q, C, ij, 0.3, 16, col_live=col_live.to(card),
+                                           qpos=qpos.to(card), **kw)
+    _assert_close(got, ref)
+    assert int(ref[2].sum()) > 0
+    plain = fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, 16, **kw)
+    if not masked:
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+        return
+    gv, gi = got[0].cpu().numpy(), got[1].cpu().numpy()
+    pv, pi = plain[0].cpu().numpy(), plain[1].cpu().numpy()
+    dead = ~col_live.numpy()
+    rows = (ij[0].numpy()[:, None] * block_q + np.arange(block_q)).reshape(-1)
+    own = qpos.numpy()[rows].reshape(gv.shape[0], block_q, 1)
+    assert not (gi[gi >= 0][:, None] == np.nonzero(dead)[0][None, :]).any()
+    assert not ((gi == own) & (gi >= 0)).any()
+    unmasked = {(t, r, int(i)): v for (t, r, j), i in np.ndenumerate(pi) if i >= 0
+                for v in [pv[t, r, j]]}
+    for (t, r, j), i in np.ndenumerate(gi):
+        if i >= 0 and (t, r, int(i)) in unmasked:
+            assert gv[t, r, j] == unmasked[(t, r, int(i))]
+
+
+def test_k4_masked_entry_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.apss_block import fused
+
+    Q = torch.zeros((64, 128), device=card)
+    C = torch.zeros((256, 128), device=card)
+    ij = torch.tensor([[0], [0]], dtype=torch.int32)
+    kw = dict(block_q=64, block_c=256, nc_valid=256)
+    live = torch.ones(256, dtype=torch.bool)
+    qpos = torch.full((64,), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="go together"):
+        fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, 8, col_live=live, **kw)
+    with pytest.raises(ValueError, match="must be"):
+        fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, 8, col_live=live[:100], qpos=qpos,
+                                          **kw)
+    with pytest.raises(ValueError, match="worklist"):  # masks index the (2, T) worklist's ids
+        fused.rect_tile_candidates_kernel(Q, C, torch.zeros((3, 1), dtype=torch.int32), 0.3,
+                                          8, col_live=live, qpos=qpos, **kw)
+
+
+@pytest.mark.parametrize("block_rows", [64, 128, 256])
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_live_index_on_card_equals_rebuild_and_cpu(card, kind, block_rows):
+    """The live index on the card: mutated equals a fresh rebuild over the
+    survivors bit for bit (graph and queries), every dense join launched
+    K4's masked entry, and the graph agrees with the CPU index's (ids and
+    counts equal, values within 1e-5)."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.serving import MutableAPSSIndex
+
+    rng = np.random.default_rng(3)  # every float64 score more than 1e-5 from t
+    D = np.abs(rng.standard_normal((700, 96))).astype(np.float32)
+    D *= rng.random(D.shape) < 0.3
+    D[np.arange(700), rng.integers(0, 96, 700)] += 1.0
+    t, k = 0.5, 4  # some rows hold more than k matches
+    kw = dict(threshold=t, k=k, kind=kind, block_rows=block_rows, cap=64)
+    assert_clear_of_threshold(D / np.linalg.norm(D, axis=1, keepdims=True),
+                              D / np.linalg.norm(D, axis=1, keepdims=True), t,
+                              exclude_self=True)
+    before = fused.LAUNCHES["rect_tile_candidates_masked"]
+    idx = {dev: MutableAPSSIndex(D[:500], device=dev, **kw) for dev in ("cuda", "cpu")}
+    for mi in idx.values():
+        mi.append(D[500:520])
+        mi.delete([3, 250, 505])
+        mi.append(D[520:])
+    launched = fused.LAUNCHES["rect_tile_candidates_masked"] - before
+    assert launched >= (4 if kind == "dense" else 0)
+    assert launched == 0 or kind == "dense"
+    keep = [g for g in range(700) if g not in (3, 250, 505)]
+    fresh = MutableAPSSIndex(D[keep], device="cuda", **kw)
+    surv = np.asarray(keep)
+    (gids, g), (_, fg) = idx["cuda"].graph(), fresh.graph()
+    np.testing.assert_array_equal(gids, surv)
+    assert np.array_equal(g.values, fg.values) and np.array_equal(g.counts, fg.counts)
+    assert np.array_equal(g.indices, np.where(fg.indices >= 0,
+                                              surv[np.maximum(fg.indices, 0)], -1))
+    Q = D[:16] / np.linalg.norm(D[:16], axis=1, keepdims=True)
+    r, rf = idx["cuda"].query(Q), fresh.query(Q)
+    assert np.array_equal(r.values, rf.values) and np.array_equal(r.counts, rf.counts)
+    _, cg = idx["cpu"].graph()
+    np.testing.assert_array_equal(g.counts, cg.counts)
+    np.testing.assert_array_equal(np.sort(g.indices, axis=1), np.sort(cg.indices, axis=1))
+    finite = g.values > -np.inf
+    np.testing.assert_allclose(g.values[finite], cg.values[finite], atol=TOL)
 
 
 # -- K8 and K9: the LM's attention kernels ------------------------------------

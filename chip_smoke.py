@@ -68,7 +68,8 @@ Phases, each printing one JSON line:
     predicted against measured, whether the choice lands within 2x of the
     best measured (printed, not gated); ``plan.run()`` held to the phase's
     plain result, with its telemetry records (live fraction, modeled
-    FLOPs, FLOPs per measured second); ``query_topk(plan="auto")`` on
+    FLOPs, FLOPs per measured second), under an ``obs.Tracer`` whose drift
+    residuals feed phase 14b; ``query_topk(plan="auto")`` on
     phase 9's dense index at B = 64 and 8 and on its CSR index: the
     kernel chosen, K4 or K6 launched, the fixed K4 or K6 result equalled.
 10. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
@@ -130,17 +131,42 @@ Phases, each printing one JSON line:
     one config chosen on all ranks, each rank's record's ppermute bytes
     equal to the bytes it sent). Compressed and recursive run at the
     candidate capacity that truncates no row (computed from the partial
-    scores on the card). Per variant: the wall (median of 3 runs, rank
+    scores on the card). Per variant: the wall (median of 2 runs, rank
     0's host clock between barriers and synchronizes), each rank's
     device time in the first run (under ``torch.profiler``) with its
     memcpy and K1 parts, each rank's time inside the collective helpers
-    (median of the 3 runs), the bytes each
+    (median of the 2 runs), the bytes each
     rank sent (equal to the schedule's count, or the phase fails), K1's
     launches on each rank (each K1 variant launches it on every rank);
     rows below 6,883 equal phase 7's plain result and its K1 result by
     the comparison rule below, padded rows empty, no row overflowed. Then K1 alone at a ring step's shape (rank 2's 1,792
     rows against rank 1's, offsets 3,584 and 1,792) against its plain
-    version, for the ``kernels`` line.
+    version, for the ``kernels`` line. Each variant's first run runs under
+    an ``obs.Tracer`` in the ranks too: rank 0's drift residuals against
+    ``planner_auto``'s profile (as ``plan.run()``'s there) feed phase 14b.
+14b. ``sweep_radikal_full`` (``sweep_phase``): the resumable sweep
+    (``robust.ResumableSweep``, block_rows 128, checkpoints under
+    ``build/sweep/``) on phase 7's corpus, t=0.2, k=32: 54 steps, each one
+    launch of K4's masked entry over 54 tiles of 128 × 128. (a) The
+    uninterrupted sweep: 54 launches, against phase 7's plain and K1
+    results, K4's CUDA-event ms per step (median, min, max), the wall and
+    the ``checkpoint/save`` spans. (b) Killed at step 27 and resumed by a
+    new sweep over the directory (``resumed_from`` 27). (c) A copy of the
+    killed directory with its newest step's leaf corrupted: the restore
+    warns and falls back to step 26. (d) 4 ranks on the card over gloo
+    (``launch.sweep.run_ranks``; 54 % 4 ≠ 0, so every rank scores every
+    block), a 0.2 s delay fault on rank 1 at every step and a kill at step
+    27: the gathered ledger evicts rank 1 on every rank and 3 survivors
+    resume with 18 blocks each. (b)-(d) must equal (a) bit for bit. (e)
+    ``obs.drift.drift_report`` of phase 9's and 14's traced runs against
+    the calibrated profile, per variant (printed, not gated). (f)
+    ``launch/serve.py --mode retrieval --chaos --trace-out --metrics-out``
+    in this process: the injected kernel-tier errors fire, every answer
+    equals one-shot ``query_topk``, the trace holds ``serving/query``
+    spans and the metrics ``serving.live_tile_fraction``. K4 at step 27's
+    shape against its plain version and one ``torch.bmm`` of the same
+    tiles (partners gathered beforehand) with a stable-sort top-k, for
+    the ``kernels`` line.
 15. ``lm_edge_probes`` (not timed): K8 (flash attention, through
     ``kernels.flash_attention.flash_attention``) and K9 (flash-decode
     partials) against their plain versions, in f32 and bf16: S = 1, S not a
@@ -197,13 +223,14 @@ Phases, each printing one JSON line:
     K4's sharded row (``serve_sharded_radikal_full/b64``) times the 4
     shards' launches together and adds each shard's time and tiles.
 
-The main-path phases (6-14 and 16-18) drive the port's entry points
+The main-path phases (6-14b and 16-18) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6, on a
 sharded index too for K4; ``MutableAPSSIndex`` for K4's masked entry;
 ``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
-4 ranks for K1 under the ring schedules) with the
+4 ranks for K1 under the ring schedules; ``ResumableSweep.run`` for K4's
+masked entry once per step) with the
 launch counts set to 0 just before and read just after, each serving path
 (batch size, early exit, server) on its own, and hold the
 results against the plain paths on the card. Comparison rule (the
@@ -376,9 +403,10 @@ def main() -> int:
     rows += more
     rows += serve_sharded_phase(np, torch, "serve_sharded_radikal_full", D, sp, served,
                                 threshold=0.2, k=32)
-    planner_auto_phase(np, torch, "planner_auto", {
+    residuals = []  # drift's: the planner's planned runs, the distributed phase's apss calls
+    profile = planner_auto_phase(np, torch, "planner_auto", {
         "radikal_full": dict(D=D, sp=sp, single=single, threshold=0.2),
-        "clustered_65k": clustered}, served, k=32)
+        "clustered_65k": clustered}, served, residuals, k=32)
     del D, served, clustered
     torch.cuda.empty_cache()
     rows.append(sparse_phase(np, torch, "sparse_radikal_full", sp, conv_s,
@@ -396,7 +424,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += live_corpus_phase(np, torch, radikal)
     rows.append(distributed_phase(np, torch, "distributed_radikal_full", radikal, single,
-                                  threshold=0.2, k=32, n_pad=7168, m_pad=136448))
+                                  residuals, profile, threshold=0.2, k=32, n_pad=7168,
+                                  m_pad=136448))
+    rows.append(sweep_phase(np, torch, "sweep_radikal_full", radikal, single, residuals,
+                            profile, threshold=0.2, k=32))
     del radikal, single
     torch.cuda.empty_cache()
     lm_edge_probes(np, torch)
@@ -2247,7 +2278,7 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 # The paper's distributions: 4 ranks on one card (core.distributed)
 # ---------------------------------------------------------------------------
 
-DIST_REPS = 3  # wall-clock runs of each variant (median); the first is profiled
+DIST_REPS = 2  # wall-clock runs of each variant (median); the first is profiled
 
 
 # ---------------------------------------------------------------------------
@@ -2280,7 +2311,7 @@ def record_summary(r, ms: float) -> dict:
                 flops_per_s=r.flops / (ms / 1e3) if ms > 0 else None, ms=ms)
 
 
-def planner_auto_phase(np, torch, phase, cells, served, *, k) -> None:
+def planner_auto_phase(np, torch, phase, cells, served, residuals, *, k):
     """The execution planner (``repro_torch.planner``) on the card.
 
     Calibrates (``calibrate(**CALIBRATION)``, cached under
@@ -2301,13 +2332,17 @@ def planner_auto_phase(np, torch, phase, cells, served, *, k) -> None:
     modeled FLOPs, FLOPs per measured second). Then ``query_topk(plan=
     "auto")`` on ``served``'s dense index at B = 64 and 8 and on its CSR
     index: each plan chooses the kernel, K4 or K6 launches, and the result
-    equals its phase's fixed K4 or K6 result and agrees with the oracle."""
+    equals its phase's fixed K4 or K6 result and agrees with the oracle.
+    Each ``plan.run()`` runs under an ``obs.Tracer`` too; its drift
+    residuals against the profile go to ``residuals``. Returns the
+    profile."""
     import functools
     import os
     import statistics
 
     from repro_torch.core.sparse import from_dense
     from repro_torch.interop import matches_to_numpy
+    from repro_torch.obs import Tracer, drift
     from repro_torch.planner import CommLog, execute, plan_apss, plan_query_topk
     from repro_torch.planner import calibrate as cal
     from repro_torch.serving import query_topk
@@ -2352,8 +2387,9 @@ def planner_auto_phase(np, torch, phase, cells, served, *, k) -> None:
         best = min(cands, key=lambda x: x["measured_ms"])
         chosen = cands[0]  # the plan's config ranks first and is timed itself
         reset_launches()
-        with CommLog() as log:
+        with CommLog() as log, Tracer() as tr:
             res, run_ms = timed(torch, plan.run)
+        residuals += drift.residuals_from_trace(tr, profile)
         cmp = compare(np, matches_to_numpy(res), c["single"]["ref"], t, c["single"]["near"])
         emit(f"{phase}/{cell}", threshold=t, k=k, chosen=plan.config.name, plan_s=plan_s,
              summary=plan.summary.as_dict(), candidates=cands, best=best["config"],
@@ -2396,6 +2432,7 @@ def planner_auto_phase(np, torch, phase, cells, served, *, k) -> None:
               f"{phase}/query_{name}: planned query disagrees: {vs_fixed} {vs_oracle}")
     emit(f"{phase}/done", seconds=time.perf_counter() - t_phase)
     torch.cuda.empty_cache()
+    return profile
 
 
 def dist_variants(capacity4: int, capacity2: int) -> list:
@@ -2533,13 +2570,15 @@ def dist_row_check(np, got, single, n0: int, t: float) -> dict:
     return cmp
 
 
-def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
-                      m_pad) -> dict:
+def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, threshold, k,
+                      n_pad, m_pad) -> dict:
     """The paper's 1-D and 2-D distributions (``core.distributed.apss``) in 4
     ranks on the one card over gloo, dense and sparse, on ``D_host`` padded
     with zero rows and columns to ``(n_pad, m_pad)``; every variant against
     the single-device reference ``single`` (its plain result, K1's, and the
-    near-threshold counts). Returns K1's row at a ring step's shape."""
+    near-threshold counts). Rank 0's drift residuals of every variant's first
+    run against ``profile`` go to ``residuals``. Returns K1's row at a ring
+    step's shape."""
     import statistics
 
     from repro_torch.core.precision import dot_f32
@@ -2547,6 +2586,7 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
     from repro_torch.kernels.apss_block import fused
     from repro_torch.kernels.apss_block.ops import _padded_pair, _pick_bk
     from repro_torch.launch.mesh import default_backend, spawn
+    from repro_torch.obs import drift
 
     n0, m0 = D_host.shape
     t = threshold
@@ -2574,7 +2614,7 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
     t0 = time.perf_counter()
     recs = spawn("repro_torch.launch.apss_mesh:run_variants", 4,
                  {"dense": str(dense_path), "sparse": str(sparse_path)}, variants, t, k,
-                 DIST_REPS, device="cuda", run_dir=run)
+                 DIST_REPS, profile, device="cuda", run_dir=run)
     spawn_s = time.perf_counter() - t0
     cap = idx.shape[1]
     sizes = dict(n=n_pad, m=m_pad, k=k, cap=cap, cap_loc4=slice_cap(np, idx, nnz, m_pad, 4),
@@ -2583,6 +2623,7 @@ def distributed_phase(np, torch, phase, D_host, single, *, threshold, k, n_pad,
     for v in variants:
         name = v["name"]
         per_rank = [r[name] for r in recs]
+        residuals += [drift.Residual(**r) for r in per_rank[0]["residuals"]]
         sent = [rec["wire_bytes"][0] for rec in per_rank]
         if v["distribution"] == "auto":
             failed += auto_check(per_rank, sent)
@@ -3054,6 +3095,249 @@ def live_corpus_phase(np, torch, radikal) -> list:
     live_sparse_phase(np, torch, "live_sparse_clustered_65k")
     emit("live_corpus", seconds=time.perf_counter() - t0)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Resumable sweep (K4's masked entry, one launch per step)
+# ---------------------------------------------------------------------------
+
+SWEEP_ROOT = ROOT / "build" / "sweep"  # checkpoints and the ranks' corpus, on local disk
+SWEEP_KILL = 27        # the middle step the kill faults fire at
+SWEEP_DELAY_S = 0.2    # the straggler's delay at every step of the ranked part
+
+
+class StepEvents:
+    """While entered, CUDA events around every K4 launch of the sweep's steps
+    (``robust.sweep`` calls the wrapper by the name it imported); nothing
+    waits on them until :meth:`ms`."""
+
+    def __init__(self, torch):
+        from repro_torch.robust import sweep
+
+        self.torch, self.sweep = torch, sweep
+        self.real = sweep.rect_tile_candidates_kernel
+        self.pairs = []
+
+    def __enter__(self):
+        self.sweep.rect_tile_candidates_kernel = self._timed
+        return self
+
+    def __exit__(self, *exc):
+        self.sweep.rect_tile_candidates_kernel = self.real
+
+    def _timed(self, *args, **kw):
+        a = self.torch.cuda.Event(enable_timing=True)
+        b = self.torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.real(*args, **kw)
+        b.record()
+        self.pairs.append((a, b))
+        return out
+
+    def ms(self) -> list:
+        for _, b in self.pairs:
+            b.synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
+
+
+def library_sweep(torch, Db, Cb, jb, t, k, *, bn, nc_valid, col_live, qpos):
+    """Yardstick of a sweep step: one ``torch.bmm`` of the row blocks ``Db``
+    against their partner blocks ``Cb`` (gathered beforehand, ids ``jb``),
+    the masks and a stable-sort top-k. The port never calls it."""
+    from repro_torch.kernels.apss_block.fused import _rect_tile_packets, live_masked
+
+    ib = torch.arange(Db.shape[0], device=Db.device)
+    s = live_masked(torch.bmm(Db, Cb.transpose(1, 2)), ib, jb, col_live, qpos,
+                    block_q=bn, block_c=bn)
+    return _rect_tile_packets(s, jb, threshold=t, k=k, block_q=bn, block_c=bn,
+                              nc_valid=nc_valid)
+
+
+def sweep_phase(np, torch, phase, radikal, single, residuals, profile, *, threshold, k,
+                block_rows=128) -> dict:
+    """The resumable sweep (``robust.ResumableSweep``) of the radikal corpus
+    on the card, every step one launch of K4's masked entry: (a) the
+    uninterrupted sweep against the single-device result, K4 per step from
+    CUDA events, the wall and the checkpoint spans; (b) killed at step
+    ``SWEEP_KILL`` and resumed by a new sweep over the directory; (c) the
+    killed directory's newest step corrupted, the restore falling back a
+    step; (d) 4 ranks on the card over gloo (54 % 4 ≠ 0: every rank scores
+    every block), a delay fault on rank 1, killed at ``SWEEP_KILL``, the
+    gathered ledger evicting rank 1 and 3 survivors (18 blocks each)
+    resuming; (e) the drift report of ``residuals`` (the planner's planned
+    runs and the distributed phase's ``apss`` calls) against ``profile``;
+    (f) ``launch/serve.py --mode retrieval --chaos --trace-out
+    --metrics-out`` in this process. (b)-(d) must equal (a) bit for bit.
+    Returns K4's row at one step's shape."""
+    import shutil
+    import statistics
+    import warnings
+
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.obs import Tracer, drift
+    from repro_torch.robust import Fault, FaultPlan, ResumableSweep, SweepKilled
+    from repro_torch.robust import sweep as tsweep
+
+    t_phase = time.perf_counter()
+    t = threshold
+    kw = dict(threshold=t, k=k, block_rows=block_rows)
+    shutil.rmtree(SWEEP_ROOT, ignore_errors=True)
+    SWEEP_ROOT.mkdir(parents=True)
+
+    # (a) the uninterrupted sweep: the main path, counted and timed.
+    sweep, setup_ms = timed(torch, lambda: ResumableSweep(
+        radikal, directory=str(SWEEP_ROOT / "a"), **kw))
+    B = sweep.B
+    reset_launches()
+    with StepEvents(torch) as ev, Tracer() as tr:
+        got, wall = timed(torch, sweep.run)
+    launches = launches_now()
+    step_ms = ev.ms()
+    io_ms = [s.duration_s * 1e3 for s in tr.walk() if s.name == "checkpoint/save"]
+    steps = [s for s in tr.walk() if s.name == "sweep/step"]
+    a = matches_to_numpy(got)
+    cmp = compare(np, a, single["ref"], t, single["near"])
+    cmp_k1 = compare(np, a, single["k1"], t, single["near"])
+    emit(f"{phase}/uninterrupted", n=sweep.n, m=sweep.m, n_pad=sweep.n_pad, B=B,
+         threshold=t, k=k, block_rows=block_rows, setup_ms=setup_ms, wall_ms=wall,
+         launches=launches, step_spans=len(steps),
+         k4_step_ms=dict(median=statistics.median(step_ms), min=min(step_ms),
+                         max=max(step_ms), n=len(step_ms)),
+         checkpoint_save_ms=dict(total=sum(io_ms), median=statistics.median(io_ms),
+                                 n=len(io_ms)),
+         vs_plain=cmp, vs_k1=cmp_k1)
+    check(launches["rect_tile_candidates_masked"] == B and len(step_ms) == B,
+          f"{phase}: {launches['rect_tile_candidates_masked']} masked K4 launches for {B} steps")
+    check(cmp["ok"] and cmp_k1["ok"],
+          f"{phase}: the sweep disagrees with the single-device result: {cmp} {cmp_k1}")
+    Dd, col_live, qpos = sweep._Dd, sweep._col_live, sweep._qpos
+    del sweep, got
+
+    # (b) killed mid-sweep, resumed by a new sweep over the directory.
+    t0 = time.perf_counter()
+    plan = FaultPlan([Fault("kill", step=SWEEP_KILL)])
+    killed = False
+    try:
+        ResumableSweep(radikal, directory=str(SWEEP_ROOT / "b"), fault_plan=plan, **kw).run()
+    except SweepKilled:
+        killed = True
+    check(killed and plan.fired["kill:sweep"] == 1, f"{phase}: the kill did not fire")
+    shutil.copytree(SWEEP_ROOT / "b", SWEEP_ROOT / "c")
+    resumed = ResumableSweep(radikal, directory=str(SWEEP_ROOT / "b"), **kw)
+    b_same = identical(np, matches_to_numpy(resumed.run()), a)
+    emit(f"{phase}/kill_resume", killed_at=SWEEP_KILL, resumed_from=resumed.resumed_from,
+         bit_for_bit=b_same, seconds=time.perf_counter() - t0)
+    check(resumed.resumed_from == SWEEP_KILL and b_same,
+          f"{phase}: the resumed sweep (from {resumed.resumed_from}) differs from (a)")
+    del resumed
+
+    # (c) the newest checkpoint corrupted: the restore falls back one step.
+    t0 = time.perf_counter()
+    step_dir = SWEEP_ROOT / "c" / f"step_{SWEEP_KILL:010d}"
+    leaf = sorted(step_dir.glob("*.npy"))[0]
+    FaultPlan(seed=1).corrupt_file(str(leaf))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback = ResumableSweep(radikal, directory=str(SWEEP_ROOT / "c"), **kw)
+        c_same = identical(np, matches_to_numpy(fallback.run()), a)
+    warned = [str(w.message) for w in caught if "falling back" in str(w.message)]
+    emit(f"{phase}/corrupt_fallback", corrupted=str(leaf.relative_to(ROOT)),
+         resumed_from=fallback.resumed_from, warnings=warned, bit_for_bit=c_same,
+         seconds=time.perf_counter() - t0)
+    check(fallback.resumed_from == SWEEP_KILL - 1 and warned and c_same,
+          f"{phase}: the fallback (from {fallback.resumed_from}) differs from (a)")
+    del fallback
+    torch.cuda.empty_cache()
+
+    # (d) 4 ranks on the card, a straggler evicted, 3 resume.
+    t0 = time.perf_counter()
+    path = SWEEP_ROOT / "corpus.npy"
+    np.save(path, radikal)
+    faults = [Fault("kill", step=SWEEP_KILL),
+              Fault("delay", rank=1, seconds=SWEEP_DELAY_S, times=-1)]
+    outs = spawn("repro_torch.launch.sweep:run_ranks", 4, str(path), str(SWEEP_ROOT / "d"),
+                 kw, faults, device="cuda", run_dir=SWEEP_ROOT)
+    path.unlink()
+    d = next(o["matches"] for o in outs if "matches" in o)
+    d_same = identical(np, d, a)
+    emit(f"{phase}/ranks", ranks=4, sharded=[o["sharded"] for o in outs],
+         killed=[o["killed"] for o in outs], evict=[o["evict"] for o in outs],
+         rank_ema_s=outs[0]["rank_ema"], fired=[o["fired"] for o in outs],
+         resumed=[o["resumed"] for o in outs], resumed_from=outs[0].get("resumed_from"),
+         resumed_ranks=outs[0].get("resumed_ranks"),
+         resumed_blocks=[len(o.get("resumed_blocks", [])) for o in outs],
+         setup_s=[o["setup_s"] for o in outs], run_s=[o["run_s"] for o in outs],
+         resume_s=[o.get("resume_s") for o in outs], bit_for_bit=d_same,
+         seconds=time.perf_counter() - t0)
+    check(all(o["killed"] and o["evict"] == [1] for o in outs),
+          f"{phase}: the ranks were not all killed or did not evict [1]")
+    check([o["resumed"] for o in outs] == [True, False, True, True]
+          and outs[0]["resumed_from"] == SWEEP_KILL and outs[0]["resumed_sharded"]
+          and outs[0]["resumed_ranks"] == 3 and len(outs[0]["resumed_blocks"]) == B // 3,
+          f"{phase}: the survivors did not resume on 3 ranks of {B // 3} blocks")
+    check(d_same, f"{phase}: the ranked sweep differs from (a)")
+
+    # (e) drift of the cost model against the traced runs (a finding, not a gate).
+    rep = drift.drift_report(residuals, profile=profile)
+    emit(f"{phase}/drift", profile_kind=rep.profile_kind, stale=rep.stale,
+         median_ratio=rep.median_ratio, per_variant=rep.per_variant,
+         n_residuals=len(rep.residuals), recommendation=rep.recommendation,
+         residuals=rep.as_dict()["residuals"])
+    print(rep.describe(), flush=True)
+
+    # (f) the chaos lane of the serving demo, with its trace and metrics.
+    t0 = time.perf_counter()
+    from repro_torch.launch import serve
+
+    trace_path, metrics_path = SWEEP_ROOT / "chaos_trace.json", SWEEP_ROOT / "chaos_metrics.json"
+    report = serve.main(["--mode", "retrieval", "--chaos", "--trace-out", str(trace_path),
+                         "--metrics-out", str(metrics_path)])
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    query_spans = sum(e.get("name") == "serving/query" for e in events)
+    snap = json.loads(metrics_path.read_text())
+    fraction = snap["histograms"].get("serving.live_tile_fraction", {})
+    emit(f"{phase}/chaos", fired=report["fired"], differ=report["differ"], ok=report["ok"],
+         queries=report["queries"], stats=report["stats"], qps=report["qps"],
+         trace_events=len(events), serving_query_spans=query_spans,
+         live_tile_fraction=fraction, seconds=time.perf_counter() - t0)
+    check(report["fired"].get("error:serving.kernel", 0) > 0 and not report["differ"],
+          f"{phase}: the chaos lane fired {report['fired']}, differ {report['differ']}")
+    check(query_spans > 0 and fraction.get("count", 0) > 0,
+          f"{phase}: the chaos lane's trace or metrics lack the serving spans or histogram")
+
+    # K4 at one step's shape (the kill step), against its plain version.
+    s = SWEEP_KILL
+    blocks = np.arange(B)
+    ij = torch.from_numpy(np.stack([blocks, (blocks - s) % B]).astype(np.int32))
+    kk = dict(block_q=block_rows, block_c=block_rows, nc_valid=int(radikal.shape[0]),
+              col_live=col_live, qpos=qpos)
+    cmp1 = compare(np, as_rows(np, *fused.rect_tile_candidates_kernel(Dd, Dd, ij, t, k, **kk)),
+                   as_rows(np, *fused.rect_tile_candidates_plain(Dd, Dd, ij, t, k, **kk)), t,
+                   masked_near(np, torch, Dd, Dd, ij, block_rows, col_live, qpos, t))
+    check(cmp1["ok"], f"{phase}: K4 at a sweep step disagrees with its plain version: {cmp1}")
+    flop, nbytes = masked_work(np, [((Dd, Dd, ij, t, k), kk)], k, int(radikal.shape[1]))
+    Db = Dd.view(B, block_rows, -1)
+    jb = ij[1].to(Dd.device).long()
+    Cb = Db[jb]  # the partner blocks, gathered outside the yardstick's time
+    row = kernel_row(
+        np, torch, "rect_tile_candidates_masked", phase,
+        {"rect_tile_candidates_masked": launches["rect_tile_candidates_masked"]}, cmp1,
+        lambda: fused.rect_tile_candidates_kernel(Dd, Dd, ij, t, k, **kk),
+        lambda: fused.rect_tile_candidates_plain(Dd, Dd, ij, t, k, **kk),
+        lambda: library_sweep(torch, Db, Cb, jb, t, k, bn=block_rows,
+                              nc_valid=kk["nc_valid"], col_live=col_live, qpos=qpos),
+        flop, nbytes,
+    )
+    split = fused.rect_work_split(B, Dd.shape[1], block_rows, block_rows)
+    row.update(step=s, shape=[B, block_rows, block_rows, int(Dd.shape[1])],
+               sweep_wall_ms=wall, k4_step_ms_median=statistics.median(step_ms),
+               **rect_split_fields(split, block_rows))
+    del Dd, Db, Cb, col_live, qpos
+    torch.cuda.empty_cache()
+    emit(f"{phase}/done", seconds=time.perf_counter() - t_phase)
+    return row
 
 
 def kernel_row(np, torch, name, phase, launches, cmp, kernel, plain, library,

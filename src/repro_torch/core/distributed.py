@@ -78,6 +78,7 @@ from repro_torch.core.sparse import (
     sparse_similarity_topk,
 )
 from repro_torch.interop import as_corpus, device_of
+from repro_torch.obs import trace
 from repro_torch.planner import telemetry
 
 WIRE_BYTES = {"ppermute": 0, "psum": 0, "psum_scatter": 0, "all_gather": 0, "pmax": 0}
@@ -989,17 +990,20 @@ def apss(
     priced by the calibrated cost models, and the cheapest one runs. Extra
     ``kwargs`` (``profile=``, ``autotune=``, ``block_rows_choices=``,
     ``device=`` …) go to the planner. The result's layout is the chosen
-    variant's (``Plan.result_layout``)."""
-    if distribution == "auto":
-        from repro_torch.planner.plan import plan_apss
+    variant's (``Plan.result_layout``). The dispatch runs in an ``apss``
+    span (attribute ``distribution``): the entry point's record, and the
+    ring steps of its ``StepTicker``, land in it."""
+    with trace.span("apss", distribution=distribution):
+        if distribution == "auto":
+            from repro_torch.planner.plan import plan_apss
 
-        return plan_apss(D, threshold, k, mesh, **kwargs).run()
-    if distribution == "horizontal":
-        return apss_horizontal(D, threshold, k, mesh, **kwargs)
-    if distribution == "vertical":
-        return apss_vertical(D, threshold, k, mesh, **kwargs)
-    if distribution == "2d":
-        return apss_2d(D, threshold, k, mesh, **kwargs)
-    if distribution == "hierarchical":
-        return apss_horizontal_hierarchical(D, threshold, k, mesh, **kwargs)
-    raise ValueError(f"unknown distribution: {distribution}")
+            return plan_apss(D, threshold, k, mesh, **kwargs).run()
+        if distribution == "horizontal":
+            return apss_horizontal(D, threshold, k, mesh, **kwargs)
+        if distribution == "vertical":
+            return apss_vertical(D, threshold, k, mesh, **kwargs)
+        if distribution == "2d":
+            return apss_2d(D, threshold, k, mesh, **kwargs)
+        if distribution == "hierarchical":
+            return apss_horizontal_hierarchical(D, threshold, k, mesh, **kwargs)
+        raise ValueError(f"unknown distribution: {distribution}")

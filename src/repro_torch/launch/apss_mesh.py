@@ -31,7 +31,11 @@ mesh and returns, per variant:
   every rank, in rank order;
 - ``matches`` (rank 0 only): the global ``Matches`` of the first run
   (``core.distributed.gather_matches``) as numpy ``(values, indices,
-  counts)``.
+  counts)``;
+- ``residuals`` where a ``profile`` is given: the first run also runs
+  under an ``obs.Tracer``, and these are its
+  ``obs.drift.residuals_from_trace`` against that profile, as dicts (one
+  per record of this rank, measured by the span it was pinned to).
 
 A variant is a dict: ``name``; ``distribution``; ``mesh`` as ``(shape,
 names)``; ``corpus``, ``"dense"`` or ``"sparse"``; ``gather``, the axes
@@ -124,9 +128,11 @@ def record_dict(r: telemetry.ApssStats) -> dict:
 
 
 def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: float, k: int,
-                 reps: int = 1) -> dict:
+                 reps: int = 1, profile=None) -> dict:
     """Rank function (``launch.mesh.spawn``): run every variant ``reps``
     times on this rank; see the module docstring for what it returns."""
+    from repro_torch.obs import Tracer, drift
+
     loaded = {name: load_corpus(path) for name, path in corpora.items()}
     meshes = {}
     out = {}
@@ -165,6 +171,8 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
             with contextlib.ExitStack() as stack:
                 prof = stack.enter_context(_profile()) if traced else None
                 log = stack.enter_context(telemetry.CommLog()) if rep == 0 else None
+                tracer = (stack.enter_context(Tracer())
+                          if rep == 0 and profile is not None else None)
                 got = call()
                 _sync(dev)
             dist.barrier()
@@ -176,6 +184,9 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
             if rep == 0:
                 rec["launches"] = dict(LAUNCHES)
                 rec["records"] = [record_dict(r) for r in log.records]
+                if tracer is not None:
+                    rec["residuals"] = [dataclasses.asdict(r) for r in
+                                        drift.residuals_from_trace(tracer, profile)]
                 first = got
                 if v.get("ticks"):
                     ticker = next(r.step_ticker for r in reversed(log.records)

@@ -25,10 +25,23 @@
           --corpus-n 4096 --corpus-m 2048
 
 ``--device cpu`` runs the kernels' plain versions (and plans without
-them). The servers already take a ``repro_torch.robust.FaultPlan`` and
-fire ``repro_torch.obs`` events; this script's ``--chaos``, ``--trace-out``
-and ``--metrics-out`` (the reference's) are ROADMAP queue 1 item 7. The
-live-corpus demo is ``repro_torch.launch.live``.
+them). The live-corpus demo is ``repro_torch.launch.live``.
+
+``--chaos`` (retrieval mode) serves the same traffic through a server with
+a fresh seeded ``FaultPlan.chaos`` (``--chaos-seed``): step delays and two
+transient errors of the scoring tier that runs on the device
+(``serving.kernel`` on a card, ``serving.plain`` on the CPU). The run then
+exits non-zero when no injected fault fired or when any ``ok`` answer
+differs from one-shot ``query_topk`` on the same normalized queries; the
+clean lane's rule (non-zero after any retry or degradation) holds without
+it. A kernel fault that is not injected still raises. ``--trace-out PATH``
+writes a Chrome/Perfetto trace of the run's spans, ``--metrics-out PATH``
+a metrics snapshot (``.prom``/``.txt``: Prometheus text, else JSON), in
+every mode:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode retrieval \
+        --device cpu --corpus-n 2048 --requests 64 --chaos \
+        --trace-out trace.json --metrics-out metrics.json
 """
 
 from __future__ import annotations
@@ -149,11 +162,26 @@ def run_retrieval(args) -> dict:
     qs = list(perturbed_queries(sp, args.requests, seed=1))
     deadline_s = args.deadline_ms / 1e3 if args.deadline_ms else None
 
-    def make_server():
+    on_card = torch.device(args.device).type == "cuda"
+
+    def make_server(chaos: bool = False):
+        # Chaos lane: a fresh seeded FaultPlan per server (plans are
+        # consumable): step delays and transient errors of the tier that
+        # runs on the device exercise the retry and degradation machinery
+        # under the traffic the clean lane measures.
+        plan = None
+        if chaos:
+            from repro_torch.robust import FaultPlan
+
+            plan = FaultPlan.chaos(
+                args.chaos_seed, steps=max(1, args.requests // args.batch),
+                kernel_errors=2, scope="serving",
+                error_scope="serving.kernel" if on_card else "serving.plain",
+            )
         kwargs = dict(
             threshold=args.threshold, k=args.k, max_batch=args.batch,
             deadline_s=deadline_s, max_retries=2, backoff_s=0.001,
-            use_kernel=torch.device(args.device).type == "cuda",
+            use_kernel=on_card, fault_plan=plan,
         )
         if args.server == "continuous":
             return ContinuousRetrievalServer(index, workers=args.workers, **kwargs)
@@ -163,7 +191,7 @@ def run_retrieval(args) -> dict:
     # fresh one whose cache holds nothing yet.
     with contextlib.closing(make_server()) as warm:
         warm.serve(qs[: args.batch])
-    srv = make_server()
+    srv = make_server(chaos=args.chaos)
     with contextlib.closing(srv):
         t0 = time.perf_counter()
         results = srv.serve(qs)
@@ -176,6 +204,7 @@ def run_retrieval(args) -> dict:
     )
     print(
         f"[serve] corpus n={sp.n} m={sp.m} (gen {t_gen:.1f}s) index build {t_build:.2f}s"
+        + (f" chaos seed={args.chaos_seed}" if args.chaos else "")
     )
     print(
         f"[serve] {args.server} server: {len(results)} queries in {dt:.3f}s "
@@ -183,9 +212,40 @@ def run_retrieval(args) -> dict:
         f"{1e3 * dt / len(results):.2f} ms/query), {report['matches']} matches, "
         f"{report['ok']} exact, stats={srv.stats}"
     )
-    if srv.stats.degraded or srv.stats.retries:
+    if args.chaos:
+        fired = dict(srv.fault_plan.fired)
+        differ = _differ_from_one_shot(index, srv, qs, results)
+        report.update(fired=fired, differ=differ)
+        print(f"[serve] chaos: injected {fired}; {len(differ)} ok answers differ from "
+              f"one-shot query_topk")
+        if not fired or differ:
+            raise SystemExit(f"[serve] chaos lane failed: fired={fired}, differ={differ}")
+    elif srv.stats.degraded or srv.stats.retries:
         raise SystemExit(f"[serve] scoring was retried or degraded: stats={srv.stats}")
     return report
+
+
+def _differ_from_one_shot(index, srv, qs, results) -> list[int]:
+    """Requests whose ``ok`` answer is not the one-shot ``query_topk`` of its
+    query, normalized as the server normalizes it (one row of a zero-padded
+    ``max_batch`` batch), bit for bit."""
+    import torch
+
+    from repro_torch.core.apss import normalize_rows
+    from repro_torch.serving import query_topk
+
+    rows = []
+    for q in qs:
+        Q = np.zeros((srv.max_batch, index.m), np.float32)
+        Q[0] = q
+        Q = torch.from_numpy(Q).to(index.device)
+        rows.append((normalize_rows(Q) if srv.normalize else Q)[0])
+    one = query_topk(index, torch.stack(rows), srv.threshold, srv.k, block_q=srv.block_q,
+                     use_kernel=srv.use_kernel)
+    v, i, c = (x.cpu().numpy() for x in one)
+    return [r for r, res in enumerate(results) if res.status == "ok" and not (
+        res.count == c[r] and np.array_equal(res.indices, i[r])
+        and np.array_equal(res.values, v[r]))]
 
 
 def run_auto(args) -> dict:
@@ -265,7 +325,39 @@ def main(argv=None) -> dict:
                     help="'cuda' runs the kernels; 'cpu' runs their plain versions")
     ap.add_argument("--autotune", action="store_true",
                     help="auto mode: time the top planned candidates and run the fastest")
+    ap.add_argument("--chaos", action="store_true",
+                    help="retrieval mode: inject seeded faults (step delays + transient"
+                         " scoring errors); exit non-zero if none fired or an answer differs")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace-event JSON of the run to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a metrics snapshot to PATH (.prom/.txt -> Prometheus"
+                         " text, otherwise JSON)")
     args = ap.parse_args(argv)
+
+    from repro_torch.obs import MetricsRegistry, Tracer, export
+
+    tracer = Tracer() if args.trace_out else None
+    registry = MetricsRegistry() if args.metrics_out else None
+    with contextlib.ExitStack() as stack:
+        # Registry first, so that the tracer's finalize (on its exit) can
+        # observe ring-step histograms into it.
+        if registry is not None:
+            stack.enter_context(registry)
+        if tracer is not None:
+            stack.enter_context(tracer)
+        report = _run_mode(args)
+    if tracer is not None:
+        export.write_chrome_trace(args.trace_out, tracer, registry)
+        print(f"[obs] trace -> {args.trace_out}")
+    if registry is not None:
+        export.write_metrics(args.metrics_out, registry)
+        print(f"[obs] metrics -> {args.metrics_out}")
+    return report
+
+
+def _run_mode(args) -> dict:
     if args.mode == "lm":
         args.requests = 2 if args.requests is None else args.requests
         return run_lm(args)

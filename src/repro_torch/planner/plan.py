@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import trace
 from repro_torch.planner import calibrate as _calibrate
 from repro_torch.planner.costmodel import (
     CalibrationProfile,
@@ -440,7 +441,8 @@ def execute(
     """
     dev = _run_device(corpus, device)
     data = corpus if prepared else _to_representation(corpus, cfg.sparse, dev)
-    return _dispatch(cfg, data, float(threshold), k, mesh, dev)
+    with trace.span("execute", config=cfg.name):
+        return _dispatch(cfg, data, float(threshold), k, mesh, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -560,8 +562,24 @@ def plan_apss(
     measured winner; under a mesh every rank times them and the ranks
     agree on the maximum of each time over the ranks. A candidate that
     fails raises (the reference prices it ``inf``): a kernel that does not
-    build or launch must not lose the ranking in silence.
+    build or launch must not lose the ranking in silence. The planning
+    runs in a ``plan`` span (attribute ``autotune``) annotated with the
+    ``chosen`` config and the number of ``candidates``.
     """
+    with trace.span("plan", autotune=autotune):
+        p = _plan_apss_impl(
+            corpus, threshold, k, mesh, profile=profile,
+            block_rows_choices=block_rows_choices, include_kernel=include_kernel,
+            autotune=autotune, autotune_top=autotune_top, sample_rows=sample_rows,
+            seed=seed, device=device,
+        )
+        trace.annotate(chosen=p.config.name, candidates=len(p.estimates))
+        return p
+
+
+def _plan_apss_impl(corpus, threshold, k, mesh, *, profile, block_rows_choices,
+                    include_kernel, autotune, autotune_top, sample_rows, seed,
+                    device) -> Plan:
     from repro_torch.serving.index import APSSIndex
 
     dev = _run_device(corpus, device)

@@ -1,12 +1,15 @@
-"""Deterministic fault injection (:mod:`repro_torch.robust.faults`): the
-seams the servers and the live index call, and the faults tests arm.
-
-The reference's ``robust.sweep`` (resumable sweeps, eviction) is not
-ported here."""
+"""Robustness: deterministic fault injection (:mod:`repro_torch.robust.faults`,
+the seams the servers, the live index and the sweep call) and resumable,
+elastic sweeps (:mod:`repro_torch.robust.sweep`: ``ResumableSweep``, a
+checkpointed block ring on K4, and ``mesh_after_eviction``)."""
 
 from repro_torch.robust.faults import (  # noqa: F401
     Fault,
     FaultPlan,
     InjectedFault,
     SweepKilled,
+)
+from repro_torch.robust.sweep import (  # noqa: F401
+    ResumableSweep,
+    mesh_after_eviction,
 )

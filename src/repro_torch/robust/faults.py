@@ -19,7 +19,7 @@ Fault kinds and what real-world failure each models:
   kill, a dropped rank taking down the SPMD sweep). Raises
   :class:`SweepKilled`; recovery = resume from the last checkpoint, on the
   same mesh or — for a genuinely lost rank — a smaller one
-  (the reference's ``robust.sweep.mesh_after_eviction``, not yet ported).
+  (:func:`repro_torch.robust.sweep.mesh_after_eviction`).
 - ``delay`` — a slow shard / straggling rank: sleeps ``seconds`` at the
   matching step. Drives straggler detection and serving-deadline tests.
 - ``error`` — a transient failure of one execution tier (e.g. the CUDA

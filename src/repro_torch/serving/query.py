@@ -39,8 +39,13 @@ counts launches. ``plan="auto"`` (or a ``planner.costmodel.QueryPlan``)
 lets the cost model choose ``block_q`` and the kernel per batch. With a
 telemetry log active, a call records ``serving/query`` (or
 ``serving/query-sharded``) and, with ``early_exit``, ``serving/early-exit``,
-as the reference does; its metrics and trace hooks are ROADMAP queue 1
-item 7.
+as the reference does. Each call runs in a ``serving/query`` span (attributes
+``use_kernel`` and ``early_exit`` as passed) annotated with ``batch``,
+``live_tiles``, ``total_tiles`` (and ``shards`` on a sharded index, and
+``early_exit_skipped_tiles`` under early exit), observes
+``serving.live_tile_fraction`` and adds the skipped tiles to
+``serving.early_exit_skipped_tiles``, as the reference does; with no tracer,
+registry or log active these cost a list check.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ from repro_torch.kernels.apss_block.sparse import (
     rect_sparse_tile_candidates_kernel,
     rect_sparse_tile_candidates_plain,
 )
+from repro_torch.obs import metrics, trace
 from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex
 
@@ -115,6 +121,14 @@ def query_topk(
     the ``block_q`` and ``use_kernel`` arguments. On an index on a card
     the kernel is a candidate, on the CPU it is not.
     """
+    with trace.span("serving/query", use_kernel=use_kernel, early_exit=early_exit):
+        return _query_topk_impl(index, Q, threshold, k, block_q=block_q,
+                                use_kernel=use_kernel, use_minsize=use_minsize,
+                                early_exit=early_exit, plan=plan)
+
+
+def _query_topk_impl(index, Q, threshold, k, *, block_q, use_kernel, use_minsize,
+                     early_exit, plan) -> Matches:
     Q = _queries(index, Q)
     if plan is not None:
         from repro_torch.planner.costmodel import plan_query_topk
@@ -154,6 +168,8 @@ def query_topk(
             tile_counts=tuple(int(x) for x in mk.sum(axis=1)),
             extra={"batch": B, "use_kernel": use_kernel},
         ))
+    metrics.observe("serving.live_tile_fraction", T / max(1, mk.size))
+    trace.annotate(batch=B, live_tiles=T, total_tiles=int(mk.size))
     if wl is None:
         out, scored = empty_matches(B, k, dev), 0
     else:
@@ -163,6 +179,9 @@ def query_topk(
             grid_q=grid_q, use_kernel=use_kernel, early_exit=early_exit,
         )
         out = Matches(values=values[:B], indices=indices[:B], counts=counts[:B])
+        if early_exit:
+            metrics.incr("serving.early_exit_skipped_tiles", T - scored)
+            trace.annotate(early_exit_skipped_tiles=T - scored)
         if early_exit and telemetry.enabled():
             telemetry.record(telemetry.ApssStats(
                 variant="serving/early-exit",
@@ -285,6 +304,8 @@ def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) 
             tile_counts=tuple(per_shard.get(s, 0) for s in range(index.n_shards)),
             extra={"batch": B, "use_kernel": use_kernel},
         ))
+    metrics.observe("serving.live_tile_fraction", live / max(1, mk.size))
+    trace.annotate(batch=B, live_tiles=live, total_tiles=int(mk.size), shards=index.n_shards)
     TILES["total"] += int(mk.size)
     TILES["live"] += live
     TILES["scored"] += live

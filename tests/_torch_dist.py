@@ -93,3 +93,51 @@ def assert_same_records(got: list, ref: list) -> None:
         g, r = record_fields(g), record_fields(r)
         assert g.pop("flops") == pytest.approx(r.pop("flops"), rel=1e-12, abs=0)
         assert g == r
+
+
+def elastic_ranks(rank, world, dev) -> dict:
+    """Rank function (``launch.mesh.spawn``) of ``tests/test_torch_elastic.py``:
+    the reference's elastic cases (``tests/test_substrates.py``) on this
+    rank, and ``mesh_after_eviction``'s edges. Every rank takes part in
+    creating every mesh, those outside it too."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed.elastic import (
+        ElasticPlan,
+        make_elastic_mesh,
+        reshard_tree,
+        rescale,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.robust import mesh_after_eviction
+
+    state = {"w": np.arange(32, dtype=np.float32).reshape(8, 4),
+             "b": (np.arange(3, dtype=np.int32), np.ones((5, 2), np.float32))}
+    specs = {"w": ("data", "model"), "b": (("data",), ("expert", None))}
+    big = make_elastic_mesh(4, model_parallel=2)
+    small = make_elastic_mesh(2, model_parallel=2)
+    odd = make_elastic_mesh(3, model_parallel=2)
+    out = {"big": tuple(big.mesh.shape), "small": tuple(small.mesh.shape),
+           "odd": tuple(odd.mesh.shape), "describe": ElasticPlan(small, "lost 2").describe()}
+    try:
+        make_elastic_mesh(1, model_parallel=2)
+    except ValueError as e:
+        out["too_few"] = str(e)
+    on_big = reshard_tree(state, specs, big)
+    out["big_full"] = on_big["w"].full_tensor().numpy()
+    out["big_local"] = on_big["w"].to_local().numpy()
+    out["big_placements"] = [str(p) for p in on_big["w"].placements]
+    out["b_placements"] = [[str(p) for p in x.placements] for x in on_big["b"]]
+    out["b_full"] = [x.full_tensor().numpy() for x in on_big["b"]]
+    if small.get_coordinate() is not None:
+        on_small = rescale(lambda: state, specs, ElasticPlan(small))
+        out["small_full"] = on_small["w"].full_tensor().numpy()
+        out["small_local"] = on_small["w"].to_local().numpy()
+        out["small_devices"] = on_small["w"].device_mesh.mesh.numel()
+    flat = make_mesh((world,), ("data",))
+    out["noop"] = mesh_after_eviction(flat, SimpleNamespace(evict=[])) is flat
+    try:
+        mesh_after_eviction(flat, SimpleNamespace(evict=list(range(world))))
+    except ValueError as e:
+        out["all_evicted"] = str(e)
+    return out

@@ -2,7 +2,8 @@
 
 K1 and K2 (the dense self-join), K3 (the sparse one), K7 (the dense score
 matrix), the serving kernels K4 (also per shard of a sharded index, and
-its masked entry under the live index), K5 and K6, and the LM's attention
+its masked entry under the live index and the resumable sweep), K5 and
+K6, and the LM's attention
 kernels
 K8 (flash attention) and K9 (flash-decode partials). Every test here needs
 an NVIDIA Hopper card and ``nvcc``;
@@ -1255,6 +1256,90 @@ def test_live_index_on_card_equals_rebuild_and_cpu(card, kind, block_rows):
     np.testing.assert_array_equal(np.sort(g.indices, axis=1), np.sort(cg.indices, axis=1))
     finite = g.values > -np.inf
     np.testing.assert_allclose(g.values[finite], cg.values[finite], atol=TOL)
+
+
+# -- the resumable sweep: K4's masked entry once per step ----------------------
+
+
+def _sweep_corpus():
+    D = _corp(700, 200, seed=11)
+    assert_clear_of_threshold(D, D, 0.4, exclude_self=True)
+    return D
+
+
+@pytest.mark.parametrize("block_rows", [64, 128, 256])
+def test_sweep_step_matches_plain(card, block_rows):
+    """A sweep step (K4's masked entry over every row block and its partner,
+    a 256-row block as two query blocks of 128) against the plain version
+    of the same tiles on the card: ids and counts equal, values within
+    1e-5; one launch per step. k = 2: some rows hold more matches."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.robust import sweep as tsweep
+
+    D = _sweep_corpus()
+    Dp = torch.from_numpy(_pad(D, block_rows, 32)).to(card)
+    B = Dp.shape[0] // block_rows
+    ids = torch.arange(Dp.shape[0], dtype=torch.int32, device=card)
+    live = ids < 700
+    kw = dict(B=B, bn=block_rows, n=700, threshold=0.4, k=2, col_live=live,
+              qpos=torch.where(live, ids, -1))
+    for s in (0, 1, B - 1):
+        before = fused.LAUNCHES["rect_tile_candidates_masked"]
+        got = tsweep.sweep_step(Dp, np.arange(B), s, **kw)
+        assert fused.LAUNCHES["rect_tile_candidates_masked"] == before + 1
+        blocks = torch.arange(B)
+        ij = torch.stack([blocks, (blocks - s) % B]).int()
+        fv, fi, fc = fused.rect_tile_candidates_plain(
+            Dp, Dp, ij, 0.4, 2, block_q=block_rows, block_c=block_rows, nc_valid=700,
+            col_live=kw["col_live"], qpos=kw["qpos"])
+        ref = (torch.where(fi >= 0, fv, float("-inf")).reshape(-1, 2), fi.reshape(-1, 2),
+               fc.reshape(-1))
+        _assert_close(got, ref)
+        assert int(ref[2].sum()) > 0
+
+
+def test_sweep_on_card_resumed_and_ranked_bit_for_bit(card, tmp_path):
+    """The sweep on the card equals itself bit for bit killed and resumed,
+    and in 4 ranks on the card (one block each, a delay fault on rank 1,
+    killed at step 3, rank 1 evicted, 3 survivors resuming with every
+    block); and it agrees with the CPU sweep (ids and counts equal, values
+    within 1e-5)."""
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.robust import Fault, FaultPlan, ResumableSweep, SweepKilled
+
+    D = _sweep_corpus()[:512]
+    kw = dict(threshold=0.4, k=2, block_rows=128)
+    before = fused.LAUNCHES["rect_tile_candidates_masked"]
+    solo = ResumableSweep(D, directory=str(tmp_path / "solo"), **kw).run()
+    assert fused.LAUNCHES["rect_tile_candidates_masked"] == before + 4
+    with pytest.raises(SweepKilled):
+        ResumableSweep(D, directory=str(tmp_path / "k"),
+                       fault_plan=FaultPlan([Fault("kill", step=2)]), **kw).run()
+    resumed = ResumableSweep(D, directory=str(tmp_path / "k"), **kw)
+    for a, b in zip(resumed.run(), solo):
+        assert torch.equal(a, b)
+    assert resumed.resumed_from == 2
+    np.save(tmp_path / "corpus.npy", D)
+    outs = spawn("repro_torch.launch.sweep:run_ranks", 4, str(tmp_path / "corpus.npy"),
+                 str(tmp_path / "ranks"), kw,
+                 [Fault("kill", step=3), Fault("delay", rank=1, seconds=0.2, times=-1)],
+                 device="cuda", run_dir=str(tmp_path), join_timeout=300)
+    assert all(o["evict"] == [1] and o["killed"] for o in outs)
+    assert outs[0]["resumed_ranks"] == 3 and not outs[0]["resumed_sharded"]
+    for a, b in zip(outs[0]["matches"], solo):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+    cpu = ResumableSweep(D, directory=str(tmp_path / "cpu"), device="cpu", **kw).run()
+    _assert_close(solo, cpu)
+
+
+@pytest.mark.parametrize("block_rows", [32, 512])
+def test_sweep_block_rows_outside_k4_raises_on_card(card, tmp_path, block_rows):
+    from repro_torch.robust import ResumableSweep
+
+    with pytest.raises(ValueError, match="on the card"):
+        ResumableSweep(_corp(64, 32, seed=1), threshold=0.3, block_rows=block_rows,
+                       directory=str(tmp_path))
 
 
 # -- K8 and K9: the LM's attention kernels ------------------------------------

@@ -72,6 +72,16 @@ Phases, each printing one JSON line:
     residuals feed phase 14b; ``query_topk(plan="auto")`` on
     phase 9's dense index at B = 64 and 8 and on its CSR index: the
     kernel chosen, K4 or K6 launched, the fixed K4 or K6 result equalled.
+    Then ``audit_radikal_full`` (``audit_phase``): the model-vs-program
+    audit (``obs.audit.run_audit``) on the same corpus, t = 0.2, k = 32:
+    the blocked families (dense, CSR) on their plain paths and, beside
+    them, the kernel candidates (K1, K3), the serving families at B = 64
+    (K4 on a dense index, K6 on a CSR one) and the live index's delta join
+    (K4's masked entry), each run once under the op census
+    (``launch.op_analysis``): per family the FLOP, link and HBM ratios
+    (model against census) and the census's kernel work. A warmed
+    ``query_topk`` (K4) under ``obs.compile.assert_no_retrace`` builds and
+    loads nothing, and its K4 launch's census FLOPs equal ``rect_work``'s.
 10. ``sparse_radikal_full``: the same corpus in CSR (``from_dense``) through
     ``apss_blocked(sp, use_kernel=True)`` (K3), held against the plain
     sparse path and against phase 7's K2 result (counts exactly equal: both
@@ -144,6 +154,10 @@ Phases, each printing one JSON line:
     version, for the ``kernels`` line. Each variant's first run runs under
     an ``obs.Tracer`` in the ranks too: rank 0's drift residuals against
     ``planner_auto``'s profile (as ``plan.run()``'s there) feed phase 14b.
+    After the variants the same ranks run the 4-rank audit (``AUDIT_RANKS``:
+    ``synthetic_corpus`` n = m = 512, t = 0.2, k = 32, meshes (4,) and
+    (2, 2), rank 0 also serving and the live index): the gated families
+    within 1.5x of the model, the ring's link ratio within 0.5-2.
 14b. ``sweep_radikal_full`` (``sweep_phase``): the resumable sweep
     (``robust.ResumableSweep``, block_rows 128, checkpoints under
     ``build/sweep/``) on phase 7's corpus, t=0.2, k=32: 54 steps, each one
@@ -407,6 +421,7 @@ def main() -> int:
     profile = planner_auto_phase(np, torch, "planner_auto", {
         "radikal_full": dict(D=D, sp=sp, single=single, threshold=0.2),
         "clustered_65k": clustered}, served, residuals, k=32)
+    audit_phase(np, torch, "audit_radikal_full", radikal, D, sp, threshold=0.2, k=32)
     del D, served, clustered
     torch.cuda.empty_cache()
     rows.append(sparse_phase(np, torch, "sparse_radikal_full", sp, conv_s,
@@ -2570,6 +2585,18 @@ def dist_row_check(np, got, single, n0: int, t: float) -> dict:
     return cmp
 
 
+def audit_check(phase, report) -> None:
+    """The 4-rank audit (``AUDIT_RANKS``) that the distributed phase's ranks
+    ran after their variants: rank 0's report printed, the gated families
+    within the band and the ring's link ratio within 0.5-2."""
+    rows = audit_rows(report.entries)
+    emit(f"{phase}/audit", ranks=4, meshes=report.meshes, gated_ok=report.gated_ok(),
+         **AUDIT_RANKS, families=rows)
+    ring = report.entry("horizontal/ring[dense]").link_ratio
+    check(report.gated_ok() and ring is not None and 0.5 <= ring <= 2.0,
+          f"{phase}: the 4-rank audit: gated {report.gated_ok()}, ring link ratio {ring}")
+
+
 def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, threshold, k,
                       n_pad, m_pad) -> dict:
     """The paper's 1-D and 2-D distributions (``core.distributed.apss``) in 4
@@ -2614,8 +2641,9 @@ def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, t
     t0 = time.perf_counter()
     recs = spawn("repro_torch.launch.apss_mesh:run_variants", 4,
                  {"dense": str(dense_path), "sparse": str(sparse_path)}, variants, t, k,
-                 DIST_REPS, profile, device="cuda", run_dir=run)
+                 DIST_REPS, profile, AUDIT_RANKS, device="cuda", run_dir=run)
     spawn_s = time.perf_counter() - t0
+    audit_check(phase, recs[0]["audit"])
     cap = idx.shape[1]
     sizes = dict(n=n_pad, m=m_pad, k=k, cap=cap, cap_loc4=slice_cap(np, idx, nnz, m_pad, 4),
                  cap_loc2=slice_cap(np, idx, nnz, m_pad, 2))
@@ -3095,6 +3123,118 @@ def live_corpus_phase(np, torch, radikal) -> list:
     live_sparse_phase(np, torch, "live_sparse_clustered_65k")
     emit("live_corpus", seconds=time.perf_counter() - t0)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The model-vs-program audit (obs.audit) and the build/load monitor
+# ---------------------------------------------------------------------------
+
+AUDIT_RANKS = dict(n=512, m=512, k=32, threshold=0.2)  # the 4-rank audit in phase 14
+
+
+def audit_rows(entries) -> list:
+    """Per audited family: the ratios, both sides' numbers and the census's
+    kernels."""
+    return [dict(family=e.family, config=e.config, flop_ratio=e.flop_ratio,
+                 link_ratio=e.link_ratio, hbm_ratio=e.hbm_ratio,
+                 predicted_flops=e.predicted_flops, measured_flops=e.measured_flops,
+                 predicted_link_bytes=e.predicted_link_bytes,
+                 measured_link_bytes=e.measured_link_bytes,
+                 predicted_hbm_bytes=e.predicted_hbm_bytes,
+                 measured_hbm_bytes=e.measured_hbm_bytes,
+                 host_copy_bytes=e.record.analysis["host_copy_bytes"],
+                 n_ops=e.record.analysis["n_ops"], kernels=e.kernels,
+                 wall_s=e.record.t_lower_s, nvcc_s=e.record.t_compile_s,
+                 temp_bytes=e.record.temp_bytes, code_bytes=e.record.code_bytes,
+                 notes=list(e.notes))
+            for e in entries]
+
+
+def audit_phase(np, torch, phase, radikal, D, sp, *, threshold, k) -> None:
+    """``obs.audit.run_audit`` on the radikal corpus on the card: the
+    single-device families (blocked, dense and CSR, on their plain paths)
+    and the serving (B = 64, a dense and a CSR index: K4, K6) and live-index
+    (K4's masked entry) captures, each run once under the op census; every
+    family's FLOP, link and HBM ratios and the census's K4 and K6 work. The
+    planner's kernel candidates of the same families (K1 on ``D``, K3 on
+    ``sp``, block 256) are audited the same way (``audit._audit_planned``),
+    beside the plain ones. Then
+    a warmed ``query_topk`` on a dense index of the same corpus under
+    ``assert_no_retrace("serving.query")`` (it must build and load
+    nothing), its captured K4 call replayed under ``obs.compile.measure``:
+    the census's K4 FLOPs must equal ``rect_work``'s for that launch, and
+    the audit's serving entry (the same index, queries and worklist) the
+    same."""
+    from repro_torch.obs import audit
+    from repro_torch.obs import compile as obs_compile
+    from repro_torch.planner.costmodel import VariantConfig
+    from repro_torch.planner.plan import summarize_corpus
+    from repro_torch.serving import build_index, query_topk
+
+    t0 = time.perf_counter()
+    reset_launches()
+    report = audit.run_audit(radikal, k=k, threshold=threshold, batch=64, meshes=[],
+                             device="cuda")
+    audit_s = time.perf_counter() - t0
+    launches = launches_now()
+    rows = audit_rows(report.entries)
+    fams = report.families()
+    s = summarize_corpus(radikal, threshold)
+    kernel_entries = [audit._audit_planned(VariantConfig("blocked", sparse, 256, use_kernel=True),
+                                           s, data, threshold, k, None, None, D.device)
+                      for sparse, data in ((False, D), (True, sp))]
+    kernel_rows = audit_rows(kernel_entries)
+    check("apss_fused" in kernel_rows[0]["kernels"]
+          and "sparse_tile_candidates" in kernel_rows[1]["kernels"],
+          f"{phase}: K1 or K3 never ran in the kernel candidates: {kernel_rows}")
+    for want in ("blocked[dense]", "blocked[sparse]", "serving.query_topk[dense]",
+                 "serving.query_topk[sparse]", "mutable.delta_join[dense]"):
+        check(want in fams, f"{phase}: the audit lacks {want}: {fams}")
+    census = {e.family: e.kernels for e in report.entries}
+    check("rect_tile_candidates" in census["serving.query_topk[dense]"],
+          f"{phase}: K4 never ran in the dense serving family: {census}")
+    check("rect_sparse_tile_candidates" in census["serving.query_topk[sparse]"],
+          f"{phase}: K6 never ran in the CSR serving family: {census}")
+    check("rect_tile_candidates_masked" in census["mutable.delta_join[dense]"],
+          f"{phase}: K4's masked entry never ran in the delta join: {census}")
+    check(report.entry("blocked[dense]").flop_ratio is not None
+          and 1 / audit.FLOP_RATIO_BAND <= report.entry("blocked[dense]").flop_ratio
+          <= audit.FLOP_RATIO_BAND, f"{phase}: blocked[dense] outside the band: {rows[:2]}")
+
+    # A warmed query under the no-retrace contract; its K4 call replayed.
+    index = build_index(radikal, block_rows=64, device="cuda")
+    Q = radikal[:64]
+    query_topk(index, Q, threshold, k, use_kernel=True)  # warm
+    before = obs_compile.snapshot()
+    with obs_compile.capture_calls() as calls, \
+            obs_compile.assert_no_retrace("serving.query"):
+        query_topk(index, Q, threshold, k, use_kernel=True)
+    check(obs_compile.snapshot() == before,
+          f"{phase}: the warmed query built or loaded {obs_compile.snapshot()} vs {before}")
+    call = calls["serving.dense_inner"]
+    _, rec = obs_compile.measure(call.fn, *call.args, name="warm_query", **call.kwargs)
+    index_c, Qp, wl = call.args[0], call.args[1], call.args[2]
+    bq, bc = call.kwargs["block_q"], call.kwargs["block_c"]
+    flop, nbytes = rect_work(np, wl, B=Qp.shape[0], n=index_c.corpus.shape[0], bq=bq, bc=bc,
+                             depth=Qp.shape[1], k=k)
+    k4 = rec.analysis["kernels"]["rect_tile_candidates"]
+    check(k4["flops"] == flop and k4["launches"] == 1,
+          f"{phase}: census K4 {k4} against rect_work's {flop}")
+    audited = census["serving.query_topk[dense]"]["rect_tile_candidates"]
+    check(audited["flops"] == flop,
+          f"{phase}: the audit's K4 {audited} against rect_work's {flop} (same launch)")
+    emit(phase, n=report.n, m=report.m, threshold=threshold, k=k, batch=64,
+         audit_s=audit_s, seconds=time.perf_counter() - t0, launches=launches,
+         gated_ok=report.gated_ok(), families=rows, kernel_families=kernel_rows,
+         warm_query=dict(
+             builds_and_loads=0, census_k4=k4, rect_work_flop=flop, rect_work_bytes=nbytes,
+             tiles=int(wl.shape[1]), block_q=bq, block_c=bc, width=int(Qp.shape[1]),
+             wall_s=rec.t_lower_s, temp_bytes=rec.temp_bytes, code_bytes=rec.code_bytes,
+             ptxas=rec.kernels),
+         census_k4=census["serving.query_topk[dense]"],
+         census_k6=census["serving.query_topk[sparse]"],
+         census_k4_masked=census["mutable.delta_join[dense]"])
+    del report, index
 
 
 # ---------------------------------------------------------------------------

@@ -35,7 +35,11 @@ With a gloo group they stage CUDA tensors through host memory (NCCL refuses
 two ranks on one card, so ranks that share a card run gloo). They count the
 bytes this rank sends (the logical payload: the tensor a ``_ppermute`` sends,
 the input of the other collectives) in :data:`WIRE_BYTES` and the
-host-clock seconds spent inside them in :data:`WIRE_SECONDS`.
+host-clock seconds spent inside them in :data:`WIRE_SECONDS`. With an op
+census active (``launch.op_analysis``) they report each collective under
+the reference's HLO name (collective-permute, all-reduce, reduce-scatter,
+all-gather) from the same tensors, at the reference's payload convention
+(the result of an all-gather or a reduce-scatter, else the operand).
 
 With a telemetry log active (``planner.telemetry.CommLog``) every entry
 point records one ``ApssStats`` on each rank, with the reference's variant
@@ -78,6 +82,7 @@ from repro_torch.core.sparse import (
     sparse_similarity_topk,
 )
 from repro_torch.interop import as_corpus, device_of
+from repro_torch.launch import op_analysis
 from repro_torch.obs import trace
 from repro_torch.planner import telemetry
 
@@ -196,6 +201,10 @@ def _ppermute(xs: Sequence[torch.Tensor], mesh, axis, perm) -> tuple[torch.Tenso
                 ops.append(dist.P2POp(dist.isend, w, dist.get_global_rank(group, dst[0]),
                                       group, tag))
                 WIRE_BYTES["ppermute"] += w.numel() * w.element_size()
+                if op_analysis.CENSUS is not None:
+                    op_analysis.report_collective("collective-permute",
+                                                  w.numel() * w.element_size(),
+                                                  dist.get_world_size(group))
             if src:
                 ops.append(dist.P2POp(dist.irecv, o, dist.get_global_rank(group, src[0]),
                                       group, tag))
@@ -213,6 +222,9 @@ def _all_reduce(x: torch.Tensor, mesh, axis, op, name: str) -> torch.Tensor:
         if w.data_ptr() == x.data_ptr():  # reduced in place: not the caller's
             w = w.clone()
         WIRE_BYTES[name] += w.numel() * w.element_size()
+        if op_analysis.CENSUS is not None:
+            op_analysis.report_collective("all-reduce", w.numel() * w.element_size(),
+                                          dist.get_world_size(group))
         dist.all_reduce(w, op=op, group=group)
         return _from_wire(w, x)
 
@@ -236,6 +248,8 @@ def _psum_scatter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
         w = _to_wire(x, staged)
         out = w.new_empty((w.shape[0] // p, *w.shape[1:]))
         WIRE_BYTES["psum_scatter"] += w.numel() * w.element_size()
+        if op_analysis.CENSUS is not None:
+            op_analysis.report_collective("reduce-scatter", out.numel() * out.element_size(), p)
         scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
         scatter(out, w, op=dist.ReduceOp.SUM, group=group)
         return _from_wire(out, x)
@@ -255,6 +269,8 @@ def _all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
         w = _to_wire(x, staged)
         out = w.new_empty((p * w.shape[0], *w.shape[1:]))
         WIRE_BYTES["all_gather"] += w.numel() * w.element_size()
+        if op_analysis.CENSUS is not None:
+            op_analysis.report_collective("all-gather", out.numel() * out.element_size(), p)
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
         gather(out, w, group=group)
         # (p, ...) → the p pieces side by side along `dim`

@@ -8,6 +8,9 @@ beside it, so an edited kernel is rebuilt and an unchanged one is loaded
 as it is. Sources that need building are compiled by concurrent ``nvcc``
 processes. A failed build or load raises :class:`KernelError` with the
 command and the compiler's output; nothing falls back to the plain versions.
+Each build and each load counts once on ``obs.compile``'s monitor, under
+the library's name: the port's "trace" of a hot path, which a no-retrace
+contract holds at zero.
 
 Nothing here runs at import time: importing the port needs neither
 ``nvcc`` nor a card.
@@ -21,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
@@ -32,6 +36,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc seconds per library, summed over its builds in this process.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class KernelError(RuntimeError):
@@ -57,6 +63,11 @@ def nvcc() -> str:
     raise KernelError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
 
 
+def library_path(name: str) -> Path:
+    """Path of library ``name`` as built from its current source."""
+    return _target(sources()[name])
+
+
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     for hdr in sorted(src.parent.glob("*.cuh")):
@@ -70,8 +81,12 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
 
     All ``nvcc`` processes start together and are waited for. The
     compiler's ``-Xptxas -v`` report is kept beside each library
-    (:func:`ptxas_report`). Returns the library path of every name.
+    (:func:`ptxas_report`). Each library built adds its ``nvcc`` seconds to
+    :data:`BUILD_SECONDS` and counts one build on ``obs.compile``'s monitor.
+    Returns the library path of every name.
     """
+    from repro_torch.obs import compile as obs_compile
+
     srcs = sources()
     names = list(srcs) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -84,20 +99,25 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        started = time.perf_counter()
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
-        running.append((cmd, proc, tmp, lib))
-    failures = []
-    for cmd, proc, tmp, lib in running:
+        running.append((name, cmd, proc, tmp, lib, started))
+    failures, built = [], []
+    for name, cmd, proc, tmp, lib, started in running:
         log, _ = proc.communicate()
+        BUILD_SECONDS[name] = BUILD_SECONDS.get(name, 0.0) + time.perf_counter() - started
         if proc.returncode != 0:
             failures.append(f"$ {' '.join(cmd)}\n{log}")
             continue
         lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
+        built.append(name)
     if failures:
         raise KernelError("nvcc failed:\n" + "\n".join(failures))
+    for name in built:
+        obs_compile.mark(name)
     return out
 
 
@@ -111,6 +131,9 @@ def load(name: str) -> ctypes.CDLL:
         except OSError as e:
             raise KernelError(f"cannot load {path}: {e}") from e
         _LIBS[name] = lib
+        from repro_torch.obs import compile as obs_compile
+
+        obs_compile.mark(name)
     return lib
 
 

@@ -35,7 +35,9 @@ from repro_torch.kernels.apss_block.fused import (
     _entry,
     _f32,
     _suffix,
+    lazy,
 )
+from repro_torch.launch import op_analysis
 
 
 K7_TILE = (128, 128)  # rows and columns of the kernel's output tile (csrc/apss_block.cu)
@@ -139,4 +141,11 @@ def apss_block_kernel(
     )
     check(status)
     LAUNCHES["apss_block"] += 1
+    if op_analysis.CENSUS is not None:
+        live = lazy(lambda: int(mask.count_nonzero()))
+        op_analysis.report_kernel(
+            "apss_block", "apss_block",
+            lambda: 2.0 * live() * block_m * block_n * m * K7_PASSES[x.dtype],
+            lambda: live() * (block_m + block_n) * m * x.element_size()
+            + 4 * n_rows * n_cols + 4 * mask.numel())
     return out

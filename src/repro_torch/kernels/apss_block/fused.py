@@ -39,6 +39,13 @@ the same function (:func:`apss_fused_plain`,
 :func:`apss_tile_candidates_plain`), which the CPU tests hold against the
 reference package and which the card's smoke run holds the kernels against.
 
+With an op census active (``launch.op_analysis``) each launch also
+reports its work at the padded shapes the card computes: FLOPs of the
+tiles it scores, and the bytes of each scored tile's operand rows, its
+outputs and its scratch (written and read back once). Work the launch
+itself decides (K1's live tiles, K5's skips) is read when the census
+closes. With no census this costs one ``is None`` check.
+
 Top-k order everywhere: value descending, then global id ascending. Empty
 slots are ``NEG_LARGE`` / ``-1``; the ops layer turns them into ``-inf``.
 """
@@ -54,6 +61,7 @@ import torch
 from repro_torch.core.matches import NEG_INF, stable_topk, topk_by_id
 from repro_torch.core.precision import dot_f32
 from repro_torch.kernels import _build
+from repro_torch.launch import op_analysis
 
 # Finite stand-in for -inf inside the kernels; the ops layer converts it.
 NEG_LARGE = -0.5e30
@@ -87,6 +95,23 @@ _MAX_EE_K = 256  # K5's values buffer (csrc/apss_common.cuh, MAX_EE_K)
 EE_FK = 1024
 _EE_STRIP_C = 64  # corpus rows of one K5 work item (a score_strip's columns)
 _THREADS = 256    # threads of a K5 block (csrc/apss_common.cuh, THREADS)
+
+
+def lazy(fn):
+    """``fn`` evaluated once, on the first call (deferred census work)."""
+    box = []
+
+    def get():
+        if not box:
+            box.append(fn())
+        return box[0]
+
+    return get
+
+
+def packet_bytes(rows: int, k: int) -> int:
+    """Bytes of ``rows`` packet rows: k values, k ids and a count."""
+    return rows * (2 * k + 1) * 4
 
 
 def _f32(threshold: float) -> float:
@@ -744,6 +769,12 @@ def apss_fused_kernel(
     )
     check(status)
     LAUNCHES["apss_fused"] += 1
+    if op_analysis.CENSUS is not None:
+        live = lazy(lambda: int(mask.count_nonzero()))
+        out = packet_bytes(n_rows, k) * (1 + 2 * S if S > 1 else 1)  # + segment lists
+        op_analysis.report_kernel(
+            "apss_fused", "apss_fused", lambda: 2.0 * live() * block_m * block_n * m,
+            lambda: live() * (block_m + block_n) * m * x.element_size() + out + 4 * mask.numel())
     return values, indices, counts
 
 
@@ -804,6 +835,11 @@ def apss_tile_candidates_kernel(
     )
     check(status)
     LAUNCHES["apss_tile_candidates"] += 1
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_kernel(
+            "apss_tile_candidates", "tile_candidates", 2.0 * T * block_m * block_n * m,
+            T * (block_m + block_n) * m * D.element_size() + 8 * T * block_m * block_n
+            + packet_bytes(T * (block_m + block_n), k) + 8 * T)
     return fv, fi, fc, bv, bi, bc
 
 
@@ -911,7 +947,15 @@ def rect_tile_candidates_kernel(
         torch.cuda.current_stream(dev).cuda_stream, *masks,
     )
     check(status)
-    LAUNCHES["rect_tile_candidates_masked" if masked else "rect_tile_candidates"] += 1
+    name = "rect_tile_candidates_masked" if masked else "rect_tile_candidates"
+    LAUNCHES[name] += 1
+    if op_analysis.CENSUS is not None:
+        m = Q.shape[1]
+        op_analysis.report_kernel(
+            name, "rect_tile_candidates", 2.0 * T * block_q * block_c * m,
+            T * (block_q * Q.element_size() + block_c * C.element_size()) * m
+            + 8 * T * split.n_chunks * block_q * block_c + packet_bytes(T * block_q, k)
+            + 4 * R * T + (C.shape[0] + 4 * Q.shape[0] if masked else 0))
     return fv, fi, fc
 
 
@@ -968,4 +1012,13 @@ def rect_tile_candidates_early_exit_kernel(
     )
     check(status)
     LAUNCHES["rect_tile_candidates_ee"] += 1
+    if op_analysis.CENSUS is not None:
+        m = Q.shape[1]
+        scored = lazy(lambda: T - int(skipped.sum()))
+        per_tile = ((block_q * Q.element_size() + block_c * C.element_size()) * m
+                    + 8 * split.n_chunks * block_q * block_c)
+        op_analysis.report_kernel(
+            "rect_tile_candidates_ee", "rect_tile_candidates_ee",
+            lambda: 2.0 * scored() * block_q * block_c * m,
+            lambda: scored() * per_tile + packet_bytes(T * block_q, k) + 16 * T)
     return fv, fi, fc, skipped

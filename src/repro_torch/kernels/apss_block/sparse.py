@@ -64,10 +64,12 @@ from repro_torch.kernels.apss_block.fused import (
     _suffix,
     _tile_packets,
     _worklist_on,
+    packet_bytes,
     rect_work_split,
     tile_work_items,
 )
 from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
+from repro_torch.launch import op_analysis
 
 
 def block_support_gather(
@@ -259,6 +261,11 @@ def sparse_tile_candidates_kernel(
     )
     check(status)
     LAUNCHES["sparse_tile_candidates"] += 1
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_kernel(
+            "sparse_tile_candidates", "sparse_tile_candidates", 2.0 * T * bm * bm * S,
+            2 * T * bm * S * bx.element_size() + 8 * T * bm * bm
+            + packet_bytes(2 * T * bm, k) + 8 * T)
     return fv, fi, fc, bv, bi, bc
 
 
@@ -359,6 +366,13 @@ def rect_sparse_tile_candidates_kernel(
     )
     check(status)
     LAUNCHES["rect_sparse_tile_candidates"] += 1
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_kernel(
+            "rect_sparse_tile_candidates", "rect_sparse_tile_candidates",
+            2.0 * T * block_q * block_c * S,
+            T * (block_q + block_c) * S * bx.element_size()
+            + 8 * T * split.n_chunks * block_q * block_c + packet_bytes(T * block_q, k)
+            + 8 * T)
     return fv, fi, fc
 
 

@@ -10,8 +10,11 @@ into blocks of :func:`decode_split`'s ``split`` positions and merges the
 splits' partials in split order (:func:`decode_attention_split_plain` is
 that decomposition in plain PyTorch). On a CUDA tensor the wrapper
 launches the kernel or raises, and adds one to
-``LAUNCHES["decode_attention"]``; on a CPU tensor it returns
-:func:`decode_attention_plain`, the same function in plain PyTorch.
+``LAUNCHES["decode_attention"]`` (and, with an op census active, reports
+the launch's work to ``launch.op_analysis``: 4 · Hq · D FLOPs and a k and a
+v row per live cache position, the positions read when the census
+closes); on a CPU tensor it returns :func:`decode_attention_plain`, the
+same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.core.precision import exact_f32
 from repro_torch.kernels import _build
+from repro_torch.launch import op_analysis
 
 NEG_LARGE = -0.5e30
 HEAD_DIMS = (16, 32, 64, 128)   # head dims the kernel is built for
@@ -184,4 +188,12 @@ def decode_attention_kernel(
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
     LAUNCHES["decode_attention"] += 1
+    if op_analysis.CENSUS is not None:
+        lens = lengths.clamp(max=L)  # a copy: the caller may advance lengths in place
+        live = lambda: int(lens.sum())  # noqa: E731  (read when the census closes)
+        esz = q.element_size()
+        op_analysis.report_kernel(
+            "decode_attention", "decode_attention", lambda: 4.0 * hq * d * live(),
+            lambda: 2 * hkv * d * esz * live() + q.numel() * esz + 2 * sp.scratch_bytes
+            + 4 * b * hq * (d + 2))
     return acc, m, l

@@ -7,8 +7,10 @@ with the finite ``NEG_LARGE`` mask, ``acc / (l or 1)``. The source holds two
 kernels: bf16 runs on the tensor cores (warpgroup MMA, the scale applied to
 the f32 scores, P rounded to bf16 for P·V), f32 on the FMA units (q scaled in
 f32, everything f32). On a CUDA tensor it launches the kernel or raises, and
-adds one to ``LAUNCHES["flash_attention"]``; on a CPU tensor it returns
-:func:`flash_attention_plain`, the same function in plain PyTorch.
+adds one to ``LAUNCHES["flash_attention"]`` (and, with an op census
+active, reports :func:`flash_work` to ``launch.op_analysis``); on a CPU
+tensor it returns :func:`flash_attention_plain`, the same function in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core.precision import exact_f32
 from repro_torch.kernels import _build
+from repro_torch.launch import op_analysis
 
 NEG_LARGE = -0.5e30
 TILE = 64                       # the kernel's q and kv tile (csrc)
@@ -114,4 +117,17 @@ def flash_attention_kernel(
         torch.cuda.current_stream(q.device).cuda_stream,
     ))
     LAUNCHES["flash_attention"] += 1
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_kernel("flash_attention", "flash_attention",
+                                  *flash_work(b, hq, s, d, q.element_size(), causal))
     return out
+
+
+def flash_work(b: int, hq: int, s: int, d: int, itemsize: int, causal: bool):
+    """FLOPs and bytes of one K8 launch: every (q tile, kv tile) pair it
+    computes (on and below the diagonal when causal), two products each;
+    q read and the output written once, a k and a v tile read per pair."""
+    nt = s // TILE
+    pairs = nt * (nt + 1) // 2 if causal else nt * nt
+    flops = 4.0 * b * hq * d * TILE * TILE * pairs
+    return flops, 2 * b * hq * s * d * itemsize + 2 * b * hq * pairs * TILE * d * itemsize

@@ -128,9 +128,12 @@ def record_dict(r: telemetry.ApssStats) -> dict:
 
 
 def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: float, k: int,
-                 reps: int = 1, profile=None) -> dict:
+                 reps: int = 1, profile=None, audit: dict | None = None) -> dict:
     """Rank function (``launch.mesh.spawn``): run every variant ``reps``
-    times on this rank; see the module docstring for what it returns."""
+    times on this rank; see the module docstring for what it returns. With
+    ``audit`` (``obs.audit.run_audit`` options) the ranks then audit every
+    plannable family on their meshes, and ``out["audit"]`` is rank 0's
+    ``AuditReport`` (None on the others)."""
     from repro_torch.obs import Tracer, drift
 
     loaded = {name: load_corpus(path) for name, path in corpora.items()}
@@ -203,4 +206,8 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
         del got, first, m
         if dev.type == "cuda":  # hand cached blocks back: the ranks may share a card
             torch.cuda.empty_cache()
+    if audit is not None:
+        from repro_torch.obs.audit import audit_ranks
+
+        out["audit"] = audit_ranks(rank, world, dev, audit)
     return out

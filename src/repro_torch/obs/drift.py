@@ -57,7 +57,7 @@ class Residual:
     variant: str
     predicted_s: float
     measured_s: float
-    source: str = "trace"   # "trace" | "estimate"
+    source: str = "trace"   # "trace" | "estimate" | "audit" (obs.audit: FLOPs, not seconds)
 
     @property
     def ratio(self) -> float:

@@ -59,11 +59,15 @@ graph) is numpy, as in the reference. Capacity doubles and deltas are
 bucketed to powers of two, and every state update is an in-place slice
 write, so an append that fits the capacity allocates no device state.
 
-Differences from the reference, by design: eager PyTorch does not trace,
-so the reference's ``obs.compile`` retrace marks and captures are dropped
-(the no-reallocation check takes the place of its no-retrace contract);
-on the card ``block_rows`` must be 64, 128 or 256, K4's corpus blocks,
-and query blocks of 256 rows go to K4 as two of 128.
+Compile observability (``obs.compile``): the live index's hot path is
+the group ``"serving.mutable"``, K4's library, which a warmed append,
+delete or query neither builds nor loads
+(``assert_no_retrace("serving.mutable")``; the no-reallocation check
+stands beside it), and ``_join`` offers its call to ``capture_calls`` as
+``mutable.dense_inner`` or ``mutable.sparse_inner`` for the audit
+(``obs.audit``). Differences from the reference, by design: on the card
+``block_rows`` must be 64, 128 or 256, K4's corpus blocks, and query
+blocks of 256 rows go to K4 as two of 128.
 """
 
 from __future__ import annotations
@@ -97,10 +101,13 @@ from repro_torch.kernels.apss_block.fused import (
     rect_tile_candidates_kernel,
 )
 from repro_torch.kernels.apss_block.ops import _pick_bk, compact_rect_worklist, fold_rect_packets
+from repro_torch.obs import compile as obs_compile
 from repro_torch.obs import trace
 from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex, _resolved
 from repro_torch.serving.query import _query_mask, query_topk
+
+obs_compile.register_entry_points("serving.mutable", "rect_tile_candidates")
 
 _META = "meta.json"
 _K4_BLOCKS = (64, 128, 256)  # K4's corpus blocks (fused.rect_work_split)
@@ -162,6 +169,13 @@ def _np_merge(gv, gi, pv, pi, k):
     v = np.take_along_axis(av, sel, axis=1)
     i = np.take_along_axis(ai, sel, axis=1)
     return v, np.where(v > -np.inf, i, -1)
+
+
+def _replay_join(index, Q, wl, col_live, qpos, *, t, k, block_q, block_c):
+    """A captured ``MutableAPSSIndex._join`` call run again. ``block_c`` is
+    the index's ``block_rows``, named for the audit's work model."""
+    del block_c
+    return index._join(Q, wl, col_live, qpos, t=t, k=k, block_q=block_q)
 
 
 def _empty(B: int, k: int) -> Matches:
@@ -588,7 +602,12 @@ class MutableAPSSIndex:
         (corpus rows) and ``qpos`` (own corpus position per row of ``Q``, −1
         none). ``Q`` None (sparse only) is the corpus itself, densified per
         tile. Returns host ``(values, physical ids, counts)`` per row of
-        ``Q``."""
+        ``Q``. The call is offered to ``obs.compile.capture_calls``; a
+        replay (:func:`_replay_join`) runs against the index as it is then."""
+        obs_compile.offer_capture(
+            "mutable.sparse_inner" if self.is_sparse else "mutable.dense_inner", _replay_join,
+            self, Q, wl, col_live, qpos, t=t, k=k, block_q=block_q, block_c=self.block_rows,
+        )
         cl = torch.from_numpy(col_live).to(self.device)
         qp = torch.from_numpy(qpos.astype(np.int32)).to(self.device)
         n_rows = self._ncap if Q is None else Q.shape[0]

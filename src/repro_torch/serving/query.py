@@ -45,7 +45,11 @@ as the reference does. Each call runs in a ``serving/query`` span (attributes
 ``early_exit_skipped_tiles`` under early exit), observes
 ``serving.live_tile_fraction`` and adds the skipped tiles to
 ``serving.early_exit_skipped_tiles``, as the reference does; with no tracer,
-registry or log active these cost a list check.
+registry or log active these cost a list check. ``_score`` offers its call
+to ``obs.compile.capture_calls`` under the reference's names
+(``serving.dense_inner``, ``serving.sparse_inner``,
+``serving.dense_ee_inner``, ``serving.sparse_ee_inner``,
+``serving.dense_ee_kernel``) for the audit (``obs.audit``) to replay.
 """
 
 from __future__ import annotations
@@ -72,9 +76,17 @@ from repro_torch.kernels.apss_block.sparse import (
     rect_sparse_tile_candidates_kernel,
     rect_sparse_tile_candidates_plain,
 )
+from repro_torch.obs import compile as obs_compile
 from repro_torch.obs import metrics, trace
 from repro_torch.planner import telemetry
 from repro_torch.serving.index import APSSIndex
+
+# The kernel libraries query_topk launches: a warmed batch builds and
+# loads none of them (obs.compile.assert_no_retrace("serving.query")).
+obs_compile.register_entry_points(
+    "serving.query", "rect_tile_candidates", "rect_tile_candidates_ee",
+    "rect_sparse_tile_candidates",
+)
 
 
 # Tiles of the query_topk calls since the caller last set them to 0: in the
@@ -237,6 +249,11 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
            early_exit):
     """Score the worklist ``wl (2, T)`` (bounds ``ubw``) and fold it.
     Returns ``(values, indices, counts, scored_tiles)``."""
+    obs_compile.offer_capture(
+        _capture_name(index.is_sparse, early_exit, use_kernel), _replay_score,
+        index, Qp, wl, ubw, threshold, k, B=B, block_q=block_q, block_c=index.block_rows,
+        grid_q=grid_q, use_kernel=use_kernel, early_exit=early_exit,
+    )
     dev = index.device
     ij = torch.from_numpy(wl).to(dev)
     T = wl.shape[1]
@@ -270,6 +287,27 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
     values, indices, counts = fold_rect_packets(
         ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
     return values, indices, counts, T
+
+
+def _capture_name(sparse: bool, early_exit: bool, use_kernel: bool) -> str:
+    """The reference's name of the inner that ``_score``'s branch runs."""
+    if sparse:
+        return "serving.sparse_ee_inner" if early_exit else "serving.sparse_inner"
+    if early_exit:
+        return "serving.dense_ee_kernel" if use_kernel else "serving.dense_ee_inner"
+    return "serving.dense_inner"
+
+
+def _replay_score(index, Qp, wl, ubw, threshold, k, *, B, block_q, block_c, grid_q,
+                  use_kernel, early_exit) -> Matches:
+    """A captured ``_score`` call run again: the batch's ``Matches`` as
+    ``query_topk`` returns them. ``block_c`` is the index's ``block_rows``,
+    named for the audit's work model."""
+    del block_c
+    values, indices, counts, _ = _score(
+        index, Qp, wl, ubw, threshold, k, B=B, block_q=block_q, grid_q=grid_q,
+        use_kernel=use_kernel, early_exit=early_exit)
+    return Matches(values=values[:B], indices=indices[:B], counts=counts[:B])
 
 
 def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) -> Matches:

@@ -141,3 +141,59 @@ def elastic_ranks(rank, world, dev) -> dict:
     except ValueError as e:
         out["all_evicted"] = str(e)
     return out
+
+
+_OBS: dict = {}
+
+
+def obs_runs(run_dir) -> list:
+    """Every rank's :func:`obs_ranks` result, run once per test process (in 4
+    gloo ranks) for ``tests/test_torch_op_analysis.py`` and
+    ``tests/test_torch_audit.py``."""
+    from repro_torch.launch.mesh import spawn
+
+    if "ranks" not in _OBS:
+        _OBS["ranks"] = spawn("_torch_dist:obs_ranks", 4, device="cpu", threads=1,
+                              run_dir=str(run_dir), pg_timeout=PG_TIMEOUT_S,
+                              join_timeout=JOIN_TIMEOUT_S)
+    return _OBS["ranks"]
+
+
+def obs_ranks(rank, world, dev) -> dict:
+    """Rank function (``launch.mesh.spawn``): :func:`census_ranks`, then the
+    port's audit at the reference's defaults (``obs.audit.audit_ranks``:
+    n = m = 64, t = 0.3, k = 8, meshes ``(4,)`` and ``(2, 2)``; rank 0's
+    report, with serving and the live index)."""
+    from repro_torch.obs.audit import audit_ranks
+
+    return {"census": census_ranks(rank, world, dev),
+            "audit": audit_ranks(rank, world, dev, {})}
+
+
+def census_ranks(rank, world, dev) -> dict:
+    """Each of the collective helpers of ``core.distributed`` alone under an
+    op census, over the ``(world,)`` mesh and over the size-2 ``model`` axis
+    of a ``(world / 2, 2)`` mesh, on a (16, 8) float32 tensor. Returns the
+    census of each as ``{(helper, p): counts}``."""
+    import torch
+
+    from repro_torch.core import distributed as dd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_analysis import analyze
+
+    flat = make_mesh((world,), ("data",))
+    grid = make_mesh((world // 2, 2), ("data", "model"))
+    x = torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8) + rank
+    out = {}
+    for mesh, axis in ((flat, "data"), (grid, "model")):
+        p = dd._axis_size(mesh, axis)
+        calls = {
+            "ppermute": lambda: dd._ppermute((x,), mesh, axis, dd._ring_perm(p)),
+            "psum": lambda: dd._psum(x, mesh, axis),
+            "pmax": lambda: dd._pmax(x, mesh, axis),
+            "psum_scatter": lambda: dd._psum_scatter(x, mesh, axis),
+            "all_gather": lambda: dd._all_gather(x, mesh, axis),
+        }
+        for name, call in calls.items():
+            out[(name, p)] = analyze(call)[1]
+    return out

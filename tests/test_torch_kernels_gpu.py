@@ -5,7 +5,10 @@ matrix), the serving kernels K4 (also per shard of a sharded index, and
 its masked entry under the live index and the resumable sweep), K5 and
 K6, and the LM's attention
 kernels
-K8 (flash attention) and K9 (flash-decode partials). Every test here needs
+K8 (flash attention) and K9 (flash-decode partials); the work each launch
+reports to the op census (``launch.op_analysis``), and the build/load
+monitor's no-retrace contract on a warmed query (``obs.compile``). Every
+test here needs
 an NVIDIA Hopper card and ``nvcc``;
 each decides that inside itself (the ``card`` fixture) and skips with a
 reason elsewhere. Run them on a machine with a card:
@@ -1680,3 +1683,205 @@ def test_autotune_raises_a_kernel_error_instead_of_pricing_it_inf(card, monkeypa
     with pytest.raises(KernelError, match="failed to launch"):
         plan_apss(torch.from_numpy(D).cuda(), 0.5, 16, profile=default_profile(),
                   autotune=True, block_rows_choices=(128,))
+
+
+# ---------------------------------------------------------------------------
+# The op census (launch.op_analysis) and the build/load monitor (obs.compile)
+# ---------------------------------------------------------------------------
+
+
+def _packets(rows, k):
+    return rows * (2 * k + 1) * 4
+
+
+def _census_case(name, card):
+    """``(call, kernel name, flops, bytes)`` of one launch of ``name`` at
+    small padded shapes; the work is the formula of the wrapper's doc,
+    written out here from the shapes, the mask and the split."""
+    from repro_torch.kernels.apss_block import apss_block, fused, sparse
+
+    k = 16
+    if name in ("apss_fused", "apss_block"):
+        D = torch.from_numpy(_pad(_inputs(torch.float32, seed=1), 256, 128)).to(card)
+        n, m = D.shape
+        mask = torch.ones((n // 128, n // 128), dtype=torch.int32, device=card)
+        mask[0, 1] = mask[2, 0] = 0
+        live = int(mask.sum())
+        if name == "apss_block":
+            return (lambda: apss_block.apss_block_kernel(D, D, mask, 0.3, block_m=128,
+                                                         block_n=128),
+                    name, 2.0 * live * 128 * 128 * m * 3,
+                    live * 256 * m * 4 + 4 * n * n + 4 * mask.numel())
+        S = fused.fused_segments_for(D, n, k)
+        out = _packets(n, k) * (1 + 2 * S if S > 1 else 1)
+        return (lambda: fused.apss_fused_kernel(D, D, mask, 0.3, k, block_m=128, block_n=128,
+                                                n_valid_cols=300),
+                name, 2.0 * live * 128 * 128 * m, live * 256 * m * 4 + out + 4 * mask.numel())
+    if name == "apss_tile_candidates":
+        D = torch.from_numpy(_pad(_inputs(torch.float32, seed=1), 256, 128)).to(card)
+        ij = torch.tensor([[0, 0, 1], [0, 1, 1]], dtype=torch.int32, device=card)
+        T, m = 3, D.shape[1]
+        return (lambda: fused.apss_tile_candidates_kernel(D, ij, 0.3, k, block_m=256,
+                                                          block_n=256, n_valid=300),
+                name, 2.0 * T * 256 * 256 * m,
+                T * 512 * m * 4 + 8 * T * 256 * 256 + _packets(T * 512, k) + 8 * T)
+    if name == "sparse_tile_candidates":
+        _, bx, yg, ij = _k3_operands(card, torch.float32, 128, seed=3)
+        T, bm, S = yg.shape
+        return (lambda: sparse.sparse_tile_candidates_kernel(bx, yg, ij, 0.5, k, n_valid=364),
+                name, 2.0 * T * bm * bm * S,
+                2 * T * bm * S * 4 + 8 * T * bm * bm + _packets(2 * T * bm, k) + 8 * T)
+    if name == "rect_sparse_tile_candidates":
+        qg, bx, ij, t = _k6_case(64, 128, 1024)
+        qg, bx = (torch.from_numpy(a).to(card) for a in (qg, bx))
+        ij = torch.from_numpy(ij).to(card)
+        T, S = qg.shape[0], qg.shape[2]
+        chunks = fused.rect_work_split(T, S, 64, 128, sparse.RECT_SCRATCH_BYTES).n_chunks
+        return (lambda: sparse.rect_sparse_tile_candidates_kernel(qg, bx, ij, t, k,
+                                                                  nc_valid=384),
+                name, 2.0 * T * 64 * 128 * S,
+                T * 192 * S * 4 + 8 * T * chunks * 64 * 128 + _packets(T * 64, k) + 8 * T)
+    Qn, Cn = _rect_inputs(torch.float32, 100, seed=11)
+    Q, C = (torch.from_numpy(a).to(card) for a in (Qn[:128], Cn))
+    bq, bc, m = 64, 128, Q.shape[1]
+    gq, gc = Q.shape[0] // bq, C.shape[0] // bc
+    qi, cj = torch.meshgrid(torch.arange(gq), torch.arange(gc), indexing="ij")
+    ij = torch.stack([qi.flatten(), cj.flatten()]).int()
+    T = ij.shape[1]
+    chunks = fused.rect_work_split(T, m, bq, bc).n_chunks
+    per_tile = (bq + bc) * m * 4 + 8 * chunks * bq * bc
+    kw = dict(block_q=bq, block_c=bc, nc_valid=500)
+    if name == "rect_tile_candidates_ee":
+        # Query block 0's tiles first, then block 1's at a bound below every
+        # row's k-th value at t = 0 once one of its tiles is scored: skipped.
+        ub = torch.full((T,), 2.0, device=card)
+        ub[T // 2:] = 0.05
+        got = fused.rect_tile_candidates_early_exit_kernel(Q, C, ij, ub, 0.0, k, nq_valid=100,
+                                                           **kw)
+        scored = T - int(got[3].sum())
+        assert 0 < scored < T
+        return (lambda: fused.rect_tile_candidates_early_exit_kernel(
+                    Q, C, ij, ub, 0.0, k, nq_valid=100, **kw),
+                name, 2.0 * scored * bq * bc * m,
+                scored * per_tile + _packets(T * bq, k) + 16 * T)
+    if name == "rect_tile_candidates_masked":
+        col_live = torch.ones(C.shape[0], dtype=torch.bool)
+        qpos = torch.full((Q.shape[0],), -1, dtype=torch.int32)
+        return (lambda: fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, k, col_live=col_live,
+                                                          qpos=qpos, **kw),
+                name, 2.0 * T * bq * bc * m,
+                T * per_tile + _packets(T * bq, k) + 8 * T + C.shape[0] + 4 * Q.shape[0])
+    return (lambda: fused.rect_tile_candidates_kernel(Q, C, ij, 0.3, k, **kw),
+            name, 2.0 * T * bq * bc * m, T * per_tile + _packets(T * bq, k) + 8 * T)
+
+
+@pytest.mark.parametrize("name", [
+    "apss_fused", "apss_tile_candidates", "sparse_tile_candidates", "rect_tile_candidates",
+    "rect_tile_candidates_masked", "rect_tile_candidates_ee", "rect_sparse_tile_candidates",
+    "apss_block"])
+def test_census_reports_each_apss_kernel_launch(card, name):
+    """One launch under the op census reports its work at the padded shapes
+    the card computes (dead tiles and K5's skipped tiles not counted), read
+    when the census closes."""
+    from repro_torch.launch.op_analysis import analyze
+
+    call, kname, flops, nbytes = _census_case(name, card)
+    _, got = analyze(call)
+    assert got["kernels"][kname] == {"launches": 1, "flops": flops, "bytes": nbytes}
+    assert got["flops"] == flops  # the kernel's products are opaque to the dispatcher
+
+
+def test_census_reports_attention_work(card):
+    import importlib
+
+    from repro_torch.launch.op_analysis import analyze
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    k9 = importlib.import_module("repro_torch.kernels.decode_attention.decode_attention")
+    g = torch.Generator("cuda").manual_seed(0)
+    B, Hq, Hkv, S, D = 2, 4, 2, 192, 64
+    q = torch.randn((B, Hq, S, D), generator=g, device=card)
+    kv = torch.randn((B, Hkv, S, D), generator=g, device=card)
+    pairs = 3 * 4 // 2  # 3 tiles of 64 on and below the diagonal
+    _, got = analyze(lambda: k8.flash_attention_kernel(q, kv, kv))
+    assert got["kernels"]["flash_attention"]["flops"] == 4.0 * B * Hq * D * 64 * 64 * pairs
+    _, got = analyze(lambda: k8.flash_attention_kernel(q, kv, kv, causal=False))
+    assert got["kernels"]["flash_attention"]["flops"] == 4.0 * B * Hq * D * S * S
+    L = 300
+    qd = torch.randn((B, Hq, D), generator=g, device=card)
+    cache = torch.randn((B, Hkv, L, D), generator=g, device=card)
+    lengths = torch.tensor([7, 1000], dtype=torch.int32, device=card)
+    _, got = analyze(lambda: k9.decode_attention_kernel(qd, cache, cache, lengths))
+    assert got["kernels"]["decode_attention"]["flops"] == 4.0 * Hq * D * (7 + L)
+
+
+def _served(card, sparse_index):
+    from repro_torch.core.sparse import from_dense
+    from repro_torch.serving import build_index
+
+    D = _corp(700, 3000, seed=5, density=0.05)
+    data = from_dense(D, device=card) if sparse_index else D
+    return build_index(data, block_rows=128, device=card), D[:32]
+
+
+@pytest.mark.parametrize("sparse_index", [False, True], ids=["dense", "csr"])
+def test_warmed_query_topk_builds_and_loads_nothing(card, sparse_index):
+    from repro_torch.obs import compile as obs_compile
+    from repro_torch.serving import query_topk
+
+    index, Q = _served(card, sparse_index)
+    want = query_topk(index, Q, 0.2, 8, use_kernel=True, block_q=32)  # warm
+    with obs_compile.assert_no_retrace("serving.query"):
+        got = query_topk(index, Q, 0.2, 8, use_kernel=True, block_q=32)
+    _assert_close(got, want)
+
+
+def test_no_retrace_contract_raises_when_the_libraries_are_dropped(card):
+    from repro_torch.kernels import _build
+    from repro_torch.obs import RetraceError
+    from repro_torch.obs import compile as obs_compile
+    from repro_torch.serving import query_topk
+
+    index, Q = _served(card, False)
+    query_topk(index, Q, 0.2, 8, use_kernel=True, block_q=32)  # warm
+    before = obs_compile.snapshot().get("rect_tile_candidates", 0)
+    with pytest.raises(RetraceError, match="rect_tile_candidates"):
+        with obs_compile.assert_no_retrace("serving.query"):
+            _build._LIBS.clear()
+            query_topk(index, Q, 0.2, 8, use_kernel=True, block_q=32)
+    assert obs_compile.snapshot()["rect_tile_candidates"] == before + 1  # one load
+
+
+def test_measure_on_card_reports_libraries_and_staging(card, tmp_path):
+    """``measure`` of a K4 query on the card: its library's size and ptxas
+    rows, the peak allocation above its arguments; and a gloo all-reduce
+    of a card tensor stages it through the host both ways, billed as
+    ``host_copy_bytes``, not HBM."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_analysis import analyze
+    from repro_torch.obs.compile import CompileMonitor
+    from repro_torch.serving import query_topk
+
+    index, Q = _served(card, False)
+    _, rec = CompileMonitor().measure(query_topk, index, Q, 0.2, 8, use_kernel=True,
+                                      block_q=32, name="k4")
+    assert rec.analysis["kernels"]["rect_tile_candidates"]["launches"] == 1
+    assert rec.code_bytes > 0 and rec.temp_bytes > 0
+    assert {r["library"] for r in rec.kernels} == {"rect_tile_candidates"}
+    assert all("registers" in r for r in rec.kernels)
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialised in this process")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        x = torch.ones((64, 32), device=card)
+        mesh = make_mesh((1,), ("data",))
+        _, got = analyze(lambda: dd._psum(x, mesh, "data"))
+    finally:
+        dist.destroy_process_group()
+    assert got["host_copy_bytes"] == 2 * x.numel() * 4  # to the host and back
+    assert got["hbm_bytes"] == 0
+    assert got["collectives"]["all-reduce"]["count"] == 1

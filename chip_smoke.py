@@ -6,7 +6,7 @@ and ``nvcc``:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (with ``t_s``, seconds since the start):
 
 1. ``device``: fails unless CUDA is available; the card's name and the
    ``nvidia-smi`` name and power limit.
@@ -181,6 +181,27 @@ Phases, each printing one JSON line:
     shape against its plain version and one ``torch.bmm`` of the same
     tiles (partners gathered beforehand) with a stable-sort top-k, for
     the ``kernels`` line.
+14c. ``dedup_radikal_full`` (``dedup_phase``): ``data.dedup_corpus`` (K1,
+    one launch) on phase 7's corpus plus 512 planted rows, copies of random
+    rows with each nonzero scaled by 1 + 0.01 · U[0, 1), at t = 0.95, k =
+    64, against ``use_kernel=False``: ``keep`` and ``duplicate_of`` equal,
+    every planted row dropped for a kept row; K1 at the join's shapes
+    against its plain version.
+14d. ``apss_paper_20news`` (``apss_paper_phase``): the paper's cells
+    (``configs.apss_paper``) in 4 ranks on the card over gloo
+    (``launch.apss_mesh.run_cells``): ``v_compressed`` at the full 20news
+    scale (20,480 × 315,392 f32, 25.8 GB in four 6.45 GB column slices;
+    the corpus from ``data.sparse.sparse_zipfian_bulk`` at
+    ``PAPER_DATASETS["20-newsgroups"]``' n, m and nnz per row, zero-padded,
+    handed over in CSR, each rank densifying its own slice on the card;
+    256 near-duplicate rows planted after the generated 20,001), then
+    ``h_allgather``, ``h_ring`` and ``grid_2d`` at wikipedia's m =
+    1,351,680 with n cut to 1,024 (5.5 GB; 64 rows planted near duplicates).
+    Each result equals, under the comparison rule, a single-device
+    ``apss_blocked`` on the card run after the ranks exit (the plain path,
+    as the cells pass no ``use_kernel``: no kernel runs in this phase). The
+    four full configs (wikipedia 388 GB) are built on the meta device and
+    their argument shapes, specs and ``static_info`` printed.
 15. ``lm_edge_probes`` (not timed): K8 (flash attention, through
     ``kernels.flash_attention.flash_attention``) and K9 (flash-decode
     partials) against their plain versions, in f32 and bf16: S = 1, S not a
@@ -215,6 +236,35 @@ Phases, each printing one JSON line:
     step). Its token streams must equal the plain path's server; where they
     part, the plain path's top-2 logit margin at that step must be at most
     phase 17's largest |Δlogit|.
+18b. The MLA and MoE families and qwen3-8b at full width (bf16, weights
+    from seed 0 on the card), one model on the card at a time
+    (``lm_zoo_phases``). Each prefill (2 × 4096; ``zoo_prefill_phase``) is
+    counted (K8 once a layer: 62 for minicpm3-4b, through its padded call,
+    28 for deepseek-moe-16b, 36 for qwen3-8b), printed against
+    ``use_kernel=False`` in bf16 (each MoE layer's ``dropped_frac`` on both
+    paths, and one MoE layer's ``moe_ffn`` timed alone at the prefill's
+    8,192 tokens: its share of the wall; the profiler's K8 records held
+    equal to the counted launches), and held against it at ``CUT_LAYERS``
+    layers of the same widths in f32: ``transformer_logits`` top-1 equal on
+    all but 2 of the 8,192 positions with |Δlogit| ≤ 1e-4, on 99 % for an
+    MoE model (a router near-tie may flip on an f32 last bit); K8 at one
+    layer's shapes against its plain version (for MLA, q and k of width 96
+    and v of 64 zero-padded to 128 and scaled by 1/√96; the bound counts
+    the unpadded work).
+    ``lm_decode_minicpm3_4b_32k``: the absorbed latent decode (plain torch,
+    no kernel by design: none may launch) over a seeded random latent cache
+    of 8 × 32,768 positions (9.4 GB); then decode fed step by step from an
+    empty cache against ``transformer_logits`` (padded K8) over the same 32
+    tokens, printed at full depth in bf16 and held at ``CUT_LAYERS`` layers
+    in f32 (atol 5e-4, rtol 5e-3, top-1 equal everywhere).
+    ``lm_decode_deepseek_moe_16b_8k``: phase 17 on deepseek-moe-16b with
+    its cache cut to 8 × 8,192 positions (15 GB beside 32.8 GB of weights;
+    32k would take 60 GB), K9 28 times a step, an MoE step routing the 8
+    tokens of the batch (capacity 1). ``lm_server_deepseek_moe_16b`` and
+    ``lm_server_qwen3_8b``: phase 18 with 2 requests of an 8-token prompt
+    and 16 generated tokens; qwen3-8b's tie bound is one K9 decode step's
+    largest |Δlogit| against the plain path over a random 512-position
+    cache (``decode_dlogit``).
 19. ``kernels``: per kernel and main-path shape, launches on the main path,
     median kernel / plain / library time from CUDA events, the bound (f32
     FMA peak; K7's row and K8's bf16 row the tensor-core peak), and the largest
@@ -233,18 +283,20 @@ Phases, each printing one JSON line:
     split, ``n_splits``, grid and live split blocks (``live_blocks``), K8's
     the f32 kernel's time (``ms_f32``) beside SDPA's in f32
     (``library_ms_f32``). K1's ring-step row (phase 14) adds its shape,
-    offsets and launches per rank and variant; its ``launches`` sums them.
+    offsets and launches per rank and variant (its ``launches`` sums them),
+    and its segments, grid, merge grid and co-resident ``slots`` as the
+    radikal row does; the dedup row (phase 14c) the same and its live tiles.
     K4's sharded row (``serve_sharded_radikal_full/b64``) times the 4
     shards' launches together and adds each shard's time and tiles.
 
-The main-path phases (6-14b and 16-18) drive the port's entry points
+The main-path phases (6-14d and 16-18b) drive the port's entry points
 (``apss_blocked(use_kernel=True)`` for K1, ``apss_fused_compacted`` for K2,
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6, on a
 sharded index too for K4; ``MutableAPSSIndex`` for K4's masked entry;
 ``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
 4 ranks for K1 under the ring schedules; ``ResumableSweep.run`` for K4's
-masked entry once per step) with the
+masked entry once per step; ``dedup_corpus`` for K1) with the
 launch counts set to 0 just before and read just after, each serving path
 (batch size, early exit, server) on its own, and hold the
 results against the plain paths on the card. Comparison rule (the
@@ -272,6 +324,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 TOL = 1e-5
 REPS = 5
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 without tensor cores (TF32 off)
@@ -345,7 +398,9 @@ class PhaseFailed(Exception):
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line: the phase, seconds since the script started, ``fields``."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T_START, **fields}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -443,8 +498,10 @@ def main() -> int:
                                   m_pad=136448))
     rows.append(sweep_phase(np, torch, "sweep_radikal_full", radikal, single, residuals,
                             profile, threshold=0.2, k=32))
+    rows.append(dedup_phase(np, torch, "dedup_radikal_full", radikal))
     del radikal, single
     torch.cuda.empty_cache()
+    apss_paper_phase(np, torch, "apss_paper_20news")
     lm_edge_probes(np, torch)
     r1_probe(np, torch)
     cfg, model = lm_model(torch)
@@ -452,6 +509,9 @@ def main() -> int:
     row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_qwen3_1_7b_32k", cfg, model)
     rows.append(row)
     lm_server_phase(np, torch, "lm_server_qwen3_1_7b", cfg, model, max_dlogit)
+    del model
+    torch.cuda.empty_cache()
+    rows += lm_zoo_phases(np, torch)
     emit("clocks_after_timed_rows", nvidia_smi=clocks(), query=CLOCK_QUERY)
     emit("kernels", kernels=rows)
     print(smi, flush=True)
@@ -591,22 +651,39 @@ def wall_ms(np, torch, fn, reps: int = REPS) -> dict:
 
 # Device-record name of each kernel that ``profiled`` counts.
 PROFILED_KERNELS = {"flash_attention": "fa::flash_forward", "decode_attention": "da::decode_partials"}
+# Throwaway launches (``torch.cuda._sleep``'s kernel) at the head of every
+# profiled window. On an H100, kineto drops the first device records of a
+# trace as out of its window, more of them as the process ages: late in the
+# smoke a few dozen, and with them now and then deepseek-moe-16b's first K8
+# or K9. The lead takes that loss; the count of its records that survive
+# says how large the loss was.
+PROFILE_LEAD_LAUNCHES = 1024
+PROFILE_LEAD = "chip_smoke.profile_lead"  # the lead's host scope
+LEAD_KERNEL = "spin_kernel"
 
 
 def _profile_stats(torch, prof, wall_ms: float, top: int, kernels: dict) -> dict:
     cuda = torch.autograd.DeviceType.CUDA
-    host_ops = sum(1 for e in prof.events() if e.device_type != cuda and e.cpu_parent is None)
+    host = [e for e in prof.events() if e.device_type != cuda]
+    lead_end = max((e.time_range.end for e in host if e.name == PROFILE_LEAD), default=None)
+    host_ops = sum(1 for e in host if e.cpu_parent is None and e.name != PROFILE_LEAD
+                   and (lead_end is None or e.time_range.start >= lead_end))
     events = [e for e in prof.key_averages()  # kernels, memcpys and memsets, not the ops
               if e.device_type == cuda and e.self_device_time_total > 0]
+    lead = dict(launches=PROFILE_LEAD_LAUNCHES,
+                records=sum(e.count for e in events if LEAD_KERNEL in e.key))
+    # the lead's kernels, and the device-side span kineto draws for its scope
+    events = [e for e in events if LEAD_KERNEL not in e.key and e.key != PROFILE_LEAD]
     records = {name: sum(e.count for e in events if key in e.key)
                for name, key in kernels.items()}
     if not events:  # the profiler saw no device time: not measured
         return dict(host_ops=host_ops, device_busy_ms=None, idle_share=None, records=records,
-                    top=[])
+                    lead=lead, top=[])
     busy = sum(e.self_device_time_total for e in events) / 1e3
     events.sort(key=lambda e: -e.self_device_time_total)
     return dict(host_ops=host_ops, device_launches=sum(e.count for e in events),
                 device_busy_ms=busy, idle_share=1 - busy / wall_ms, records=records,
+                lead=lead,
                 top=[dict(name=e.key[:80], ms=e.self_device_time_total / 1e3, count=e.count)
                      for e in events[:top]])
 
@@ -619,19 +696,23 @@ def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3,
     ``wall_ms`` (the path's unprofiled host-clock time: the profiler slows
     the host), the ``top`` kernels by device time, and per kernel of
     ``kernels`` (launch-count name: a key of its device records) its device
-    records beside the launches counted around the call. The profiler now
-    and then loses a contiguous block of device records (on an H100, one
-    decode layer's hundred in one of twelve traces), so a trace whose
-    records differ from the counted launches is taken again, up to
-    ``attempts`` calls. ``device_busy_ms`` is ``None``
-    where the profiler saw no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    records beside the launches counted around the call. The window opens
+    with ``PROFILE_LEAD_LAUNCHES`` throwaway launches, left out of every
+    figure but ``lead`` (its launches and surviving records). A trace whose
+    records still differ from the counted launches is taken again, up to
+    ``attempts`` calls. ``device_busy_ms`` is ``None`` where the profiler
+    saw no device time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     lost = []
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         before = launches_now()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(PROFILE_LEAD):
+                for _ in range(PROFILE_LEAD_LAUNCHES):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -641,7 +722,8 @@ def profiled(torch, fn, wall_ms: float, top: int = 6, attempts: int = 3,
         stats = _profile_stats(torch, prof, wall_ms, top, kernels)
         if stats["device_busy_ms"] is None or stats["records"] == launched:
             break
-        lost.append(dict(records=stats["records"], device_launches=stats["device_launches"]))
+        lost.append(dict(records=stats["records"], device_launches=stats["device_launches"],
+                         lead=stats["lead"]))
     return dict(stats, wall_ms=wall_ms, profiled_wall_ms=profiled_ms, launches=launched,
                 attempts=attempt, lost_records=lost)
 
@@ -2152,9 +2234,10 @@ def lm_decode_phase(np, torch, phase, cfg, model, *, batch=8, max_len=32768):
     def filled():
         cache = make_cache(cfg, batch, max_len, device="cuda")
         g = torch.Generator("cuda").manual_seed(2)
-        for i in range(cfg.n_layers):
-            cache["k"][i].normal_(generator=g)
-            cache["v"][i].normal_(generator=g)
+        for a, b in (("dense_k", "dense_v"), ("k", "v")):  # the dense layers come first
+            for i in range(cache[a].shape[0] if a in cache else 0):
+                cache[a][i].normal_(generator=g)
+                cache[b][i].normal_(generator=g)
         return cache
 
     cache, fill_s = generated(torch, filled)
@@ -2181,7 +2264,8 @@ def lm_decode_phase(np, torch, phase, cfg, model, *, batch=8, max_len=32768):
     kv_row = cfg.n_kv_heads * cfg.head_dim * 2 * cache["k"].element_size()
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     emit(phase, batch=batch, max_len=max_len, lengths=lens.tolist(),
-         cache_bytes=2 * cache["k"].numel() * cache["k"].element_size(), fill_seconds=fill_s,
+         cache_bytes=sum(t.numel() * t.element_size() for key, t in cache.items()
+                         if key != "length"), fill_seconds=fill_s,
          launches=launches, first_call_ms=first_ms, wall_ms=wall, plain_wall_ms=plain_wall,
          profile=profile, max_abs_dlogit=dlogit, top1_agree=agree, rows=batch,
          k9_step_bound_ms=cfg.n_layers * live * kv_row / PEAK_BYTES * 1e3,
@@ -2287,6 +2371,486 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
     check(part is None or margin <= max_dlogit,
           f"{phase}: streams part at step {part} where the plain margin {margin} exceeds "
           f"the decode phase's largest |Δlogit| {max_dlogit}")
+
+
+# ---------------------------------------------------------------------------
+# The MLA and MoE LM families at full width, and qwen3-8b
+# ---------------------------------------------------------------------------
+
+CUT_LAYERS = 4  # depth of the f32 copies that hold the kernel path to the plain one
+
+
+def zoo_model(torch, arch: str, *, n_layers: int | None = None, dtype=None):
+    """``arch``'s full config (bf16) with weights from seed 0 on the card, or
+    a cut of it (``n_layers`` at full width, ``dtype``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import (
+        count_active_params, count_params, init_transformer,
+    )
+
+    cfg = get_arch(arch).make_config()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model, init_s = generated(torch, lambda: init_transformer(
+        cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda"))
+    n = count_params(cfg)
+    check(n == sum(p.numel() for p in model.parameters()), f"{arch}: parameter count")
+    emit("lm_model", config=cfg.name, n_layers=cfg.n_layers, dtype=_dtype_name(torch, cfg.dtype),
+         params=n, active_params=count_active_params(cfg),
+         weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+         init_seconds=init_s)
+    return cfg, model
+
+
+def _moe_drops(stats) -> list:
+    return [float(s.dropped_frac) for s in stats]
+
+
+def zoo_prefill_phase(np, torch, phase, arch, cfg, model, *, batch=2, seq=4096) -> dict:
+    """``prefill`` of a full-width model through K8 (padded for MLA), counted,
+    against ``use_kernel=False`` in bf16 (printed: the paths part at bf16's
+    rounding noise, and an MoE router's choice can flip on it); then the
+    same at ``CUT_LAYERS`` layers in f32, held: ``transformer_logits`` top-1
+    equal on all but 2 of the positions with |Δlogit| ≤ 1e-4 (dense), on
+    99 % of them (MoE: a routing near-tie may flip on an f32 last bit).
+    Returns K8's row at one layer's shapes."""
+    from repro_torch.models.transformer import prefill, transformer_logits
+
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)).cuda()
+    stats, plain_stats = [], []
+    reset_launches()
+    logits, first_ms = timed(torch, lambda: prefill(model, cfg, tokens, moe_stats=stats))
+    launches = launches_now()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"{phase}: K8 launched {launches['flash_attention']} times, not {cfg.n_layers}")
+    check(tuple(logits.shape) == (batch, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          f"{phase}: prefill logits {tuple(logits.shape)} not finite or misshaped")
+    wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens), reps=3)
+    profile = profiled(torch, lambda: prefill(model, cfg, tokens), wall["median"])
+    plain = prefill(model, cfg, tokens, use_kernel=False, moe_stats=plain_stats)
+    plain_wall = wall_ms(np, torch, lambda: prefill(model, cfg, tokens, use_kernel=False),
+                         reps=2)
+    bf16 = dict(max_abs_dlogit=(logits - plain).abs().max().item(),
+                top1_equal=int((logits.argmax(-1) == plain.argmax(-1)).sum()), rows=batch)
+    del logits, plain
+    torch.cuda.empty_cache()
+
+    moe = {}
+    if cfg.moe:  # one MoE layer alone at the prefill's token count, its share of the wall
+        from repro_torch.models.moe import moe_ffn
+
+        x = torch.randn((batch * seq, cfg.d_model), generator=torch.Generator("cuda").manual_seed(4),
+                        device="cuda").to(cfg.dtype)
+        layer_ms = time_ms(np, torch, lambda: moe_ffn(
+            model.layers[0].ffn.moe, x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor))
+        moe = dict(layer_ms=layer_ms, layers=len(model.layers),
+                   share_of_wall=layer_ms * len(model.layers) / wall["median"])
+        del x
+
+    cut, m32 = zoo_model(torch, arch, n_layers=CUT_LAYERS, dtype=torch.float32)
+    lk = transformer_logits(m32, cut, tokens)
+    lp = transformer_logits(m32, cut, tokens, use_kernel=False)
+    n = batch * seq
+    f32 = dict(layers=CUT_LAYERS, top1_agree=_top1(lk, lp), max_abs_dlogit=_max_dlogit(lk, lp),
+               finite=bool(torch.isfinite(lk).all()))
+    del m32, lk, lp
+    torch.cuda.empty_cache()
+    emit(phase, batch=batch, seq=seq, launches=launches, first_call_ms=first_ms,
+         wall_ms=wall, plain_wall_ms=plain_wall, profile=profile, bf16=bf16, f32_cut=f32,
+         positions=n, moe_dropped_frac=_moe_drops(stats),
+         moe_dropped_frac_plain=_moe_drops(plain_stats), moe_ffn=moe)
+    check_profile(phase, profile)
+    check(f32["finite"], f"{phase}: f32 logits not finite")
+    if cfg.moe:
+        check(f32["top1_agree"] >= 0.99 * n, f"{phase}: f32 top-1 agreement {f32}")
+    else:
+        check(f32["top1_agree"] >= n - 2 and f32["max_abs_dlogit"] <= 1e-4,
+              f"{phase}: f32 top-1 agreement or |Δlogit| {f32}")
+    if cfg.attention == "mla":
+        return k8_mla_row(np, torch, phase, launches, batch, cfg, seq)
+    return k8_row(np, torch, phase, launches, batch, cfg.n_heads, cfg.n_kv_heads, seq,
+                  cfg.head_dim)
+
+
+def k8_mla_row(np, torch, phase, launches, B, cfg, S) -> dict:
+    """K8 as MLA's prefill calls it (``transformer._mla_flash``): q and k of
+    width ``qk_head_dim``, v of ``v_head_dim``, zero-padded to K8's head dim
+    and scaled by 1/√qk_head_dim, against its plain version on the same
+    padded inputs; SDPA on the unpadded ones. The bound counts the unpadded
+    work: the products of the real widths, q, k, v and the output once."""
+    import torch.nn.functional as F
+
+    k8, _ = _attention_modules()
+    H, dqk, dv = cfg.n_heads, cfg.qk_head_dim, cfg.v_dim
+    D = next(d for d in k8.HEAD_DIMS if d >= max(dqk, dv))
+    g = torch.Generator("cuda").manual_seed(1)
+    q32, k32 = (torch.randn((B, H, S, dqk), generator=g, device="cuda") for _ in range(2))
+    v32 = torch.randn((B, H, S, dv), generator=g, device="cuda")
+    scale = 1.0 / dqk ** 0.5
+
+    def padded(dtype):
+        return tuple(F.pad(a.to(dtype), (0, D - a.shape[-1])).contiguous()
+                     for a in (q32, k32, v32))
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = padded(dtype)
+        got = k8.flash_attention_kernel(q, k, v, scale=scale)
+        want = k8.flash_attention_plain(q, k, v, scale=scale)
+        dn = _dtype_name(torch, dtype)
+        errs[dn] = (got.float() - want.float()).abs().max().item()
+        check(errs[dn] <= LM_ATOL[dn] and not got[..., dv:].any(),
+              f"{phase}: padded K8 differs from its plain version in {dn}: {errs[dn]}")
+        del got, want
+    p32 = padded(torch.float32)
+    ms_f32 = time_ms(np, torch, lambda: k8.flash_attention_kernel(*p32, scale=scale))
+    library_ms_f32 = time_ms(np, torch, lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, scale=scale))
+    del p32
+    q, k, v = padded(torch.bfloat16)
+    qb, kb, vb = (a.to(torch.bfloat16) for a in (q32, k32, v32))
+    flop = 2.0 * (dqk + dv) * (S * (S + 1) / 2) * B * H
+    nbytes = 2.0 * B * H * S * (2 * dqk + 2 * dv)
+    row = kernel_row(
+        np, torch, "flash_attention", phase, launches, dict(max_abs_err=errs["bfloat16"]),
+        lambda: k8.flash_attention_kernel(q, k, v, scale=scale),
+        lambda: k8.flash_attention_plain(q, k, v, scale=scale),
+        lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=True, scale=scale),
+        flop, nbytes, peak=PEAK_BF16_TC_FLOPS)
+    row.update(shape=[B, H, H, S, D], unpadded_dims=[dqk, dv], dtype="bfloat16",
+               max_abs_err_f32=errs["float32"], ms_f32=ms_f32,
+               bound_ms_f32=bound(flop, 2 * nbytes)[0], library_ms_f32=library_ms_f32,
+               per_prefill_bound_ms=row["bound_ms"] * launches["flash_attention"])
+    return row
+
+
+def mla_decode_phase(np, torch, phase, arch, cfg, model, *, batch=8, max_len=32768) -> None:
+    """MLA's absorbed decode (plain torch products, no kernel by design) over
+    a seeded random latent cache of ``batch`` × ``max_len`` positions: the
+    step's wall and device profile, no kernel launched. Then the absorbed
+    decode against the explicit prefill path (K8, padded) over the same
+    tokens at a short length: fed step by step from an empty cache, each
+    step's logits against ``transformer_logits`` at that position, printed
+    at full depth in bf16 and held at ``CUT_LAYERS`` layers in f32 (atol
+    5e-4, rtol 5e-3: the CPU tests' decode-against-forward tolerance)."""
+    from repro_torch.models.transformer import decode_step, make_cache, transformer_logits
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(1, max_len, size=batch)
+    lens[0] = max_len - 1
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, batch).astype(np.int32)).cuda()
+    lens_t = torch.from_numpy(lens.astype(np.int32)).cuda()
+
+    def filled():
+        cache = make_cache(cfg, batch, max_len, device="cuda")
+        g = torch.Generator("cuda").manual_seed(2)
+        for i in range(cache["c_kv"].shape[0]):
+            cache["c_kv"][i].normal_(generator=g)
+            cache["k_pe"][i].normal_(generator=g)
+        return cache
+
+    cache, fill_s = generated(torch, filled)
+
+    def step(use_kernel=None):
+        cache["length"].copy_(lens_t)
+        return decode_step(model, cfg, cache, tokens, use_kernel=use_kernel)[0]
+
+    reset_launches()
+    lk, first_ms = timed(torch, step)
+    launches = launches_now()
+    check(not any(launches.values()), f"{phase}: MLA decode launched a kernel: {launches}")
+    check(tuple(lk.shape) == (batch, cfg.padded_vocab) and bool(torch.isfinite(lk).all()),
+          f"{phase}: decode logits {tuple(lk.shape)} not finite or misshaped")
+    wall = wall_ms(np, torch, step, reps=3)
+    profile = profiled(torch, step, wall["median"], kernels={})
+    cache_bytes = sum(t.numel() * t.element_size() for key, t in cache.items()
+                      if key != "length")
+    live_bytes = int(lens.sum()) * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2 * cfg.n_layers
+    del cache, lk
+    torch.cuda.empty_cache()
+
+    def absorbed_vs_explicit(c, m, steps=32):
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, c.vocab_size, (2, steps)).astype(np.int32)).cuda()
+        full = transformer_logits(m, c, toks).float()
+        short = make_cache(c, 2, steps, device="cuda")
+        got = torch.stack([decode_step(m, c, short, toks[:, i])[0] for i in range(steps)], 1)
+        excess = ((got - full).abs() - (5e-4 + 5e-3 * full.abs())).max().item()
+        return dict(steps=steps, max_abs_dlogit=(got - full).abs().max().item(),
+                    top1_agree=_top1(got, full), positions=2 * steps, tol_excess=excess)
+
+    bf16 = absorbed_vs_explicit(cfg, model)
+    cut, m32 = zoo_model(torch, arch, n_layers=CUT_LAYERS, dtype=torch.float32)
+    f32 = absorbed_vs_explicit(cut, m32)
+    del m32
+    torch.cuda.empty_cache()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    emit(phase, batch=batch, max_len=max_len, lengths=lens.tolist(), cache_bytes=cache_bytes,
+         fill_seconds=fill_s, launches=launches, first_call_ms=first_ms, wall_ms=wall,
+         profile=profile, kernel="none by design (absorbed latent attention, plain torch)",
+         latent_step_bound_ms=live_bytes / PEAK_BYTES * 1e3,
+         weights_step_bound_ms=weight_bytes / PEAK_BYTES * 1e3,
+         absorbed_vs_explicit_bf16=bf16, absorbed_vs_explicit_f32_cut=f32)
+    check(f32["tol_excess"] <= 0 and f32["top1_agree"] == f32["positions"],
+          f"{phase}: absorbed decode parts from the explicit path in f32: {f32}")
+
+
+def decode_dlogit(np, torch, cfg, model, *, batch=8, max_len=512) -> float:
+    """The largest |Δlogit| of one GQA decode step, K9 against the plain
+    path, over a seeded random cache: the server phase's tie bound where no
+    decode phase ran."""
+    from repro_torch.models.transformer import decode_step, make_cache
+
+    cache = make_cache(cfg, batch, max_len, device="cuda")
+    g = torch.Generator("cuda").manual_seed(2)
+    for key, t in cache.items():
+        if key != "length":
+            t.normal_(generator=g)
+    lens = torch.from_numpy(np.random.default_rng(0).integers(
+        1, max_len, size=batch).astype(np.int32)).cuda()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, batch).astype(np.int32)).cuda()
+    out = []
+    for use in (None, False):
+        cache["length"].copy_(lens)
+        out.append(decode_step(model, cfg, cache, tokens, use_kernel=use)[0])
+    del cache
+    torch.cuda.empty_cache()
+    return (out[0] - out[1]).abs().max().item()
+
+
+def lm_zoo_phases(np, torch) -> list:
+    """The three new families at full width, one model on the card at a
+    time: minicpm3-4b (MLA: prefill through padded K8, the absorbed decode
+    at a 32k latent cache), deepseek-moe-16b (prefill, an 8k decode
+    through K9, a server) and qwen3-8b (prefill, a server)."""
+    rows = []
+    cfg, model = zoo_model(torch, "minicpm3-4b")
+    rows.append(zoo_prefill_phase(np, torch, "lm_prefill_minicpm3_4b", "minicpm3-4b", cfg,
+                                  model))
+    mla_decode_phase(np, torch, "lm_decode_minicpm3_4b_32k", "minicpm3-4b", cfg, model)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model = zoo_model(torch, "deepseek-moe-16b")
+    rows.append(zoo_prefill_phase(np, torch, "lm_prefill_deepseek_moe_16b",
+                                  "deepseek-moe-16b", cfg, model))
+    row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_deepseek_moe_16b_8k", cfg, model,
+                                      max_len=8192)
+    rows.append(row)
+    lm_server_phase(np, torch, "lm_server_deepseek_moe_16b", cfg, model, max_dlogit,
+                    requests=2, prompt=8, gen=16)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model = zoo_model(torch, "qwen3-8b")
+    rows.append(zoo_prefill_phase(np, torch, "lm_prefill_qwen3_8b", "qwen3-8b", cfg, model))
+    lm_server_phase(np, torch, "lm_server_qwen3_8b", cfg, model,
+                    decode_dlogit(np, torch, cfg, model), requests=2, prompt=8, gen=16)
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Near-duplicate detection and the paper's own cells
+# ---------------------------------------------------------------------------
+
+DEDUP = dict(planted=512, threshold=0.95, noise=0.01, seed=5)
+
+
+def dedup_phase(np, torch, phase, radikal) -> dict:
+    """``dedup_corpus`` (K1 on the card) on radikal plus ``DEDUP["planted"]``
+    perturbed copies of its rows (each nonzero × (1 + 0.01 · U[0, 1))),
+    against ``use_kernel=False``: equal ``keep`` and ``duplicate_of``, every
+    planted row dropped for a kept row. K1 at the join's shapes against its
+    plain version for the ``kernels`` line."""
+    from repro_torch.core.apss import normalize_rows
+    from repro_torch.data import dedup_corpus
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.kernels.apss_block.ops import _padded_pair, _pick_bk
+
+    n, m = radikal.shape
+    t, k = DEDUP["threshold"], 64
+    rng = np.random.default_rng(DEDUP["seed"])
+    src = np.sort(rng.choice(n, DEDUP["planted"], replace=False))
+    X, gen_s = generated(torch, lambda: torch.from_numpy(np.concatenate([
+        radikal, radikal[src] * (1 + DEDUP["noise"] * rng.random((len(src), m),
+                                                                  dtype=np.float32))])).cuda())
+    reset_launches()
+    (keep, dup_of), first_ms = timed(torch, lambda: dedup_corpus(X))
+    launches = launches_now()
+    check(launches["apss_fused"] == 1, f"{phase}: K1 launched {launches['apss_fused']} times")
+    (pkeep, pdup), plain_first_ms = timed(torch, lambda: dedup_corpus(X, use_kernel=False))
+    wall = wall_ms(np, torch, lambda: dedup_corpus(X), reps=3)
+    plain_wall = wall_ms(np, torch, lambda: dedup_corpus(X, use_kernel=False), reps=3)
+    planted = np.arange(n, n + len(src))
+    emit(phase, n=int(X.shape[0]), m=m, threshold=t, k=k, planted=len(src),
+         corpus_seconds=gen_s, launches=launches, first_call_ms=first_ms,
+         plain_first_call_ms=plain_first_ms, wall_ms=wall, plain_wall_ms=plain_wall,
+         dropped=int((~keep).sum()), dropped_original=int((~keep[:n]).sum()),
+         planted_dropped=int((~keep[planted]).sum()),
+         planted_to_source=int((dup_of[planted] == src).sum()),
+         equal_to_plain=bool(np.array_equal(keep, pkeep) and np.array_equal(dup_of, pdup)))
+    check(np.array_equal(keep, pkeep) and np.array_equal(dup_of, pdup),
+          f"{phase}: K1's keep/duplicate_of differ from the plain path's")
+    check(not keep[planted].any() and keep[dup_of[planted]].all(),
+          f"{phase}: a planted row kept, or dropped for a dropped row")
+
+    Dn = normalize_rows(X)
+    del X
+    _, _, Dp, _, mask = _padded_pair(Dn, Dn, t, None, True, 256, 256, _pick_bk(m, 512),
+                                     Dn.device)
+    near = near_threshold_counts(torch, Dn, t)
+    N = Dn.shape[0]
+    near_p = np.concatenate([near, np.zeros(Dp.shape[0] - N, near.dtype)])
+    kw = dict(block_m=256, block_n=256, n_valid_cols=N, exclude_self=True)
+    out_k = fused.apss_fused_kernel(Dp, Dp, mask, t, k, **kw)
+    out_p = fused.apss_fused_plain(Dp, Dp, mask, t, k, **kw)
+    cmp = compare(np, as_rows(np, *out_k), as_rows(np, *out_p), t, near_p)
+    check(cmp["ok"], f"{phase}: K1 disagrees with its plain version: {cmp}")
+    grid = Dp.shape[0] // 256
+    valid = np.minimum(256, N - np.arange(grid) * 256)
+    mk = mask.cpu().numpy()
+    flop = 2.0 * m * float((mk * np.outer(valid, valid)).sum())
+    nbytes = 4.0 * N * m + N * (8 * k + 4) + mk.size
+    del out_k, out_p
+    row = kernel_row(
+        np, torch, "apss_fused", phase, launches, cmp,
+        lambda: fused.apss_fused_kernel(Dp, Dp, mask, t, k, **kw),
+        lambda: fused.apss_fused_plain(Dp, Dp, mask, t, k, **kw),
+        lambda: library_topk(torch, Dn, t, k), flop, nbytes)
+    segments = fused.fused_segments_for(Dp, Dp.shape[0], k)
+    row.update(segments=segments, grid=[-(-Dp.shape[0] // fused.FUSED_TILE), segments],
+               merge_grid=-(-Dp.shape[0] // 8) if segments > 1 else 0,
+               slots=fused.fused_capacity(Dp.dtype, k, Dp.device),
+               live_tiles=int(mk.sum()), total_tiles=int(mk.size))
+    del Dn, Dp
+    torch.cuda.empty_cache()
+    return row
+
+
+APSS_PAPER_ROOT = ROOT / "build" / "apss_paper"  # the cells' corpora, on local disk
+APSS_WIKI_ROWS = 1024  # wikipedia's n, cut to fit the card's 80 GB (its m stays full)
+APSS_WIKI_PLANTED = 64  # of them near duplicates: a random Zipf corpus has no pair at 0.9
+APSS_20NEWS_PLANTED = 256  # near duplicates in 20news's padding rows (none pair at 0.4 else)
+
+
+def _with_near_duplicates(np, torch, sp, count: int, seed: int):
+    """``sp`` with ``count`` more rows: copies of random rows whose values are
+    scaled by 1 + 0.1 · U[0, 1) and renormalized (cosine about 0.99)."""
+    from repro_torch.core.sparse import SparseCorpus
+
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(rng.choice(sp.n, count, replace=False))
+    vals = sp.values[src] * (1 + 0.1 * torch.from_numpy(rng.random((count, sp.cap),
+                                                                   dtype=np.float32)))
+    vals = vals / vals.norm(dim=1, keepdim=True)
+    return SparseCorpus(torch.cat([sp.indices, sp.indices[src]]), torch.cat([sp.values, vals]),
+                        torch.cat([sp.nnz, sp.nnz[src]]), sp.m)
+
+
+def _padded_sparse(torch, sp, n: int, m: int):
+    """``sp`` with zero rows up to ``n`` and zero columns up to ``m``."""
+    from repro_torch.core.sparse import SparseCorpus
+
+    z = sp.indices.new_zeros((n - sp.n, sp.cap))
+    return SparseCorpus(torch.cat([sp.indices, z]), torch.cat([sp.values, z.float()]),
+                        torch.cat([sp.nnz, z[:, 0]]), m)
+
+
+def apss_paper_phase(np, torch, phase) -> None:
+    """The paper's cells (``configs.apss_paper``, the ``apss`` arch) in 4
+    ranks on the one card over gloo (``launch.apss_mesh.run_cells``). The
+    corpora come from ``data.sparse.sparse_zipfian_bulk`` at
+    ``PAPER_DATASETS``' n, m and nnz per row, zero-padded to the config's
+    shapes, and go to the ranks in CSR: each rank densifies only its own
+    cell on the card (``core.sparse.DenseView``). ``v_compressed`` runs at
+    the full 20news scale (20,480 × 315,392 f32: four 6.45 GB column
+    slices); ``h_allgather``, ``h_ring`` and ``grid_2d`` at wikipedia's m
+    with n cut to ``APSS_WIKI_ROWS``, ``APSS_WIKI_PLANTED`` of them near
+    duplicates of others (else nothing would match at t = 0.9); 20news
+    gets ``APSS_20NEWS_PLANTED`` near duplicates in its padding rows (its
+    generated rows hold no pair at t = 0.4). After the
+    ranks exit, each result is
+    held under the comparison rule to a single-device ``apss_blocked`` on
+    the card (the plain path, as the cells run). The full configs are
+    built on the meta device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.apss import apss_blocked
+    from repro_torch.core.sparse import DenseView
+    from repro_torch.data.sparse import sparse_zipfian_bulk
+    from repro_torch.data.synthetic import PAPER_DATASETS
+    from repro_torch.interop import matches_to_numpy
+    from repro_torch.launch.mesh import spawn
+
+    arch = get_arch("apss")
+    full = arch.make_config()
+    meta = {}
+    for name in arch.shapes:
+        b = arch.cell(name).build(full, {"data": 2, "model": 2})
+        (D,) = b.args
+        meta[name] = dict(shape=list(D.shape), dtype=str(D.dtype), device=D.device.type,
+                          bytes=D.numel() * D.element_size(), spec=b.in_shardings[0],
+                          static_info=b.static_info)
+    cfg = dict(full)
+    cfg["wikipedia"] = dict(full["wikipedia"], n=APSS_WIKI_ROWS)
+    APSS_PAPER_ROOT.mkdir(parents=True, exist_ok=True)
+    corpora = {}
+    t0 = time.perf_counter()
+    for data, spec, n_real, planted, seed in (
+            ("20news", cfg["20news"], PAPER_DATASETS["20-newsgroups"]["n"],
+             APSS_20NEWS_PLANTED, 0),
+            ("wikipedia", cfg["wikipedia"], APSS_WIKI_ROWS - APSS_WIKI_PLANTED,
+             APSS_WIKI_PLANTED, 1)):
+        paper = PAPER_DATASETS["20-newsgroups" if data == "20news" else "wikipedia"]
+        sp = sparse_zipfian_bulk(n_real, paper["m"], paper["nnz"] / paper["n"], seed=seed,
+                                 device="cpu")
+        if planted:
+            sp = _with_near_duplicates(np, torch, sp, planted, seed)
+        sp = _padded_sparse(torch, sp, spec["n"], spec["m"])
+        path = APSS_PAPER_ROOT / f"{data}.npz"
+        np.savez(path, indices=sp.indices.numpy(), values=sp.values.numpy(),
+                 nnz=sp.nnz.numpy(), m=sp.m)
+        corpora[data] = (sp, str(path))
+    gen_s = time.perf_counter() - t0
+    cells = [("v_compressed", corpora["20news"][1])] + [
+        (name, corpora["wikipedia"][1]) for name in ("h_allgather", "h_ring", "grid_2d")]
+    t0 = time.perf_counter()
+    ranks = spawn("repro_torch.launch.apss_mesh:run_cells", 4, cells, cfg, device="cuda",
+                  threads=2, run_dir=str(APSS_PAPER_ROOT))
+    ranks_s = time.perf_counter() - t0
+    results = {}
+    for data, names in (("20news", ["v_compressed"]),
+                        ("wikipedia", ["h_allgather", "h_ring", "grid_2d"])):
+        sp = corpora[data][0]
+        t = cfg[data]["t"]
+        D, dense_s = generated(torch, lambda: DenseView(sp).dense_cell(
+            slice(None), slice(None), "cuda"))
+        ref, single_ms = timed(torch, lambda: apss_blocked(D, t, 64, block_rows=512,
+                                                           device=D.device))
+        ref = matches_to_numpy(ref)
+        near = near_threshold_counts(torch, D, t)
+        for name in names:
+            cmp = compare(np, ranks[0][name]["matches"], ref, t, near)
+            results[name] = dict(
+                n=sp.n, m=sp.m, threshold=t, cap=sp.cap, dense_bytes=D.numel() * 4,
+                rank_wall_s=[r[name]["wall_s"] for r in ranks],
+                rank_wire_s=[r[name]["wire_s"] for r in ranks],
+                rank_wire_bytes=[r[name]["wire_bytes"] for r in ranks],
+                matches=int(ref[2].sum()), single_device_ms=single_ms,
+                densify_s=dense_s, vs_single=cmp)
+        del D
+        torch.cuda.empty_cache()
+    emit(phase, corpus_seconds=gen_s, ranks_seconds=ranks_s, cells=results,
+         full_config_meta_builds=meta)
+    for name, r in results.items():
+        check(r["vs_single"]["ok"], f"{phase}: {name} disagrees with the single-device "
+              f"apss_blocked: {r['vs_single']}")
 
 
 # ---------------------------------------------------------------------------
@@ -2718,8 +3282,12 @@ def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, t
         lambda: fused.apss_fused_plain(xp, yp, mask, t, k, **kw1),
         lambda: library_rect(torch, x, y, t, k), flop, nbytes,
     )
+    segments = fused.fused_segments_for(xp, yp.shape[0], k)
     row.update(shape=[n_loc, n_loc, m_pad], row_offset=row_off, col_offset=col_off,
-               launches_per_rank=k1_launches)
+               launches_per_rank=k1_launches, segments=segments,
+               grid=[-(-xp.shape[0] // fused.FUSED_TILE), segments],
+               merge_grid=-(-xp.shape[0] // 8) if segments > 1 else 0,
+               slots=fused.fused_capacity(xp.dtype, k, xp.device))
     del x, y, xp, yp, mask
     torch.cuda.empty_cache()
     return row

@@ -75,6 +75,7 @@ from repro_torch.core.matches import (
 from repro_torch.core.precision import dot_f32
 from repro_torch.core.pruning import local_threshold
 from repro_torch.core.sparse import (
+    DenseView,
     SparseCorpus,
     densify_rows,
     gather_dot,
@@ -302,9 +303,12 @@ def gather_matches(m: Matches, mesh, axes=None, *, scatter: bool = False) -> Mat
 
 
 def _dense_cell(D, rows: slice, cols: slice, dev: torch.device) -> torch.Tensor:
-    """``D[rows, cols]`` of a global numpy array or tensor, on ``dev``."""
+    """``D[rows, cols]`` of a global numpy array, tensor or
+    ``core.sparse.DenseView`` (which densifies only the cell), on ``dev``."""
     if isinstance(D, np.ndarray):  # a copy: a memory-mapped corpus is read-only
         return as_corpus(np.array(D[rows, cols]), dev)
+    if isinstance(D, DenseView):
+        return D.dense_cell(rows, cols, dev)
     return as_corpus(torch.as_tensor(D)[rows, cols], dev)
 
 

@@ -119,6 +119,31 @@ def to_dense(sp: SparseCorpus) -> torch.Tensor:
     return out
 
 
+class DenseView:
+    """A ``SparseCorpus`` seen as its dense ``(n, m)`` f32 matrix, never
+    built whole: :meth:`dense_cell` scatters one ``(rows, cols)`` cell onto
+    a device. Handed to a dense distributed entry point
+    (``core.distributed``), it lets each rank densify only its own cell;
+    duplicate coordinates sum, as in :func:`to_dense`."""
+
+    def __init__(self, sp: SparseCorpus):
+        self.sp = sp
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.sp.shape
+
+    def dense_cell(self, rows: slice, cols: slice, device: str | torch.device) -> torch.Tensor:
+        dev = device_of(device)
+        c0, c1, _ = cols.indices(self.sp.m)
+        idx = self.sp.indices[rows].to(dev).long()
+        val = self.sp.values[rows].to(dev).float()
+        inside = (idx >= c0) & (idx < c1)
+        r = torch.arange(idx.shape[0], device=dev)[:, None].expand_as(idx)
+        out = torch.zeros((idx.shape[0], c1 - c0), dtype=torch.float32, device=dev)
+        return out.index_put_((r[inside], idx[inside] - c0), val[inside], accumulate=True)
+
+
 def dedupe_rows(
     indices: torch.Tensor, values: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

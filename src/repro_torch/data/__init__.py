@@ -8,5 +8,7 @@ from repro_torch.data.synthetic import (
 from repro_torch.data.sparse import (
     perturbed_queries,
     sparse_clustered_corpus,
+    sparse_zipfian_bulk,
     sparse_zipfian_corpus,
 )
+from repro_torch.data.dedup import dedup_corpus

@@ -68,6 +68,51 @@ def sparse_zipfian_corpus(
     return _finish(indices, values, nnz, m, device)
 
 
+def sparse_zipfian_bulk(
+    n: int,
+    m: int,
+    avg_nnz: float,
+    *,
+    zipf_alpha: float = 1.1,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> SparseCorpus:
+    """:func:`sparse_zipfian_corpus`'s law with every row drawn at once.
+
+    The row-by-row generator spends O(m) of numpy per row (``choice`` with
+    ``p`` and no replacement copies and sums ``p``): 13 ms a row at the
+    20-newsgroups width, minutes for the paper's corpora. Here each row's
+    nnz is a Poisson draw as there, then one with-replacement stream of
+    ``4 · max nnz + 64`` draws per row is taken from the Zipf CDF and each
+    row keeps its first ``nnz`` distinct dims: successive sampling without
+    replacement, the law of ``choice(replace=False, p=pop)``, with other
+    draws. A row whose stream holds fewer distinct dims keeps what it has
+    (``nnz`` is exact either way). Rows L2-normalized.
+    """
+    rng = np.random.default_rng(seed)
+    pop = _zipf_pop(m, zipf_alpha)
+    want = np.minimum(np.maximum(1, rng.poisson(avg_nnz, size=n)), m)
+    cdf = np.cumsum(pop)
+    cdf /= cdf[-1]
+    draws = int(4 * want.max()) + 64
+    cand = np.minimum(np.searchsorted(cdf, rng.random((n, draws)), side="right"), m - 1)
+    order = np.argsort(cand, axis=1, kind="stable")
+    srt = np.take_along_axis(cand, order, 1)
+    first_sorted = np.ones(srt.shape, bool)
+    first_sorted[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    first = np.empty_like(first_sorted)
+    np.put_along_axis(first, order, first_sorted, 1)
+    take = first & (np.cumsum(first, axis=1) <= want[:, None])
+    nnz = take.sum(axis=1).astype(np.int32)
+    cap = int(nnz.max())
+    pos = np.argsort(~take, axis=1, kind="stable")[:, :cap]
+    live = np.arange(cap)[None, :] < nnz[:, None]
+    indices = np.sort(np.where(live, np.take_along_axis(cand, pos, 1), m), axis=1)
+    indices = np.where(live, indices, 0).astype(np.int32)
+    values = np.where(live, np.abs(rng.standard_normal((n, cap))) + 0.05, 0.0)
+    return _finish(indices, values.astype(np.float32), nnz, m, device)
+
+
 def perturbed_queries(
     sp: SparseCorpus,
     nq: int,

@@ -79,12 +79,15 @@ def make_elastic_mesh(
 
 
 def _axis_sizes(mesh) -> dict:
+    """``{axis: size}`` of a ``DeviceMesh``, or of a mapping that is one."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
 def _filter_spec_for(mesh, spec, shape) -> tuple:
     """``spec`` with axis names the mesh lacks, and dimensions the mesh does
-    not divide, replicated (``None``)."""
+    not divide, replicated (``None``); ``shape=None`` checks no division."""
     sizes = _axis_sizes(mesh)
 
     def keep(part, dim):
@@ -92,11 +95,12 @@ def _filter_spec_for(mesh, spec, shape) -> tuple:
             return None
         names = part if isinstance(part, (tuple, list)) else (part,)
         kept = tuple(a for a in names if a in sizes)
-        if not kept or dim % int(np.prod([sizes[a] for a in kept])):
+        if not kept or (dim is not None and dim % int(np.prod([sizes[a] for a in kept]))):
             return None
         return kept if isinstance(part, (tuple, list)) else kept[0]
 
-    return tuple(keep(part, dim) for part, dim in zip(spec, shape))
+    dims = (None,) * len(spec) if shape is None else shape
+    return tuple(keep(part, dim) for part, dim in zip(spec, dims))
 
 
 def _place(x, spec, mesh):

@@ -152,64 +152,111 @@ def index_from_numpy(
 
 # -- LM parameters ---------------------------------------------------------------
 
-_ATTN = ("wq", "wk", "wv", "wo")
+_NORMS = {"gqa": ("q_scale", "k_scale"), "mla": ("q_norm", "kv_norm")}
+_MATS = {"gqa": ("wq", "wk", "wv", "wo"),
+         "mla": ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")}
 _FFN = ("w_gate", "w_up", "w_down")
+_EXPERTS = ("router", "w_gate", "w_up", "w_down")
+
+
+def _field(tree, name: str):
+    """``tree[name]`` of a dict, or the attribute of the reference's
+    ``MoEParams`` named tuple."""
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _block_leaves(blk, cfg):
+    """``(path, tensor, transposed)`` for every parameter of one block, in
+    the reference tree's names: ``nn.Linear`` weights are transposed, norm
+    scales and expert stacks are not."""
+    attn = blk.attn
+    out = [(("attn_norm",), blk.attn_norm, False), (("ffn_norm",), blk.ffn_norm, False)]
+    out += [(("attn", n), getattr(attn, n).weight, True) for n in _MATS[cfg.attention]]
+    out += [(("attn", n), getattr(attn, n), False) for n in _NORMS[cfg.attention]
+            if hasattr(attn, n)]
+    ffn = blk.ffn
+    if hasattr(ffn, "moe"):
+        out += [(("ffn", "moe", n), getattr(ffn.moe, n), False) for n in _EXPERTS]
+        for part in ("shared", "dense"):
+            sub = getattr(ffn, part)
+            if sub is not None:
+                out += [(("ffn", part, n), getattr(sub, n).weight, True) for n in _FFN]
+    else:
+        out += [(("ffn", n), getattr(ffn, n).weight, True) for n in _FFN]
+    return out
 
 
 def transformer_params_from_numpy(tree: dict, cfg, device: str | torch.device):
     """The port's ``Transformer`` holding the parameters of a reference
     parameter tree (``jax.tree.map(np.asarray, params)``): ``embed (V, d)``,
-    ``layers`` stacked over the layer axis with ``(d_in, d_out)`` matrices,
-    ``final_norm``, ``lm_head (d, V)``. Matrices are transposed into
-    ``nn.Linear`` weights ``(d_out, d_in)``; values are cast to ``cfg.dtype``
-    (a bf16 tree widens to f32 on the way, exactly)."""
+    ``layers`` stacked over the layer axis with ``(d_in, d_out)`` matrices
+    (MLA's ``wq_a`` … ``wkv_b``, the MoE ``moe``/``shared``/``dense``
+    subtrees), ``dense_layers`` (a list of unstacked blocks), ``final_norm``,
+    ``lm_head (d, V)``. Matrices are transposed into ``nn.Linear`` weights
+    ``(d_out, d_in)``; the expert stacks keep their orientation; values are
+    cast to ``cfg.dtype`` (the router stays f32; a bf16 tree widens to f32
+    on the way, exactly)."""
     from repro_torch.models.transformer import Transformer  # models import this module
 
     dev = device_of(device)
     model = Transformer(cfg, dev)
 
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, np.float32)).to(dev, cfg.dtype)
+    def load(blk, sub, i):
+        for path, param, transposed in _block_leaves(blk, cfg):
+            a = sub
+            for name in path:
+                a = _field(a, name)
+            a = torch.from_numpy(np.array(a if i is None else a[i], np.float32)).to(dev)
+            param.copy_((a.T if transposed else a).to(param.dtype))
 
-    layers = tree["layers"]
     with torch.no_grad():
-        model.embed.copy_(t(tree["embed"]))
-        model.final_norm.copy_(t(tree["final_norm"]))
-        model.lm_head.weight.copy_(t(tree["lm_head"]).T)
+        model.embed.copy_(torch.from_numpy(np.array(tree["embed"], np.float32)).to(dev))
+        model.final_norm.copy_(torch.from_numpy(np.array(tree["final_norm"], np.float32)))
+        model.lm_head.weight.copy_(torch.from_numpy(np.array(tree["lm_head"], np.float32)).T)
         for i, blk in enumerate(model.layers):
-            blk.attn_norm.copy_(t(layers["attn_norm"][i]))
-            blk.ffn_norm.copy_(t(layers["ffn_norm"][i]))
-            for name in _ATTN:
-                getattr(blk.attn, name).weight.copy_(t(layers["attn"][name][i]).T)
-            for name in _FFN:
-                getattr(blk.ffn, name).weight.copy_(t(layers["ffn"][name][i]).T)
-            if cfg.qk_norm:
-                blk.attn.q_scale.copy_(t(layers["attn"]["q_scale"][i]))
-                blk.attn.k_scale.copy_(t(layers["attn"]["k_scale"][i]))
+            load(blk, tree["layers"], i)
+        for blk, sub in zip(model.dense_layers, tree.get("dense_layers", [])):
+            load(blk, sub, None)
     return model
 
 
 def transformer_params_to_numpy(model) -> dict:
     """The reference's parameter tree (float32 numpy) of a port ``Transformer``:
-    the inverse of :func:`transformer_params_from_numpy`."""
+    the inverse of :func:`transformer_params_from_numpy`. An MoE layer's
+    ``moe`` entry is a named tuple with the reference's ``MoEParams`` fields,
+    so the tree runs in the reference's functions as it is."""
+    from collections import namedtuple
+
+    cfg = model.cfg
+    moe_params = namedtuple("MoEParams", _EXPERTS)
+
     def h(a: torch.Tensor) -> np.ndarray:
         return a.detach().float().cpu().numpy()
 
-    def stack(get) -> np.ndarray:
-        return np.stack([h(get(blk)) for blk in model.layers])
+    def tree_of(leaves: list) -> dict:
+        out: dict = {}
+        for path, value in leaves:
+            node = out
+            for name in path[:-1]:
+                node = node.setdefault(name, {})
+            node[path[-1]] = value
+        if "moe" in out.get("ffn", {}):
+            out["ffn"]["moe"] = moe_params(**out["ffn"]["moe"])
+        return out
 
-    attn = {n: stack(lambda b, n=n: getattr(b.attn, n).weight.T) for n in _ATTN}
-    if model.cfg.qk_norm:
-        attn["q_scale"] = stack(lambda b: b.attn.q_scale)
-        attn["k_scale"] = stack(lambda b: b.attn.k_scale)
-    return {
+    def leaves(blk):
+        return [(path, h(p.T if transposed else p))
+                for path, p, transposed in _block_leaves(blk, cfg)]
+
+    per_block = [leaves(blk) for blk in model.layers]
+    stacked = [(path, np.stack([blk[j][1] for blk in per_block]))
+               for j, (path, _) in enumerate(per_block[0])]
+    out = {
         "embed": h(model.embed),
-        "layers": {
-            "attn_norm": stack(lambda b: b.attn_norm),
-            "attn": attn,
-            "ffn_norm": stack(lambda b: b.ffn_norm),
-            "ffn": {n: stack(lambda b, n=n: getattr(b.ffn, n).weight.T) for n in _FFN},
-        },
+        "layers": tree_of(stacked),
         "final_norm": h(model.final_norm),
         "lm_head": h(model.lm_head.weight.T),
     }
+    if len(model.dense_layers):
+        out["dense_layers"] = [tree_of(leaves(blk)) for blk in model.dense_layers]
+    return out

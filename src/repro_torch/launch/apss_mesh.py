@@ -211,3 +211,41 @@ def run_variants(rank, world, dev, corpora: dict, variants: list, threshold: flo
 
         out["audit"] = audit_ranks(rank, world, dev, audit)
     return out
+
+
+def run_cells(rank, world, dev, cells: list, config: dict, mesh_shape=(2, 2)) -> dict:
+    """Rank function (``launch.mesh.spawn``): the paper's own cells
+    (``configs.apss_paper``, the ``apss`` arch) on this rank. ``cells`` is a
+    list of ``(cell, corpus path)``; each cell is built from ``config`` on a
+    ``mesh_shape`` ``("data", "model")`` mesh and its ``fn`` run once on the
+    corpus: a dense ``.npy`` as it is, a sparse ``.npz`` as a
+    ``core.sparse.DenseView``, so that each rank densifies only its own
+    cell on its device. Returns per cell ``wall_s`` (host clock, from a
+    barrier and a synchronize to a synchronize and a barrier), the bytes
+    this rank sent, and on rank 0 ``matches``, the global ``Matches`` as
+    numpy ``(values, indices, counts)``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sparse import DenseView
+
+    mesh = make_mesh(tuple(mesh_shape), ("data", "model"))
+    arch = get_arch("apss")
+    out = {}
+    for name, path in cells:
+        corpus = load_corpus(path)
+        if isinstance(corpus, SparseCorpus):
+            corpus = DenseView(corpus)
+        fn = arch.cell(name).build(config, mesh).fn
+        _reset()
+        dist.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn(corpus, device=dev)
+        _sync(dev)
+        dist.barrier()
+        out[name] = {"wall_s": time.perf_counter() - t0, "wire_bytes": dict(dd.WIRE_BYTES),
+                     "wire_s": sum(dd.WIRE_SECONDS.values()),
+                     "matches": tuple(x.cpu().numpy() for x in got) if rank == 0 else None}
+        del got, corpus
+        if dev.type == "cuda":  # hand cached blocks back: the ranks may share a card
+            torch.cuda.empty_cache()
+    return out

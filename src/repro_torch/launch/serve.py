@@ -1,8 +1,9 @@
 """Serving entry point, three modes:
 
 - ``--mode lm``: continuous-batch LM decode (:class:`LMServer`) over the
-  transformer of ``--arch`` at its smoke config, attention through K9 on
-  the card:
+  transformer of ``--arch`` (any registered LM: qwen3-1.7b, qwen3-8b,
+  minicpm3-4b, deepseek-moe-16b, arctic-480b) at its smoke config, GQA
+  attention through K9 on the card:
 
       PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --requests 4
 
@@ -61,7 +62,10 @@ class LMServer:
     As in the reference, a step feeds the stepped slot's token and zeros to
     the other slots, and every slot's cache length advances on every step,
     so a request that joins later sees earlier steps' filler tokens in its
-    cache. ``params`` is a ``Transformer`` (from ``interop``, say); without
+    cache. The cache is the model's (``make_cache``: K/V, or MLA's latent
+    rows); an MoE layer routes the ``max_batch`` tokens of a step, so its
+    capacity, and which tokens it drops, follow the reference's rule at
+    ``T = max_batch``. ``params`` is a ``Transformer`` (from ``interop``, say); without
     it the model is initialised from ``seed`` on ``device``. ``last_logits``
     holds the last step's logits ``(max_batch, V)`` f32.
     """

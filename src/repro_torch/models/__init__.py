@@ -1,8 +1,10 @@
-"""The port's LM model: shared layers and the dense GQA transformer
-(MLA, MoE, recsys and GNN models wait for ROADMAP queue 1 item 9)."""
+"""The port's LM models: shared layers, the transformer (dense GQA, MLA,
+MoE) and the MoE layer (the recsys and GNN models wait for ROADMAP queue 1
+item 9.6)."""
 
 from repro_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
+    count_active_params,
     count_params,
     decode_step,
     init_transformer,

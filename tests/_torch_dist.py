@@ -197,3 +197,34 @@ def census_ranks(rank, world, dev) -> dict:
         for name, call in calls.items():
             out[(name, p)] = analyze(call)[1]
     return out
+
+
+APSS_CELLS = dict(n=512, m=192, t=0.35)  # v_compressed's block_rows=512 needs n ≥ 512
+_CELLS: dict = {}
+
+
+def apss_cell_config(config: dict) -> dict:
+    """``config`` (the ``apss`` arch's full config, either package) with both
+    datasets cut to :data:`APSS_CELLS`."""
+    cfg = dict(config)
+    cfg["wikipedia"] = dict(APSS_CELLS)
+    cfg["20news"] = dict(APSS_CELLS)
+    return cfg
+
+
+def apss_cell_runs(run_dir, corpus_path: str) -> dict:
+    """Rank 0's ``launch.apss_mesh.run_cells`` result for every cell of the
+    port's ``apss`` arch at :data:`APSS_CELLS` on a (2, 2) ``("data",
+    "model")`` mesh, run once per test process in 4 gloo ranks
+    (``tests/test_torch_configs.py``), and every rank's matches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import spawn
+
+    if "ranks" not in _CELLS:
+        arch = get_arch("apss")
+        cells = [(name, corpus_path) for name in arch.shapes]
+        _CELLS["ranks"] = spawn(
+            "repro_torch.launch.apss_mesh:run_cells", 4, cells,
+            apss_cell_config(arch.make_config()), device="cpu", threads=1,
+            run_dir=str(run_dir), pg_timeout=PG_TIMEOUT_S, join_timeout=JOIN_TIMEOUT_S)
+    return _CELLS["ranks"]

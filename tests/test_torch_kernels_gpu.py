@@ -1603,6 +1603,103 @@ def test_lm_kernel_path_matches_plain_path_on_card(card):
         tt.prefill(model, dataclasses.replace(cfg, bf16_probs=True), tokens)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dqk,dv", [(96, 64), (24, 16)])
+def test_k8_padded_mla_matches_plain(card, dtype, dqk, dv):
+    """MLA's call of K8 (``transformer._mla_flash``): q and k of width dqk, v of
+    width dv, zero-padded to K8's head dim and scaled by 1/√dqk, against the
+    plain chunked attention on the unpadded tensors."""
+    import importlib
+
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.layers import chunked_attention
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    g = torch.Generator(card).manual_seed(dqk)
+    q, k = (torch.randn((2, 40, 200, dqk), generator=g, device=card).to(dtype) for _ in range(2))
+    v = torch.randn((2, 40, 200, dv), generator=g, device=card).to(dtype)
+    scale = 1.0 / dqk ** 0.5
+    before = k8.LAUNCHES["flash_attention"]
+    got = tt._mla_flash(q, k, v, scale=scale)
+    assert k8.LAUNCHES["flash_attention"] == before + 1
+    want = chunked_attention(q, k, v, causal=True, scale=scale, q_chunk=100, kv_chunk=100)
+    assert got.shape == want.shape == (2, 40, 200, dv) and got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=2e-5 if dtype == torch.float32 else 2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b"])
+def test_zoo_kernel_path_matches_plain_path_on_card(card, arch):
+    """The smoke models of the MLA and MoE families (f32) through K8 (padded
+    for MLA) and K9 (GQA decode; MLA decode has no kernel) against
+    use_kernel=False, at the CPU tests' model tolerance; K8 launches once a
+    layer a prefill, K9 once a GQA layer a step. (arctic-480b's smoke head
+    dim of 8 is below K8's and K9's: ``test_zoo_head_dim_k8_cannot_take_raises``.)"""
+    import importlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+
+    k8 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    k9 = importlib.import_module("repro_torch.kernels.decode_attention.decode_attention")
+    cfg = get_arch(arch).make_smoke_config()
+    model = tt.init_transformer(cfg, generator=torch.Generator(card).manual_seed(0), device=card)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).to(card)
+    tol = dict(atol=5e-4, rtol=5e-3)
+    k8.LAUNCHES["flash_attention"] = 0
+    got = tt.prefill(model, cfg, tokens)
+    assert k8.LAUNCHES["flash_attention"] == cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               tt.prefill(model, cfg, tokens, use_kernel=False).cpu().numpy(),
+                               **tol)
+    kernel, plain = (tt.make_cache(cfg, 8, 48, device=card) for _ in range(2))
+    steps = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, 12)).astype(np.int32)).to(card)
+    for i in range(steps.shape[1]):
+        k9.LAUNCHES["decode_attention"] = 0
+        a, _ = tt.decode_step(model, cfg, kernel, steps[:, i])
+        assert k9.LAUNCHES["decode_attention"] == (0 if cfg.attention == "mla" else cfg.n_layers)
+        b, _ = tt.decode_step(model, cfg, plain, steps[:, i], use_kernel=False)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), **tol)
+
+
+def test_zoo_head_dim_k8_cannot_take_raises(card):
+    """arctic-480b's smoke config (head dim 8) on the card: the kernel path
+    raises rather than falling back; the plain path runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+
+    cfg = get_arch("arctic-480b").make_smoke_config()
+    model = tt.init_transformer(cfg, generator=torch.Generator(card).manual_seed(0), device=card)
+    tokens = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="head dims"):
+        tt.prefill(model, cfg, tokens)
+    assert torch.isfinite(tt.prefill(model, cfg, tokens, use_kernel=False)).all()
+
+
+def test_dedup_k1_matches_plain(card):
+    """``dedup_corpus`` on the card takes K1 (``use_kernel=None``) and keeps
+    and drops the rows the plain path does, every planted copy dropped."""
+    import importlib
+
+    from repro_torch.data import dedup_corpus
+    from repro_torch.data.synthetic import synthetic_corpus
+
+    fused = importlib.import_module("repro_torch.kernels.apss_block.fused")
+    D = synthetic_corpus(1500, 3000, 40.0, seed=3)
+    rng = np.random.default_rng(4)
+    src = rng.choice(1500, 64, replace=False)
+    X = np.concatenate([D, D[src] * (1 + 0.01 * rng.random((64, 3000)).astype(np.float32))])
+    fused.LAUNCHES["apss_fused"] = 0
+    keep, dup_of = dedup_corpus(X, device=card)
+    assert fused.LAUNCHES["apss_fused"] == 1
+    want_keep, want_dup = dedup_corpus(X, device=card, use_kernel=False)
+    np.testing.assert_array_equal(keep, want_keep)
+    np.testing.assert_array_equal(dup_of, want_dup)
+    assert not keep[1500:].any()
+
+
 # -- the planner on the card -----------------------------------------------------------
 
 

@@ -27,7 +27,10 @@ path parts ``/``-joined, ``None`` an empty subtree), and tensors go to the
 host by ``.cpu().numpy()``. The on-disk format (manifest, leaf file names,
 dtype names, digests) is the reference's byte for byte, so a directory
 either package writes, the other reads; leaves are read back as numpy
-arrays.
+arrays. A ``bfloat16`` leaf, which numpy cannot hold without
+``ml_dtypes``, is written as its raw bytes under the dtype name
+``bfloat16`` (the reference's format) by way of an ``int16`` view, and
+read back as a CPU ``torch.bfloat16`` tensor.
 """
 
 from __future__ import annotations
@@ -101,10 +104,37 @@ def _unflatten_like(like, leaves: dict, path=()):
     return type(like)(vals)
 
 
-def _to_host(leaf) -> np.ndarray:
+def _is_bf16(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
+
+
+def _host_copy(leaf):
+    """A host copy of a leaf: a numpy array, or a CPU tensor for bf16."""
+    if _is_bf16(leaf):
+        return leaf.detach().to("cpu", copy=True)
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
+
+
+def _raw(leaf) -> tuple[bytes, list, str]:
+    """``(payload, shape, dtype name)`` of a leaf in the on-disk format."""
+    if _is_bf16(leaf):
+        t = leaf.detach().cpu().contiguous()
+        return t.view(torch.int16).numpy().tobytes(), list(t.shape), "bfloat16"
+    arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+    return np.ascontiguousarray(arr).tobytes(), list(arr.shape), str(arr.dtype)
+
+
+def _from_raw(payload: bytes, shape: list, dtype_name: str):
+    if dtype_name == "bfloat16":
+        a = np.frombuffer(payload, np.int16).reshape(shape).copy()
+        return torch.from_numpy(a).view(torch.bfloat16)
+    return np.frombuffer(payload, dtype=np.dtype(dtype_name)).reshape(shape).copy()
+
+
+def _itemsize(dtype_name: str) -> int:
+    return 2 if dtype_name == "bfloat16" else np.dtype(dtype_name).itemsize
 
 
 def save_checkpoint(state, directory: str, step: int) -> str:
@@ -119,19 +149,18 @@ def save_checkpoint(state, directory: str, step: int) -> str:
     leaves = _flatten_with_names(state)
     manifest = {"step": step, "leaves": []}
     for name, leaf in leaves:
-        arr = _to_host(leaf)
         fname = name.replace("/", "__") + ".npy"
         # Raw-byte serialization, the true dtype recorded beside it (the
         # reference's format, which also holds dtypes np.save cannot).
-        payload = np.ascontiguousarray(arr).tobytes()
+        payload, shape, dtype_name = _raw(leaf)
         raw = np.frombuffer(payload, np.uint8)
         with open(os.path.join(tmp, fname), "wb") as f:
             np.save(f, raw)
             f.flush()
             os.fsync(f.fileno())
         manifest["leaves"].append(
-            {"name": name, "file": fname, "shape": list(arr.shape),
-             "dtype": str(arr.dtype),
+            {"name": name, "file": fname, "shape": shape,
+             "dtype": dtype_name,
              "blake2b": hashlib.blake2b(payload, digest_size=16).hexdigest()}
         )
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -145,7 +174,8 @@ def save_checkpoint(state, directory: str, step: int) -> str:
 
 
 def load_checkpoint(directory: str, step: int, like=None):
-    """Load a checkpoint as a pytree of numpy arrays.
+    """Load a checkpoint as a pytree of numpy arrays (bf16 leaves as CPU
+    ``torch.bfloat16`` tensors).
 
     With ``like`` (a tree of the same structure), the result is
     unflattened into that structure; otherwise a flat ``{name: array}``
@@ -176,16 +206,13 @@ def load_checkpoint(directory: str, step: int, like=None):
                     f"checksum mismatch for leaf {fpath}: "
                     f"manifest {digest}, file {got}"
                 )
-        dtype = np.dtype(leaf["dtype"])
-        expect = int(np.prod(leaf["shape"])) * dtype.itemsize
+        expect = int(np.prod(leaf["shape"])) * _itemsize(leaf["dtype"])
         if len(payload) != expect:
             raise CheckpointCorruptionError(
                 f"truncated checkpoint leaf {fpath}: "
                 f"{len(payload)} bytes, expected {expect}"
             )
-        by_name[leaf["name"]] = (
-            np.frombuffer(payload, dtype=dtype).reshape(leaf["shape"]).copy()
-        )
+        by_name[leaf["name"]] = _from_raw(payload, leaf["shape"], leaf["dtype"])
     if like is None:
         return by_name
     names = {n for n, _ in _flatten_with_names(like)}
@@ -236,7 +263,7 @@ class CheckpointManager:
         # Copy to the host on the caller's thread (the caller may mutate its
         # tensors next), then write in the background.
         host_state = _unflatten_like(state, {
-            name: np.array(_to_host(leaf)) for name, leaf in _flatten_with_names(state)})
+            name: _host_copy(leaf) for name, leaf in _flatten_with_names(state)})
         self._writer = threading.Thread(
             target=self._write_and_gc, args=(host_state, step), daemon=True
         )

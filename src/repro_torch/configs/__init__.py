@@ -1,8 +1,8 @@
 """Architecture registry of the port: importing this package registers every
-ported architecture (the five LMs and the paper's own APSS workload) into
-``configs.base.REGISTRY``. The LMs' shape cells (``shapes={}`` until then)
-and the recsys and GNN architectures wait for ROADMAP queue 1 items
-9.4-9.8; ``get_arch`` of those raises ``KeyError``."""
+assigned architecture (the five LMs, GAT and the four recsys models) and
+the paper's own APSS workload into ``configs.base.REGISTRY``. The shape
+cells of the ten assigned architectures (``shapes={}`` until then) wait for
+ROADMAP queue 1 item 9.8."""
 
 from repro_torch.configs.base import (  # noqa: F401
     REGISTRY,
@@ -18,10 +18,15 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_8b,
     arctic_480b,
     deepseek_moe_16b,
+    gat_cora,
+    two_tower_retrieval,
+    bert4rec,
+    din,
+    bst,
     apss_paper,
 )
 
-# The reference's assigned architectures (10), ported or not.
+# Assigned architectures (10) — importing registers them.
 ASSIGNED = [
     "qwen3-1.7b",
     "minicpm3-4b",

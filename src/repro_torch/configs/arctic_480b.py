@@ -48,7 +48,7 @@ def smoke_config() -> TransformerConfig:
         dense_residual=True,
         capacity_factor=2.0,
         dtype=torch.float32,
-        q_chunk=32, kv_chunk=32,
+        q_chunk=32, kv_chunk=32, loss_chunk=32,
     )
 
 

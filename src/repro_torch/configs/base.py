@@ -10,8 +10,9 @@ with one entry per dimension, each an axis name, a tuple of axis names or
 ``None``. A builder reads only a mesh's axis names and sizes, so it takes
 a ``DeviceMesh`` or a mapping ``{axis: size}`` that describes one (the CPU
 tests build every cell that way, with no ranks); running a cell's ``fn``
-needs the ranks of a real mesh. The LM families' cells (train, prefill,
-decode on a mesh) wait for ROADMAP queue 1 items 9.4-9.8.
+needs the ranks of a real mesh. The assigned architectures' cells (train,
+prefill, decode, serve and retrieval on a mesh) wait for ROADMAP queue 1
+item 9.8, after the sharded decode and ``moe_ffn_ep`` of item 9.4.
 """
 
 from __future__ import annotations

@@ -46,7 +46,7 @@ def smoke_config() -> TransformerConfig:
         qk_rope_dim=8,
         v_head_dim=16,
         dtype=torch.float32,
-        q_chunk=32, kv_chunk=32,
+        q_chunk=32, kv_chunk=32, loss_chunk=32,
     )
 
 

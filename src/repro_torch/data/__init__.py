@@ -12,3 +12,5 @@ from repro_torch.data.sparse import (
     sparse_zipfian_corpus,
 )
 from repro_torch.data.dedup import dedup_corpus
+from repro_torch.data.pipeline import GraphPipeline, LMDataPipeline, RecsysPipeline
+from repro_torch.data.sampler import neighbor_sample, sampled_shape

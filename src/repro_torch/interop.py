@@ -5,7 +5,10 @@ The APSS self-join has no weights; the corpus (dense, or a padded-CSR
 join returns are its state. These functions carry each across in either
 direction with the port's dtypes: float32 scores, int32 ids and counts.
 The LM's parameters cross as the reference's nested dict of numpy arrays
-(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`).
+(:func:`transformer_params_from_numpy`, :func:`transformer_params_to_numpy`),
+as do the recsys and GNN models' (:func:`recsys_params_from_numpy`,
+:func:`gat_params_from_numpy` and their inverses) and the AdamW state
+(:func:`adamw_state_from_numpy`, :func:`adamw_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -260,3 +263,98 @@ def transformer_params_to_numpy(model) -> dict:
     if len(model.dense_layers):
         out["dense_layers"] = [tree_of(leaves(blk)) for blk in model.dense_layers]
     return out
+
+
+# -- recsys and GNN parameters, optimizer state --------------------------------------
+
+
+def _param_tree_from_numpy(tree: dict, dtype, device):
+    from repro_torch.models.layers import ParamTree  # models import this module
+
+    dev = device_of(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {key: conv(v) for key, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.from_numpy(np.array(node, np.float32)).to(device=dev, dtype=dtype)
+
+    return ParamTree(conv(tree))
+
+
+def _param_tree_to_numpy(model) -> dict:
+    def conv(node):
+        if isinstance(node, dict):
+            return {key: conv(v) for key, v in node.items()}
+        if isinstance(node, list):
+            return [conv(v) for v in node]
+        return node.detach().float().cpu().numpy()
+
+    return conv(model.tree())
+
+
+def recsys_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+    """A recsys model's ``ParamTree`` (two-tower, BERT4Rec, DIN or BST) from
+    the reference's parameter tree of numpy arrays (``jax.tree.map(np.asarray,
+    params)``), leaf for leaf in the reference's orientation, cast to
+    ``cfg.dtype``."""
+    return _param_tree_from_numpy(tree, cfg.dtype, device)
+
+
+def recsys_params_to_numpy(model) -> dict:
+    """The reference's parameter tree (float32 numpy) of a recsys model."""
+    return _param_tree_to_numpy(model)
+
+
+def gat_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+    """A GAT's ``ParamTree`` from the reference's ``{"layers": [{"w", "a_src",
+    "a_dst"}, ...]}`` of numpy arrays, cast to ``cfg.dtype``."""
+    return _param_tree_from_numpy(tree, cfg.dtype, device)
+
+
+def gat_params_to_numpy(model) -> dict:
+    """The reference's parameter tree (float32 numpy) of a GAT."""
+    return _param_tree_to_numpy(model)
+
+
+def adamw_state_from_numpy(state, from_numpy):
+    """The port's ``AdamWState`` from the reference's (``step``, ``m``, ``v``
+    as numpy arrays): ``from_numpy(tree)`` builds a model of the family from
+    a parameter tree at f32 (for an LM, :func:`transformer_params_from_numpy`
+    with a float32 config), and the moments become ``{name: tensor}`` trees
+    keyed as the trainer keys the parameters (``named_parameters``)."""
+    from repro_torch.optim import AdamWState
+
+    def moments(tree):
+        model = from_numpy(tree)
+        return {name: p.detach().clone() for name, p in model.named_parameters()}
+
+    m = moments(state.m)
+    dev = next(iter(m.values())).device
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=dev)
+    return AdamWState(step=step, m=m, v=moments(state.v))
+
+
+def named_to_numpy(model, named: dict, to_numpy) -> dict:
+    """The reference's tree of a ``{name: tensor}`` tree keyed as ``model``'s
+    parameters (gradients, moments): the tensors are put in place of the
+    parameters of an f32 copy of ``model``, which ``to_numpy`` (e.g.
+    :func:`gat_params_to_numpy`, :func:`transformer_params_to_numpy`) reads
+    back as the reference's tree."""
+    import copy
+
+    skeleton = copy.deepcopy(model).float()
+    for name, p in skeleton.named_parameters():
+        p.data = named[name].detach().float()
+    return to_numpy(skeleton)
+
+
+def adamw_state_to_numpy(state, model, to_numpy):
+    """The reference's ``AdamWState`` (numpy leaves) of the port's, each
+    moment tree by :func:`named_to_numpy`."""
+    from repro_torch.optim import AdamWState
+
+    return AdamWState(step=np.asarray(int(state.step), np.int32),
+                      m=named_to_numpy(model, state.m, to_numpy),
+                      v=named_to_numpy(model, state.v, to_numpy))

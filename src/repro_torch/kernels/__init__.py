@@ -13,10 +13,29 @@
   (``csrc/decode_attention.cu``), flash-decode partials over a KV cache.
 - :mod:`repro_torch.kernels._build`     -- nvcc build + ctypes loading, at
   first launch.
+
+No kernel has a backward pass (the reference's Pallas kernels have none
+either), and a kernel reached through ``ctypes`` leaves no ``grad_fn``: the
+attention wrappers refuse inputs that require a gradient while grad mode
+is on (:func:`refuse_autograd`), so a loss cannot lose a gradient silently.
 """
 
-from repro_torch.kernels.apss_block.ops import (
+import torch
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` if grad mode is on and one of ``tensors``
+    requires a gradient: ``name`` has no backward pass (train through the
+    plain functions instead, as the reference trains through XLA)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name} has no backward pass: an input requires grad. Training attends "
+            "through the plain functions (models.layers, use_kernel=False)")
+
+
+from repro_torch.kernels.apss_block.ops import (  # noqa: E402
     apss_block_matmul,
     apss_fused,
     apss_fused_compacted,
 )
+

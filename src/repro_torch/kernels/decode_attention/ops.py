@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.decode_attention.decode_attention import decode_attention_kernel
 
 
@@ -24,7 +25,9 @@ def decode_attention(
 def decode_attention_partials(q, k, v, lengths, *, scale=None):
     """Unnormalised flash-decode partials ``(acc, m, l)`` for the shard
     combine. The kernel walks each sequence to its length, so the cache
-    needs no padding to a tile."""
+    needs no padding to a tile. Inputs that require a gradient raise
+    ``ValueError`` under grad mode (K9 has no backward pass)."""
+    refuse_autograd("decode_attention (K9)", q, k, v)
     return decode_attention_kernel(
         q.contiguous(), k.contiguous(), v.contiguous(), lengths, scale=scale
     )

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
 
 
@@ -26,8 +27,10 @@ def flash_attention(
     to themselves and earlier keys and are sliced away, so padding never
     changes visible outputs. Non-causal attention raises on a sequence that
     would need padding, as the reference does. On CUDA tensors this is K8;
-    on CPU tensors K8's plain version.
+    on CPU tensors K8's plain version. Inputs that require a gradient raise
+    ``ValueError`` under grad mode (K8 has no backward pass).
     """
+    refuse_autograd("flash_attention (K8)", q, k, v)
     s = q.shape[2]
     pad = (-s) % min(BLOCK, max(128, 1 << (s - 1).bit_length()))
     if pad and not causal:

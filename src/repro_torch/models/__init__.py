@@ -1,7 +1,9 @@
-"""The port's LM models: shared layers, the transformer (dense GQA, MLA,
-MoE) and the MoE layer (the recsys and GNN models wait for ROADMAP queue 1
-item 9.6)."""
+"""The port's models: shared layers, the LM transformer (dense GQA, MLA,
+MoE) and the MoE layer, the recsys family (two-tower, BERT4Rec, DIN, BST)
+and the GNN family (GAT). Expert parallelism over a mesh (``moe_ffn_ep``)
+waits for ROADMAP queue 1 item 9.4."""
 
+from repro_torch.models import gnn, recsys  # noqa: F401
 from repro_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     count_active_params,
@@ -11,4 +13,5 @@ from repro_torch.models.transformer import (  # noqa: F401
     make_cache,
     prefill,
     transformer_logits,
+    transformer_loss,
 )

@@ -11,12 +11,25 @@ Attention comes in two regimes, as in the reference package:
   (:mod:`repro_torch.kernels.decode_attention`) takes its place on the card.
 
 Matrices keep the reference's ``(d_in, d_out)`` orientation in these
-functions; the model stores them as ``nn.Linear`` weights ``(d_out, d_in)``.
+functions; the LM stores them as ``nn.Linear`` weights ``(d_out, d_in)``,
+the recsys and GNN models in the reference's orientation, in a
+:class:`ParamTree`.
+
+Gathers and segment sums whose backward adds into one row from several
+places (an embedding lookup, a per-edge gather, a segment sum) are written
+so that the adds come in a fixed order on every device: :func:`take` is
+``F.embedding`` (its backward sums each row serially on the CPU and after a
+sort on the card, where advanced indexing's CPU backward adds with atomics),
+and :func:`segment_sum` sorts by segment and sums each segment serially. A
+training step then has the same bits on every run, which a resumed run
+needs.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.core.precision import exact_f32
 from repro_torch.kernels.decode_attention.decode_attention import decode_attention_plain
@@ -145,9 +158,6 @@ def decode_attention_xla(
     return (acc / torch.where(l == 0.0, 1.0, l)[..., None]).to(q.dtype)
 
 
-# -- MLP ----------------------------------------------------------------------
-
-
 def swiglu(
     x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor
 ) -> torch.Tensor:
@@ -157,6 +167,53 @@ def swiglu(
     u = torch.matmul(x, w_up)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, w_down)
+
+
+# -- gathers and segment reductions ---------------------------------------------
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` for a table of any rank ≥ 2 (rows
+    by ``ids``), by ``F.embedding`` (fixed-order backward)."""
+    flat = table.reshape(table.shape[0], -1)
+    out = F.embedding(ids.long(), flat)
+    return out.reshape(*ids.shape, *table.shape[1:])
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
+    """``jax.ops.segment_sum`` over axis 0 in a fixed order: the rows are
+    stably sorted by segment and each segment summed serially in its rows'
+    order (``torch.segment_reduce``), which is the order of the reference's
+    scatter-add; an empty segment sums to 0. Ids must lie in
+    ``[0, num_segments)``."""
+    ids = segment_ids.long()
+    order = torch.argsort(ids, stable=True)
+    lengths = torch.bincount(ids, minlength=num_segments)
+    return torch.segment_reduce(take(data, order), "sum", lengths=lengths, axis=0)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
+    """``jax.ops.segment_max`` over axis 0: a scatter max (exact in any
+    order); an empty segment holds −inf, as the reference's."""
+    ids = segment_ids.long().reshape(-1, *([1] * (data.dim() - 1))).expand_as(data)
+    init = torch.full((num_segments, *data.shape[1:]), float("-inf"), dtype=data.dtype,
+                      device=data.device)
+    return init.scatter_reduce(0, ids, data, "amax", include_self=True)
+
+
+# -- MLP ----------------------------------------------------------------------
+
+
+def mlp(x: torch.Tensor, ws, bs, act=torch.relu) -> torch.Tensor:
+    """Plain MLP tower (recsys): ``act`` on every layer but the last;
+    weights ``(d_in, d_out)``."""
+    exact_f32()
+    h = x
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        h = torch.matmul(h, w) + b
+        if i < len(ws) - 1:
+            h = act(h)
+    return h
 
 
 # -- init helpers ---------------------------------------------------------------
@@ -177,3 +234,55 @@ def embed_init(
     """``(vocab, d)``: standard normal times 0.02."""
     w = torch.randn((vocab, d), generator=generator, dtype=torch.float32, device=device)
     return (w * 0.02).to(dtype)
+
+
+# -- parameter trees --------------------------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """A reference parameter tree (dicts of tensors, lists of tensors, lists
+    of dicts) as a module, leaf for leaf: a dict becomes a ``ParamTree``, a
+    list of tensors an ``nn.ParameterList``, a list of dicts an
+    ``nn.ModuleList``. ``tree["key"]`` reads as ``tree.key``, so a model
+    function reads the tree as the reference reads its dict, and
+    ``named_parameters`` names each leaf by its path (``blocks.0.wq``)."""
+
+    def __init__(self, tree: dict, *, requires_grad: bool = True):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(key, nn.Parameter(value, requires_grad=requires_grad))
+            elif isinstance(value, dict):
+                self.add_module(key, ParamTree(value, requires_grad=requires_grad))
+            elif all(isinstance(v, torch.Tensor) for v in value):
+                self.add_module(key, nn.ParameterList(
+                    nn.Parameter(v, requires_grad=requires_grad) for v in value))
+            else:
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v, requires_grad=requires_grad) for v in value))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def keys(self) -> list:
+        return [*self._parameters, *self._modules]
+
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def tree(self) -> dict:
+        """The nested dict (and lists) of this tree's tensors."""
+        def unwrap(node):
+            if isinstance(node, ParamTree):
+                return node.tree()
+            if isinstance(node, (nn.ParameterList, nn.ModuleList)):
+                return [unwrap(v) for v in node]
+            return node
+        return {key: unwrap(self[key]) for key in self.keys()}
+
+
+def as_input(params: ParamTree, a, dtype=None) -> torch.Tensor:
+    """A batch entry (numpy or tensor) as a tensor on ``params``' device,
+    cast to ``dtype`` when given."""
+    t = torch.as_tensor(a, device=params.device())
+    return t if dtype is None else t.to(dtype)

@@ -16,6 +16,11 @@ with the router gates. A dropped (over-capacity) token gets zero expert
 output for that slot. Each token's ``k`` weighted outputs are summed in
 slot order, never by atomics, so the bits do not vary from run to run.
 
+``moe_ffn`` is differentiable, as the reference's: the gradient reaches
+the router through the gate values and through the aux loss's ``probs``,
+and the experts through the dispatch buffer. The routing decisions (top-k,
+the stable sort, the capacity) carry none.
+
 Expert parallelism over a mesh (``moe_ffn_ep``) waits for ROADMAP queue 1
 item 9.4.
 """
@@ -30,6 +35,7 @@ from torch.nn import functional as F
 
 from repro_torch.core.matches import stable_topk
 from repro_torch.core.precision import exact_f32
+from repro_torch.models.layers import take
 
 
 class MoEParams(nn.Module):
@@ -108,7 +114,6 @@ def moe_route(params: MoEParams, x: torch.Tensor, *, top_k: int,
     return MoERoute(probs, expert_ids, gates, order, slot, keep, C)
 
 
-@torch.no_grad()
 def moe_ffn(
     params: MoEParams,
     x: torch.Tensor,            # (T, d) flattened tokens
@@ -131,7 +136,7 @@ def moe_ffn(
 
     flat_token = torch.arange(T, device=x.device).repeat_interleave(top_k)[r.order]
     buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[r.slot] = x[flat_token]            # only the trash row takes several writes
+    buf[r.slot] = take(x, flat_token)      # only the trash row takes several writes
     buf = buf[:E * C].reshape(E, C, d)
 
     g = torch.bmm(buf, params.w_gate)
@@ -139,7 +144,7 @@ def moe_ffn(
     h = F.silu(g.float()).to(x.dtype) * u
     y_flat = torch.bmm(h, params.w_down).reshape(E * C, d)
 
-    gathered = torch.where(r.keep[:, None], y_flat[r.slot.clamp(max=E * C - 1)], 0.0)
+    gathered = torch.where(r.keep[:, None], take(y_flat, r.slot.clamp(max=E * C - 1)), 0.0)
     weighted = gathered.float() * r.gates.reshape(-1)[r.order][:, None]
     per_slot = torch.empty_like(weighted)
     per_slot[r.order] = weighted           # back to (token, slot) order: a permutation

@@ -2,8 +2,9 @@
 
 The reference's ``models/transformer.py`` as ``torch.nn.Module``s and the
 same functions over them: ``transformer_logits`` and ``prefill`` over a
-prompt, ``make_cache`` and ``decode_step`` for serving, ``count_params``
-and ``count_active_params``. Feature matrix:
+prompt, ``make_cache`` and ``decode_step`` for serving,
+``transformer_loss`` for training, ``count_params`` and
+``count_active_params``. Feature matrix:
 
 - GQA attention with optional QK-norm (qwen3-1.7b, qwen3-8b);
 - MLA latent attention with absorbed decode (minicpm3-4b);
@@ -21,8 +22,18 @@ neither its width nor its unequal key and value dims, so that path has no
 kernel by design. ``use_kernel=None`` takes the kernels when the model lies
 on a CUDA device and the plain functions of ``models/layers.py`` on the
 CPU; ``use_kernel=False`` runs the plain functions on the card, and
-``use_kernel=True`` on the CPU raises. Training, ``moe_ffn_ep`` and the
-mesh-sharded cells wait for ROADMAP queue 1 items 9.4-9.8.
+``use_kernel=True`` on the CPU raises. ``moe_ffn_ep`` and the
+mesh-sharded cells wait for ROADMAP queue 1 items 9.4 and 9.8.
+
+Training (:func:`transformer_loss`) attends through the plain
+``chunked_attention`` on every device, as the reference trains through
+XLA: K8 and K9 have no backward pass, and their wrappers raise on inputs
+that require a gradient. With ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so a
+block's forward runs again in the backward pass: a block returns its MoE
+statistics instead of recording them, and does nothing else a second run
+would repeat. The serving functions run under ``torch.no_grad``; the
+parameters are built without ``requires_grad``, which the trainer turns on.
 
 Weights are ``nn.Linear`` weights ``(d_out, d_in)``: the transpose of the
 reference's ``(d_in, d_out)`` matrices (``interop`` carries them across);
@@ -38,6 +49,7 @@ from typing import Any
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.precision import exact_f32
 from repro_torch.interop import device_of
@@ -86,13 +98,18 @@ class TransformerConfig:
     dense_residual: bool = False    # arctic: dense FFN in parallel with MoE
     first_k_dense: int = 0          # deepseek: leading dense layers
     capacity_factor: float = 1.25
-    aux_loss_weight: float = 0.01   # training (item 9.5)
+    aux_loss_weight: float = 0.01
     moe_impl: str = "gspmd"         # "ep" runs moe_ffn too until item 9.4 (no mesh)
-    # numerics
+    # numerics / memory
     dtype: Any = torch.bfloat16
+    remat: bool = True              # training: recompute each block in the backward
     q_chunk: int = 512              # the plain path's attention chunks
     kv_chunk: int = 1024
+    loss_chunk: int = 2048          # training: sequence positions per logits chunk
     bf16_probs: bool = False        # plain path only (K8 raises)
+    grad_accum: int = 1             # training: microbatches per step
+    # parallelism
+    fsdp: bool = False              # the reference's sharded cells (item 9.8); unused
 
     @property
     def padded_vocab(self) -> int:
@@ -353,39 +370,53 @@ def _swiglu(p: FFN, x):
     return swiglu(x, p.w_gate.weight.T, p.w_up.weight.T, p.w_down.weight.T)
 
 
-def _ffn(p, cfg: TransformerConfig, x, moe_stats: list | None = None):
-    """FFN: dense, or MoE (+ shared experts / + dense residual). The MoE
-    runs over the ``B·S`` flattened tokens, so its capacity follows them.
-    ``moe_stats`` collects each MoE call's ``MoEOut`` (aux loss, drops)."""
+def _ffn(p, cfg: TransformerConfig, x):
+    """FFN: dense, or MoE (+ shared experts / + dense residual); returns
+    ``(y, stats)``, ``stats`` the MoE call's ``MoEOut`` without ``y`` (aux
+    loss, drops) or ``None``. The MoE runs over the ``B·S`` flattened
+    tokens, so its capacity follows them."""
     if isinstance(p, FFN):
-        return _swiglu(p, x)
+        return _swiglu(p, x), None
     b, s, d = x.shape
     out = moe_ffn(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
                   capacity_factor=cfg.capacity_factor)
-    if moe_stats is not None:
-        moe_stats.append(out._replace(y=None))
     y = out.y.reshape(b, s, d)
     if p.shared is not None:
         y = y + _swiglu(p.shared, x)
     if p.dense is not None:
         y = y + _swiglu(p.dense, x)
-    return y
+    return y, out._replace(y=None)
 
 
-def _block(p: Block, cfg: TransformerConfig, x, positions, use_kernel: bool, moe_stats):
+def _block(p: Block, cfg: TransformerConfig, x, positions, use_kernel: bool):
+    """One block; returns ``(x, stats)`` (see :func:`_ffn`). It has no side
+    effect, so that a checkpointed block may run twice."""
     h = x + _attention(p.attn, cfg, rms_norm(x, p.attn_norm), positions, use_kernel)
-    return h + _ffn(p.ffn, cfg, rms_norm(h, p.ffn_norm), moe_stats)
+    f, stats = _ffn(p.ffn, cfg, rms_norm(h, p.ffn_norm))
+    return h + f, stats
 
 
 def _backbone(params: Transformer, cfg: TransformerConfig, tokens, use_kernel: bool,
-              moe_stats: list | None = None):
-    """Embed + all blocks + final norm → hidden states (B, S, d)."""
+              moe_stats: list | None = None, remat: bool = False):
+    """Embed + all blocks + final norm → ``(hidden states (B, S, d), aux)``,
+    ``aux`` the f32 sum of the MoE layers' aux losses (0 without MoE).
+    ``moe_stats``, a list, receives each MoE layer's stats in layer order;
+    ``remat`` checkpoints each block."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     x = F.embedding(tokens.long(), params.embed)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in params.blocks():
-        x = _block(blk, cfg, x, positions, use_kernel, moe_stats)
-    return rms_norm(x, params.final_norm)
+        if remat:
+            x, stats = checkpoint(_block, blk, cfg, x, positions, use_kernel,
+                                  use_reentrant=False)
+        else:
+            x, stats = _block(blk, cfg, x, positions, use_kernel)
+        if stats is not None:
+            aux = aux + stats.aux_loss
+            if moe_stats is not None:
+                moe_stats.append(stats)
+    return rms_norm(x, params.final_norm), aux
 
 
 def _tokens(params: Transformer, tokens) -> torch.Tensor:
@@ -400,7 +431,7 @@ def transformer_logits(
     and parity runs: O(B·S·V) memory)."""
     exact_f32()
     tokens = _tokens(params, tokens)
-    x = _backbone(params, cfg, tokens, _use_kernel(use_kernel, tokens.device))
+    x, _ = _backbone(params, cfg, tokens, _use_kernel(use_kernel, tokens.device))
     return params.lm_head(x)
 
 
@@ -421,8 +452,67 @@ def prefill(
     each MoE layer's ``MoEOut`` (``y`` dropped) in layer order."""
     exact_f32()
     tokens = _tokens(params, tokens)
-    x = _backbone(params, cfg, tokens, _use_kernel(use_kernel, tokens.device), moe_stats)
+    x, _ = _backbone(params, cfg, tokens, _use_kernel(use_kernel, tokens.device), moe_stats)
     return _logits_f32(params, x[:, -1, :])
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Masked next-token NLL summed over one chunk: ``x (B, c, d)`` against
+    the head ``w (V, d)`` with f32 logits (products of the model's dtype
+    summed in f32, as the reference's ``preferred_element_type=f32``)."""
+    logits = torch.matmul(x.float(), w.float().T)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask)
+
+
+def transformer_loss(params: Transformer, cfg: TransformerConfig, batch: dict, *,
+                     moe_stats: list | None = None):
+    """Next-token CE plus ``aux_loss_weight`` × the MoE aux loss; returns
+    ``(total, {"ce_loss", "aux_loss", "tokens"})`` as the reference's.
+
+    ``batch["tokens"] (B, S)``; ``labels`` default to the tokens shifted by
+    one (0 at the end) and ``loss_mask`` to ones but the last position.
+    The CE runs over ``loss_chunk`` positions at a time, each chunk under
+    ``torch.utils.checkpoint``: its ``(B, chunk, V)`` f32 logits are made
+    again in the backward pass, so one chunk's logits are live at a time.
+    Attention takes the plain path on every device (K8 has no backward).
+    ``moe_stats``, a list, receives each MoE layer's stats (aux loss,
+    ``dropped_frac``) in layer order, from the forward pass only.
+    """
+    exact_f32()
+    tokens = _tokens(params, batch["tokens"])
+    b, s = tokens.shape
+    x, aux = _backbone(params, cfg, tokens, False, moe_stats, remat=cfg.remat)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    labels = _tokens(params, labels).long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=tokens.device)
+        mask[:, -1] = 0.0
+    mask = _tokens(params, mask).float()
+
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of loss_chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        tot = tot + checkpoint(_chunk_nll, x[:, sl], params.lm_head.weight, labels[:, sl],
+                               mask[:, sl], use_reentrant=False)
+        cnt = cnt + torch.sum(mask[:, sl])
+    loss = tot / torch.clamp(cnt, min=1.0)
+    total = loss + cfg.aux_loss_weight * aux
+    return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------
@@ -537,7 +627,7 @@ def _decode_block(p: Block, cfg, x, cache_a, cache_b, lengths, use_kernel: bool)
     else:
         attn = _gqa_decode_attn(p.attn, cfg, xn, cache_a, cache_b, lengths, use_kernel)
     h = x + attn
-    return h + _ffn(p.ffn, cfg, rms_norm(h, p.ffn_norm)[:, None, :])[:, 0, :]
+    return h + _ffn(p.ffn, cfg, rms_norm(h, p.ffn_norm)[:, None, :])[0][:, 0, :]
 
 
 @torch.no_grad()

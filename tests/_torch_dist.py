@@ -228,3 +228,31 @@ def apss_cell_runs(run_dir, corpus_path: str) -> dict:
             apss_cell_config(arch.make_config()), device="cpu", threads=1,
             run_dir=str(run_dir), pg_timeout=PG_TIMEOUT_S, join_timeout=JOIN_TIMEOUT_S)
     return _CELLS["ranks"]
+
+
+def compression_ranks(rank, world, dev, grads: list, errors: dict, ratio: float,
+                      min_size: int) -> list:
+    """Rank function (``launch.mesh.spawn``) of ``tests/test_torch_optim.py``:
+    ``compress_tree`` over the ``(world,)`` mesh's ``data`` axis, one call per
+    entry of ``grads`` (each a ``{name: (world, ...)}`` dict, this rank's
+    row its leaf), carrying the error state from one call to the next from
+    ``errors``. Returns ``[(synced, errors)]`` as numpy, one per call."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import CompressionState, compress_tree
+
+    mesh = make_mesh((world,), ("data",))
+
+    def mine(tree):
+        return {k: torch.from_numpy(np.ascontiguousarray(v[rank:rank + 1])) for k, v in
+                tree.items()}
+
+    state = CompressionState(error=mine(errors))
+    out = []
+    for g in grads:
+        synced, state = compress_tree(mine(g), state, mesh, "data", ratio=ratio,
+                                      min_size=min_size)
+        out.append(({k: v.numpy() for k, v in synced.items()},
+                    {k: v.numpy() for k, v in state.error.items()}))
+    return out

@@ -1982,3 +1982,48 @@ def test_measure_on_card_reports_libraries_and_staging(card, tmp_path):
     assert got["host_copy_bytes"] == 2 * x.numel() * 4  # to the host and back
     assert got["hbm_bytes"] == 0
     assert got["collectives"]["all-reduce"]["count"] == 1
+
+
+def test_attention_wrappers_refuse_autograd_on_the_card(card):
+    """K8 and K9 have no backward pass: their wrappers raise on inputs that
+    require a gradient under grad mode, and run under ``no_grad``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn((1, 2, 128, 64), device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q, q.detach(), q.detach())
+    k = torch.randn((1, 2, 256, 64), device=card)
+    lens = torch.tensor([200], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="no backward"):
+        decode_attention(q[:, :, 0], k, k, lens)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape
+        assert decode_attention(q[:, :, 0], k, k, lens).shape == (1, 2, 64)
+
+
+def test_segment_sum_and_take_backward_are_deterministic_on_the_card(card):
+    """The fixed-order reductions training rests on: ``segment_sum`` and
+    ``take``'s backward give the same bits on every run, and agree with a
+    float64 run on the CPU within the f32 bound of a sum of the largest
+    segment's length n: n · 2⁻²⁴ of the largest value (one segment holds
+    5,000 rows, summed serially)."""
+    from repro_torch.models.layers import segment_sum, take
+
+    gen = torch.Generator().manual_seed(0)
+    data = torch.randn((50_000, 8, 4), generator=gen)
+    seg = torch.randint(0, 3000, (50_000,), generator=gen)
+    seg[:5000] = 7  # one heavy segment
+    w = torch.randn((3000, 8, 4), generator=gen)
+    runs = []
+    for dev, dt in ((card, torch.float32), (card, torch.float32),
+                    (torch.device("cpu"), torch.float64)):
+        x = data.to(dev, dt).requires_grad_(True)
+        out = segment_sum(take(x, seg.to(dev)), seg.to(dev), 3000)
+        (g,) = torch.autograd.grad((out * w.to(dev, dt)).sum(), x)
+        runs.append((out.detach().cpu().numpy(), g.cpu().numpy()))
+    for a, b in zip(runs[0], runs[1]):
+        np.testing.assert_array_equal(a, b)
+    n = int(torch.bincount(seg).max())
+    for a, b in zip(runs[0], runs[2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=n * 2.0 ** -24 * float(np.abs(b).max()))

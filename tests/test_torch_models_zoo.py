@@ -152,9 +152,12 @@ def test_registry():
         assert arch.family == "lm" and arch.shapes == {}
         assert arch.source == jget_arch(name).source
     assert len(ASSIGNED) == 10 and set(LMS) <= set(ASSIGNED)
-    for name in set(ASSIGNED) - set(LMS):
-        with pytest.raises(KeyError, match="unported"):
-            get_arch(name)
+    for name in set(ASSIGNED) - set(LMS):  # the GNN and recsys families
+        arch = get_arch(name)
+        assert arch.family == jget_arch(name).family and arch.shapes == {}
+        assert arch.source == jget_arch(name).source
+    with pytest.raises(KeyError, match="unported"):
+        get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("name", ["minicpm3-4b", "deepseek-moe-16b"])

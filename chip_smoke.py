@@ -231,11 +231,36 @@ Phases, each printing one JSON line (with ``t_s``, seconds since the start):
     against the plain path (largest |Δlogit|, top-1 agreement); K9 at one
     layer's shapes against its plain version.
 18. ``lm_server_qwen3_1_7b``: the port's ``LMServer`` (max_batch 8, max_len
-    512) on the same model, 4 requests of a 16-token prompt (numpy seed 1)
+    512) on the same model, 2 requests of a 16-token prompt (numpy seed 1)
     and 16 generated tokens: tokens/s, ms per step, K9 launches (28 per
     step). Its token streams must equal the plain path's server; where they
     part, the plain path's top-2 logit margin at that step must be at most
     phase 17's largest |Δlogit|.
+18a. The mesh paths (``mesh_phases``), in one spawn of 4 ranks on the
+    one card over gloo (``mesh_spawn``: the spawn's wall, each rank's
+    seconds), each held against one process:
+    ``seq_sharded_decode_qwen3_1_7b``: qwen3-1.7b at full width (bf16) on
+    ``long_500k``'s layout (batch 1, the cache's sequence over ``("data",
+    "model")``) with the cache cut to 262,144 positions (65,536 a rank; the
+    full 524,288 would take 76 GB for 4 ranks before activations), filled
+    with seeded random values a rank block at a time, length 150,000 (rank
+    2 partly filled, rank 3 empty): 8 decode steps after 2 warm-up steps,
+    each rank's K9 partials over its block 28 times a step (the counters),
+    merged in rank order; top-1 equal to this process's single-rank decode
+    of the whole cache (34.2 GB with the weights) on every step, max
+    |Δlogit| within bf16 2e-2, the same at ``CUT_LAYERS`` layers in f32
+    within 2e-5; rank 3's last partials ``l = 0``, ``m = NEG_LARGE``; each
+    rank's step wall, K9 ms on its block (a K9 row), combine wire ms and
+    bytes. ``moe_ep_deepseek_moe_16b``: one deepseek-moe-16b MoE layer at
+    full width (64 experts, top-6, 32 a rank: 0.55 GB) on 2 × 4,096 seeded
+    tokens through ``moe_ffn_ep``: nothing drops at capacity factor 16 and
+    ``y`` is within bf16 2e-2 of ``moe_ffn`` here; at 1.25 both drop
+    fractions are printed (EP's capacity is per data shard); each rank's
+    layer ms and its all-reduce ms and bytes. ``train_mesh``:
+    ``train_loop(mesh=)`` on deepseek-moe-16b's smoke config with
+    ``moe_impl="ep"`` (capacity factor 16, aux loss weighted 0): 4 steps
+    equal one process's within 1e-5 relative; stopped at step 2 and
+    resumed, bit for bit the straight run in every checkpoint leaf.
 18b. The MLA and MoE families and qwen3-8b at full width (bf16, weights
     from seed 0 on the card), one model on the card at a time
     (``lm_zoo_phases``). Each prefill (2 × 4096; ``zoo_prefill_phase``) is
@@ -320,7 +345,8 @@ The main-path phases (6-14d and 16-18b) drive the port's entry points
 ``apss_block_matmul`` for K7, ``apss_blocked(sp, use_kernel=True)`` for K3,
 ``query_topk(use_kernel=True)`` and the servers for K4, K5 and K6, on a
 sharded index too for K4; ``MutableAPSSIndex`` for K4's masked entry;
-``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9; ``apss`` in
+``prefill`` for K8, ``decode_step`` and ``LMServer`` for K9, and
+``decode_step`` on a sequence-sharded cache in 4 ranks for K9; ``apss`` in
 4 ranks for K1 under the ring schedules; ``ResumableSweep.run`` for K4's
 masked entry once per step; ``dedup_corpus`` for K1) with the
 launch counts set to 0 just before and read just after, each serving path
@@ -534,7 +560,9 @@ def main() -> int:
     rows.append(lm_prefill_phase(np, torch, "lm_prefill_qwen3_1_7b", cfg, model))
     row, max_dlogit = lm_decode_phase(np, torch, "lm_decode_qwen3_1_7b_32k", cfg, model)
     rows.append(row)
-    lm_server_phase(np, torch, "lm_server_qwen3_1_7b", cfg, model, max_dlogit, gen=16)
+    lm_server_phase(np, torch, "lm_server_qwen3_1_7b", cfg, model, max_dlogit, requests=2,
+                    gen=16)
+    rows += mesh_phases(np, torch, cfg, model)
     del model
     torch.cuda.empty_cache()
     rows += lm_zoo_phases(np, torch)
@@ -1222,8 +1250,10 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
     launches = launches_now()
     check(launches["sparse_tile_candidates"] > 0, f"{phase}: K3 never ran: {launches}")
     ref, first_p = timed(torch, plain_path)
+    # the plain path's wall is its one (reference) call: a second call took
+    # 17.5 s on sparse_clustered_65k
     wall = {"apss_blocked_sparse_kernel": wall_ms(np, torch, kernel_path),
-            "apss_blocked_sparse_plain": wall_ms(np, torch, plain_path, reps=1)}
+            "apss_blocked_sparse_plain": dict(median=first_p, min=first_p, max=first_p)}
     if dense is None:
         near = near_threshold_counts(torch, to_dense(sp), t)
     else:
@@ -2415,6 +2445,375 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 
 
 # ---------------------------------------------------------------------------
+# Meshes: the sequence-sharded decode on K9's partials, expert parallelism,
+# training on a mesh (4 ranks on the one card over gloo)
+# ---------------------------------------------------------------------------
+
+MESH_ROOT = ROOT / "build" / "mesh"  # the ranks' run directory and checkpoints
+MESH_SHAPE = ((2, 2), ("data", "model"))
+# long_500k's layout (batch 1, sequence over ("data", "model")) with the cache
+# cut from 524,288 to 262,144 positions (65,536 a rank): 4 ranks hold 4 ×
+# 4.06 GB of weights and 30.1 GB of cache; the full length would take 76 GB
+# before activations. At length 150,000 rank 2 is partly filled, rank 3 empty.
+SEQ_SHARD = dict(max_len=262144, length=150000, warm=2, steps=8, f32_steps=2, seed=11)
+MOE_EP = dict(arch="deepseek-moe-16b", tokens=2 * 4096, seed=12, factors=(16.0, 1.25))
+# The aux loss weighs 0: EP's aux loss is the mean of each data shard's (the
+# reference's pmean), so with it the losses would differ from one rank's by design.
+TRAIN_MESH = dict(arch="deepseek-moe-16b", steps=4, stop=2,
+                  overrides={"moe_impl": "ep", "capacity_factor": 16.0, "aux_loss_weight": 0.0})
+
+
+def _seq_block(torch, shape, block: int, layer: int, which: int, dtype, seed: int):
+    """Block ``block`` (of ``SEQ_SHARD``'s 4) of one layer's k (``which``
+    0) or v (1): seeded normal values, the same in whichever process makes
+    the block."""
+    g = torch.Generator("cuda").manual_seed(seed * 100_000 + block * 1000 + layer * 2 + which)
+    return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+
+
+def _fill_seq_cache(torch, cache, *, blocks, first: int, seed: int) -> None:
+    """Fill ``cache``'s k and v with ``blocks`` sequence blocks from block
+    ``first`` on (one rank's block, or all 4 in the single-rank cache)."""
+    L = cache["k"].shape[3] // blocks
+    for layer in range(cache["k"].shape[0]):
+        for which, key in enumerate(("k", "v")):
+            view = cache[key][layer]
+            shape = (*view.shape[:2], L, view.shape[3])
+            for b in range(blocks):
+                view[:, :, b * L:(b + 1) * L].copy_(
+                    _seq_block(torch, shape, first + b, layer, which, view.dtype, seed))
+
+
+def _seq_steps(torch, cfg, model, cache, tokens, n: int, *, start: int = 0):
+    """``n`` decode steps of batch 1 from token ``start``: each step's
+    logits (host f32) and host-clock ms."""
+    from repro_torch.models.transformer import decode_step
+
+    logits, walls = [], []
+    for s in range(start, start + n):
+        (lg, _), ms = timed(torch, lambda: decode_step(model, cfg, cache, tokens[s:s + 1]))
+        logits.append(lg.float().cpu())
+        walls.append(ms)
+    return torch.cat(logits), walls
+
+
+def _qwen_cut(torch, cfg, dtype, n_layers):
+    import dataclasses as dc
+
+    from repro_torch.models.transformer import init_transformer
+
+    cut = dc.replace(cfg, n_layers=n_layers, dtype=dtype)
+    return cut, init_transformer(cut, generator=torch.Generator("cuda").manual_seed(0),
+                                 device="cuda")
+
+
+def mesh_phases(np, torch, cfg, model) -> list:
+    """The slice's mesh paths, in one spawn of 4 ranks (``mesh_ranks``) on
+    the one card over gloo, each held against one process:
+
+    - ``seq_sharded_decode_qwen3_1_7b``: qwen3-1.7b (full width, bf16) on
+      ``SEQ_SHARD``'s cache, sequence over ``("data", "model")``: each rank
+      runs K9's partials over its 65,536 positions 28 times a step, and the
+      ranks merge them; 8 steps after 2 warm-up steps, top-1 equal to this
+      process's single-rank decode of the whole cache on every step, max
+      |Δlogit| within bf16 2e-2, the f32 cut (``CUT_LAYERS``) within 2e-5;
+      rank 3's partials empty (``l = 0``, ``m = NEG_LARGE``);
+    - ``moe_ep_deepseek_moe_16b``: one deepseek-moe-16b MoE layer at full
+      width (64 experts, top-6; 32 a rank) on 2 × 4,096 tokens: at
+      capacity factor 16 nothing drops and ``y`` is within bf16 2e-2 of
+      ``moe_ffn`` here; at 1.25 both drop fractions are printed (EP's
+      capacity is per data shard);
+    - ``train_mesh``: ``train_loop(mesh=)`` on deepseek-moe-16b's smoke
+      config with ``moe_impl="ep"`` (``TRAIN_MESH``): 4 steps equal one
+      rank's within 1e-5 relative, and stopped at 2 and resumed, bit for
+      bit the straight run.
+
+    Returns the K9 row of the sharded decode (rank 0's shard; every rank's
+    times beside it)."""
+    import shutil
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.moe import init_moe, moe_ffn
+    from repro_torch.models.transformer import make_cache
+
+    s = SEQ_SHARD
+    n_tok = s["warm"] + s["steps"]
+    tokens = np.random.default_rng(s["seed"]).integers(0, cfg.vocab_size, n_tok).astype(np.int32)
+    tok = torch.from_numpy(tokens).cuda()
+
+    # one rank: the whole cache (34.2 GB with the weights), single-rank K9
+    cache, fill_s = generated(torch, lambda: make_cache(cfg, 1, s["max_len"], device="cuda"))
+    _fill_seq_cache(torch, cache, blocks=4, first=0, seed=s["seed"])
+    cache["length"].fill_(s["length"])
+    _seq_steps(torch, cfg, model, cache, tok, s["warm"])
+    reset_launches()
+    single, single_walls = _seq_steps(torch, cfg, model, cache, tok, s["steps"], start=s["warm"])
+    single_launches = launches_now()["decode_attention"]
+    check(single_launches == cfg.n_layers * s["steps"],
+          f"single-rank decode: K9 launched {single_launches} times")
+    del cache
+    torch.cuda.empty_cache()
+    cfg32, model32 = _qwen_cut(torch, cfg, torch.float32, CUT_LAYERS)
+    cache = make_cache(cfg32, 1, s["max_len"], device="cuda")
+    _fill_seq_cache(torch, cache, blocks=4, first=0, seed=s["seed"] + 1)
+    cache["length"].fill_(s["length"])
+    single32, _ = _seq_steps(torch, cfg32, model32, cache, tok, s["f32_steps"])
+    del cache, model32
+    torch.cuda.empty_cache()
+
+    # one rank: the MoE layer on every token
+    c = _moe_config()
+    params = init_moe(torch.Generator("cuda").manual_seed(MOE_EP["seed"]), c.d_model,
+                      c.d_ff_expert, c.n_experts, c.dtype, "cuda")
+    x = _moe_tokens(torch, c)
+    base = {}
+    for cf in MOE_EP["factors"]:
+        out, ms = timed(torch, lambda: moe_ffn(params, x, top_k=c.top_k, capacity_factor=cf))
+        base[cf] = dict(y=out.y, dropped=float(out.dropped_frac), aux=float(out.aux_loss),
+                        ms=ms)
+    y_single = base[16.0].pop("y")
+    base[1.25].pop("y")
+    del params, x
+    torch.cuda.empty_cache()
+
+    # one rank: the training run
+    t = TRAIN_MESH
+    single_train = train_loop(arch=t["arch"], steps=t["steps"], device="cuda", log_every=100,
+                              smoke_overrides={k: v for k, v in t["overrides"].items()
+                                               if k != "moe_impl"})
+
+    shutil.rmtree(MESH_ROOT, ignore_errors=True)
+    MESH_ROOT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, threads=2, device="cuda",
+                  run_dir=str(MESH_ROOT))
+    spawn_s = time.perf_counter() - t0
+    emit("mesh_spawn", ranks=4, backend="gloo", mesh=MESH_SHAPE, spawn_s=spawn_s,
+         rank_seconds=[r["seconds"] for r in ranks])
+
+    # sequence-sharded decode against one rank
+    dec = [r["decode"] for r in ranks]
+    for d in dec[1:]:
+        check(torch.equal(d["logits"], dec[0]["logits"]),
+              "seq_sharded_decode: the ranks' logits differ")
+    got = dec[0]["logits"]
+    top1 = int((got.argmax(-1) == single.argmax(-1)).sum())
+    dlogit = float((got - single).abs().max())
+    d32 = float((dec[0]["logits32"] - single32).abs().max())
+    emit("seq_sharded_decode_qwen3_1_7b", max_len=s["max_len"], length=s["length"],
+         steps=s["steps"], ranks=[dict(offset=d["offset"], local_len=d["local_len"],
+                                      live=d["live"], k9_launches=d["launches"],
+                                      step_wall_ms=d["wall_ms"], k9_ms=d["k9_row"]["ms"],
+                                      wire_ms=d["wire_ms"], wire_bytes=d["wire_bytes"],
+                                      empty_partials=d["empty"])
+                                 for d in dec],
+         step_wall_ms=dec[0]["wall_ms"],
+         single_rank_step_wall_ms=dict(median=float(np.median(single_walls)),
+                                       min=min(single_walls), max=max(single_walls)),
+         single_rank_cache_fill_s=fill_s, combine_bytes_per_layer=dec[0]["combine_bytes"],
+         top1_agree=top1, max_abs_dlogit=dlogit, f32_layers=CUT_LAYERS,
+         f32_max_abs_dlogit=d32)
+    check(top1 == s["steps"], f"seq_sharded_decode: top-1 agrees on {top1} of {s['steps']}")
+    check(dlogit <= LM_ATOL["bfloat16"], f"seq_sharded_decode: |Δlogit| {dlogit}")
+    check(d32 <= LM_ATOL["float32"], f"seq_sharded_decode: f32 |Δlogit| {d32}")
+    for d in dec:
+        check(d["launches"] == cfg.n_layers * s["steps"],
+              f"seq_sharded_decode: rank at {d['offset']} launched K9 {d['launches']} times")
+    check([d["empty"] for d in dec] == [False, False, False, True],
+          f"seq_sharded_decode: empty partials {[d['empty'] for d in dec]}")
+
+    # expert parallelism against one rank
+    moe = [r["moe"] for r in ranks]
+    y = torch.cat([m["y"] for m in moe if m["model_rank"] == 0]).view(torch.bfloat16)
+    dy = float((y.float() - y_single.float().cpu()).abs().max())
+    emit("moe_ep_deepseek_moe_16b", tokens=MOE_EP["tokens"], experts=c.n_experts,
+         top_k=c.top_k, experts_per_rank=moe[0]["experts"], expert_bytes_per_rank=moe[0][
+             "expert_bytes"], single=base, ranks=[{k: v for k, v in m.items() if k != "y"}
+                                                  for m in moe], max_abs_dy=dy)
+    check(all(m[16.0]["dropped"] == 0.0 for m in moe), "moe_ep: drops at capacity factor 16")
+    check(dy <= LM_ATOL["bfloat16"], f"moe_ep: |Δy| {dy} against moe_ffn")
+
+    # training on the mesh against one rank
+    tr = [r["train"] for r in ranks]
+    rel = max(abs(tr[0]["straight"][k] - single_train[k]) / abs(single_train[k])
+              for k in ("loss", "ce_loss", "grad_norm"))
+    emit("train_mesh", arch=t["arch"], overrides=t["overrides"], steps=t["steps"],
+         stopped_at=t["stop"], single=single_train, ranks=tr, max_rel_diff=rel)
+    for r in tr:
+        check(r["straight"] == r["resumed"] and r["bits_equal"],
+              "train_mesh: the resumed run differs from the straight one")
+    check(rel <= 1e-5, f"train_mesh: {rel} from one rank's run")
+
+    row = dict(dec[0]["k9_row"])
+    row.update(ranks_ms=[d["k9_row"]["ms"] for d in dec],
+               ranks_live=[d["live"] for d in dec], ranks_launches=[d["launches"] for d in dec])
+    return [row]
+
+
+def _moe_config():
+    from repro_torch.configs import get_arch
+
+    return get_arch(MOE_EP["arch"]).make_config()
+
+
+def _moe_tokens(torch, c):
+    g = torch.Generator("cuda").manual_seed(MOE_EP["seed"] + 1)
+    return torch.randn((MOE_EP["tokens"], c.d_model), generator=g, device="cuda",
+                       dtype=c.dtype)
+
+
+def mesh_ranks(rank, world, dev, tokens) -> dict:
+    """Rank function (``launch.mesh.spawn``) of ``mesh_phases``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(*MESH_SHAPE)
+    out = {"decode": _rank_seq_decode(np, torch, mesh, tokens),
+           "moe": _rank_moe(np, torch, mesh), "train": _rank_train(mesh, dev)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _rank_seq_decode(np, torch, mesh, tokens) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.configs.qwen3_1_7b import config
+    from repro_torch.core import distributed as dd
+    from repro_torch.models.transformer import NEG_LARGE, init_transformer, make_cache
+
+    s = SEQ_SHARD
+    cfg = config()
+    model = init_transformer(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                             device="cuda")
+    tok = torch.from_numpy(tokens).cuda()
+    axes = dict(mesh=mesh, seq_axes=("data", "model"), batch_axes=())
+    cache = make_cache(cfg, 1, s["max_len"], device="cuda", **axes)
+    lay = cache["layout"]
+    block = lay.offset // lay.local_len
+    _fill_seq_cache(torch, cache, blocks=1, first=block, seed=s["seed"])
+    cache["length"].fill_(s["length"])
+    _seq_steps(torch, cfg, model, cache, tok, s["warm"])
+    reset_launches()
+    wire0, sec0 = dd.WIRE_BYTES["all_gather"], dd.WIRE_SECONDS["all_gather"]
+    logits, walls = _seq_steps(torch, cfg, model, cache, tok, s["steps"], start=s["warm"])
+    launches = launches_now()["decode_attention"]
+    wire_bytes = dd.WIRE_BYTES["all_gather"] - wire0
+    wire_ms = (dd.WIRE_SECONDS["all_gather"] - sec0) * 1e3
+    m, l = lay.last_partials
+    empty = bool((l == 0).all()) and bool((m == NEG_LARGE).all())
+    live = int((cache["length"] - lay.offset).clamp(0, lay.local_len))
+
+    # K9 on this rank's shard of layer 0, at its live positions
+    _, k9 = _attention_modules()
+    D = cfg.head_dim
+    g = torch.Generator("cuda").manual_seed(3)
+    q = torch.randn((1, cfg.n_heads, D), generator=g, device="cuda").to(cfg.dtype)
+    k, v = cache["k"][0], cache["v"][0]
+    lens = torch.tensor([live], dtype=torch.int32, device="cuda")
+    cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens),
+                      k9.decode_attention_plain(q, k, v, lens))
+    check(_k9_ok(cmp, "bfloat16"), f"rank at {lay.offset}: K9 differs from plain: {cmp}")
+    mask = (torch.arange(lay.local_len, device="cuda") < live)[None, None, None, :]
+    nbytes = 2.0 * live * cfg.n_kv_heads * D * k.element_size() + q.numel() * q.element_size() \
+        + 4.0 * cfg.n_heads * (D + 2)
+    row = kernel_row(
+        np, torch, "decode_attention", "seq_sharded_decode_qwen3_1_7b",
+        {"decode_attention": launches}, cmp,
+        lambda: k9.decode_attention_kernel(q, k, v, lens),
+        lambda: k9.decode_attention_plain(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               scale=1.0 / D ** 0.5, enable_gqa=True),
+        4.0 * live * cfg.n_heads * D, nbytes)
+    sp = k9.decode_split(lay.local_len, D, q_heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
+    row.update(shape=[1, cfg.n_heads, cfg.n_kv_heads, lay.local_len, D], dtype="bfloat16",
+               live_positions=live, offset=lay.offset, m_err=cmp["m_err"],
+               l_rel_err=cmp["l_rel_err"], split=sp.split, n_splits=sp.n_splits,
+               grid=list(sp.grid), per_step_bound_ms=row["bound_ms"] * cfg.n_layers)
+    del cache, model
+    torch.cuda.empty_cache()
+
+    cfg32, model32 = _qwen_cut(torch, cfg, torch.float32, CUT_LAYERS)
+    cache = make_cache(cfg32, 1, s["max_len"], device="cuda", **axes)
+    _fill_seq_cache(torch, cache, blocks=1, first=block, seed=s["seed"] + 1)
+    cache["length"].fill_(s["length"])
+    logits32, _ = _seq_steps(torch, cfg32, model32, cache, tok, s["f32_steps"])
+    del cache, model32
+    torch.cuda.empty_cache()
+    return dict(logits=logits, logits32=logits32, offset=lay.offset, local_len=lay.local_len,
+                live=live, launches=launches, empty=empty, wire_bytes=wire_bytes,
+                wire_ms=wire_ms, combine_bytes=4 * cfg.n_heads * (D + 2),
+                wall_ms=dict(median=float(np.median(walls)), min=min(walls), max=max(walls)),
+                k9_row=row)
+
+
+def _rank_moe(np, torch, mesh) -> dict:
+    from repro_torch.core import distributed as dd
+    from repro_torch.models.moe import init_moe, local_experts, moe_ffn_ep
+
+    c = _moe_config()
+    full = init_moe(torch.Generator("cuda").manual_seed(MOE_EP["seed"]), c.d_model,
+                    c.d_ff_expert, c.n_experts, c.dtype, "cuda")
+    params = local_experts(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    x = _moe_tokens(torch, c)
+    q, r = mesh.shape[0], mesh.get_local_rank("data")
+    n = x.shape[0] // q
+    x = x[r * n:(r + 1) * n].contiguous()
+    out = dict(model_rank=mesh.get_local_rank("model"), experts=params.w_gate.shape[0],
+               expert_bytes=sum(w.numel() * w.element_size()
+                                for w in (params.w_gate, params.w_up, params.w_down)))
+    for cf in MOE_EP["factors"]:
+        def layer():
+            return moe_ffn_ep(params, x, top_k=c.top_k, capacity_factor=cf, mesh=mesh,
+                              data_axes=("data",))
+        y, _ = timed(torch, layer)
+        b0, s0 = dd.WIRE_BYTES["psum"], dd.WIRE_SECONDS["psum"]
+        walls = [timed(torch, layer)[1] for _ in range(3)]
+        out[cf] = dict(dropped=float(y.dropped_frac), aux=float(y.aux_loss),
+                       layer_ms=float(np.median(walls)),
+                       psum_ms=(dd.WIRE_SECONDS["psum"] - s0) * 1e3 / 3,
+                       psum_bytes=(dd.WIRE_BYTES["psum"] - b0) / 3)
+        if cf == 16.0 and out["model_rank"] == 0:
+            out["y"] = y.y.view(torch.int16).cpu()
+    return out
+
+
+def _rank_train(mesh, dev) -> dict:
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch.train import train_loop
+
+    t = TRAIN_MESH
+    straight, resumed = MESH_ROOT / "train_straight", MESH_ROOT / "train_resumed"
+    kw = dict(arch=t["arch"], mesh=mesh, device=dev, ckpt_every=t["stop"], log_every=100,
+              smoke_overrides=t["overrides"])
+    t0 = time.perf_counter()
+    first = train_loop(steps=t["steps"], ckpt_dir=str(straight), **kw)
+    straight_s = time.perf_counter() - t0
+    train_loop(steps=t["stop"], ckpt_dir=str(resumed), total_steps=t["steps"], **kw)
+    again = train_loop(steps=t["steps"], ckpt_dir=str(resumed), **kw)
+    a, b = (ck.load_checkpoint(str(d), t["steps"]) for d in (straight, resumed))
+    bits = sorted(a) == sorted(b) and all(
+        _same_bits(a[key], b[key]) for key in a)
+    return dict(straight=first, resumed=again, bits_equal=bits, straight_s=straight_s)
+
+
+def _same_bits(x, y) -> bool:
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return torch.equal(x.view(torch.int16), y.view(torch.int16))
+    return np.array_equal(np.asarray(x), np.asarray(y))
+
+
+# ---------------------------------------------------------------------------
 # The MLA and MoE LM families at full width, and qwen3-8b
 # ---------------------------------------------------------------------------
 
@@ -2700,7 +3099,7 @@ def lm_zoo_phases(np, torch) -> list:
 # Training: the LM, MoE, recsys and GNN families, retrieval, resume
 # ---------------------------------------------------------------------------
 
-TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # steps of each timed training run
+TRAIN_WARMUP, TRAIN_TIMED = 2, 3  # steps of each timed training run
 TRAIN_HP = dict(warmup_steps=2, total_steps=100)
 TRAIN_LM_SHAPE = (2, 4096)  # (batch, seq) of the LM steps: the prefill cell's shape
 RECSYS_BATCH = {"two-tower-retrieval": 4096, "din": 4096, "bst": 4096, "bert4rec": 64}

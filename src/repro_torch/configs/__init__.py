@@ -1,8 +1,8 @@
 """Architecture registry of the port: importing this package registers every
 assigned architecture (the five LMs, GAT and the four recsys models) and
-the paper's own APSS workload into ``configs.base.REGISTRY``. The shape
-cells of the ten assigned architectures (``shapes={}`` until then) wait for
-ROADMAP queue 1 item 9.8."""
+the paper's own APSS workload into ``configs.base.REGISTRY``, each with the
+reference's shape cells (``lm_common``, ``recsys_common``, ``gat_cora``,
+``apss_paper``)."""
 
 from repro_torch.configs.base import (  # noqa: F401
     REGISTRY,

@@ -74,8 +74,11 @@ def _build(cfg, mesh, data: str, spec_of, run, **kw) -> CellBuild:
     spec = cfg[data]
     D = meta((spec["n"], spec["m"]), _dtype(cfg))
     fn = functools.partial(run, mesh=mesh, t=spec["t"], k=K_MATCHES, **kw)
+    # fn takes the global corpus and moves only the rank's cell to its
+    # device: the layout (what a rank holds) is the reference's spec
     return CellBuild(fn=fn, args=(D,), in_shardings=(shardings_for(mesh, spec_of),),
-                     out_shardings=None, static_info=_static_info(spec))
+                     out_shardings=None, static_info=_static_info(spec),
+                     layout=(shardings_for(mesh, spec_of),))
 
 
 def _h_allgather_cell(cfg, mesh) -> CellBuild:

@@ -6,7 +6,8 @@ counted on the meta device. [hf:Snowflake/snowflake-arctic-base; hf]"""
 
 import torch
 
-from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.base import register
+from repro_torch.configs.lm_common import lm_arch
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -52,5 +53,5 @@ def smoke_config() -> TransformerConfig:
     )
 
 
-ARCH = register(ArchDef(
-    "arctic-480b", "lm", "hf:Snowflake/snowflake-arctic-base", config, smoke_config))
+ARCH = register(lm_arch("arctic-480b", "hf:Snowflake/snowflake-arctic-base", config,
+                        smoke_config))

@@ -10,9 +10,14 @@ with one entry per dimension, each an axis name, a tuple of axis names or
 ``None``. A builder reads only a mesh's axis names and sizes, so it takes
 a ``DeviceMesh`` or a mapping ``{axis: size}`` that describes one (the CPU
 tests build every cell that way, with no ranks); running a cell's ``fn``
-needs the ranks of a real mesh. The assigned architectures' cells (train,
-prefill, decode, serve and retrieval on a mesh) wait for ROADMAP queue 1
-item 9.8, after the sharded decode and ``moe_ffn_ep`` of item 9.4.
+needs the ranks of a real mesh.
+
+``args`` are the global arguments and ``in_shardings`` the reference's
+placement of them. ``fn`` is what one rank runs, on its local arguments
+under ``distributed.sharding.use_mesh``: ``layout`` says how the port
+itself cuts each argument into those (its batch, cache and candidate
+splits; weights replicated), and :func:`local_args` makes a rank's meta
+arguments from it (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -24,16 +29,88 @@ import torch
 
 from repro_torch.distributed.elastic import _axis_sizes as axis_sizes  # noqa: F401
 from repro_torch.distributed.elastic import _filter_spec_for
+from repro_torch.distributed.sharding import local_shape
 
 
 def shardings_for(mesh, specs):
-    """A tree of specs (dicts and lists of them; a tuple is a spec) with the
-    axes ``mesh`` lacks replaced by ``None``, leaf by leaf."""
+    """A tree of specs (dicts, lists and named tuples of them; a plain tuple
+    is a spec) with the axes ``mesh`` lacks replaced by ``None``, leaf by
+    leaf."""
     if isinstance(specs, dict):
         return {key: shardings_for(mesh, s) for key, s in specs.items()}
     if isinstance(specs, list):
         return [shardings_for(mesh, s) for s in specs]
+    if hasattr(specs, "_fields"):
+        return type(specs)(*(shardings_for(mesh, s) for s in specs))
     return _filter_spec_for(mesh, tuple(specs), None)
+
+
+def tensors_of(arg) -> list:
+    """``(path, tensor)`` of every tensor in an argument: a module's
+    parameters by name, and the entries of dicts, lists and named tuples."""
+    if isinstance(arg, torch.nn.Module):
+        return list(arg.named_parameters())
+    if isinstance(arg, torch.Tensor):
+        return [("", arg)]
+    if isinstance(arg, dict):
+        items = arg.items()
+    elif hasattr(arg, "_fields"):
+        items = zip(arg._fields, arg)
+    elif isinstance(arg, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(arg))
+    else:
+        return []
+    return [(f"{k}.{p}" if p else str(k), t) for k, v in items for p, t in tensors_of(v)]
+
+
+def spec_at(specs, path: str):
+    """The spec of the tensor at ``path`` (as :func:`tensors_of` names it)
+    in a spec tree of the argument's shape: ``()`` (replicated) where the
+    tree names none."""
+    if specs is None:
+        return ()
+    if not isinstance(specs, (dict, list)) and not hasattr(specs, "_fields"):
+        return tuple(specs)
+    if isinstance(specs, dict) and path in specs:
+        return tuple(specs[path])
+    head, _, rest = path.partition(".")
+    if isinstance(specs, dict):
+        return spec_at(specs.get(head), rest) if head in specs else ()
+    if hasattr(specs, "_fields"):
+        return spec_at(getattr(specs, head), rest)
+    return spec_at(specs[int(head)], rest)
+
+
+def arg_bytes(args, specs, mesh) -> int:
+    """Bytes one rank holds of ``args`` placed by ``specs`` on ``mesh``."""
+    total = 0
+    for arg, spec in zip(args, specs):
+        for path, t in tensors_of(arg):
+            shape = local_shape(tuple(t.shape), spec_at(spec, path), mesh)
+            n = 1
+            for d in shape:
+                n *= d
+            total += n * t.element_size()
+    return total
+
+
+def local_args(args, layout, mesh):
+    """Meta arguments of one rank's block under ``layout`` (a spec tree per
+    argument): each tensor cut to :func:`~repro_torch.distributed.sharding.
+    local_shape`; a module keeps its (replicated) parameters."""
+    def cut(arg, spec, path=""):
+        if isinstance(arg, torch.nn.Module):
+            return arg
+        if isinstance(arg, torch.Tensor):
+            return meta(local_shape(tuple(arg.shape), spec_at(spec, path), mesh), arg.dtype)
+        if isinstance(arg, dict):
+            return {k: cut(v, spec, f"{path}.{k}" if path else str(k)) for k, v in arg.items()}
+        if hasattr(arg, "_fields"):
+            return type(arg)(*(cut(v, spec, f"{path}.{k}" if path else k)
+                               for k, v in zip(arg._fields, arg)))
+        return arg
+
+    return tuple(cut(a, s) for a, s in zip(args, layout))
 
 
 def data_axes_of(mesh) -> tuple:
@@ -55,6 +132,7 @@ class CellBuild:
     in_shardings: tuple         # one spec per argument
     out_shardings: Any          # specs, or None (the entry point's own layout)
     static_info: dict           # model flops etc. for the roofline
+    layout: tuple | None = None  # the port's own placement per argument (None: replicated)
 
 
 @dataclasses.dataclass(frozen=True)

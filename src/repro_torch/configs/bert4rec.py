@@ -1,13 +1,12 @@
 """bert4rec [recsys] — embed_dim=64 n_blocks=2 n_heads=2 seq_len=200,
-bidirectional masked sequence model. [arXiv:1904.06690; paper]
-
-Its shape cells (``shapes={}``) wait for ROADMAP queue 1 item 9.8."""
+bidirectional masked sequence model. [arXiv:1904.06690; paper]"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.recsys_common import recsys_shapes
 from repro_torch.core.apss import similarity_topk
 from repro_torch.models import recsys
 from repro_torch.models.layers import as_input, take
@@ -47,4 +46,5 @@ ARCH = register(ArchDef(
     source="arXiv:1904.06690",
     make_config=config,
     make_smoke_config=smoke_config,
+    shapes=recsys_shapes("bert4rec", recsys.init_bert4rec, recsys.bert4rec_param_specs, _score, _retrieve),
 ))

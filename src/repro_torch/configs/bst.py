@@ -1,14 +1,13 @@
 """bst [recsys] — embed_dim=32 seq_len=20 n_blocks=1 n_heads=8
 mlp=1024-512-256, Behavior Sequence Transformer (Alibaba).
-[arXiv:1905.06874; paper]
-
-Its shape cells (``shapes={}``) wait for ROADMAP queue 1 item 9.8."""
+[arXiv:1905.06874; paper]"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.recsys_common import recsys_shapes
 from repro_torch.core.matches import stable_topk
 from repro_torch.models import recsys
 from repro_torch.models.layers import as_input
@@ -48,4 +47,5 @@ ARCH = register(ArchDef(
     source="arXiv:1905.06874",
     make_config=config,
     make_smoke_config=smoke_config,
+    shapes=recsys_shapes("bst", recsys.init_bst, recsys.bst_param_specs, _score, _retrieve),
 ))

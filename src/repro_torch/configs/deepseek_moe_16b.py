@@ -4,7 +4,8 @@ vocab=102400, MoE: 2 shared + 64 routed top-6. [arXiv:2401.06066; hf]"""
 
 import torch
 
-from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.base import register
+from repro_torch.configs.lm_common import lm_arch
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -52,4 +53,4 @@ def smoke_config() -> TransformerConfig:
     )
 
 
-ARCH = register(ArchDef("deepseek-moe-16b", "lm", "arXiv:2401.06066", config, smoke_config))
+ARCH = register(lm_arch("deepseek-moe-16b", "arXiv:2401.06066", config, smoke_config))

@@ -1,13 +1,12 @@
 """din [recsys] — embed_dim=18 seq_len=100 attn_mlp=80-40 mlp=200-80,
-target attention over user history. [arXiv:1706.06978; paper]
-
-Its shape cells (``shapes={}``) wait for ROADMAP queue 1 item 9.8."""
+target attention over user history. [arXiv:1706.06978; paper]"""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.recsys_common import recsys_shapes
 from repro_torch.core.matches import stable_topk
 from repro_torch.models import recsys
 from repro_torch.models.layers import as_input
@@ -47,4 +46,5 @@ ARCH = register(ArchDef(
     source="arXiv:1706.06978",
     make_config=config,
     make_smoke_config=smoke_config,
+    shapes=recsys_shapes("din", recsys.init_din, recsys.din_param_specs, _score, _retrieve),
 ))

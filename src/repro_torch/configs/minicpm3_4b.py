@@ -4,7 +4,8 @@ rope 32, v 64. [hf:openbmb/MiniCPM3-4B; hf]"""
 
 import torch
 
-from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.base import register
+from repro_torch.configs.lm_common import lm_arch
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -50,4 +51,4 @@ def smoke_config() -> TransformerConfig:
     )
 
 
-ARCH = register(ArchDef("minicpm3-4b", "lm", "hf:openbmb/MiniCPM3-4B", config, smoke_config))
+ARCH = register(lm_arch("minicpm3-4b", "hf:openbmb/MiniCPM3-4B", config, smoke_config))

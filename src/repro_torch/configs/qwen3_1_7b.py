@@ -3,7 +3,8 @@ vocab=151936, qk_norm. [hf:Qwen/Qwen3-8B family; hf]"""
 
 import torch
 
-from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.base import register
+from repro_torch.configs.lm_common import lm_arch
 from repro_torch.models.transformer import TransformerConfig
 
 
@@ -39,4 +40,4 @@ def smoke_config() -> TransformerConfig:
     )
 
 
-ARCH = register(ArchDef("qwen3-1.7b", "lm", "hf:Qwen/Qwen3-1.7B", config, smoke_config))
+ARCH = register(lm_arch("qwen3-1.7b", "hf:Qwen/Qwen3-1.7B", config, smoke_config))

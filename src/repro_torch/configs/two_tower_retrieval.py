@@ -1,12 +1,11 @@
 """two-tower-retrieval [recsys] — embed_dim=256 tower_mlp=1024-512-256
 dot-product interaction, sampled-softmax retrieval. Item table 10M×256,
-user-feature table 1M×256 (hashed). [RecSys'19 (YouTube/Yi et al.)]
-
-Its shape cells (``shapes={}``) wait for ROADMAP queue 1 item 9.8."""
+user-feature table 1M×256 (hashed). [RecSys'19 (YouTube/Yi et al.)]"""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ArchDef, register
+from repro_torch.configs.recsys_common import recsys_shapes
 from repro_torch.models import recsys
 
 
@@ -48,4 +47,5 @@ ARCH = register(ArchDef(
     source="RecSys'19 (Yi et al.)",
     make_config=config,
     make_smoke_config=smoke_config,
+    shapes=recsys_shapes("two-tower-retrieval", recsys.init_two_tower, recsys.two_tower_param_specs, _score, _retrieve),
 ))

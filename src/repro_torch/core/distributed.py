@@ -181,6 +181,16 @@ class _Timed:
         WIRE_SECONDS[self.op] += time.perf_counter() - self.t0
 
 
+def _on_meta(kind: str, x: torch.Tensor, out_shape, payload_shape, group: int):
+    """A collective on a meta tensor (a dry run: ``launch.dryrun``): report
+    it to the census at the payload convention and return a meta tensor of
+    the result's shape, without touching the process group."""
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_collective(kind, int(np.prod(payload_shape)) * x.element_size(),
+                                      group)
+    return x.new_empty(out_shape)
+
+
 def _ppermute(xs: Sequence[torch.Tensor], mesh, axis, perm) -> tuple[torch.Tensor, ...]:
     """``lax.ppermute`` of each tensor of ``xs`` over ``axis``, in one batch.
 
@@ -188,6 +198,9 @@ def _ppermute(xs: Sequence[torch.Tensor], mesh, axis, perm) -> tuple[torch.Tenso
     sends to its destination and receives from its source; with no source
     the result is zeros, as in the reference.
     """
+    if xs and xs[0].is_meta:
+        return tuple(_on_meta("collective-permute", x, x.shape, x.shape,
+                              _axis_size(mesh, axis)) for x in xs)
     group = mesh.get_group(axis)
     me = mesh.get_local_rank(axis)
     dst = [d for s, d in perm if s == me]
@@ -216,6 +229,8 @@ def _ppermute(xs: Sequence[torch.Tensor], mesh, axis, perm) -> tuple[torch.Tenso
 
 
 def _all_reduce(x: torch.Tensor, mesh, axis, op, name: str) -> torch.Tensor:
+    if x.is_meta:
+        return _on_meta("all-reduce", x, x.shape, x.shape, _axis_size(mesh, axis))
     group = mesh.get_group(axis)
     staged = _staged(group)
     with _Timed(name, (x,), staged):
@@ -242,8 +257,11 @@ def _pmax(x: torch.Tensor, mesh, axis) -> torch.Tensor:
 
 def _psum_scatter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     """``lax.psum_scatter(scatter_dimension=0, tiled=True)`` over ``axis``."""
-    group = mesh.get_group(axis)
     p = _axis_size(mesh, axis)
+    if x.is_meta:
+        out = (x.shape[0] // p, *x.shape[1:])
+        return _on_meta("reduce-scatter", x, out, out, p)
+    group = mesh.get_group(axis)
     staged = _staged(group)
     with _Timed("psum_scatter", (x,), staged):
         w = _to_wire(x, staged)
@@ -256,27 +274,124 @@ def _psum_scatter(x: torch.Tensor, mesh, axis) -> torch.Tensor:
         return _from_wire(out, x)
 
 
-def _all_gather(x: torch.Tensor, mesh, axis, dim: int = 0) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, mesh, axis, dim: int = 0, *,
+                op: str = "all_gather") -> torch.Tensor:
     """``lax.all_gather(axis=dim, tiled=True)`` over one axis or, row-major,
-    a tuple of axes (the innermost gathered first)."""
+    a tuple of axes (the innermost gathered first). The wire's seconds go
+    to ``WIRE_SECONDS[op]``; another ``op`` than ``"all_gather"`` leaves the
+    bytes to the caller (which counts them as its own collective)."""
     if isinstance(axis, tuple):
         for a in reversed(axis):
-            x = _all_gather(x, mesh, a, dim)
+            x = _all_gather(x, mesh, a, dim, op=op)
         return x
-    group = mesh.get_group(axis)
     p = _axis_size(mesh, axis)
+    if x.is_meta:
+        out = (*x.shape[:dim], p * x.shape[dim], *x.shape[dim + 1:])
+        return _on_meta("all-gather", x, out, out, p)
+    group = mesh.get_group(axis)
     staged = _staged(group)
-    with _Timed("all_gather", (x,), staged):
+    with _Timed(op, (x,), staged):
         w = _to_wire(x, staged)
+        if w.dtype == torch.int16:  # bf16 bits: gloo gathers no int16, bytes travel alike
+            w = w.view(torch.uint8)
         out = w.new_empty((p * w.shape[0], *w.shape[1:]))
-        WIRE_BYTES["all_gather"] += w.numel() * w.element_size()
-        if op_analysis.CENSUS is not None:
-            op_analysis.report_collective("all-gather", out.numel() * out.element_size(), p)
+        if op == "all_gather":
+            WIRE_BYTES["all_gather"] += w.numel() * w.element_size()
+            if op_analysis.CENSUS is not None:
+                op_analysis.report_collective("all-gather", out.numel() * out.element_size(),
+                                              p)
         gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
         gather(out, w, group=group)
+        if out.dtype == torch.uint8:
+            out = out.view(torch.int16)
         # (p, ...) → the p pieces side by side along `dim`
         out = _from_wire(out, x).view(p, *x.shape)
         return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def psum_in_order(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``lax.psum`` over an axis or a row-major tuple of axes, summed in
+    rank order in ``x``'s dtype: the ranks' tensors are all-gathered and
+    added one after another, so every rank gets the same bits on every
+    run, whatever the timing and the backend's reduction order. Reported
+    to the census as one all-reduce of ``x``; ``WIRE_BYTES["psum"]`` and
+    ``WIRE_SECONDS["psum"]`` count the bytes this rank sends and the time."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    p = _axis_size(mesh, axes) if axes else 1
+    if p == 1:
+        return x
+    if x.is_meta:
+        return _on_meta("all-reduce", x, x.shape, x.shape, p)
+    parts = _all_gather(x.reshape(1, *x.shape), mesh, axes, op="psum")
+    WIRE_BYTES["psum"] += x.numel() * x.element_size()
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_collective("all-reduce", x.numel() * x.element_size(), p)
+    out = parts[0]
+    for i in range(1, p):
+        out = out + parts[i]
+    return out
+
+
+class _EnterReplicated(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``axes`` in
+    rank order: ``shard_map``'s transpose of an input replicated over
+    those axes (each rank's gradient is its share of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_in_order(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _PsumReplicatedOut(torch.autograd.Function):
+    """``lax.psum`` over ``axes`` whose result every rank then uses alike:
+    the backward passes the gradient through (``shard_map`` divides a
+    replicated output's cotangent by the axes' size and the psum's
+    transpose sums it back)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum_in_order(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Pmean(torch.autograd.Function):
+    """``lax.pmean`` over ``axes`` with the gradient scaled by ``grad_scale``
+    (the caller's share of a value every rank of the mesh computes)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, grad_scale):
+        ctx.grad_scale = grad_scale
+        p = _axis_size(mesh, tuple(axes)) if axes else 1
+        return psum_in_order(x, mesh, axes) / p if p > 1 else x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.grad_scale, None, None, None
+
+
+def enter_replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` (the same on every rank of ``axes``) entering a region whose
+    ranks each use a part of it: the gradient is summed over ``axes``."""
+    return _EnterReplicated.apply(x, mesh, tuple(axes))
+
+
+def psum_replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """:func:`psum_in_order` with autograd: the gradient passes through."""
+    return _PsumReplicatedOut.apply(x, mesh, tuple(axes))
+
+
+def pmean(x: torch.Tensor, mesh, axes, *, grad_scale: float) -> torch.Tensor:
+    """Mean over ``axes`` in rank order; the backward scales the gradient
+    by ``grad_scale``."""
+    return _Pmean.apply(x, mesh, tuple(axes), grad_scale)
 
 
 def gather_matches(m: Matches, mesh, axes=None, *, scatter: bool = False) -> Matches:

@@ -53,6 +53,17 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]):
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
 
 
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The production mesh as a ``{axis: size}`` mapping: 16 × 16 (256
+    ranks) or 2 × 16 × 16 (512). Axes: ``pod`` (between pods), ``data``
+    (data parallel: batch, APSS rows), ``model`` (tensor and expert
+    parallel: APSS dims). ``launch.dryrun`` builds a ``DeviceMesh`` of this
+    shape over a fake process group; cells build on the mapping itself."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def make_debug_mesh(shape=(2, 2), names=("data", "model")):
     """Small mesh for multi-rank tests."""
     return make_mesh(shape, names)

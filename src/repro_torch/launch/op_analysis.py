@@ -164,7 +164,7 @@ def link_bytes(kind: str, payload: float, group: int) -> float:
 class Census:
     """The counts of one :func:`analyze` call (see the module doc)."""
 
-    def __init__(self) -> None:
+    def __init__(self, track_live: bool = False) -> None:
         self.flops = 0.0
         self.hbm_bytes = 0.0
         self.host_copy_bytes = 0.0
@@ -172,14 +172,21 @@ class Census:
         self.collectives = {
             k: {"count": 0, "payload_bytes": 0.0, "link_bytes": 0.0} for k in COLLECTIVES
         }
+        self.link_by_group: dict[int, float] = {}
         self.kernels: dict[str, dict] = {}
         self.libraries: set[str] = set()
         self._pending: list = []
+        self.track_live = track_live
+        self.live_bytes = 0.0
+        self.peak_live_bytes = 0.0
+        self._live: dict = {}     # storage key -> (storage, bytes)
 
     # -- feeds -----------------------------------------------------------
 
     def op(self, func, args, kwargs, out) -> None:
         self.n_ops += 1
+        if self.track_live:
+            self._track(_tensors(out))
         info = _INFO.get(func)
         if info is None:
             info = _INFO[func] = _OpInfo(func)
@@ -218,6 +225,26 @@ class Census:
         written = sum(map(_nbytes, mutated))
         return float(sum(map(_nbytes, read)) + (0 if info.write_only else written) + written)
 
+    def _track(self, outs: list) -> None:
+        """Add the storages ``outs`` create to the live set; before a new
+        peak, drop those that nothing but the census holds any longer."""
+        for t in outs:
+            st = t.untyped_storage()
+            if st._cdata in self._live:
+                continue
+            n = st.nbytes()
+            if self.live_bytes + n > self.peak_live_bytes:
+                self._sweep()
+            self._live[st._cdata] = (st, n)
+            self.live_bytes += n
+            self.peak_live_bytes = max(self.peak_live_bytes, self.live_bytes)
+
+    def _sweep(self) -> None:
+        for key, (st, n) in list(self._live.items()):
+            if torch._C._storage_Use_Count(key) <= 1:   # only the census holds it
+                del self._live[key]
+                self.live_bytes -= n
+
     def kernel(self, name: str, library: str, flops: Work, nbytes: Work) -> None:
         k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0, "bytes": 0.0})
         k["launches"] += 1
@@ -228,7 +255,9 @@ class Census:
         c = self.collectives[kind]
         c["count"] += 1
         c["payload_bytes"] += float(payload)
-        c["link_bytes"] += link_bytes(kind, payload, group)
+        link = link_bytes(kind, payload, group)
+        c["link_bytes"] += link
+        self.link_by_group[int(group)] = self.link_by_group.get(int(group), 0.0) + link
 
     # -- result ----------------------------------------------------------
 
@@ -249,10 +278,12 @@ class Census:
             "hbm_bytes": self.hbm_bytes,
             "collectives": {k: dict(v) for k, v in self.collectives.items()},
             "link_bytes": sum(v["link_bytes"] for v in self.collectives.values()),
+            "link_bytes_by_group": {str(g): b for g, b in sorted(self.link_by_group.items())},
             "host_copy_bytes": self.host_copy_bytes,
             "kernels": {k: dict(v) for k, v in self.kernels.items()},
             "libraries": sorted(self.libraries),
             "n_ops": self.n_ops,
+            **({"peak_live_bytes": self.peak_live_bytes} if self.track_live else {}),
         }
 
 
@@ -285,16 +316,38 @@ def _mode(census: Census):
     return _Census()
 
 
+def analyze_live(fn, *args, resident: float = 0.0):
+    """:func:`analyze` that also tracks the storages the call's ops create:
+    ``peak_live_bytes`` is the largest sum of live storages during the call
+    on top of ``resident`` (the arguments' bytes). An estimate: no
+    allocator rounding, no workspaces, and a storage counts from the op
+    that makes it until the census sees nothing else holding it."""
+    census = Census(track_live=True)
+    census.live_bytes = census.peak_live_bytes = float(resident)
+    for t in _tensors([list(a.parameters()) if isinstance(a, torch.nn.Module) else a
+                       for a in args]):
+        st = t.untyped_storage()   # in ``resident`` already: an op's view of it adds nothing
+        census._live[st._cdata] = (st, 0)
+    try:
+        return _run(census, fn, args, {})
+    finally:
+        census._live.clear()
+
+
 def analyze(fn, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under a census: ``(result, counts)``,
     with the reference's keys ``flops``, ``hbm_bytes``, ``collectives``
     (``{kind: {count, payload_bytes, link_bytes}}``) and ``link_bytes``,
-    and the port's ``host_copy_bytes``, ``kernels`` (``{name: {launches,
-    flops, bytes}}``), ``libraries`` (the kernel libraries launched) and
+    and the port's ``link_bytes_by_group`` (``{group size: link bytes}``),
+    ``host_copy_bytes``, ``kernels`` (``{name: {launches, flops,
+    bytes}}``), ``libraries`` (the kernel libraries launched) and
     ``n_ops``. Censuses nest: an outer one counts
     what an inner one counts."""
+    return _run(Census(), fn, args, kwargs)
+
+
+def _run(census: Census, fn, args, kwargs):
     global CENSUS
-    census = Census()
     _STACK.append(census)
     CENSUS = census
     try:

@@ -9,8 +9,14 @@ count). The parameter tree is ``dict(model.named_parameters())``. The
 driver composes a step with the data pipeline, the checkpoint manager
 (async, keep-k, auto-resume) and the straggler timer.
 
-Training runs on one device; a ``mesh`` raises until ROADMAP queue 1 item
-9.4 (``distributed/sharding.py``) gives the port sharded cells.
+On a mesh (``train_loop(mesh=)``, or a step called under
+``distributed.sharding.use_mesh``) every rank takes its rows of the global
+batch over the data axes (``("pod", "data")``), computes its gradients
+(an LM's CE over the global token count) and the ranks average them over
+the data axes in rank order, so a step equals the single-process step on
+the same global batch up to the order of one sum. Over ``model`` the dense
+weights are replicated and MoE layers with ``moe_impl="ep"`` split their
+experts (``models.moe.moe_ffn_ep``).
 
 CLI (reduced configs; on the card unless ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
@@ -28,6 +34,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.distributed import StepTimer
+from repro_torch.distributed.sharding import active_mesh, axis_sizes, data_axes, use_mesh
 from repro_torch.interop import device_of
 from repro_torch.models import gnn, recsys
 from repro_torch.models.transformer import (
@@ -77,6 +84,50 @@ def _micro(batch: dict, i: int, n: int) -> dict:
     return {key: part(x) for key, x in batch.items()}
 
 
+def _mean_over_data(grads: dict, loss, aux: dict):
+    """Average the gradients, the loss and the aux scalars over the active
+    mesh's data axes, summed in rank order in f32 (``psum_in_order``): the
+    leaves, in order, are packed into buckets of at most ``CHUNK`` elements
+    (a large leaf spans several), one all-reduce a bucket. Unchanged
+    without a mesh or data axes."""
+    mesh, daxes = active_mesh(), data_axes()
+    if not daxes:
+        return grads, loss, aux
+    from repro_torch.core.distributed import _axis_size, psum_in_order
+    from repro_torch.optim.optimizer import CHUNK
+
+    p = _axis_size(mesh, daxes)
+    leaves = [*grads.values(), loss, *aux.values()]
+    flats = [x.reshape(-1) for x in leaves]
+    parts: list[list] = [[] for _ in flats]
+    bucket, room = [], CHUNK
+
+    def flush():
+        summed = psum_in_order(torch.cat([flats[i][lo:hi].float() for i, lo, hi in bucket]),
+                               mesh, daxes) / p
+        at = 0
+        for i, lo, hi in bucket:
+            parts[i].append(summed[at:at + hi - lo])
+            at += hi - lo
+
+    for i, flat in enumerate(flats):
+        lo = 0
+        while lo < flat.numel():
+            hi = min(flat.numel(), lo + room)
+            bucket.append((i, lo, hi))
+            room -= hi - lo
+            lo = hi
+            if room == 0:
+                flush()
+                bucket, room = [], CHUNK
+    if bucket:
+        flush()
+    out = [torch.cat(ps).reshape(x.shape).to(x.dtype) for ps, x in zip(parts, leaves)]
+    n = len(grads)
+    return (dict(zip(grads, out[:n])), out[n],
+            dict(zip(aux, out[n + 1:])))
+
+
 def make_train_step(
     loss_fn: Callable[[Any, Any], tuple],
     hp: TrainHyperparams = TrainHyperparams(),
@@ -89,7 +140,9 @@ def make_train_step(
     along its first dim, run one after another, and their gradients summed
     in f32 and averaged: live activation memory divides by N at the cost
     of reading the weights N times. The loss is the microbatches' mean, the
-    aux entries the last microbatch's, as in the reference.
+    aux entries the last microbatch's, as in the reference. Under a mesh
+    with data axes the batch is the rank's rows, and the gradients, loss
+    and aux entries are averaged over the data axes before the update.
     """
 
     def train_step(model, opt_state, batch):
@@ -107,6 +160,7 @@ def make_train_step(
                 loss_sum = loss_sum + loss
             grads = {k: g / accum_steps for k, g in g_sum.items()}
             loss = loss_sum / accum_steps
+        grads, loss, aux = _mean_over_data(grads, loss, aux)
         lr = cosine_schedule(opt_state.step, hp.lr, hp.warmup_steps, hp.total_steps)
         _, new_opt, opt_metrics = adamw_update(
             grads, opt_state, params,
@@ -245,13 +299,20 @@ def train_loop(
     ``total_steps`` is the learning-rate schedule's horizon (``steps`` when
     omitted, as in the reference): a run stopped at step 4 of 6 and resumed
     takes the uninterrupted run's steps only if both name the same horizon.
+
+    With a ``mesh`` (a ``DeviceMesh``; every rank of it calls this, on its
+    own ``device``) each step runs under ``use_mesh(mesh)`` on the rank's
+    rows of the pipeline's batch over the data axes (a graph is
+    replicated), and the gradients are averaged over them
+    (:func:`make_train_step`). Every rank holds the whole model; the
+    mesh's first rank writes the checkpoints, every rank resumes from
+    them, and the ranks meet at a barrier after the last save.
     """
     from repro_torch.configs.base import get_arch
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_loop on a mesh waits for ROADMAP queue 1 item 9.4 "
-            "(distributed/sharding.py); pass mesh=None")
+    if mesh is not None and not hasattr(mesh, "get_coordinate"):
+        raise TypeError("train_loop runs on the ranks of a DeviceMesh "
+                        "(launch.mesh.make_mesh); a {axis: size} mapping describes cells only")
     arch_def = get_arch(arch)
     cfg = arch_def.make_smoke_config()
     if smoke_overrides:
@@ -276,12 +337,17 @@ def train_loop(
             start_step = at
             print(f"[train] resumed from step {at}")
 
+    writer = mesh is None or all(c == 0 for c in mesh.get_coordinate())
+    get_batch = run.get_batch
+    if mesh is not None and arch_def.family != "gnn":
+        get_batch = _rank_rows(run.get_batch, mesh)
     timer = StepTimer()
     metrics = {}
     for s in range(start_step, steps):
-        batch = run.get_batch(s)
+        batch = get_batch(s)
         timer.start()
-        _, opt_state, metrics = run.step_fn(run.model, opt_state, batch)
+        with use_mesh(mesh):
+            _, opt_state, metrics = run.step_fn(run.model, opt_state, batch)
         _sync(dev)
         timer.stop(0)
         if s % log_every == 0 or s == steps - 1:
@@ -290,11 +356,40 @@ def train_loop(
                 f"gnorm={float(metrics.get('grad_norm', 0)):.2f} "
                 f"({timer.rank_ema.get(0, 0)*1e3:.0f} ms/step)"
             )
-        if mgr and (s + 1) % ckpt_every == 0:
+        if mgr and writer and (s + 1) % ckpt_every == 0:
             mgr.save({"params": params, "opt": opt_state}, s + 1, blocking=False)
-    if mgr:
+    if mgr and writer:
         mgr.save({"params": params, "opt": opt_state}, steps, blocking=True)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
     return {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+
+
+def _rank_rows(get_batch: Callable, mesh) -> Callable:
+    """``get_batch`` restricted to this rank's rows over the data axes: the
+    block ``r`` of ``q`` equal blocks of every entry's first dim, ``r`` the
+    rank's row-major place over ``("pod", "data")`` and ``q`` their size."""
+    from repro_torch.core.distributed import _axis_index, _axis_size
+
+    sizes = axis_sizes(mesh)
+    daxes = tuple(a for a in ("pod", "data") if a in sizes)
+    if not daxes:
+        return get_batch
+    q, r = _axis_size(mesh, daxes), _axis_index(mesh, daxes)
+
+    def rows(s):
+        out = {}
+        for key, x in get_batch(s).items():
+            if x.shape[0] % q:
+                raise ValueError(f"batch entry {key!r} of {x.shape[0]} rows does not "
+                                 f"split over {q} data ranks")
+            n = x.shape[0] // q
+            out[key] = x[r * n:(r + 1) * n]
+        return out
+
+    return rows
 
 
 def main(argv=None) -> None:

@@ -31,6 +31,7 @@ from repro_torch.models.layers import (
     ParamTree,
     as_input,
     dense_init,
+    flat_specs,
     segment_max,
     segment_sum,
     take,
@@ -62,7 +63,7 @@ def init_gat(cfg: GATConfig, *, generator: torch.Generator | None = None,
     omitted) on ``device``."""
     dev = device_of(device)
     if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
+        generator = None if dev.type == "meta" else torch.Generator(dev).manual_seed(0)
     layers = []
     d_in = cfg.d_feat
     for i in range(cfg.n_layers):
@@ -76,6 +77,13 @@ def init_gat(cfg: GATConfig, *, generator: torch.Generator | None = None,
                        "a_src": vec(), "a_dst": vec()})
         d_in = d_out if last else cfg.d_hidden * cfg.n_heads
     return ParamTree({"layers": layers})
+
+
+def gat_param_specs(cfg: GATConfig) -> dict:
+    """Replicated, as the reference's (GAT's weights are tiny; its
+    parallelism lies in the node and edge data), by parameter name."""
+    return flat_specs({"layers": [{"w": (None, None), "a_src": (None, None),
+                                   "a_dst": (None, None)} for _ in range(cfg.n_layers)]})
 
 
 def segment_softmax(

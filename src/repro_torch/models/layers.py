@@ -180,6 +180,15 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out.reshape(*ids.shape, *table.shape[1:])
 
 
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)`` (ids in ``[0, n)``) as a
+    ``scatter_add_`` of ones: the same counts, and it runs on the meta
+    device, where ``bincount`` has no kernel."""
+    ids = ids.long()
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int):
     """``jax.ops.segment_sum`` over axis 0 in a fixed order: the rows are
     stably sorted by segment and each segment summed serially in its rows'
@@ -188,7 +197,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     ``[0, num_segments)``."""
     ids = segment_ids.long()
     order = torch.argsort(ids, stable=True)
-    lengths = torch.bincount(ids, minlength=num_segments)
+    lengths = count_ids(ids, num_segments)
     return torch.segment_reduce(take(data, order), "sum", lengths=lengths, axis=0)
 
 
@@ -279,6 +288,22 @@ class ParamTree(nn.Module):
                 return [unwrap(v) for v in node]
             return node
         return {key: unwrap(self[key]) for key in self.keys()}
+
+
+def flat_specs(tree, prefix: str = "") -> dict:
+    """A spec tree of a :class:`ParamTree`'s shape (dicts, lists; a tuple is
+    a spec) as ``{parameter name: spec}``, named as ``named_parameters``
+    names them (``blocks.0.wq``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, value in items:
+        out.update(flat_specs(value, f"{prefix}.{key}" if prefix else key))
+    return out
 
 
 def as_input(params: ParamTree, a, dtype=None) -> torch.Tensor:

@@ -21,8 +21,12 @@ the router through the gate values and through the aux loss's ``probs``,
 and the experts through the dispatch buffer. The routing decisions (top-k,
 the stable sort, the capacity) carry none.
 
-Expert parallelism over a mesh (``moe_ffn_ep``) waits for ROADMAP queue 1
-item 9.4.
+:func:`moe_ffn_ep` is the reference's expert-parallel dispatch: under a
+mesh with a ``model`` axis each rank routes its data shard's tokens, keeps
+the slots of its own ``E / p_model`` experts, runs them and adds its part
+of the combine; one all-reduce over ``model`` sums the parts. Counts are
+a ``scatter_add_`` of ones (``torch.bincount`` has no meta kernel; the
+bits are the same).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from torch.nn import functional as F
 
 from repro_torch.core.matches import stable_topk
 from repro_torch.core.precision import exact_f32
-from repro_torch.models.layers import take
+from repro_torch.models.layers import count_ids, take
 
 
 class MoEParams(nn.Module):
@@ -69,6 +73,38 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int, n_experts: int
         w.copy_((torch.randn(w.shape, generator=generator, device=device)
                  * (2.0 / (a + b)) ** 0.5).to(dtype))
     return p
+
+
+def moe_param_specs() -> dict:
+    """Specs of :class:`MoEParams`' parameters, by name: the experts over
+    the model axis (expert parallelism), the router replicated."""
+    return {"router": (None, None), "w_gate": ("model", None, None),
+            "w_up": ("model", None, None), "w_down": ("model", None, None)}
+
+
+def local_experts(params: MoEParams, mesh, model_axis: str = "model") -> MoEParams:
+    """The rank's part of ``params`` on ``mesh``: the whole router and the
+    stacks of experts ``[me · E_loc, (me + 1) · E_loc)``, copied, where
+    ``me`` is the rank's place on ``model_axis``. :func:`moe_ffn_ep` takes
+    it as it takes the whole stacks."""
+    lo, hi = _expert_range(params.router.shape[1], mesh, model_axis)
+    out = MoEParams(params.router.shape[0], params.w_gate.shape[2], 0, params.w_gate.dtype,
+                    "meta")
+    out.router = params.router
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(params, name)
+        setattr(out, name, nn.Parameter(w[lo:hi].clone(), requires_grad=w.requires_grad))
+    return out
+
+
+def _expert_range(n_experts: int, mesh, model_axis: str) -> tuple[int, int]:
+    from repro_torch.core.distributed import _axis_size
+
+    p = _axis_size(mesh, model_axis)
+    if n_experts % p:
+        raise ValueError(f"{n_experts} experts do not split over {p} {model_axis!r} ranks")
+    me = mesh.get_local_rank(model_axis)
+    return me * (n_experts // p), (me + 1) * (n_experts // p)
 
 
 class MoEOut(NamedTuple):
@@ -106,7 +142,7 @@ def moe_route(params: MoEParams, x: torch.Tensor, *, top_k: int,
     flat_expert = expert_ids.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    counts = torch.bincount(flat_expert, minlength=E)
+    counts = count_ids(flat_expert, E)
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * top_k, device=x.device) - starts[sorted_expert]
     keep = rank < C
@@ -150,3 +186,112 @@ def moe_ffn(
     per_slot[r.order] = weighted           # back to (token, slot) order: a permutation
     y = per_slot.reshape(T, top_k, d).sum(dim=1)
     return MoEOut(y=y.to(x.dtype), aux_loss=aux, dropped_frac=dropped)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel dispatch (the reference's shard_map)
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_ep(
+    params: MoEParams,
+    x: torch.Tensor,            # (T_loc, d): this rank's data shard of the tokens
+    *,
+    top_k: int,
+    capacity_factor: float,
+    mesh,
+    data_axes: tuple,
+    model_axis: str = "model",
+    router_dtype=torch.float32,
+) -> MoEOut:
+    """Replicated-activation expert parallelism, rank by rank.
+
+    Every rank of a ``(data…, model)`` mesh holds its data shard's tokens
+    ``x`` (the same on every ``model`` rank) and the whole router. It
+    routes its tokens, keeps only the slots of its own experts
+    ``[me · E_loc, (me + 1) · E_loc)``, runs them (three ``bmm``s) and adds
+    its partial combine in the fixed slot order; then one all-reduce over
+    ``model`` in the activation dtype, summed in rank order, gives ``y``
+    (``T_loc × d`` a layer: the only traffic). ``params`` holds either every
+    expert (the rank slices its own) or only the rank's (:func:`local_experts`).
+
+    Capacity is per (expert × data shard): ``C = max(1, int(T_loc·k·cf /
+    E))``, equal to :func:`moe_ffn`'s dispatch whenever nothing drops.
+    ``aux`` is the mean over the data axes of each shard's aux loss and
+    ``dropped_frac`` the mean over data and model of each rank's drops
+    among its experts' slots, as the reference's ``pmean``s.
+
+    The gradients are ``shard_map``'s: the router, ``x`` and a whole expert
+    stack enter with a backward that sums their gradient over ``model``;
+    ``y``'s all-reduce passes its gradient through; ``aux`` passes
+    ``1 / p_model`` of it to each rank (the ``model`` ranks compute it
+    alike, and the router's sum over ``model`` adds their shares). The
+    caller averages the gradients over the data axes.
+    """
+    from repro_torch.core.distributed import (
+        _axis_size,
+        enter_replicated,
+        pmean,
+        psum_in_order,
+        psum_replicated,
+    )
+
+    exact_f32()
+    T_loc, d = x.shape
+    E = params.router.shape[1]
+    lo, hi = _expert_range(E, mesh, model_axis)
+    E_loc = hi - lo
+    me = lo // E_loc
+    p_m = _axis_size(mesh, model_axis)
+    model = (model_axis,)
+    daxes = tuple(a for a in data_axes if a in mesh.mesh_dim_names)
+    C = capacity(T_loc, top_k, capacity_factor, E)
+
+    x_in = enter_replicated(x, mesh, model)
+    router = enter_replicated(params.router, mesh, model)
+    if params.w_gate.shape[0] == E:
+        w_gate, w_up, w_down = (enter_replicated(w, mesh, model)[lo:hi]
+                                for w in (params.w_gate, params.w_up, params.w_down))
+    else:
+        w_gate, w_up, w_down = params.w_gate, params.w_up, params.w_down
+
+    logits = torch.matmul(x_in.to(router_dtype), router.to(router_dtype))
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_ids = stable_topk(probs, top_k)
+    ce = F.one_hot(expert_ids[:, 0], E).float().mean(dim=0)
+    aux = pmean(E * torch.sum(probs.mean(dim=0) * ce), mesh, daxes, grad_scale=1.0 / p_m)
+
+    flat_e = expert_ids.reshape(-1)
+    owned = torch.div(flat_e, E_loc, rounding_mode="floor") == me
+    local_e = torch.where(owned, flat_e - me * E_loc, E_loc)       # E_loc = trash
+    order = torch.argsort(local_e, stable=True)
+    sorted_e = local_e[order]
+    counts = count_ids(local_e, E_loc + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T_loc * top_k, device=x.device) - starts[sorted_e]
+    keep = (sorted_e < E_loc) & (rank < C)
+    with torch.no_grad():
+        drop_local = owned.float().sum() - keep.float().sum()
+        dropped = drop_local / max(T_loc * top_k / p_m, 1.0)
+        dropped = psum_in_order(dropped, mesh, daxes + model) / _axis_size(mesh, daxes + model)
+
+    slot = torch.where(keep, sorted_e * C + rank, E_loc * C)
+    flat_token = torch.arange(T_loc, device=x.device).repeat_interleave(top_k)[order]
+    buf = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = take(x_in, flat_token)     # only the trash row takes several writes
+    buf = buf[:E_loc * C].reshape(E_loc, C, d)
+
+    g = torch.bmm(buf, w_gate)
+    u = torch.bmm(buf, w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    y_flat = torch.bmm(h, w_down).reshape(E_loc * C, d)
+
+    gathered = torch.where(keep[:, None], take(y_flat, slot.clamp(max=E_loc * C - 1)), 0.0)
+    weighted = gathered.float() * gates.reshape(-1)[order][:, None]
+    per_slot = torch.empty_like(weighted)
+    per_slot[order] = weighted
+    y_part = per_slot.reshape(T_loc, top_k, d).sum(dim=1)
+    # summed in the activation dtype, as the reference's psum: each token's
+    # slots lie on disjoint ranks, so this is the one rounding of a bf16 combine
+    y = psum_replicated(y_part.to(x.dtype), mesh, model)
+    return MoEOut(y=y, aux_loss=aux, dropped_frac=dropped)

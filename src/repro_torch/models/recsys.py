@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     chunked_attention,
     dense_init,
     embed_init,
+    flat_specs,
     mlp,
     rms_norm,
     segment_sum,
@@ -81,8 +82,12 @@ def embedding_bag_ragged(
 
 
 def _generator(device, generator):
+    """``(device, generator)``: seed 0 on ``device`` when ``generator`` is
+    omitted; none on the meta device, whose tensors hold no values."""
     dev = device_of(device)
-    return dev, (torch.Generator(dev).manual_seed(0) if generator is None else generator)
+    if generator is None and dev.type != "meta":
+        generator = torch.Generator(dev).manual_seed(0)
+    return dev, generator
 
 
 def _stack(gen, dims, d_in: int, dtype, dev) -> dict:
@@ -125,6 +130,17 @@ def init_two_tower(cfg: TwoTowerConfig, *, generator: torch.Generator | None = N
         "user_table": embed_init(gen, cfg.user_vocab, cfg.embed_dim, cfg.dtype, dev),
         "user_tower": _stack(gen, cfg.tower_dims, d_user_in, cfg.dtype, dev),
         "item_tower": _stack(gen, cfg.tower_dims, cfg.embed_dim, cfg.dtype, dev),
+    })
+
+
+def two_tower_param_specs(cfg: TwoTowerConfig) -> dict:
+    """The reference's layout, by parameter name: tables row-sharded over
+    ``model``, tower matrices column-sharded."""
+    return flat_specs({
+        "item_table": ("model", None),
+        "user_table": ("model", None),
+        "user_tower": {"w": [(None, "model")] * 3, "b": [("model",)] * 3},
+        "item_tower": {"w": [(None, "model")] * 3, "b": [("model",)] * 3},
     })
 
 
@@ -243,6 +259,22 @@ def init_bert4rec(cfg: Bert4RecConfig, *, generator: torch.Generator | None = No
     })
 
 
+def bert4rec_param_specs(cfg: Bert4RecConfig) -> dict:
+    """The reference's layout, by parameter name."""
+    blk = {
+        "attn_norm": (None,), "wq": (None, "model"), "wk": (None, "model"),
+        "wv": (None, "model"), "wo": ("model", None), "ffn_norm": (None,),
+        "w1": (None, "model"), "b1": ("model",),
+        "w2": ("model", None), "b2": (None,),
+    }
+    return flat_specs({
+        "item_table": ("model", None),
+        "pos_table": (None, None),
+        "blocks": [dict(blk) for _ in range(cfg.n_blocks)],
+        "final_norm": (None,),
+    })
+
+
 def bert4rec_encode(params: ParamTree, cfg: Bert4RecConfig, item_ids) -> torch.Tensor:
     exact_f32()
     item_ids = as_input(params, item_ids)
@@ -311,6 +343,15 @@ def init_din(cfg: DINConfig, *, generator: torch.Generator | None = None,
     })
 
 
+def din_param_specs(cfg: DINConfig) -> dict:
+    """The reference's layout, by parameter name."""
+    return flat_specs({
+        "item_table": ("model", None),
+        "attn": {"w": [(None, None)] * 3, "b": [(None,)] * 3},
+        "mlp": {"w": [(None, None)] * 3, "b": [(None,)] * 3},
+    })
+
+
 def din_logits(params: ParamTree, cfg: DINConfig, batch) -> torch.Tensor:
     exact_f32()
     history = as_input(params, batch["history"])
@@ -376,6 +417,23 @@ def init_bst(cfg: BSTConfig, *, generator: torch.Generator | None = None,
         "pos_table": embed_init(gen, cfg.seq_len, e, dt, dev),
         "blocks": blocks,
         "mlp": _stack(gen, (*cfg.mlp_dims, 1), cfg.seq_len * e, dt, dev),
+    })
+
+
+def bst_param_specs(cfg: BSTConfig) -> dict:
+    """The reference's layout, by parameter name."""
+    blk = {
+        "wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+        "wo": ("model", None), "norm1": (None,),
+        "w1": (None, "model"), "b1": ("model",),
+        "w2": ("model", None), "b2": (None,), "norm2": (None,),
+    }
+    return flat_specs({
+        "item_table": ("model", None),
+        "pos_table": (None, None),
+        "blocks": [dict(blk) for _ in range(cfg.n_blocks)],
+        "mlp": {"w": [(None, "model"), ("model", None), (None, None), (None, None)],
+                "b": [("model",), (None,), (None,), (None,)]},
     })
 
 

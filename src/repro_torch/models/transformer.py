@@ -22,8 +22,19 @@ neither its width nor its unequal key and value dims, so that path has no
 kernel by design. ``use_kernel=None`` takes the kernels when the model lies
 on a CUDA device and the plain functions of ``models/layers.py`` on the
 CPU; ``use_kernel=False`` runs the plain functions on the card, and
-``use_kernel=True`` on the CPU raises. ``moe_ffn_ep`` and the
-mesh-sharded cells wait for ROADMAP queue 1 items 9.4 and 9.8.
+``use_kernel=True`` on the CPU raises.
+
+On a mesh (``distributed.sharding.use_mesh``), every rank runs these
+functions on its local tensors. ``moe_impl="ep"`` under a mesh with a
+``model`` axis runs ``moe_ffn_ep`` (experts split over ``model``); the
+loss normalises by the global token count; and a cache made with
+``make_cache(mesh=, seq_axes=)`` holds the rank's slice of the sequence:
+:func:`decode_step` then runs K9's partials over the slice and merges the
+ranks' partials in rank order (the reference's sequence-parallel decode,
+where GSPMD turns the softmax's reductions into all-reduces: the paper's
+vertical accumulation of partial scores, over the sequence). Dense
+weights are replicated on every rank (``param_specs`` states the
+reference's layout; ``launch.dryrun`` prices the difference).
 
 Training (:func:`transformer_loss`) attends through the plain
 ``chunked_attention`` on every device, as the reference trains through
@@ -52,8 +63,13 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.precision import exact_f32
+from repro_torch.distributed.sharding import active_mesh, axis_sizes, data_axes, use_mesh
 from repro_torch.interop import device_of
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (
+    combine_partials,
+    decode_attention,
+    decode_attention_partials,
+)
 from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (
@@ -66,7 +82,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.moe import MoEParams, init_moe, moe_ffn
+from repro_torch.models.moe import MoEParams, init_moe, moe_ffn, moe_ffn_ep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +115,7 @@ class TransformerConfig:
     first_k_dense: int = 0          # deepseek: leading dense layers
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
-    moe_impl: str = "gspmd"         # "ep" runs moe_ffn too until item 9.4 (no mesh)
+    moe_impl: str = "gspmd"         # "gspmd" | "ep" (moe_ffn_ep under a mesh with "model")
     # numerics / memory
     dtype: Any = torch.bfloat16
     remat: bool = True              # training: recompute each block in the backward
@@ -109,7 +125,7 @@ class TransformerConfig:
     bf16_probs: bool = False        # plain path only (K8 raises)
     grad_accum: int = 1             # training: microbatches per step
     # parallelism
-    fsdp: bool = False              # the reference's sharded cells (item 9.8); unused
+    fsdp: bool = False              # param_specs over ("pod", "data"); weights stay replicated
 
     @property
     def padded_vocab(self) -> int:
@@ -276,6 +292,52 @@ def count_active_params(cfg: TransformerConfig) -> int:
     return total - routed_all + routed_active
 
 
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The reference's parameter layout (``param_specs``: tensor parallel
+    over ``model``, + FSDP over ``("pod", "data")`` with ``cfg.fsdp``) as the
+    port's specs, keyed by :class:`Transformer`'s parameter names.
+    ``nn.Linear`` weights are the transpose of the reference's matrices, so
+    their specs are reversed; the reference's stacked ``layers`` dim is one
+    module a layer here. The port places no weight by it (see the module
+    doc); the dry run and the cells read it."""
+    f = ("pod", "data") if cfg.fsdp else None
+    specs = {}
+    for name, p in Transformer(cfg, "meta").named_parameters():
+        parts = name.split(".")
+        leaf = parts[-2] if parts[-1] == "weight" else parts[-1]
+        if name == "embed":
+            spec = (None, "model")
+        elif name == "lm_head.weight":
+            spec = ("model", None)
+        elif p.dim() == 1:
+            spec = (None,)
+        elif "moe" in parts:
+            spec = (f, None) if leaf == "router" else ("model", f, None)
+        elif leaf in ("wq_a", "wkv_a"):
+            spec = (None, f)
+        elif leaf in ("wo", "w_down"):
+            spec = (f, "model")
+        else:                                   # wq wk wv wq_b wkv_b w_gate w_up
+            spec = ("model", f)
+        specs[name] = spec
+    return specs
+
+
+def cache_specs(cfg: TransformerConfig, *, seq_axes=("model",),
+                batch_axes=("pod", "data")) -> dict:
+    """The cache's specs (the reference's ``cache_specs``): batch over
+    ``batch_axes``, sequence over ``seq_axes``; keys as :func:`make_cache`'s."""
+    seq, bat = tuple(seq_axes) or None, tuple(batch_axes) or None
+    if cfg.attention == "mla":
+        specs = {"c_kv": (None, bat, seq, None), "k_pe": (None, bat, seq, None)}
+    else:
+        specs = {"k": (None, bat, None, seq, None), "v": (None, bat, None, seq, None)}
+    if cfg.first_k_dense:
+        specs.update({f"dense_{key}": spec for key, spec in list(specs.items())})
+    specs["length"] = (bat,)
+    return specs
+
+
 def _use_kernel(use_kernel: bool | None, device: torch.device) -> bool:
     on_card = device.type == "cuda"
     if use_kernel is None:
@@ -374,12 +436,21 @@ def _ffn(p, cfg: TransformerConfig, x):
     """FFN: dense, or MoE (+ shared experts / + dense residual); returns
     ``(y, stats)``, ``stats`` the MoE call's ``MoEOut`` without ``y`` (aux
     loss, drops) or ``None``. The MoE runs over the ``B·S`` flattened
-    tokens, so its capacity follows them."""
+    tokens, so its capacity follows them; with ``moe_impl="ep"`` under a
+    mesh with a ``model`` axis it is ``moe_ffn_ep`` over the rank's tokens,
+    as the reference's ``_ffn``. Else, on a mesh, each rank routes its own
+    tokens by ``moe_ffn``."""
     if isinstance(p, FFN):
         return _swiglu(p, x), None
     b, s, d = x.shape
-    out = moe_ffn(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
-                  capacity_factor=cfg.capacity_factor)
+    mesh = active_mesh()
+    if cfg.moe_impl == "ep" and "model" in axis_sizes(mesh):
+        out = moe_ffn_ep(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, mesh=mesh,
+                         data_axes=data_axes())
+    else:
+        out = moe_ffn(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
+                      capacity_factor=cfg.capacity_factor)
     y = out.y.reshape(b, s, d)
     if p.shared is not None:
         y = y + _swiglu(p.shared, x)
@@ -396,6 +467,14 @@ def _block(p: Block, cfg: TransformerConfig, x, positions, use_kernel: bool):
     return h + f, stats
 
 
+def _block_on(mesh, p: Block, cfg: TransformerConfig, x, positions, use_kernel: bool):
+    """:func:`_block` under ``use_mesh(mesh)``: a checkpointed block runs
+    again in the backward pass, and on a CUDA device autograd runs it in
+    its own thread, which does not see the forward thread's mesh."""
+    with use_mesh(mesh):
+        return _block(p, cfg, x, positions, use_kernel)
+
+
 def _backbone(params: Transformer, cfg: TransformerConfig, tokens, use_kernel: bool,
               moe_stats: list | None = None, remat: bool = False):
     """Embed + all blocks + final norm → ``(hidden states (B, S, d), aux)``,
@@ -408,8 +487,8 @@ def _backbone(params: Transformer, cfg: TransformerConfig, tokens, use_kernel: b
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in params.blocks():
         if remat:
-            x, stats = checkpoint(_block, blk, cfg, x, positions, use_kernel,
-                                  use_reentrant=False)
+            x, stats = checkpoint(_block_on, active_mesh(), blk, cfg, x, positions,
+                                  use_kernel, use_reentrant=False)
         else:
             x, stats = _block(blk, cfg, x, positions, use_kernel)
         if stats is not None:
@@ -485,6 +564,10 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, batch: dict, *
     Attention takes the plain path on every device (K8 has no backward).
     ``moe_stats``, a list, receives each MoE layer's stats (aux loss,
     ``dropped_frac``) in layer order, from the forward pass only.
+
+    Under a mesh with data axes the batch is the rank's rows, ``tokens``
+    the global count (an all-reduce) and ``ce_loss`` the rank's CE sum over
+    it times the data ranks: the mean over the data axes is the global CE.
     """
     exact_f32()
     tokens = _tokens(params, batch["tokens"])
@@ -510,7 +593,17 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, batch: dict, *
         tot = tot + checkpoint(_chunk_nll, x[:, sl], params.lm_head.weight, labels[:, sl],
                                mask[:, sl], use_reentrant=False)
         cnt = cnt + torch.sum(mask[:, sl])
-    loss = tot / torch.clamp(cnt, min=1.0)
+    mesh, daxes = active_mesh(), data_axes()
+    if daxes:
+        # A rank's share of the global CE: its sum over the global count,
+        # times the number of data ranks, so that the trainer's mean over
+        # the data axes is the global mean
+        from repro_torch.core.distributed import _axis_size, psum_in_order
+
+        cnt = psum_in_order(cnt.detach(), mesh, daxes)
+        loss = tot / torch.clamp(cnt, min=1.0) * _axis_size(mesh, daxes)
+    else:
+        loss = tot / torch.clamp(cnt, min=1.0)
     total = loss + cfg.aux_loss_weight * aux
     return total, {"ce_loss": loss, "aux_loss": aux, "tokens": cnt}
 
@@ -524,14 +617,69 @@ def _cache_keys(cfg: TransformerConfig) -> tuple[str, str]:
     return ("c_kv", "k_pe") if cfg.attention == "mla" else ("k", "v")
 
 
+@dataclasses.dataclass
+class CacheLayout:
+    """Where a rank's cache lies in the global one (``cache["layout"]`` of a
+    cache made on a mesh): positions ``[offset, offset + local_len)`` of
+    ``max_len``, the rows of its ``batch_axes`` block, over ``mesh``.
+    ``last_partials`` holds the last attention layer's local ``(m, l)``
+    (references, no copy) for a caller to inspect."""
+
+    mesh: Any
+    seq_axes: tuple
+    batch_axes: tuple
+    offset: int
+    local_len: int
+    max_len: int
+    last_partials: tuple | None = None
+
+
+def _mesh_axes(mesh, axes) -> tuple:
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in axes if a in sizes)
+
+
+def cache_layout(mesh, max_len: int, *, seq_axes=(), batch_axes=()) -> CacheLayout:
+    """The layout of this rank's cache on ``mesh`` (a ``DeviceMesh``): the
+    sequence split over ``seq_axes`` (row-major, axes the mesh lacks
+    dropped), this rank's block of it from its place in that group."""
+    from repro_torch.core.distributed import _axis_index, _axis_size
+
+    seq, bat = _mesh_axes(mesh, seq_axes), _mesh_axes(mesh, batch_axes)
+    p = _axis_size(mesh, seq) if seq else 1
+    if max_len % p:
+        raise ValueError(f"max_len={max_len} does not split over {p} ranks of {seq}")
+    local = max_len // p
+    offset = _axis_index(mesh, seq) * local if seq else 0
+    return CacheLayout(mesh, seq, bat, offset, local, max_len)
+
+
 def make_cache(
-    cfg: TransformerConfig, batch: int, max_len: int, *, device: str | torch.device = "cuda"
+    cfg: TransformerConfig, batch: int, max_len: int, *, device: str | torch.device = "cuda",
+    mesh=None, seq_axes=(), batch_axes=(),
 ) -> dict:
     """An empty cache in the model's dtype, stacked over the non-dense layers
     (``L'``), with ``dense_*`` entries over the ``first_k_dense`` layers.
     GQA: ``k``/``v`` ``(L', B, Hkv, S, D)``. MLA: the latent ``c_kv (L', B,
-    S, r)`` and ``k_pe (L', B, S, dr)``. ``length (B,)`` int32."""
+    S, r)`` and ``k_pe (L', B, S, dr)``. ``length (B,)`` int32.
+
+    With a ``mesh`` (a ``DeviceMesh``; every rank calls this) it is the
+    rank's block: ``S = max_len / p`` positions from ``r · S``, ``p`` the
+    product of the ``seq_axes`` sizes and ``r`` the rank's row-major place
+    over them, and ``batch / q`` rows for the ``q`` ranks of
+    ``batch_axes``; ``cache["layout"]`` (:class:`CacheLayout`) says so, and
+    ``length`` holds the global positions of the rank's rows."""
     dev = device_of(device)
+    layout = None
+    if mesh is not None:
+        from repro_torch.core.distributed import _axis_size
+
+        layout = cache_layout(mesh, max_len, seq_axes=seq_axes, batch_axes=batch_axes)
+        q = _axis_size(mesh, layout.batch_axes) if layout.batch_axes else 1
+        if batch % q:
+            raise ValueError(f"batch={batch} does not split over {q} ranks of "
+                             f"{layout.batch_axes}")
+        batch, max_len = batch // q, layout.local_len
 
     def zeros(layers):
         if cfg.attention == "mla":
@@ -547,12 +695,58 @@ def make_cache(
     if cfg.first_k_dense:
         cache.update(zip((f"dense_{key}" for key in keys), zeros(cfg.first_k_dense)))
     cache["length"] = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if layout is not None:
+        cache["layout"] = layout
     return cache
 
 
-def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel: bool):
+def _write_row(cache: torch.Tensor, pos: torch.Tensor, row: torch.Tensor,
+               layout: CacheLayout | None) -> None:
+    """``cache[b, ..., pos[b], :] = row[b]`` in place (the sequence dim is
+    ``cache``'s second-last). On a sharded cache only the rank whose block
+    holds ``pos[b]`` writes it, at its local position; the others write the
+    row's old value back (no host sync)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    row = row.to(cache.dtype)
+    if layout is None:
+        cache[bidx, ..., pos.long(), :] = row
+        return
+    local = pos.long() - layout.offset
+    mine = (local >= 0) & (local < layout.local_len)
+    at = local.clamp(0, layout.local_len - 1)
+    old = cache[bidx, ..., at, :]
+    cache[bidx, ..., at, :] = torch.where(mine.reshape(-1, *[1] * (row.dim() - 1)), row, old)
+
+
+def _local_lengths(lengths: torch.Tensor, layout: CacheLayout | None) -> torch.Tensor:
+    """Live positions of each row in this rank's block (``lengths + 1`` is
+    the global count, the new token included)."""
+    if layout is None:
+        return lengths + 1
+    return (lengths + 1 - layout.offset).clamp(0, layout.local_len)
+
+
+def _combine_over_seq(acc, m, l, layout: CacheLayout) -> torch.Tensor:
+    """Merge every rank's ``(acc (B, H, W), m, l)`` over the layout's
+    sequence group: one all-gather of ``B × H × (W + 2)`` f32, then
+    ``combine_partials`` in rank order (the bits do not depend on timing)."""
+    from repro_torch.core.distributed import _all_gather
+
+    layout.last_partials = (m, l)
+    if not layout.seq_axes:
+        return acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    b, h, w = acc.shape
+    packed = torch.cat([acc, m[..., None], l[..., None]], dim=-1)[None]
+    parts = _all_gather(packed, layout.mesh, layout.seq_axes)        # (P, B, H, W + 2)
+    return combine_partials(parts[..., :w], parts[..., w], parts[..., w + 1])
+
+
+def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel: bool,
+                     layout: CacheLayout | None = None):
     """One-token GQA attention against one layer's cache (+ the new token,
-    written into the cache in place at each sequence's position)."""
+    written into the cache in place at each sequence's position). On a
+    sharded cache: K9's partials over the rank's block, merged over the
+    ranks (:func:`_combine_over_seq`)."""
     b = x.shape[0]
     q = p.wq(x).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     k_new = p.wk(x).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
@@ -563,25 +757,31 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
     posb = lengths[:, None]
     q = apply_rope(q, posb, cfg.rope_theta)[:, 0]             # (B, H, D)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)[:, 0]     # (B, Hkv, D)
-    bidx = torch.arange(b, device=x.device)
-    pos = lengths.long()
-    k_cache[bidx, :, pos, :] = k_new.to(k_cache.dtype)
-    v_cache[bidx, :, pos, :] = v_new[:, 0].to(v_cache.dtype)
+    _write_row(k_cache, lengths, k_new, layout)
+    _write_row(v_cache, lengths, v_new[:, 0], layout)
     scale = 1.0 / (cfg.head_dim ** 0.5)
-    if use_kernel:
-        o = decode_attention(q, k_cache, v_cache, lengths + 1, scale=scale)
+    live = _local_lengths(lengths, layout)
+    if layout is not None:
+        partials = (decode_attention_partials if use_kernel else
+                    lambda *a, **k: decode_attention_xla(*a, **k, with_partials=True))
+        o = _combine_over_seq(*partials(q, k_cache, v_cache, live, scale=scale), layout)
+    elif use_kernel:
+        o = decode_attention(q, k_cache, v_cache, live, scale=scale)
     else:
-        o = decode_attention_xla(q, k_cache, v_cache, lengths + 1, scale=scale)
+        o = decode_attention_xla(q, k_cache, v_cache, live, scale=scale)
     return p.wo(o.reshape(b, cfg.n_heads * cfg.head_dim).to(x.dtype))
 
 
-def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths):
+def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
+                     layout: CacheLayout | None = None):
     """Absorbed MLA decode: attention entirely in latent space, in plain
     torch products (f32, as the reference's einsums; no kernel by design).
 
     Scores ``s[b,h,l] = (q_nope·W_kᵀ)·c_kv[l] + q_pe·k_pe[l]``; output
     ``o[b,h] = (Σ_l p_l·c_kv[l])·W_v``: K/V are never materialized. The new
-    latent row is written into ``c_cache``/``pe_cache`` in place.
+    latent row is written into ``c_cache``/``pe_cache`` in place. On a
+    sharded cache each rank forms the unnormalised ``(Σ_l p_l·c_kv[l], m,
+    l)`` of its block and the ranks merge them as K9's partials.
     """
     b = x.shape[0]
     h, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
@@ -597,10 +797,8 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths):
     c_new = rms_norm(kv_a[..., :r], p.kv_norm)
     pe_new = apply_rope(kv_a[..., r:][:, None, None, :], posb, cfg.rope_theta)[:, 0, 0]
 
-    bidx = torch.arange(b, device=x.device)
-    pos = lengths.long()
-    c_cache[bidx, pos, :] = c_new.to(c_cache.dtype)
-    pe_cache[bidx, pos, :] = pe_new.to(pe_cache.dtype)
+    _write_row(c_cache, lengths, c_new, layout)
+    _write_row(pe_cache, lengths, pe_new, layout)
 
     wkv_b = p.wkv_b.weight.T.reshape(r, h, dn + dv).float()
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]               # (r, h, dn), (r, h, dv)
@@ -610,22 +808,27 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths):
     s = (torch.einsum("bhr,blr->bhl", q_lat, c32)
          + torch.einsum("bhr,blr->bhl", q_pe.float(), pe_cache.float())) * scale
     L = c_cache.shape[1]
-    valid = torch.arange(L, device=x.device)[None, None, :] < (lengths + 1)[:, None, None]
+    live = _local_lengths(lengths, layout)
+    valid = torch.arange(L, device=x.device)[None, None, :] < live[:, None, None]
     s = torch.where(valid, s, NEG_LARGE)
     m = s.amax(dim=-1, keepdim=True)
     pr = torch.where(valid, torch.exp(s - m), 0.0)
-    pr = pr / pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o_lat = torch.einsum("bhl,blr->bhr", pr, c32)
+    if layout is None:
+        pr = pr / pr.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o_lat = torch.einsum("bhl,blr->bhr", pr, c32)
+    else:
+        o_lat = _combine_over_seq(torch.einsum("bhl,blr->bhr", pr, c32), m[..., 0],
+                                  pr.sum(dim=-1), layout)
     o = torch.einsum("bhr,rhv->bhv", o_lat, w_v)
     return p.wo(o.reshape(b, h * dv).to(x.dtype))
 
 
-def _decode_block(p: Block, cfg, x, cache_a, cache_b, lengths, use_kernel: bool):
+def _decode_block(p: Block, cfg, x, cache_a, cache_b, lengths, use_kernel: bool, layout):
     xn = rms_norm(x, p.attn_norm)
     if cfg.attention == "mla":
-        attn = _mla_decode_attn(p.attn, cfg, xn, cache_a, cache_b, lengths)
+        attn = _mla_decode_attn(p.attn, cfg, xn, cache_a, cache_b, lengths, layout)
     else:
-        attn = _gqa_decode_attn(p.attn, cfg, xn, cache_a, cache_b, lengths, use_kernel)
+        attn = _gqa_decode_attn(p.attn, cfg, xn, cache_a, cache_b, lengths, use_kernel, layout)
     h = x + attn
     return h + _ffn(p.ffn, cfg, rms_norm(h, p.ffn_norm)[:, None, :])[0][:, 0, :]
 
@@ -645,21 +848,31 @@ def decode_step(
     cache's length, this raises ``ValueError`` before any write. An MoE
     layer routes the ``B`` tokens of the step, so its capacity follows
     ``B``.
+
+    On a cache made on a mesh (``make_cache(mesh=)``; every rank of the
+    mesh calls this with its rows' tokens) the new K/V row is written only
+    by the rank whose block holds ``lengths[b]``, each rank runs K9's
+    partials entry (its plain version on the CPU) over its block with
+    local lengths ``clamp(lengths + 1 − offset, 0, S)``, and the ranks'
+    ``(acc, m, l)`` are all-gathered over the sequence group and merged by
+    ``combine_partials`` in rank order. A rank whose block lies past a
+    sequence's length contributes ``m = NEG_LARGE``, ``l = 0``.
     """
     exact_f32()
     tokens = _tokens(params, tokens)
     use = _use_kernel(use_kernel, tokens.device)
     lengths = cache["length"]
+    layout = cache.get("layout")
     a, b = _cache_keys(cfg)
-    max_len = cache[a].shape[3 if cfg.attention == "gqa" else 2]
-    if int(lengths.max()) >= max_len:
+    max_len = layout.max_len if layout else cache[a].shape[3 if cfg.attention == "gqa" else 2]
+    if not lengths.is_meta and int(lengths.max()) >= max_len:
         raise ValueError(f"a sequence has filled its cache of {max_len} positions")
     x = F.embedding(tokens.long(), params.embed)
     for i, blk in enumerate(params.dense_layers):
         x = _decode_block(blk, cfg, x, cache[f"dense_{a}"][i], cache[f"dense_{b}"][i],
-                          lengths, use)
+                          lengths, use, layout)
     for i, blk in enumerate(params.layers):
-        x = _decode_block(blk, cfg, x, cache[a][i], cache[b][i], lengths, use)
+        x = _decode_block(blk, cfg, x, cache[a][i], cache[b][i], lengths, use, layout)
     logits = _logits_f32(params, rms_norm(x, params.final_norm))
     lengths.add_(1)
     return logits, cache

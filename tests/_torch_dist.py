@@ -256,3 +256,173 @@ def compression_ranks(rank, world, dev, grads: list, errors: dict, ratio: float,
         out.append(({k: v.numpy() for k, v in synced.items()},
                     {k: v.numpy() for k, v in state.error.items()}))
     return out
+
+
+def mesh_ranks(rank, world, dev, spec: dict) -> dict:
+    """Rank function (``launch.mesh.spawn``) of ``tests/test_torch_mesh.py``
+    on a ``(2, 2)`` ``("data", "model")`` mesh: the sequence-sharded decodes
+    of ``spec["decode"]``, ``moe_ffn_ep`` on ``spec["ep"]``, mesh train
+    steps on ``spec["train"]``, ``train_loop(mesh=)`` stopped and resumed
+    under ``spec["run_dir"]``, and the op census of :data:`CUT_TRAIN`'s
+    cell. Returns numpy results; rank-specific entries carry the rank."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.manual_seed(0)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    out = {"coord": tuple(mesh.get_coordinate())}
+    out["decode"] = {name: _mesh_decode(mesh, **case) for name, case in spec["decode"].items()}
+    out["ep"] = _mesh_ep(mesh, **spec["ep"])
+    out["train"] = {name: _mesh_train(mesh, **case) for name, case in spec["train"].items()}
+    out["loop"] = _mesh_loop(mesh, spec["run_dir"], rank)
+    out["census"] = _mesh_census(mesh)
+    return out
+
+
+def _rows(x, mesh, axes):
+    """This rank's block of ``x``'s first dim over the mesh axes ``axes``."""
+    from repro_torch.core.distributed import _axis_index, _axis_size
+
+    axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    if not axes:
+        return x
+    q, r = _axis_size(mesh, axes), _axis_index(mesh, axes)
+    n = x.shape[0] // q
+    return x[r * n:(r + 1) * n]
+
+
+def _mesh_decode(mesh, cfg, tree, tokens, max_len, seq_axes, batch_axes) -> dict:
+    """Decode ``tokens (B, S)`` one step at a time into a cache of ``max_len``
+    sharded by ``seq_axes``/``batch_axes``: each step's logits of the rank's
+    rows, and each step's largest ``l`` of the rank's last attention layer
+    (its largest ``m`` where every ``l`` is 0: ``NEG_LARGE`` for a block
+    with no position)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.models import transformer as tt
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu")
+    cache = tt.make_cache(cfg, tokens.shape[0], max_len, device="cpu", mesh=mesh,
+                          seq_axes=seq_axes, batch_axes=batch_axes)
+    mine = torch.as_tensor(_rows(tokens, mesh, batch_axes))
+    logits, l_max = [], []
+    for i in range(mine.shape[1]):
+        step, cache = tt.decode_step(model, cfg, cache, mine[:, i])
+        logits.append(step.numpy())
+        m, l = cache["layout"].last_partials
+        l_max.append(float(l.max()) if float(l.max()) > 0 else float(m.max()))
+    return {"logits": np.stack(logits), "l_max": l_max,
+            "offset": cache["layout"].offset, "local_len": cache["layout"].local_len}
+
+
+def _moe_from_numpy(tree, requires_grad=False):
+    import torch
+
+    from repro_torch.models.moe import MoEParams
+
+    d, E = tree["router"].shape
+    p = MoEParams(d, tree["w_gate"].shape[2], E, torch.float32, "cpu")
+    with torch.no_grad():
+        for name, value in tree.items():
+            getattr(p, name).copy_(torch.as_tensor(value))
+    return p.requires_grad_(requires_grad)
+
+
+def _mesh_ep(mesh, tree, x, top_k, factors) -> dict:
+    """``moe_ffn_ep`` on the rank's rows of ``x`` at each capacity factor
+    (``y`` rows, aux, drops), and at the first factor the gradients of
+    ``p_data · Σ y² + aux`` averaged over ``data``: the share of the global
+    ``Σ y² + aux`` each data rank's mean takes (``launch.train``)."""
+    import torch
+
+    from repro_torch.core.distributed import psum_in_order
+    from repro_torch.models.moe import local_experts, moe_ffn_ep
+
+    mine = torch.as_tensor(_rows(x, mesh, ("data",)))
+    out = {}
+    for cf in factors:
+        with torch.no_grad():
+            r = moe_ffn_ep(_moe_from_numpy(tree), mine, top_k=top_k, capacity_factor=cf,
+                           mesh=mesh, data_axes=("data",))
+        out[cf] = {"y": r.y.numpy(), "aux": float(r.aux_loss), "dropped": float(r.dropped_frac)}
+    local = local_experts(_moe_from_numpy(tree), mesh)
+    with torch.no_grad():
+        r = moe_ffn_ep(local, mine, top_k=top_k, capacity_factor=factors[0], mesh=mesh,
+                       data_axes=("data",))
+    out["local_y"] = r.y.numpy()
+    params = _moe_from_numpy(tree, requires_grad=True)
+    r = moe_ffn_ep(params, mine, top_k=top_k, capacity_factor=factors[0], mesh=mesh,
+                   data_axes=("data",))
+    (2 * torch.sum(r.y ** 2) + r.aux_loss).backward()
+    out["grads"] = {name: (psum_in_order(p.grad, mesh, ("data",)) / 2).numpy()
+                    for name, p in params.named_parameters()}
+    return out
+
+
+def _mesh_train(mesh, cfg, tree, batch, hp) -> dict:
+    """One ``make_lm_train_step`` on the rank's rows of ``batch`` under
+    ``use_mesh(mesh)``: metrics and the parameters after, as the leaves of
+    the reference's tree in its flattening order."""
+    from repro_torch import interop, optim
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizer import tree_leaves
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu")
+    opt = optim.adamw_init(train.params_of(model))
+    mine = {k: _rows(v, mesh, ("data",)) for k, v in batch.items()}
+    with use_mesh(mesh):
+        _, _, metrics = train.make_lm_train_step(cfg, hp)(model, opt, mine)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": tree_leaves(interop.transformer_params_to_numpy(model))}
+
+
+def _mesh_loop(mesh, run_dir, rank) -> dict:
+    """``train_loop(mesh=)`` on deepseek-moe-16b's smoke config with
+    ``moe_impl="ep"`` at capacity factor 16 and aux loss weight 0: 4 steps straight, and 2 steps
+    then a resume to 4; both final checkpoints' leaves (read by every
+    rank), and the straight run's metrics."""
+    import os
+
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch import train
+
+    kw = dict(arch="deepseek-moe-16b", mesh=mesh, device="cpu", ckpt_every=2, log_every=100,
+              smoke_overrides={"moe_impl": "ep", "capacity_factor": 16.0,
+                               "aux_loss_weight": 0.0})
+    straight, resumed = (os.path.join(run_dir, name) for name in ("straight", "resumed"))
+    first = train.train_loop(steps=4, ckpt_dir=straight, **kw)
+    train.train_loop(steps=2, ckpt_dir=resumed, total_steps=4, **kw)
+    again = train.train_loop(steps=4, ckpt_dir=resumed, **kw)
+
+    def leaves(d):
+        return {k: np.asarray(v.float() if hasattr(v, "float") else v)
+                for k, v in ck.load_checkpoint(d, 4).items()}
+    return {"straight": first, "resumed": again, "straight_ck": leaves(straight),
+            "resumed_ck": leaves(resumed), "steps": ck.CheckpointManager(resumed).all_steps()}
+
+
+CUT_TRAIN = dict(arch="qwen3-1.7b", shape="train_4k_cut", global_batch=4, seq_len=64)
+
+
+def register_cut_train_cell() -> None:
+    """Register ``train_4k``'s builder at 4 × 64 tokens as qwen3-1.7b's
+    ``train_4k_cut`` cell (a smoke-size census on CPU ranks)."""
+    from repro_torch.configs import ShapeCell, get_arch
+    from repro_torch.configs.lm_common import build_train_cell
+
+    get_arch(CUT_TRAIN["arch"]).shapes[CUT_TRAIN["shape"]] = ShapeCell(
+        "train", "train_4k's builder at 4 × 64 tokens",
+        lambda cfg, mesh: build_train_cell(cfg, mesh, global_batch=CUT_TRAIN["global_batch"],
+                                           seq_len=CUT_TRAIN["seq_len"]))
+
+
+def _mesh_census(mesh) -> dict:
+    """The op census of :data:`CUT_TRAIN`'s cell at the smoke config on
+    this rank, run on real local arguments (zeros; token ids 0)."""
+    from repro_torch.launch import dryrun
+
+    register_cut_train_cell()
+    return dryrun.census_on_ranks(CUT_TRAIN["arch"], CUT_TRAIN["shape"], mesh)

@@ -1,0 +1,81 @@
+"""The port's dry run (``launch/dryrun.py``): overrides as the reference's
+``tests/test_perf_variants.py`` parses them, and cells run as rank 0 of a
+``fake`` process group in a subprocess (the group is global state): an LM
+and a GNN cell at the production mesh, and an override that changes what
+the census counts. The census against real ranks is in
+``tests/test_torch_mesh.py``."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.launch.dryrun import apply_overrides, parse_mesh, roofline_terms  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+
+def _dryrun(tmp_path, *argv) -> dict:
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = str(tmp_path)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                           "--out", out], env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    (name,) = [f for f in os.listdir(out) if f.endswith(".json")]
+    with open(os.path.join(out, name)) as f:
+        return json.load(f)
+
+
+def test_dryrun_overrides_parse():
+    cfg = get_arch("qwen3-1.7b").make_smoke_config()
+    out = apply_overrides(cfg, ["grad_accum=4", "bf16_probs=True"])
+    assert out.grad_accum == 4 and out.bf16_probs is True
+    d = apply_overrides({"a": 1}, ["a=2", "b=x"])
+    assert d == {"a": 2, "b": "x"}
+    assert parse_mesh("pod=2,data=16,model=16") == {"pod": 2, "data": 16, "model": 16}
+
+
+def test_roofline_terms_split_links_by_node():
+    r = roofline_terms(989e12, 3.35e12, {"8": 450e9, "16": 50e9})
+    assert r["compute_s"] == pytest.approx(1.0) and r["memory_s"] == pytest.approx(1.0)
+    assert r["collective_s"] == pytest.approx(2.0) and r["dominant"] == "collective"
+
+
+@pytest.mark.parametrize("arch,shape", [("qwen3-1.7b", "decode_32k"),
+                                        ("gat-cora", "full_graph_sm")])
+def test_dryrun_cell_at_the_production_mesh(tmp_path, arch, shape):
+    res = _dryrun(tmp_path, "--arch", arch, "--shape", shape)
+    assert res["status"] == "ok" and res["mesh"] == "16x16" and res["ranks"] == 256
+    assert res["census"]["flops"] > 0 and res["census"]["hbm_bytes"] > 0
+    assert res["resident_bytes"] > 0 and res["spec_bytes"] > 0
+    assert res["peak_live_bytes"] >= res["resident_bytes"]
+    assert res["roofline"]["dominant"] in ("compute", "memory", "collective")
+    if arch == "qwen3-1.7b":
+        # batch 128 over data (8 rows), cache 32,768 over model (2,048 positions)
+        # on every rank; weights replicated, where the reference splits them over model
+        cache = 28 * 8 * 8 * 2048 * 128 * 2 * 2
+        assert res["resident_bytes"] > cache and res["spec_bytes"] < res["resident_bytes"]
+        assert res["layers_counted"] == [1, 2]
+        assert res["census"]["collectives"]["all-gather"]["count"] == 28  # one a layer
+    else:
+        assert res["census"]["collectives"]["all-reduce"]["count"] > 0  # gradient mean
+
+
+def test_dryrun_override_changes_the_census(tmp_path):
+    """``moe_impl=ep`` puts three all-reduces in each MoE layer: ``y`` over
+    ``model`` (the reference's ``psum``), the aux loss over ``data`` and
+    the drop fraction over both (its ``pmean``s)."""
+    argv = ("--arch", "deepseek-moe-16b", "--shape", "decode_32k", "--smoke",
+            "--mesh", "data=2,model=2")
+    base = _dryrun(tmp_path / "gspmd", *argv)
+    ep = _dryrun(tmp_path / "ep", *argv, "--override", "moe_impl=ep")
+    n_moe = get_arch("deepseek-moe-16b").make_smoke_config()
+    n_moe = n_moe.n_layers - n_moe.first_k_dense
+    assert (ep["census"]["collectives"]["all-reduce"]["count"]
+            == base["census"]["collectives"]["all-reduce"]["count"] + 3 * n_moe)
+    assert ep["census"]["flops"] != base["census"]["flops"]

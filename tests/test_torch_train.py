@@ -214,8 +214,12 @@ def test_train_cli_resumes(tmp_path, capsys):
 
 
 def test_train_loop_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="9.4"):
-        train.train_loop(arch="gat-cora", steps=1, mesh=object(), device="cpu")
+    """A mesh that is only a ``{axis: size}`` description (cells are built
+    on one) has no ranks to train on: ``train_loop`` takes a
+    ``DeviceMesh`` (the mesh runs themselves: ``tests/test_torch_mesh.py``)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        train.train_loop(arch="gat-cora", steps=1, mesh={"data": 2, "model": 2},
+                         device="cpu")
 
 
 # -- bf16 checkpoints across the packages -------------------------------------------

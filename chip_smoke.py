@@ -2460,7 +2460,25 @@ MOE_EP = dict(arch="deepseek-moe-16b", tokens=2 * 4096, seed=12, factors=(16.0, 
 # The aux loss weighs 0: EP's aux loss is the mean of each data shard's (the
 # reference's pmean), so with it the losses would differ from one rank's by design.
 TRAIN_MESH = dict(arch="deepseek-moe-16b", steps=4, stop=2,
-                  overrides={"moe_impl": "ep", "capacity_factor": 16.0, "aux_loss_weight": 0.0})
+                  overrides={"moe_impl": "ep", "capacity_factor": 16.0, "aux_loss_weight": 0.0,
+                             "fsdp": True})
+# Tensor parallelism in the same 4 ranks, on a model=4 mesh: qwen3-1.7b at full
+# width and depth, each rank holding its blocks (about 1 GB of 4.06 GB).
+TP_MESH = ((4,), ("model",))
+# Depth cut from 28 to 8 layers: each layer's two row-parallel sums all-gather a
+# 67 MB f32 partial through gloo's host staging, 0.46 s each (25.7 s a prefill
+# at full depth beside an NVIDIA H100 80GB HBM3 at 700 W).
+TP_PREFILL = dict(batch=2, seq=4096, layers=8, seed=21)
+# decode_32k's cache length, its sequence over model: 8,192 positions a rank,
+# 7.5 GB a rank; length 24,576 fills ranks 0-2, rank 3 holds the new rows only.
+# The f32 check runs CUT_LAYERS layers for f32_steps steps.
+TP_DECODE = dict(batch=8, max_len=32768, length=24576, warm=2, steps=8, f32_steps=2, seed=23)
+# FSDP on the (2, 2) mesh, f32, full width with the depth cut to 1 layer: the
+# embedding and the head (622M of the 672M parameters) are split over model
+# only, so their gradients' mean over data moves 1.24 GB a rank a step through
+# gloo's host staging. The resume runs in train_mesh (FSDP on its smoke config):
+# a full-width checkpoint would gather 8 GB of state through gloo.
+FSDP_TRAIN = dict(layers=1, batch=2, seq=2048, steps=2, seed=22)
 
 
 def _seq_block(torch, shape, block: int, layer: int, which: int, dtype, seed: int):
@@ -2524,12 +2542,36 @@ def mesh_phases(np, torch, cfg, model) -> list:
       ``moe_ffn`` here; at 1.25 both drop fractions are printed (EP's
       capacity is per data shard);
     - ``train_mesh``: ``train_loop(mesh=)`` on deepseek-moe-16b's smoke
-      config with ``moe_impl="ep"`` (``TRAIN_MESH``): 4 steps equal one
-      rank's within 1e-5 relative, and stopped at 2 and resumed, bit for
-      bit the straight run.
+      config with ``moe_impl="ep"`` and FSDP (``TRAIN_MESH``): each rank
+      holds its blocks of the weights and moments; 4 steps equal one rank's
+      within 1e-5 relative, and stopped at 2 and resumed from the gathered
+      checkpoint, bit for bit the straight run;
+    - ``tp_prefill_qwen3_1_7b``: qwen3-1.7b at full width (depth cut to
+      ``TP_PREFILL``'s 8 layers) on a ``model=4`` mesh (``TP_MESH``, the
+      same ranks), each rank its blocks: K8 on the rank's 4 q and 2 kv
+      heads, ``wo`` and ``w_down`` summed over the ranks; the last logits'
+      top-1 equal to this process's prefill and |Δlogit| within bf16 2e-2;
+      K8 held to its plain version at the rank's shape;
+    - ``tp_decode_qwen3_1_7b``: qwen3-1.7b at full width and depth, batch
+      8 on ``TP_DECODE``'s cache with the sequence over ``model``: per
+      layer the ranks' q heads and new rows all-gathered, K9's partials
+      over the rank's block for every head; 8 steps after 2 warm-up. In f32
+      at ``CUT_LAYERS`` layers: top-1 equal to one rank's whole-cache
+      decode on every step and |Δlogit| within 2e-5. In bf16 at full depth
+      two f32 summation orders of equal arithmetic differ by a few
+      hundredths (bf16 roundings amplified over 28 random layers), so the
+      ranks are held to one rank whose attention merges the same 4 blocks'
+      K9 partials (``_blockwise_decode_attention``) within 2e-2 or twice
+      one rank's own gap between that merge and K9 over the whole cache,
+      whichever is larger; top-1 agreements printed;
+    - ``fsdp_train_qwen3_1_7b``: ``FSDP_TRAIN``'s 2 steps of
+      ``make_lm_train_step`` with ``fsdp=True`` on the ``(2, 2)`` mesh in
+      f32, loss and ``grad_norm`` within 1e-5 relative of one rank's, and
+      each parameter (gathered) within 1e-5 of its norm.
 
     Returns the K9 row of the sharded decode (rank 0's shard; every rank's
-    times beside it)."""
+    times beside it), and the K8 and K9 rows at a tensor-parallel rank's
+    shapes."""
     import shutil
 
     from repro_torch.launch.mesh import spawn
@@ -2581,12 +2623,13 @@ def mesh_phases(np, torch, cfg, model) -> list:
     t = TRAIN_MESH
     single_train = train_loop(arch=t["arch"], steps=t["steps"], device="cuda", log_every=100,
                               smoke_overrides={k: v for k, v in t["overrides"].items()
-                                               if k != "moe_impl"})
+                                               if k not in ("moe_impl", "fsdp")})
 
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
     MESH_ROOT.mkdir(parents=True)
+    tp_inputs, tp_single = _tp_single(np, torch, cfg, model)
     t0 = time.perf_counter()
-    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, threads=2, device="cuda",
+    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, tp_inputs, threads=2, device="cuda",
                   run_dir=str(MESH_ROOT))
     spawn_s = time.perf_counter() - t0
     emit("mesh_spawn", ranks=4, backend="gloo", mesh=MESH_SHAPE, spawn_s=spawn_s,
@@ -2648,7 +2691,7 @@ def mesh_phases(np, torch, cfg, model) -> list:
     row = dict(dec[0]["k9_row"])
     row.update(ranks_ms=[d["k9_row"]["ms"] for d in dec],
                ranks_live=[d["live"] for d in dec], ranks_launches=[d["launches"] for d in dec])
-    return [row]
+    return [row] + _tp_report(np, torch, cfg, [r["tp"] for r in ranks], tp_single)
 
 
 def _moe_config():
@@ -2663,7 +2706,7 @@ def _moe_tokens(torch, c):
                        dtype=c.dtype)
 
 
-def mesh_ranks(rank, world, dev, tokens) -> dict:
+def mesh_ranks(rank, world, dev, tokens, tp_inputs) -> dict:
     """Rank function (``launch.mesh.spawn``) of ``mesh_phases``."""
     import numpy as np
     import torch
@@ -2674,10 +2717,348 @@ def mesh_ranks(rank, world, dev, tokens) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     mesh = make_mesh(*MESH_SHAPE)
+    tp_mesh = make_mesh(*TP_MESH)
     out = {"decode": _rank_seq_decode(np, torch, mesh, tokens),
            "moe": _rank_moe(np, torch, mesh), "train": _rank_train(mesh, dev)}
+    torch.cuda.empty_cache()
+    out["tp"] = {"prefill": _rank_tp_prefill(np, torch, tp_mesh, tp_inputs),
+                 "decode": _rank_tp_decode(np, torch, tp_mesh, tp_inputs),
+                 "fsdp": _rank_fsdp_train(np, torch, mesh, tp_inputs)}
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def _tp_tokens(np, shape, seed, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def _fsdp_config(torch, cfg):
+    import dataclasses as dc
+
+    return dc.replace(cfg, n_layers=FSDP_TRAIN["layers"], dtype=torch.float32, fsdp=True)
+
+
+def _tp_single(np, torch, cfg, model):
+    """One process's references of the tensor-parallel phases, before the
+    spawn: qwen3-1.7b's prefill and decode (``model``), and FSDP_TRAIN's
+    f32 steps, whose parameters go to ``MESH_ROOT`` for the ranks to hold
+    their blocks against. Returns the ranks' inputs and the references."""
+    from repro_torch.launch.train import TrainHyperparams, make_lm_train_step, params_of
+    from repro_torch.models.transformer import decode_step, init_transformer, make_cache, prefill
+    from repro_torch.optim import adamw_init
+
+    import contextlib
+
+    from repro_torch.models import transformer
+
+    p, d, f = TP_PREFILL, TP_DECODE, FSDP_TRAIN
+    inputs = dict(
+        prefill=_tp_tokens(np, (p["batch"], p["seq"]), p["seed"], cfg.vocab_size),
+        decode=_tp_tokens(np, (d["batch"], d["warm"] + d["steps"]), d["seed"], cfg.vocab_size),
+        train=_tp_tokens(np, (f["batch"], f["seq"]), f["seed"], cfg.vocab_size),
+        fsdp_ref=str(MESH_ROOT / "fsdp_single.pt"))
+    out = {}
+    cut, cut_model = _qwen_cut(torch, cfg, cfg.dtype, p["layers"])
+    tok = torch.from_numpy(inputs["prefill"]).cuda()
+    prefill(cut_model, cut, tok)
+    logits, out["prefill_ms"] = timed(torch, lambda: prefill(cut_model, cut, tok))
+    out["prefill"] = logits.float().cpu()
+    del cut_model
+
+    def decode(c, m, dtype_seed, n_steps, warm):
+        cache = make_cache(c, d["batch"], d["max_len"], device="cuda")
+        _fill_seq_cache(torch, cache, blocks=4, first=0, seed=dtype_seed)
+        cache["length"].fill_(d["length"])
+        tok = torch.from_numpy(inputs["decode"]).cuda()
+        steps, walls = [], []
+        for s in range(warm + n_steps):
+            (lg, _), ms = timed(torch, lambda: decode_step(m, c, cache, tok[:, s]))
+            if s >= warm:
+                steps.append(lg.float().cpu())
+                walls.append(ms)
+        del cache
+        torch.cuda.empty_cache()
+        return torch.stack(steps), float(np.median(walls))
+
+    out["decode"], out["decode_wall_ms"] = decode(cfg, model, d["seed"], d["steps"], d["warm"])
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, transformer, "decode_attention", transformer.decode_attention)
+        transformer.decode_attention = _blockwise_decode_attention
+        out["decode_blocks"], _ = decode(cfg, model, d["seed"], d["steps"], d["warm"])
+    cfg32, model32 = _qwen_cut(torch, cfg, torch.float32, CUT_LAYERS)
+    out["decode32"], _ = decode(cfg32, model32, d["seed"] + 1, d["f32_steps"], 0)
+    del model32
+    torch.cuda.empty_cache()
+
+    cfg32 = _fsdp_config(torch, cfg)
+    m32 = init_transformer(cfg32, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    opt = adamw_init(params_of(m32))
+    step = make_lm_train_step(cfg32, TrainHyperparams(warmup_steps=2, total_steps=10))
+    batch = {"tokens": torch.from_numpy(inputs["train"]).cuda()}
+    out["train"], walls = [], []
+    for _ in range(f["steps"]):
+        (_, opt, met), ms = timed(torch, lambda: step(m32, opt, batch))
+        out["train"].append({k: float(v) for k, v in met.items()})
+        walls.append(ms)
+    out["train_step_ms"] = walls
+    out["train_bytes"] = sum(t.numel() * t.element_size() for t in (
+        *m32.parameters(), *opt.m.values(), *opt.v.values()))
+    torch.save({n: q.detach().cpu() for n, q in m32.named_parameters()}, inputs["fsdp_ref"])
+    del m32, opt
+    torch.cuda.empty_cache()
+    out["weight_bytes"] = sum(q.numel() * q.element_size() for q in model.parameters())
+    return inputs, out
+
+
+def _blockwise_decode_attention(q, k, v, lengths, *, scale):
+    """One rank's decode attention as the ``model=4`` ranks compute it: K9's
+    partials over each of the cache's 4 sequence blocks (local lengths, as
+    ``transformer._local_lengths``), merged by ``combine_partials`` in
+    block order. The tensor-parallel decode's reference."""
+    import torch
+
+    from repro_torch.kernels.decode_attention.ops import (
+        combine_partials,
+        decode_attention_partials,
+    )
+
+    p = TP_MESH[0][0]
+    n = k.shape[2] // p
+    parts = [decode_attention_partials(q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n],
+                                       (lengths - i * n).clamp(0, n), scale=scale)
+             for i in range(p)]
+    return combine_partials(*(torch.stack([part[j] for part in parts]) for j in range(3)))
+
+
+def _rank_tp_prefill(np, torch, mesh, inputs) -> dict:
+    import dataclasses as dc
+
+    from repro_torch.configs.qwen3_1_7b import config
+    from repro_torch.core import distributed as dd
+    from repro_torch.models.transformer import init_transformer, prefill
+
+    cfg = dc.replace(config(), n_layers=TP_PREFILL["layers"])
+    model = init_transformer(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                             device="cuda", mesh=mesh)
+    torch.cuda.empty_cache()
+    tok = torch.from_numpy(inputs["prefill"]).cuda()
+    prefill(model, cfg, tok)
+    reset_launches()
+    b0, s0 = dd.WIRE_BYTES["psum"], dd.WIRE_SECONDS["psum"]
+    logits, ms = timed(torch, lambda: prefill(model, cfg, tok))
+    launches = launches_now()["flash_attention"]
+    out = dict(logits=logits.float().cpu(), wall_ms=ms, k8_launches=launches,
+               psum_bytes=dd.WIRE_BYTES["psum"] - b0,
+               psum_ms=(dd.WIRE_SECONDS["psum"] - s0) * 1e3,
+               weight_bytes=sum(q.numel() * q.element_size() for q in model.parameters()),
+               heads=list(model.layers[0].attn.cut.heads))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_tp_decode(np, torch, mesh, inputs) -> dict:
+    import dataclasses as dc
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.qwen3_1_7b import config
+    from repro_torch.core import distributed as dd
+    from repro_torch.models.transformer import decode_step, init_transformer, make_cache
+
+    d = TP_DECODE
+    cfg = config()
+    model = init_transformer(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                             device="cuda", mesh=mesh)
+    cache = make_cache(cfg, d["batch"], d["max_len"], device="cuda", mesh=mesh,
+                       seq_axes=("model",))
+    lay = cache["layout"]
+    _fill_seq_cache(torch, cache, blocks=1, first=lay.offset // lay.local_len, seed=d["seed"])
+    cache["length"].fill_(d["length"])
+    tok = torch.from_numpy(inputs["decode"]).cuda()
+    for s in range(d["warm"]):
+        decode_step(model, cfg, cache, tok[:, s])
+    reset_launches()
+    wire = {k: (dd.WIRE_BYTES[k], dd.WIRE_SECONDS[k]) for k in ("gather_heads", "all_gather",
+                                                                 "psum")}
+    steps, walls = [], []
+    for s in range(d["warm"], d["warm"] + d["steps"]):
+        (lg, _), ms = timed(torch, lambda: decode_step(model, cfg, cache, tok[:, s]))
+        steps.append(lg.float().cpu())
+        walls.append(ms)
+    launches = launches_now()["decode_attention"]
+    wire = {k: dict(bytes=(dd.WIRE_BYTES[k] - b) / d["steps"],
+                    ms=(dd.WIRE_SECONDS[k] - sec) * 1e3 / d["steps"])
+            for k, (b, sec) in wire.items()}
+    live = int((cache["length"][0] - lay.offset).clamp(0, lay.local_len))
+
+    # K9's partials on this rank's block of layer 0, every head, at its live positions
+    _, k9 = _attention_modules()
+    D = cfg.head_dim
+    g = torch.Generator("cuda").manual_seed(4)
+    q = torch.randn((d["batch"], cfg.n_heads, D), generator=g, device="cuda").to(cfg.dtype)
+    k, v = cache["k"][0], cache["v"][0]
+    lens = torch.full((d["batch"],), live, dtype=torch.int32, device="cuda")
+    cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens),
+                      k9.decode_attention_plain(q, k, v, lens))
+    check(_k9_ok(cmp, "bfloat16"), f"tp decode rank at {lay.offset}: K9 differs: {cmp}")
+    mask = (torch.arange(lay.local_len, device="cuda") < live)[None, None, None, :]
+    nbytes = 2.0 * d["batch"] * live * cfg.n_kv_heads * D * k.element_size() \
+        + q.numel() * q.element_size() + 4.0 * d["batch"] * cfg.n_heads * (D + 2)
+    row = kernel_row(
+        np, torch, "decode_attention", "tp_decode_qwen3_1_7b", {"decode_attention": launches},
+        cmp, lambda: k9.decode_attention_kernel(q, k, v, lens),
+        lambda: k9.decode_attention_plain(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               scale=1.0 / D ** 0.5, enable_gqa=True),
+        4.0 * d["batch"] * live * cfg.n_heads * D, nbytes)
+    row.update(shape=[d["batch"], cfg.n_heads, cfg.n_kv_heads, lay.local_len, D],
+               dtype="bfloat16", live_positions=live, offset=lay.offset, m_err=cmp["m_err"],
+               l_rel_err=cmp["l_rel_err"])
+    cache_bytes = sum(cache[key].numel() * cache[key].element_size() for key in ("k", "v"))
+    del cache, model
+    torch.cuda.empty_cache()
+
+    cfg32 = dc.replace(cfg, n_layers=CUT_LAYERS, dtype=torch.float32)
+    model32 = init_transformer(cfg32, generator=torch.Generator("cuda").manual_seed(0),
+                               device="cuda", mesh=mesh)
+    cache = make_cache(cfg32, d["batch"], d["max_len"], device="cuda", mesh=mesh,
+                       seq_axes=("model",))
+    _fill_seq_cache(torch, cache, blocks=1, first=lay.offset // lay.local_len,
+                    seed=d["seed"] + 1)
+    cache["length"].fill_(d["length"])
+    logits32 = torch.stack([decode_step(model32, cfg32, cache, tok[:, s])[0].float().cpu()
+                            for s in range(d["f32_steps"])])
+    del cache, model32
+    torch.cuda.empty_cache()
+    return dict(logits=torch.stack(steps), logits32=logits32, wall_ms=float(np.median(walls)),
+                launches=launches, wire=wire, live=live, offset=lay.offset,
+                local_len=lay.local_len, cache_bytes=cache_bytes, k9_row=row)
+
+
+def _rank_fsdp_train(np, torch, mesh, inputs) -> dict:
+    from repro_torch.configs.qwen3_1_7b import config
+    from repro_torch.core import distributed as dd
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import block_of
+    from repro_torch.launch.train import TrainHyperparams, make_lm_train_step, params_of
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.optim import adamw_init
+
+    cfg32 = _fsdp_config(torch, config())
+    model = init_transformer(cfg32, generator=torch.Generator("cuda").manual_seed(0),
+                             device="cuda", mesh=mesh)
+    torch.cuda.empty_cache()
+    opt = adamw_init(params_of(model))
+    step = make_lm_train_step(cfg32, TrainHyperparams(warmup_steps=2, total_steps=10))
+    rows = inputs["train"].shape[0] // mesh.shape[0]
+    r = mesh.get_local_rank("data")
+    batch = {"tokens": torch.from_numpy(inputs["train"][r * rows:(r + 1) * rows]).cuda()}
+    keys = ("psum", "reduce_scatter", "all_gather")
+    wire0 = {k: (dd.WIRE_BYTES[k], dd.WIRE_SECONDS[k]) for k in keys}
+    metrics, walls = [], []
+    with use_mesh(mesh):
+        for _ in range(FSDP_TRAIN["steps"]):
+            (_, opt, met), ms = timed(torch, lambda: step(model, opt, batch))
+            metrics.append({k: float(v) for k, v in met.items()})
+            walls.append(ms)
+    wire = {k: dict(bytes=dd.WIRE_BYTES[k] - b, ms=(dd.WIRE_SECONDS[k] - sec) * 1e3)
+            for k, (b, sec) in wire0.items()}
+    ref = torch.load(inputs["fsdp_ref"], mmap=True)
+    diffs = {}
+    for name, q in model.named_parameters():
+        want = block_of(ref[name], q.spec, mesh).cuda()
+        diffs[name] = (float((q.detach() - want).double().square().sum()),
+                       float(want.double().square().sum()))
+    held = sum(t.numel() * t.element_size() for t in (
+        *model.parameters(), *opt.m.values(), *opt.v.values()))
+    del model, opt, ref
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, step_ms=walls, wire=wire, diffs=diffs, state_bytes=held)
+
+
+def _tp_report(np, torch, cfg, tp, single) -> list:
+    """Hold the tensor-parallel phases' ranks against one process and emit
+    them; the K8 row at a rank's shapes (here, the card to itself) and the
+    ranks' K9 row."""
+    pre = [r["prefill"] for r in tp]
+    for r in pre[1:]:
+        check(torch.equal(r["logits"], pre[0]["logits"]), "tp_prefill: the ranks' logits differ")
+    got, want = pre[0]["logits"], single["prefill"]
+    top1 = int((got.argmax(-1) == want.argmax(-1)).sum())
+    dlogit = float((got - want).abs().max())
+    p = TP_PREFILL
+    emit("tp_prefill_qwen3_1_7b", mesh=TP_MESH, batch=p["batch"], seq=p["seq"],
+         layers=p["layers"],
+         heads=pre[0]["heads"], weight_bytes=[r["weight_bytes"] for r in pre],
+         replicated_weight_bytes=single["weight_bytes"], wall_ms=[r["wall_ms"] for r in pre],
+         single_wall_ms=single["prefill_ms"], k8_launches=[r["k8_launches"] for r in pre],
+         psum_bytes=[r["psum_bytes"] for r in pre], psum_ms=[r["psum_ms"] for r in pre],
+         top1_equal=top1, max_abs_dlogit=dlogit)
+    check(top1 == p["batch"], f"tp_prefill: top-1 agrees on {top1} of {p['batch']}")
+    check(dlogit <= LM_ATOL["bfloat16"], f"tp_prefill: |Δlogit| {dlogit}")
+    for r in pre:
+        check(r["k8_launches"] == p["layers"], f"tp_prefill: K8 launched {r['k8_launches']}")
+
+    dec = [r["decode"] for r in tp]
+    for r in dec[1:]:
+        check(torch.equal(r["logits"], dec[0]["logits"]), "tp_decode: the ranks' logits differ")
+    got = dec[0]["logits"]
+    d = TP_DECODE
+    n = d["batch"] * d["steps"]
+    top1 = {key: int((got.argmax(-1) == single[key].argmax(-1)).sum())
+            for key in ("decode_blocks", "decode")}
+    dlogit = {key: float((got - single[key]).abs().max()) for key in ("decode_blocks", "decode")}
+    d32 = float((dec[0]["logits32"] - single["decode32"]).abs().max())
+    top1_32 = int((dec[0]["logits32"].argmax(-1) == single["decode32"].argmax(-1)).sum())
+    # the bf16 noise of equal arithmetic in another f32 order: one rank's two
+    # references differ only in how the attention's partials merge
+    floor = float((single["decode"] - single["decode_blocks"]).abs().max())
+    floor_top1 = int((single["decode"].argmax(-1) == single["decode_blocks"].argmax(-1)).sum())
+    bound = max(LM_ATOL["bfloat16"], 2 * floor)
+    emit("tp_decode_qwen3_1_7b", mesh=TP_MESH, batch=d["batch"], max_len=d["max_len"],
+         length=d["length"], steps=d["steps"],
+         ranks=[dict(offset=r["offset"], live=r["live"], launches=r["launches"],
+                     step_wall_ms=r["wall_ms"], k9_ms=r["k9_row"]["ms"], wire=r["wire"],
+                     cache_bytes=r["cache_bytes"]) for r in dec],
+         single_step_wall_ms=single["decode_wall_ms"], positions=n,
+         top1_equal_blocks=top1["decode_blocks"], max_abs_dlogit_blocks=dlogit["decode_blocks"],
+         top1_equal_whole_cache=top1["decode"], max_abs_dlogit_whole_cache=dlogit["decode"],
+         single_noise_floor=dict(max_abs_dlogit=floor, top1_equal=floor_top1),
+         max_abs_dlogit_bound=bound, f32_layers=CUT_LAYERS, f32_max_abs_dlogit=d32,
+         f32_top1_equal=top1_32)
+    check(dlogit["decode_blocks"] <= bound,
+          f"tp_decode: |Δlogit| {dlogit} above {bound} (one rank's own noise {floor})")
+    check(d32 <= LM_ATOL["float32"] and top1_32 == d["batch"] * d["f32_steps"],
+          f"tp_decode: f32 |Δlogit| {d32}, top-1 {top1_32}")
+    for r in dec:
+        check(r["launches"] == cfg.n_layers * d["steps"],
+              f"tp_decode: rank at {r['offset']} launched K9 {r['launches']} times")
+
+    fs = [r["fsdp"] for r in tp]
+    rel = max(abs(r["metrics"][i][k] - single["train"][i][k]) / abs(single["train"][i][k])
+              for r in fs for i in range(FSDP_TRAIN["steps"]) for k in ("loss", "grad_norm"))
+    names = fs[0]["diffs"]
+    param_rel = max((sum(r["diffs"][n][0] for r in fs) / sum(r["diffs"][n][1] for r in fs))
+                    ** 0.5 for n in names)
+    emit("fsdp_train_qwen3_1_7b", mesh=MESH_SHAPE, config=FSDP_TRAIN, dtype="float32",
+         metrics=[r["metrics"] for r in fs], single=single["train"],
+         step_ms=[r["step_ms"] for r in fs], single_step_ms=single["train_step_ms"],
+         wire=[r["wire"] for r in fs], state_bytes=[r["state_bytes"] for r in fs],
+         single_state_bytes=single["train_bytes"], max_rel_diff=rel,
+         max_param_rel_diff=param_rel)
+    check(rel <= 1e-5, f"fsdp_train: loss or grad norm {rel} from one rank's")
+    check(param_rel <= 1e-5, f"fsdp_train: parameters {param_rel} from one rank's")
+
+    hq, _, hkv, _, _ = pre[0]["heads"]
+    k8 = k8_row(np, torch, "tp_prefill_qwen3_1_7b", {"flash_attention": pre[0]["k8_launches"]},
+                p["batch"], hq, hkv, p["seq"], cfg.head_dim)
+    k8.update(ranks_launches=[r["k8_launches"] for r in pre])
+    k9 = dict(dec[0]["k9_row"])
+    k9.update(ranks_ms=[r["k9_row"]["ms"] for r in dec], ranks_live=[r["live"] for r in dec],
+              ranks_launches=[r["launches"] for r in dec])
+    return [k8, k9]
 
 
 def _rank_seq_decode(np, torch, mesh, tokens) -> dict:
@@ -3866,9 +4247,11 @@ def dist_expected_bytes(v: dict, *, n: int, m: int, k: int, cap: int, cap_loc4: 
     """The bytes one rank sends in a variant, by collective, counted from the
     schedules of ``core.distributed`` (the tensor a ppermute sends; the input
     of every other collective)."""
+    from repro_torch.core import distributed as dd
+
     kw = v["kwargs"]
     sparse = v["corpus"] == "sparse"
-    out = dict(ppermute=0, psum=0, psum_scatter=0, all_gather=0, pmax=0)
+    out = dict.fromkeys(dd.WIRE_BYTES, 0)  # every counter: the LM's own stay 0
     if v["distribution"] in ("horizontal", "hierarchical"):
         n_loc = n // 4
         block = n_loc * (8 * cap + 4) if sparse else n_loc * m * 4  # CSR triple or rows

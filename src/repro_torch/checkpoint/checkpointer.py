@@ -31,6 +31,14 @@ arrays. A ``bfloat16`` leaf, which numpy cannot hold without
 ``ml_dtypes``, is written as its raw bytes under the dtype name
 ``bfloat16`` (the reference's format) by way of an ``int16`` view, and
 read back as a CPU ``torch.bfloat16`` tensor.
+
+A mesh run whose ranks hold blocks of the state (``save``/``restore`` with
+``specs`` and ``mesh``: a rank's ``Transformer(mesh=)`` and its moments)
+writes whole tensors, each leaf gathered in rank order to the host
+(``distributed.sharding.gather_tree``), as the reference writes its global
+arrays: the directory is the one a single process writes, and it restores
+onto the same mesh bit for bit (every rank cuts its blocks) or onto one
+process.
 """
 
 from __future__ import annotations
@@ -221,6 +229,16 @@ def load_checkpoint(directory: str, step: int, like=None):
     return _unflatten_like(like, by_name)
 
 
+def _gather_to_host(state, specs, mesh):
+    """``state`` with each leaf's blocks gathered over ``mesh`` in rank order
+    and copied to the host, one leaf at a time (the card holds one whole
+    leaf at most)."""
+    from repro_torch.distributed.sharding import _map_with_specs, gather_tree
+
+    return _map_with_specs(lambda x, spec: _host_copy(gather_tree(x, spec, mesh)),
+                           state, specs)
+
+
 class CheckpointManager:
     """keep-last-k manager with async writes and preemption handling."""
 
@@ -247,7 +265,16 @@ class CheckpointManager:
 
     # -- save/restore ------------------------------------------------------
 
-    def save(self, state, step: int, *, blocking: bool = True) -> None:
+    def save(self, state, step: int, *, blocking: bool = True, specs=None,
+             mesh=None) -> None:
+        """Write ``state`` as ``step`` (keep-last-k). With ``specs`` and a
+        ``mesh`` every rank calls this: the leaves are gathered whole to
+        the host (collectives on every rank), then the mesh's first rank
+        writes them and the others return."""
+        if mesh is not None:
+            state = _gather_to_host(state, specs, mesh)
+            if any(c != 0 for c in mesh.get_coordinate()):
+                return
         # Serialize against any in-flight async writer (same-step collisions
         # would otherwise race on the .tmp directory). wait() also re-raises
         # any captured async-write failure, so a silent disk-full/permission
@@ -287,8 +314,10 @@ class CheckpointManager:
             raise err
 
     def restore(self, like=None, step: int | None = None, *,
-                fallback: bool = False):
-        """Load ``step`` (default: latest). Returns ``(state, step)``.
+                fallback: bool = False, specs=None, mesh=None):
+        """Load ``step`` (default: latest). Returns ``(state, step)``; with
+        ``specs`` and a ``mesh``, each leaf cut to this rank's block
+        (``distributed.sharding.cut_tree``).
 
         With ``fallback=True``, a step that fails integrity checks
         (:class:`CheckpointCorruptionError`) is skipped with a warning and
@@ -307,7 +336,12 @@ class CheckpointManager:
         with _trace.span("checkpoint/restore", directory=self.directory):
             for s in candidates:
                 try:
-                    return load_checkpoint(self.directory, s, like=like), s
+                    state = load_checkpoint(self.directory, s, like=like)
+                    if mesh is not None:
+                        from repro_torch.distributed.sharding import cut_tree
+
+                        state = cut_tree(state, specs, mesh)
+                    return state, s
                 except CheckpointCorruptionError as e:
                     if not fallback:
                         raise

@@ -16,8 +16,9 @@ needs the ranks of a real mesh.
 placement of them. ``fn`` is what one rank runs, on its local arguments
 under ``distributed.sharding.use_mesh``: ``layout`` says how the port
 itself cuts each argument into those (its batch, cache and candidate
-splits; weights replicated), and :func:`local_args` makes a rank's meta
-arguments from it (``launch.dryrun``).
+splits, and an LM's weights and moments by ``transformer.layout_specs``),
+and :func:`local_args` makes a rank's meta arguments from it
+(``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -97,10 +98,13 @@ def arg_bytes(args, specs, mesh) -> int:
 def local_args(args, layout, mesh):
     """Meta arguments of one rank's block under ``layout`` (a spec tree per
     argument): each tensor cut to :func:`~repro_torch.distributed.sharding.
-    local_shape`; a module keeps its (replicated) parameters."""
+    local_shape`; a module laid out by specs (an LM's ``Transformer``) is
+    the rank's ``Transformer(cfg, "meta", mesh)``, one without keeps its
+    (replicated) parameters. ``mesh`` is the ``DeviceMesh`` the cell runs
+    on, whose collectives the module's forward calls."""
     def cut(arg, spec, path=""):
         if isinstance(arg, torch.nn.Module):
-            return arg
+            return arg if spec is None else type(arg)(arg.cfg, "meta", mesh)
         if isinstance(arg, torch.Tensor):
             return meta(local_shape(tuple(arg.shape), spec_at(spec, path), mesh), arg.dtype)
         if isinstance(arg, dict):

@@ -16,7 +16,9 @@ approximated and nothing is skipped.
 A cell's ``args`` are meta tensors at the global shapes and
 ``in_shardings`` the reference's specs (``param_specs`` with FSDP for
 training); ``layout`` is the port's own placement: the batch over the data
-axes, the cache as the reference's, the weights replicated.
+axes, the cache as the reference's, and the weights (and in ``train_4k``
+the AdamW moments) by ``layout_specs``: the reference's ``param_specs``
+with whole heads only (``transformer.layout_replications``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from repro_torch.models.transformer import (
     count_active_params,
     count_params,
     decode_step,
+    layout_specs,
     make_cache,
     param_specs,
     prefill,
@@ -88,7 +91,7 @@ def build_train_cell(cfg: TransformerConfig, mesh, *, global_batch: int,
         in_shardings=(p_sh, o_sh, shardings_for(mesh, batch_spec)),
         out_shardings=(p_sh, o_sh, None),
         static_info=_lm_static_info(cfg, tokens=global_batch * seq_len, kind="train"),
-        layout=(None, None, batch_spec),
+        layout=(layout_specs(cfg, mesh), _opt_specs(layout_specs(cfg, mesh)), batch_spec),
     )
 
 
@@ -106,7 +109,7 @@ def build_prefill_cell(cfg: TransformerConfig, mesh, *, global_batch: int,
         in_shardings=(shardings_for(mesh, param_specs(cfg)), shardings_for(mesh, spec)),
         out_shardings=None,
         static_info=_lm_static_info(cfg, tokens=global_batch * seq_len, kind="prefill"),
-        layout=(None, spec),
+        layout=(layout_specs(cfg, mesh), spec),
     )
 
 
@@ -134,7 +137,7 @@ def build_decode_cell(cfg: TransformerConfig, mesh, *, global_batch: int, cache_
         out_shardings=(None, c_sh),
         static_info=_lm_static_info(cfg, tokens=global_batch, kind="decode",
                                     cache_len=cache_len),
-        layout=(None, c_specs, tok_spec),
+        layout=(layout_specs(cfg, mesh), c_specs, tok_spec),
     )
 
 

@@ -87,7 +87,8 @@ from repro_torch.launch import op_analysis
 from repro_torch.obs import trace
 from repro_torch.planner import telemetry
 
-WIRE_BYTES = {"ppermute": 0, "psum": 0, "psum_scatter": 0, "all_gather": 0, "pmax": 0}
+WIRE_BYTES = {"ppermute": 0, "psum": 0, "psum_scatter": 0, "all_gather": 0, "pmax": 0,
+              "reduce_scatter": 0, "gather_heads": 0}
 WIRE_SECONDS = {op: 0.0 for op in WIRE_BYTES}
 
 _SPARSE_KERNEL = (
@@ -392,6 +393,140 @@ def pmean(x: torch.Tensor, mesh, axes, *, grad_scale: float) -> torch.Tensor:
     """Mean over ``axes`` in rank order; the backward scales the gradient
     by ``grad_scale``."""
     return _Pmean.apply(x, mesh, tuple(axes), grad_scale)
+
+
+def reduce_scatter_in_order(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """``lax.psum_scatter(scatter_dimension=dim, tiled=True)`` over an axis
+    or a row-major tuple of axes, summed in rank order: over each axis,
+    innermost first, an all-to-all hands every rank the other ranks' part
+    of its block, which it adds one rank after another in f32 (a bf16
+    input widens; the sum rounds once), so every run gives the same bits.
+    The traffic is a ring reduce-scatter's. Reported to the census as one
+    reduce-scatter of the output; ``WIRE_BYTES["reduce_scatter"]`` counts
+    the bytes this rank hands over."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    p = _axis_size(mesh, axes) if axes else 1
+    if p == 1:
+        return x
+    n = x.shape[dim] // p
+    out_shape = (*x.shape[:dim], n, *x.shape[dim + 1:])
+    if x.is_meta:
+        return _on_meta("reduce-scatter", x, out_shape, out_shape, p)
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_collective("reduce-scatter", n * x.numel() // x.shape[dim]
+                                      * x.element_size(), p)
+    y = x.unflatten(dim, (*(_axis_size(mesh, a) for a in axes), n)).float()
+    for i in reversed(range(len(axes))):
+        y = _sum_my_block(y, mesh, axes[i], dim + i)
+    return y.to(x.dtype)
+
+
+def _sum_my_block(y: torch.Tensor, mesh, axis, d: int) -> torch.Tensor:
+    """One axis of :func:`reduce_scatter_in_order`: dim ``d`` of ``y``
+    indexes that axis's ranks; each rank gets every rank's slice of its
+    own index (an all-to-all) and adds them in rank order."""
+    group = mesh.get_group(axis)
+    staged = _staged(group)
+    with _Timed("reduce_scatter", (y,), staged):
+        parts = _to_wire(y.movedim(d, 0), staged)          # (p, ...), slice j to rank j
+        WIRE_BYTES["reduce_scatter"] += parts.numel() * parts.element_size()
+        got = torch.empty_like(parts)
+        dist.all_to_all_single(got, parts, group=group)
+        got = got.to(y.device)
+    acc = got[0]
+    for i in range(1, got.shape[0]):
+        acc = acc + got[i]
+    return acc
+
+
+class _GatherForUse(torch.autograd.Function):
+    """All-gather along ``dim`` whose backward is :func:`reduce_scatter_in_order`:
+    FSDP's gather of a weight block before use. Each rank's gradient of the
+    gathered weight covers its own rows of data, so the block's gradient
+    is the sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_in_order(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` whose result every rank then uses alike: the
+    backward keeps the rank's block of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, x.shape[dim]
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = _axis_index(ctx.mesh, ctx.axes)
+        return g.narrow(ctx.dim, me * ctx.n, ctx.n), None, None, None
+
+
+def gather_heads(x: torch.Tensor, mesh, axis, dim: int = 1) -> torch.Tensor:
+    """Every rank's heads ``(…, H_loc, …)`` all-gathered along ``dim`` over
+    ``axis`` (a decode step's q heads and new k/v rows under tensor
+    parallelism), counted apart in ``WIRE_BYTES["gather_heads"]`` and
+    reported to the census as an all-gather. No gradient."""
+    p = _axis_size(mesh, axis)
+    if p == 1:
+        return x
+    if x.is_meta:
+        return _all_gather(x, mesh, axis, dim)
+    out = _all_gather(x.contiguous(), mesh, axis, dim, op="gather_heads")
+    WIRE_BYTES["gather_heads"] += x.numel() * x.element_size()
+    if op_analysis.CENSUS is not None:
+        op_analysis.report_collective("all-gather", out.numel() * out.element_size(), p)
+    return out
+
+
+def gather_for_use(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``x``'s blocks over ``axes`` gathered along ``dim`` (row-major rank
+    order); the gradient is reduce-scattered back in rank order (FSDP)."""
+    axes = tuple(axes)
+    if _axis_size(mesh, axes) == 1:
+        return x
+    return _GatherForUse.apply(x, mesh, axes, dim)
+
+
+def gather_replicated(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``x``'s blocks over ``axes`` gathered along ``dim``, for a result
+    every rank uses alike (an embedding's width, a vocab-split logit row):
+    the gradient of a rank's block is its slice of the whole."""
+    axes = tuple(axes)
+    if _axis_size(mesh, axes) == 1:
+        return x
+    return _GatherReplicated.apply(x, mesh, axes, dim)
+
+
+def vocab_parallel_logsumexp(logits: torch.Tensor, mesh, axis) -> torch.Tensor:
+    """``logsumexp`` over the last dim of logits whose vocab is split over
+    ``axis``: the max over the ranks (no gradient: it cancels), then the
+    sum of ``exp(logit − max)`` in rank order with its gradient passed
+    through (every rank uses the sum alike)."""
+    m = logits.detach().amax(dim=-1)
+    if _axis_size(mesh, axis) > 1:
+        m = _pmax(m, mesh, axis)
+    s = psum_replicated(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, (axis,))
+    return m + torch.log(s)
+
+
+def vocab_parallel_pick(logits: torch.Tensor, labels: torch.Tensor, mesh, axis,
+                        vocab_lo: int) -> torch.Tensor:
+    """``logits[..., labels]`` where the vocab is split over ``axis`` and this
+    rank holds ids ``[vocab_lo, vocab_lo + V_loc)``: the owner's logit,
+    zeros elsewhere, summed over the ranks (gradient passed through)."""
+    local = labels - vocab_lo
+    own = (local >= 0) & (local < logits.shape[-1])
+    picked = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    return psum_replicated(torch.where(own, picked, 0.0), mesh, (axis,))
 
 
 def gather_matches(m: Matches, mesh, axes=None, *, scatter: bool = False) -> Matches:

@@ -1,4 +1,5 @@
-"""Sharding context: the active mesh and the reference's axis conventions.
+"""Sharding context: the active mesh, the reference's axis conventions and
+a rank's blocks of a tree.
 
 The reference's ``distributed/sharding.py`` names the layout every model
 follows (its DESIGN.md §5):
@@ -14,22 +15,29 @@ cells without ranks, a mapping ``{axis: size}`` (``configs/base.py``).
 
 JAX's GSPMD is one program over every device: ``shard`` there constrains a
 value's placement and the compiler inserts the collectives. Eager PyTorch
-has no such compiler: every rank runs its own program on its local
-tensors. So :func:`shard` and :func:`shard_batch` return ``x`` unchanged,
-and the port splits work only where the reference's own code names a split
-that changes the algorithm:
+has no such compiler: every rank runs its own program on plain local
+tensors, and the port's code names each split and each collective
+(``core.distributed``, summed in rank order; no DTensor dispatch). So
+:func:`shard` and :func:`shard_batch` return ``x`` unchanged. What is split:
 
+  - an LM's weights (``models.transformer.Transformer(cfg, device, mesh)``
+    by ``layout_specs``, the reference's ``param_specs``): attention heads
+    (``wq``/``wk``/``wv``/``wq_b``/``wkv_b`` by rows, ``wo`` by columns),
+    FFN columns (``w_gate``/``w_up``) and rows (``w_down``), the
+    embedding's width and the head's vocab over ``model``; the experts
+    over ``model``; with ``cfg.fsdp`` the ``d_model`` dimension of every
+    matrix (and the router) over ``("pod", "data")``, gathered before use
+    (:func:`weight_for_use`), and the AdamW moments alike;
   - the decode cache's sequence (``models.transformer.make_cache(mesh=)``:
     each rank attends over its shard, the ranks combine the partials);
-  - the experts (``models.moe.moe_ffn_ep``, the reference's ``shard_map``);
-  - the batch over the data axes (``launch.train.train_loop(mesh=)``: each
-    rank takes its rows, the gradients are summed over the data axes).
+  - the batch over the data axes (``launch.train.train_loop(mesh=)``).
 
-What GSPMD decides by itself in the reference is not done here: tensor
-parallelism of the dense GEMMs over ``"model"`` and FSDP over ``("pod",
-"data")``. Dense weights are replicated on every rank
-(``launch.dryrun`` prices that against the reference's specs per cell).
-Specs are the port's tuples (``distributed/elastic.py``).
+A dimension whose size its axes do not divide replicates
+(``elastic._filter_spec_for``); attention splits whole heads only
+(``transformer.layout_replications`` lists where that replicates).
+:func:`cut_tree` cuts a whole tree to a rank's blocks and
+:func:`gather_tree` gathers one back. Specs are the port's tuples
+(``distributed/elastic.py``).
 """
 
 from __future__ import annotations
@@ -130,3 +138,91 @@ def local_shape(shape, spec, mesh) -> tuple:
             div *= sizes[a]
         out.append(dim // div)
     return tuple(out)
+
+
+def _parts(spec, ndim: int) -> list:
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return [() if part is None else (tuple(part) if isinstance(part, (tuple, list)) else (part,))
+            for part in spec]
+
+
+def _is_spec(node) -> bool:
+    return node is None or (isinstance(node, tuple) and not hasattr(node, "_fields"))
+
+
+def _map_with_specs(fn, tree, specs):
+    if _is_spec(specs):
+        return fn(tree, () if specs is None else specs)
+    if isinstance(tree, dict):
+        return {k: _map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_specs(fn, v, s) for v, s in zip(tree, specs)))
+    return type(tree)(_map_with_specs(fn, v, s) for v, s in zip(tree, specs))
+
+
+def block_of(x, spec, mesh):
+    """This rank's block of the whole ``x`` (numpy array or tensor) placed by
+    ``spec`` on ``mesh`` (a ``DeviceMesh``): along each split dimension the
+    ``r``-th of ``q`` equal parts, ``r`` the rank's row-major place over
+    the dimension's axes. Axes the mesh lacks and sizes they do not divide
+    replicate, as in :func:`local_shape`. A view (no copy)."""
+    from repro_torch.core.distributed import _axis_index
+
+    shape = tuple(x.shape)
+    spec = _filter_spec_for(mesh, tuple(spec) + (None,) * (len(shape) - len(spec)), shape)
+    local = local_shape(shape, spec, mesh)
+    index = []
+    for dim, axes in enumerate(_parts(spec, len(shape))):
+        r = _axis_index(mesh, axes) if axes else 0
+        index.append(slice(r * local[dim], (r + 1) * local[dim]))
+    return x[tuple(index)]
+
+
+def cut_tree(tree, specs, mesh):
+    """A whole tree (dicts, lists and named tuples of numpy arrays or
+    tensors) cut to this rank's blocks by a spec tree of its structure
+    (:func:`block_of` leaf by leaf; a ``None`` or ``()`` spec keeps the
+    leaf whole)."""
+    return _map_with_specs(lambda x, spec: block_of(x, spec, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    """The inverse of :func:`cut_tree` on tensors: each leaf's blocks
+    all-gathered over the axes of each split dimension, in row-major rank
+    order (every rank of ``mesh`` calls this and gets the whole tree)."""
+    from repro_torch.core.distributed import _all_gather
+
+    def gather(x, spec):
+        x = x.detach()
+        spec = _filter_spec_for(mesh, tuple(spec) + (None,) * (x.dim() - len(spec)), None)
+        for dim, axes in enumerate(_parts(spec, x.dim())):
+            if axes:
+                x = _all_gather(x.contiguous(), mesh, axes if len(axes) > 1 else axes[0], dim)
+        return x
+
+    return _map_with_specs(gather, tree, specs)
+
+
+def split_axes(spec) -> tuple:
+    """Every mesh axis that splits a dimension of a leaf placed by ``spec``
+    (its filtered layout spec), in the order the spec names them."""
+    return tuple(a for part in _parts(spec, len(tuple(spec))) for a in part)
+
+
+def weight_for_use(p):
+    """A parameter as a rank multiplies by it: a block tagged by
+    ``Transformer(mesh=)`` (``p.spec``, ``p.mesh``) gathered over the data
+    axes that FSDP splits it on (``core.distributed.gather_for_use``: the
+    backward reduce-scatters its gradient in rank order); its ``model``
+    block stays. An untagged tensor as it is."""
+    spec = getattr(p, "spec", None)
+    if spec is None:
+        return p
+    from repro_torch.core.distributed import gather_for_use
+
+    out = p
+    for dim, axes in enumerate(_parts(spec, p.dim())):
+        fsdp = tuple(a for a in axes if a in ("pod", "data"))
+        if fsdp:
+            out = gather_for_use(out, p.mesh, fsdp, dim)
+    return out

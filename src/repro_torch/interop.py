@@ -189,7 +189,7 @@ def _block_leaves(blk, cfg):
     return out
 
 
-def transformer_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+def transformer_params_from_numpy(tree: dict, cfg, device: str | torch.device, mesh=None):
     """The port's ``Transformer`` holding the parameters of a reference
     parameter tree (``jax.tree.map(np.asarray, params)``): ``embed (V, d)``,
     ``layers`` stacked over the layer axis with ``(d_in, d_out)`` matrices
@@ -198,9 +198,18 @@ def transformer_params_from_numpy(tree: dict, cfg, device: str | torch.device):
     ``lm_head (d, V)``. Matrices are transposed into ``nn.Linear`` weights
     ``(d_out, d_in)``; the expert stacks keep their orientation; values are
     cast to ``cfg.dtype`` (the router stays f32; a bf16 tree widens to f32
-    on the way, exactly)."""
-    from repro_torch.models.transformer import Transformer  # models import this module
+    on the way, exactly). With a ``mesh`` (every rank calls this) it is the
+    rank's ``Transformer(cfg, device, mesh)``: the whole model is built on
+    the host and cut to the rank's blocks (``transformer.shard_transformer``,
+    ``distributed.sharding.cut_tree``)."""
+    from repro_torch.models.transformer import (  # models import this module
+        Transformer,
+        shard_transformer,
+    )
 
+    if mesh is not None:
+        whole = transformer_params_from_numpy(tree, cfg, "cpu")
+        return shard_transformer(whole, mesh, device=device)
     dev = device_of(device)
     model = Transformer(cfg, dev)
 
@@ -227,9 +236,13 @@ def transformer_params_to_numpy(model) -> dict:
     """The reference's parameter tree (float32 numpy) of a port ``Transformer``:
     the inverse of :func:`transformer_params_from_numpy`. An MoE layer's
     ``moe`` entry is a named tuple with the reference's ``MoEParams`` fields,
-    so the tree runs in the reference's functions as it is."""
+    so the tree runs in the reference's functions as it is. A rank's
+    ``Transformer(mesh=)`` is gathered whole first (every rank calls this)."""
     from collections import namedtuple
 
+    from repro_torch.models.transformer import unshard_transformer
+
+    model = unshard_transformer(model)
     cfg = model.cfg
     moe_params = namedtuple("MoEParams", _EXPERTS)
 
@@ -322,8 +335,9 @@ def adamw_state_from_numpy(state, from_numpy):
     """The port's ``AdamWState`` from the reference's (``step``, ``m``, ``v``
     as numpy arrays): ``from_numpy(tree)`` builds a model of the family from
     a parameter tree at f32 (for an LM, :func:`transformer_params_from_numpy`
-    with a float32 config), and the moments become ``{name: tensor}`` trees
-    keyed as the trainer keys the parameters (``named_parameters``)."""
+    with a float32 config; with its ``mesh=``, a rank's blocks of the
+    moments), and the moments become ``{name: tensor}`` trees keyed as the
+    trainer keys the parameters (``named_parameters``)."""
     from repro_torch.optim import AdamWState
 
     def moments(tree):

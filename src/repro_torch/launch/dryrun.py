@@ -7,7 +7,9 @@ this plays rank 0 of the mesh in one process: a ``torch.distributed``
 process group of the mesh's world size on the ``fake`` backend (every
 collective returns at once) and a ``DeviceMesh`` over it, the cell's
 arguments as meta tensors of rank 0's local shapes under the port's own
-layout (``CellBuild.layout``: batch and cache splits, weights replicated),
+layout (``CellBuild.layout``: batch and cache splits, an LM's weights and
+its AdamW moments by ``transformer.layout_specs``: tensor parallel over
+``model``, FSDP over the data axes in ``train_4k``),
 and the cell's ``fn`` run once under ``launch.op_analysis``'s census. The
 collective helpers of ``core.distributed`` see meta tensors, report to
 the census and return meta results without touching the group. On the
@@ -141,7 +143,7 @@ def fake_mesh(sizes: dict):
     return init_device_mesh("cpu", tuple(sizes.values()), mesh_dim_names=tuple(sizes))
 
 
-def _materialize(args, layout, mesh_sizes, device="cpu"):
+def _materialize(args, layout, mesh, device="cpu"):
     """Rank-local arguments as real zero tensors (token ids 0): what a rank
     of a real mesh would hold, for a census on real ranks."""
     import torch
@@ -150,7 +152,9 @@ def _materialize(args, layout, mesh_sizes, device="cpu"):
 
     def real(a):
         if isinstance(a, torch.nn.Module):
-            a = a.to_empty(device=device)
+            # rebuilt, not moved: a rank's blocks carry their spec and mesh
+            a = type(a)(a.cfg, device, a.mesh) if getattr(a, "mesh", None) is not None \
+                else a.to_empty(device=device)
             with torch.no_grad():
                 for p in a.parameters():
                     p.zero_()
@@ -163,7 +167,7 @@ def _materialize(args, layout, mesh_sizes, device="cpu"):
             return type(a)(*(real(v) for v in a))
         return a
 
-    return tuple(real(a) for a in local_args(args, layout, mesh_sizes))
+    return tuple(real(a) for a in local_args(args, layout, mesh))
 
 
 def census_on_ranks(arch_name: str, shape: str, mesh, *, smoke: bool = True,
@@ -171,7 +175,6 @@ def census_on_ranks(arch_name: str, shape: str, mesh, *, smoke: bool = True,
     """The census of a cell's ``fn`` on this rank of a real ``mesh`` (every
     rank calls it), on zero arguments of the rank's local shapes."""
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import axis_sizes
     from repro_torch.distributed.sharding import use_mesh
     from repro_torch.launch.op_analysis import analyze
 
@@ -180,7 +183,7 @@ def census_on_ranks(arch_name: str, shape: str, mesh, *, smoke: bool = True,
                           list(overrides))
     build = arch.cell(shape).build(cfg, mesh)
     layout = build.layout or (None,) * len(build.args)
-    args = _materialize(build.args, layout, axis_sizes(mesh))
+    args = _materialize(build.args, layout, mesh)
     with use_mesh(mesh):
         _, counts = analyze(build.fn, *args)
     return counts
@@ -255,7 +258,7 @@ def _census_at(arch, shape, cfg, mesh, sizes) -> dict:
     layout = build.layout or (None,) * len(build.args)
     resident = arg_bytes(build.args, layout, sizes)
     with use_mesh(mesh):
-        _, counts = analyze_live(build.fn, *local_args(build.args, layout, sizes),
+        _, counts = analyze_live(build.fn, *local_args(build.args, layout, mesh),
                                  resident=resident)
     counts["peak_excess_bytes"] = counts.pop("peak_live_bytes") - resident
     return counts

@@ -7,6 +7,11 @@
 
       PYTHONPATH=src python -m repro_torch.launch.serve --mode lm --requests 4
 
+  With ``--ranks N`` the server runs inside ``N`` ranks on a ``model=N``
+  mesh (``launch.mesh.spawn``): each rank holds its blocks of the weights
+  (tensor parallel) and its block of the cache's sequence, and rank 0
+  prints the greedy tokens, which every rank computes alike.
+
 - ``--mode retrieval``: build an APSS index once over a synthetic sparse
   corpus, then stream perturbed-row queries through a retrieval server and
   report QPS. Scoring runs through the rectangular kernels
@@ -68,10 +73,16 @@ class LMServer:
     ``T = max_batch``. ``params`` is a ``Transformer`` (from ``interop``, say); without
     it the model is initialised from ``seed`` on ``device``. ``last_logits``
     holds the last step's logits ``(max_batch, V)`` f32.
+
+    With a ``mesh`` (a ``DeviceMesh``; every rank builds the server and
+    feeds it the same requests) ``params`` is the rank's
+    ``Transformer(mesh=)`` (or it is drawn whole from ``seed`` and cut),
+    and the cache holds the rank's block of the sequence over ``model``:
+    decode runs tensor parallel with K9's partials merged over the ranks.
     """
 
     def __init__(self, cfg, *, max_batch: int = 8, max_len: int = 256, seed: int = 0,
-                 params=None, device="cuda", use_kernel: bool | None = None):
+                 params=None, device="cuda", use_kernel: bool | None = None, mesh=None):
         import torch
 
         from repro_torch.interop import device_of
@@ -80,11 +91,14 @@ class LMServer:
         self.device = device_of(device)
         self.cfg = cfg
         self.params = params if params is not None else init_transformer(
-            cfg, generator=torch.Generator(self.device).manual_seed(seed), device=self.device)
+            cfg, generator=torch.Generator(self.device).manual_seed(seed), device=self.device,
+            mesh=mesh)
         self.max_batch = max_batch
         self.max_len = max_len
         self.use_kernel = use_kernel
-        self.cache = make_cache(cfg, max_batch, max_len, device=self.device)
+        seq = ("model",) if mesh is not None else ()
+        self.cache = make_cache(cfg, max_batch, max_len, device=self.device, mesh=mesh,
+                                seq_axes=seq)
         self.active = np.zeros(max_batch, bool)
         self.outputs: list = [[] for _ in range(max_batch)]
         self.last_logits = None
@@ -120,25 +134,50 @@ class LMServer:
 
 
 def run_lm(args) -> dict:
-    """LM mode: a few requests through :class:`LMServer` on the smoke config."""
+    """LM mode: a few requests through :class:`LMServer` on the smoke config
+    (inside ``args.ranks`` ranks on a ``model`` mesh when it is above 1)."""
     from repro_torch.configs import get_arch
 
-    arch = get_arch(args.arch)
-    if arch.family != "lm":
+    if get_arch(args.arch).family != "lm":
         raise SystemExit("serve demo supports LM archs")
-    cfg = arch.make_smoke_config()
-    srv = LMServer(cfg, max_batch=max(2, args.requests), device=args.device)
+    if getattr(args, "ranks", 1) > 1:
+        from repro_torch.launch.mesh import spawn
+
+        keys = ("arch", "requests", "gen_tokens")
+        return spawn("repro_torch.launch.serve:lm_ranks", args.ranks,
+                     {k: getattr(args, k) for k in keys}, device=args.device)[0]
+    return _serve_lm(args.arch, args.requests, args.gen_tokens, args.device)
+
+
+def lm_ranks(rank, world, dev, opts: dict) -> dict:
+    """Rank function of ``--mode lm --ranks N``: the LM server on a
+    ``model=N`` mesh, printing on rank 0."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return _serve_lm(opts["arch"], opts["requests"], opts["gen_tokens"], dev,
+                     mesh=make_mesh((world,), ("model",)), rank=rank)
+
+
+def _serve_lm(arch_name: str, requests: int, gen_tokens: int, device, *, mesh=None,
+              rank: int = 0) -> dict:
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch_name).make_smoke_config()
+    max_len = 256
+    srv = LMServer(cfg, max_batch=max(2, requests), max_len=max_len, device=device, mesh=mesh)
     rng = np.random.default_rng(0)
     outs = []
     t0 = time.perf_counter()
-    for r in range(args.requests):
+    for r in range(requests):
         slot = srv.add_request(rng.integers(0, cfg.vocab_size, size=4))
-        outs.append(srv.generate(slot, args.gen_tokens))
-        print(f"[serve] request {r} slot {slot} → {outs[-1]}")
+        outs.append(srv.generate(slot, gen_tokens))
+        if rank == 0:
+            print(f"[serve] request {r} slot {slot} → {outs[-1]}")
     dt = time.perf_counter() - t0
-    total = args.requests * (args.gen_tokens + 4)
-    print(f"[serve] {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
-    return dict(arch=args.arch, tokens=total, seconds=dt, outputs=outs)
+    total = requests * (gen_tokens + 4)
+    if rank == 0:
+        print(f"[serve] {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
+    return dict(arch=arch_name, tokens=total, seconds=dt, outputs=outs)
 
 
 def run_retrieval(args) -> dict:
@@ -310,6 +349,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", choices=["lm", "retrieval", "auto"], default="retrieval")
     ap.add_argument("--arch", default="qwen3-1.7b", help="lm mode: the architecture")
     ap.add_argument("--gen-tokens", type=int, default=8, help="lm mode: tokens per request")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="lm mode: serve inside this many ranks, tensor parallel over model")
     ap.add_argument("--requests", type=int, default=None,
                     help="requests to serve (default: 2 in lm mode, 64 in retrieval mode)")
     ap.add_argument("--corpus-n", type=int, default=4096)

@@ -14,9 +14,15 @@ On a mesh (``train_loop(mesh=)``, or a step called under
 batch over the data axes (``("pod", "data")``), computes its gradients
 (an LM's CE over the global token count) and the ranks average them over
 the data axes in rank order, so a step equals the single-process step on
-the same global batch up to the order of one sum. Over ``model`` the dense
-weights are replicated and MoE layers with ``moe_impl="ep"`` split their
-experts (``models.moe.moe_ffn_ep``).
+the same global batch up to the order of one sum. An LM built on the mesh
+(``train_loop(mesh=)``: ``Transformer(cfg, device, mesh)``) holds its
+blocks of the reference's ``param_specs``: tensor parallel over ``model``
+(heads, FFN columns and rows, embedding width, vocab, experts) and, with
+``cfg.fsdp``, FSDP over the data axes, whose leaves' gradients arrive
+reduce-scattered in rank order (``core.distributed.gather_for_use``) and
+whose AdamW moments are the rank's blocks too. A model without blocks
+(another family, or an LM built whole) is replicated, and MoE layers with
+``moe_impl="ep"`` split their experts (``models.moe.moe_ffn_ep``).
 
 CLI (reduced configs; on the card unless ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch gat-cora \\
@@ -84,12 +90,22 @@ def _micro(batch: dict, i: int, n: int) -> dict:
     return {key: part(x) for key, x in batch.items()}
 
 
-def _mean_over_data(grads: dict, loss, aux: dict):
+def _fsdp_leaf(param) -> bool:
+    """Whether ``param`` is a block FSDP splits over a data axis."""
+    from repro_torch.distributed.sharding import split_axes
+
+    spec = getattr(param, "spec", None)
+    return spec is not None and any(a in ("pod", "data") for a in split_axes(spec))
+
+
+def _mean_over_data(grads: dict, loss, aux: dict, params: dict | None = None):
     """Average the gradients, the loss and the aux scalars over the active
     mesh's data axes, summed in rank order in f32 (``psum_in_order``): the
     leaves, in order, are packed into buckets of at most ``CHUNK`` elements
-    (a large leaf spans several), one all-reduce a bucket. Unchanged
-    without a mesh or data axes."""
+    (a large leaf spans several), one all-reduce a bucket. An FSDP leaf of
+    ``params`` has its gradient reduce-scattered over the data axes
+    already (the backward of its gather): it is only divided by their
+    size. Unchanged without a mesh or data axes."""
     mesh, daxes = active_mesh(), data_axes()
     if not daxes:
         return grads, loss, aux
@@ -97,6 +113,10 @@ def _mean_over_data(grads: dict, loss, aux: dict):
     from repro_torch.optim.optimizer import CHUNK
 
     p = _axis_size(mesh, daxes)
+    keys = list(grads)
+    scaled = {k: (g.float() / p).to(g.dtype) for k, g in grads.items()
+              if params is not None and _fsdp_leaf(params[k])}
+    grads = {k: g for k, g in grads.items() if k not in scaled}
     leaves = [*grads.values(), loss, *aux.values()]
     flats = [x.reshape(-1) for x in leaves]
     parts: list[list] = [[] for _ in flats]
@@ -124,7 +144,8 @@ def _mean_over_data(grads: dict, loss, aux: dict):
         flush()
     out = [torch.cat(ps).reshape(x.shape).to(x.dtype) for ps, x in zip(parts, leaves)]
     n = len(grads)
-    return (dict(zip(grads, out[:n])), out[n],
+    mean = dict(zip(grads, out[:n]))
+    return ({k: scaled[k] if k in scaled else mean[k] for k in keys}, out[n],
             dict(zip(aux, out[n + 1:])))
 
 
@@ -160,17 +181,33 @@ def make_train_step(
                 loss_sum = loss_sum + loss
             grads = {k: g / accum_steps for k, g in g_sum.items()}
             loss = loss_sum / accum_steps
-        grads, loss, aux = _mean_over_data(grads, loss, aux)
+        grads, loss, aux = _mean_over_data(grads, loss, aux, params)
         lr = cosine_schedule(opt_state.step, hp.lr, hp.warmup_steps, hp.total_steps)
+        split, mesh = _split_of(params)
         _, new_opt, opt_metrics = adamw_update(
             grads, opt_state, params,
             lr=lr, b1=hp.b1, b2=hp.b2,
-            weight_decay=hp.weight_decay, clip_norm=hp.clip_norm,
+            weight_decay=hp.weight_decay, clip_norm=hp.clip_norm, split=split, mesh=mesh,
         )
         metrics = {"loss": loss, **aux, **opt_metrics}
         return model, new_opt, metrics
 
     return train_step
+
+
+def _split_of(params: dict) -> tuple:
+    """``(split, mesh)`` for the optimizer's clip: the axes that split each
+    leaf in ``tree_leaves`` order, and the mesh of the tagged blocks
+    (``(None, None)`` when no leaf is a block)."""
+    from repro_torch.distributed.sharding import split_axes
+    from repro_torch.optim.optimizer import tree_leaves
+
+    leaves = tree_leaves(params)
+    tagged = [p for p in leaves if getattr(p, "spec", None) is not None]
+    if not tagged:
+        return None, None
+    return [split_axes(p.spec) if getattr(p, "spec", None) is not None else ()
+            for p in leaves], tagged[0].mesh
 
 
 def make_lm_train_step(cfg: TransformerConfig, hp: TrainHyperparams = TrainHyperparams()):
@@ -216,16 +253,17 @@ class TrainSetup(NamedTuple):
     get_batch: Callable         # step -> batch (numpy, or tensors on the device)
 
 
-def setup(family: str, cfg, hp: TrainHyperparams, device) -> TrainSetup:
+def setup(family: str, cfg, hp: TrainHyperparams, device, mesh=None) -> TrainSetup:
     """The reduced model (seed 0), loss, step and data pipeline of
     ``train_loop`` for a config of ``family``, on ``device``: the reference's
     pipelines and batch sizes (LM 4 × min(128, 4·loss_chunk) tokens, a
-    512-node 4,096-edge graph, 32 recsys examples)."""
+    512-node 4,096-edge graph, 32 recsys examples). With a ``mesh`` an LM is
+    this rank's blocks of the model (``init_transformer(mesh=)``)."""
     from repro_torch.data import GraphPipeline, LMDataPipeline, RecsysPipeline
 
     dev = device_of(device)
     if family == "lm":
-        model = init_transformer(cfg, device=dev)
+        model = init_transformer(cfg, device=dev, mesh=mesh)
         pipe = LMDataPipeline(vocab_size=cfg.vocab_size, batch_size=4,
                               seq_len=min(128, 4 * cfg.loss_chunk), seed=0)
         return TrainSetup(model, lambda p, b: transformer_loss(p, cfg, b),
@@ -304,9 +342,12 @@ def train_loop(
     own ``device``) each step runs under ``use_mesh(mesh)`` on the rank's
     rows of the pipeline's batch over the data axes (a graph is
     replicated), and the gradients are averaged over them
-    (:func:`make_train_step`). Every rank holds the whole model; the
-    mesh's first rank writes the checkpoints, every rank resumes from
-    them, and the ranks meet at a barrier after the last save.
+    (:func:`make_train_step`). An LM rank holds its blocks of the model
+    and of the moments (see the module doc; ``smoke_overrides={"fsdp":
+    True}`` adds FSDP), other families the whole model. A checkpoint holds
+    whole tensors, gathered in rank order, as one process's does; the
+    mesh's first rank writes it, every rank resumes from it (cutting its
+    blocks), and the ranks meet at a barrier after the last save.
     """
     from repro_torch.configs.base import get_arch
 
@@ -320,15 +361,21 @@ def train_loop(
     horizon = steps if total_steps is None else total_steps
     hp = TrainHyperparams(warmup_steps=max(2, horizon // 10), total_steps=horizon)
     dev = device_of(device)
-    run = setup(arch_def.family, cfg, hp, dev)
+    run = setup(arch_def.family, cfg, hp, dev, mesh=mesh)
     params = params_of(run.model)
     opt_state = adamw_init(params)
+    blocks = getattr(run.model, "mesh", None) is not None
+    specs = None
+    if blocks:
+        pspecs = {name: p.spec for name, p in params.items()}
+        specs = {"params": pspecs, "opt": opt_state._replace(step=(), m=pspecs, v=pspecs)}
 
     start_step = 0
     mgr = None
     if ckpt_dir:
         mgr = CheckpointManager(ckpt_dir, keep=3)
-        restored, at = mgr.restore(like={"params": params, "opt": opt_state})
+        restored, at = mgr.restore(like={"params": params, "opt": opt_state},
+                                   specs=specs, mesh=mesh if blocks else None)
         if restored is not None:
             _restore_into(params, restored["params"])
             _restore_into([opt_state.m, opt_state.v], [restored["opt"].m, restored["opt"].v])
@@ -356,10 +403,12 @@ def train_loop(
                 f"gnorm={float(metrics.get('grad_norm', 0)):.2f} "
                 f"({timer.rank_ema.get(0, 0)*1e3:.0f} ms/step)"
             )
-        if mgr and writer and (s + 1) % ckpt_every == 0:
-            mgr.save({"params": params, "opt": opt_state}, s + 1, blocking=False)
-    if mgr and writer:
-        mgr.save({"params": params, "opt": opt_state}, steps, blocking=True)
+        if mgr and (writer or blocks) and (s + 1) % ckpt_every == 0:
+            mgr.save({"params": params, "opt": opt_state}, s + 1, blocking=False,
+                     specs=specs, mesh=mesh if blocks else None)
+    if mgr and (writer or blocks):
+        mgr.save({"params": params, "opt": opt_state}, steps, blocking=True,
+                 specs=specs, mesh=mesh if blocks else None)
     if mesh is not None:
         import torch.distributed as dist
 

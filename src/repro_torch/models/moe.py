@@ -27,6 +27,13 @@ the slots of its own ``E / p_model`` experts, runs them and adds its part
 of the combine; one all-reduce over ``model`` sums the parts. Counts are
 a ``scatter_add_`` of ones (``torch.bincount`` has no meta kernel; the
 bits are the same).
+
+On a rank's ``Transformer(cfg, device, mesh)`` (``models.transformer``) a
+``MoEParams`` holds its block of the reference's specs
+(:func:`moe_param_specs` with ``fsdp``): ``E / p_model`` experts, and with
+FSDP the second dimension of the stacks and the router's first split over
+the data axes; each call gathers them over those axes before use
+(``sharding.weight_for_use``), so routing is the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from torch.nn import functional as F
 
 from repro_torch.core.matches import stable_topk
 from repro_torch.core.precision import exact_f32
+from repro_torch.distributed.sharding import weight_for_use
 from repro_torch.models.layers import count_ids, take
 
 
@@ -75,11 +83,14 @@ def init_moe(generator: torch.Generator, d_model: int, d_ff: int, n_experts: int
     return p
 
 
-def moe_param_specs() -> dict:
+def moe_param_specs(fsdp: bool = False) -> dict:
     """Specs of :class:`MoEParams`' parameters, by name: the experts over
-    the model axis (expert parallelism), the router replicated."""
-    return {"router": (None, None), "w_gate": ("model", None, None),
-            "w_up": ("model", None, None), "w_down": ("model", None, None)}
+    the model axis (expert parallelism); with ``fsdp`` each stack's second
+    dimension and the router's first over ``("pod", "data")`` (the
+    reference's ``param_specs``), else the router replicated."""
+    f = ("pod", "data") if fsdp else None
+    return {"router": (f, None), "w_gate": ("model", f, None),
+            "w_up": ("model", f, None), "w_down": ("model", f, None)}
 
 
 def local_experts(params: MoEParams, mesh, model_axis: str = "model") -> MoEParams:
@@ -136,7 +147,8 @@ def moe_route(params: MoEParams, x: torch.Tensor, *, top_k: int,
     T = x.shape[0]
     E = params.router.shape[1]
     C = capacity(T, top_k, capacity_factor, E)
-    logits = torch.matmul(x.to(router_dtype), params.router.to(router_dtype))
+    router = weight_for_use(params.router)
+    logits = torch.matmul(x.to(router_dtype), router.to(router_dtype))
     probs = torch.softmax(logits, dim=-1)
     gates, expert_ids = stable_topk(probs, top_k)
     flat_expert = expert_ids.reshape(-1)
@@ -175,10 +187,10 @@ def moe_ffn(
     buf[r.slot] = take(x, flat_token)      # only the trash row takes several writes
     buf = buf[:E * C].reshape(E, C, d)
 
-    g = torch.bmm(buf, params.w_gate)
-    u = torch.bmm(buf, params.w_up)
+    g = torch.bmm(buf, weight_for_use(params.w_gate))
+    u = torch.bmm(buf, weight_for_use(params.w_up))
     h = F.silu(g.float()).to(x.dtype) * u
-    y_flat = torch.bmm(h, params.w_down).reshape(E * C, d)
+    y_flat = torch.bmm(h, weight_for_use(params.w_down)).reshape(E * C, d)
 
     gathered = torch.where(r.keep[:, None], take(y_flat, r.slot.clamp(max=E * C - 1)), 0.0)
     weighted = gathered.float() * r.gates.reshape(-1)[r.order][:, None]
@@ -248,12 +260,12 @@ def moe_ffn_ep(
     C = capacity(T_loc, top_k, capacity_factor, E)
 
     x_in = enter_replicated(x, mesh, model)
-    router = enter_replicated(params.router, mesh, model)
+    router = enter_replicated(weight_for_use(params.router), mesh, model)
+    stacks = [weight_for_use(w) for w in (params.w_gate, params.w_up, params.w_down)]
     if params.w_gate.shape[0] == E:
-        w_gate, w_up, w_down = (enter_replicated(w, mesh, model)[lo:hi]
-                                for w in (params.w_gate, params.w_up, params.w_down))
+        w_gate, w_up, w_down = (enter_replicated(w, mesh, model)[lo:hi] for w in stacks)
     else:
-        w_gate, w_up, w_down = params.w_gate, params.w_up, params.w_down
+        w_gate, w_up, w_down = stacks
 
     logits = torch.matmul(x_in.to(router_dtype), router.to(router_dtype))
     probs = torch.softmax(logits, dim=-1)

@@ -32,9 +32,31 @@ loss normalises by the global token count; and a cache made with
 :func:`decode_step` then runs K9's partials over the slice and merges the
 ranks' partials in rank order (the reference's sequence-parallel decode,
 where GSPMD turns the softmax's reductions into all-reduces: the paper's
-vertical accumulation of partial scores, over the sequence). Dense
-weights are replicated on every rank (``param_specs`` states the
-reference's layout; ``launch.dryrun`` prices the difference).
+vertical accumulation of partial scores, over the sequence).
+
+A rank's model on a mesh, ``Transformer(cfg, device, mesh)`` (or
+``init_transformer(mesh=)``, ``shard_transformer``, ``interop`` with
+``mesh=``), holds its blocks of the reference's ``param_specs``
+(:func:`layout_specs`), plain local tensors whose collectives go through
+``core.distributed`` in rank order. Over ``model``: the q/k/v projections
+by head rows and ``wo`` by columns (Megatron's column- then row-parallel
+pair: the input's gradient summed over ``model`` on the way in, the
+partial outputs summed over ``model`` on the way out), MLA's per-head
+``wq_b``/``wkv_b`` likewise, FFN columns then rows (the shared experts and
+the dense residual too), the experts (``moe_ffn_ep`` on the rank's
+experts), the embedding's width (all-gathered after the lookup) and the
+head's vocab (logits all-gathered for a caller; a vocab-parallel
+log-sum-exp in the loss). K8 runs on the rank's heads. Heads split only
+whole: where the kv heads do not divide, each rank computes the kv head
+its q heads share; where the q heads do not, attention replicates
+(:func:`layout_replications`). Decode keeps the reference's cache specs
+(the sequence over ``model``): each layer all-gathers the ranks' q heads
+and new k/v rows, K9's partials run over the rank's sequence block for
+every head, and after the merge each rank keeps its heads of ``o`` for
+``wo``. With ``cfg.fsdp`` each matrix's other dimension (``param_specs``'
+``("pod", "data")``) is split over the data axes too and gathered before use
+(``sharding.weight_for_use``), its gradient reduce-scattered back in rank
+order. A model built whole runs as before on every rank.
 
 Training (:func:`transformer_loss`) attends through the plain
 ``chunked_attention`` on every device, as the reference trains through
@@ -63,7 +85,17 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.precision import exact_f32
-from repro_torch.distributed.sharding import active_mesh, axis_sizes, data_axes, use_mesh
+from repro_torch.distributed.elastic import _filter_spec_for
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    axis_sizes,
+    cut_tree,
+    data_axes,
+    gather_tree,
+    local_shape,
+    use_mesh,
+    weight_for_use,
+)
 from repro_torch.interop import device_of
 from repro_torch.kernels.decode_attention.ops import (
     combine_partials,
@@ -82,7 +114,7 @@ from repro_torch.models.layers import (
     rms_norm,
     swiglu,
 )
-from repro_torch.models.moe import MoEParams, init_moe, moe_ffn, moe_ffn_ep
+from repro_torch.models.moe import MoEParams, init_moe, moe_ffn, moe_ffn_ep, moe_param_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,7 +157,7 @@ class TransformerConfig:
     bf16_probs: bool = False        # plain path only (K8 raises)
     grad_accum: int = 1             # training: microbatches per step
     # parallelism
-    fsdp: bool = False              # param_specs over ("pod", "data"); weights stay replicated
+    fsdp: bool = False              # param_specs over ("pod", "data") (a rank's Transformer(mesh=))
 
     @property
     def padded_vocab(self) -> int:
@@ -223,11 +255,16 @@ class Transformer(nn.Module):
     ``init_transformer`` builds them. :func:`init_transformer` and
     ``interop`` fill them."""
 
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, mesh=None):
         super().__init__()
         if cfg.attention not in ("gqa", "mla"):
             raise ValueError(f"unknown attention {cfg.attention!r}")
         self.cfg = cfg
+        specs = layout_specs(cfg, mesh) if mesh is not None else None
+        cut = specs is not None and any(any(part is not None for part in spec)
+                                        for spec in specs.values())
+        self.mesh = mesh if cut else None
+        final_device, device = device, ("meta" if cut else device)
         self.embed = nn.Parameter(
             torch.empty(cfg.padded_vocab, cfg.d_model, dtype=cfg.dtype, device=device),
             requires_grad=False,
@@ -238,11 +275,147 @@ class Transformer(nn.Module):
             Block(cfg, device) for _ in range(cfg.n_layers - cfg.first_k_dense))
         self.final_norm = _ones(cfg.d_model, cfg, device)
         self.lm_head = _linear(cfg.d_model, cfg.padded_vocab, cfg, device)
+        if cut:
+            self._cut(specs, mesh, final_device)
         self.requires_grad_(False)
 
     def blocks(self):
         """Every block in order: the dense ones, then the others."""
         return [*self.dense_layers, *self.layers]
+
+    def _cut(self, specs: dict, mesh, device) -> None:
+        """Replace every parameter by an empty one of this rank's block
+        (``local_shape`` of its layout spec) on ``device``, tagged with its
+        spec and mesh (``sharding.weight_for_use``), and give each attention,
+        FFN and MoE module its :class:`Cut`."""
+        dev = device_of(device) if device != "meta" else torch.device("meta")
+        for name, p in list(self.named_parameters()):
+            owner_name, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(owner_name) if owner_name else self
+            local = nn.Parameter(torch.empty(local_shape(tuple(p.shape), specs[name], mesh),
+                                             dtype=p.dtype, device=dev), requires_grad=False)
+            local.spec, local.mesh = specs[name], mesh
+            setattr(owner, leaf, local)
+        m = axis_sizes(mesh).get("model", 1)
+        me = mesh.get_local_rank("model") if m > 1 and hasattr(mesh, "get_local_rank") else 0
+        cfg = self.cfg
+        attn = Cut(mesh, _head_split(cfg, m)[0], _head_geometry(cfg, m, me))
+        for blk in self.blocks():
+            blk.attn.cut = attn
+            ffns = [blk.ffn] if isinstance(blk.ffn, FFN) else \
+                [f for f in (blk.ffn.shared, blk.ffn.dense) if f is not None]
+            for f in ffns:
+                f.cut = Cut(mesh, _split_on_model(f.w_down.weight.spec, 1))
+            if isinstance(blk.ffn, MoEFFN):
+                blk.ffn.moe.cut = Cut(mesh, _split_on_model(blk.ffn.moe.w_gate.spec, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """How one module of a rank's :class:`Transformer` is cut over the
+    mesh's ``model`` axis: ``split`` when its model dimension (attention
+    heads, FFN columns, experts) is; an attention module's ``heads`` are
+    ``(q heads held, first q head, kv heads computed, first kv head, kv
+    heads split)``."""
+
+    mesh: Any
+    split: bool
+    heads: tuple = ()
+
+
+def _split_on_model(spec, dim: int) -> bool:
+    part = spec[dim]
+    return part == "model" or (isinstance(part, tuple) and "model" in part)
+
+
+def _head_geometry(cfg: TransformerConfig, m: int, me: int) -> tuple:
+    """:class:`Cut`'s ``heads`` for the rank at place ``me`` of ``m``."""
+    q_split, kv_split = _head_split(cfg, m)
+    hkv = cfg.n_heads if cfg.attention == "mla" else cfg.n_kv_heads
+    if not q_split:
+        return (cfg.n_heads, 0, hkv, 0, False)
+    hq = cfg.n_heads // m
+    if kv_split:
+        return (hq, me * hq, hkv // m, me * (hkv // m), True)
+    return (hq, me * hq, 1, me * hq // (cfg.n_heads // hkv), False)
+
+
+def _head_split(cfg: TransformerConfig, m: int) -> tuple[bool, bool]:
+    """Whether ``m`` model ranks split the (q, kv) heads. Heads split only
+    whole: q heads where ``m`` divides them; GQA's kv heads where ``m``
+    divides them too, else they replicate and each rank computes the one
+    kv head its q heads share, which needs ``kv heads | m`` (then a rank's
+    q heads never straddle two kv heads). Otherwise attention replicates."""
+    if m == 1 or cfg.n_heads % m:
+        return False, False
+    if cfg.attention == "mla" or cfg.n_kv_heads % m == 0:
+        return True, True
+    return (True, False) if m % cfg.n_kv_heads == 0 else (False, False)
+
+
+def layout_specs(cfg: TransformerConfig, mesh) -> dict:
+    """:func:`param_specs` as a rank of ``mesh`` holds the parameters:
+    axes the mesh lacks and dimensions their axes do not divide replicate
+    (``elastic``'s rule), and attention weights split only whole heads
+    (:func:`_head_split`): where heads do not divide, the weight's
+    ``model`` dimension replicates although its size may divide."""
+    q_split, kv_split = _head_split(cfg, axis_sizes(mesh).get("model", 1))
+    base = param_specs(cfg)
+    out = {}
+    for name, p in Transformer(cfg, "meta").named_parameters():
+        spec, parts = base[name], name.split(".")
+        leaf = parts[-2] if parts[-1] == "weight" else parts[-1]
+        if "attn" in parts and ((leaf in ("wk", "wv") and not kv_split)
+                                or (leaf in ("wq", "wo", "wq_b", "wkv_b") and not q_split)):
+            spec = tuple(None if part == "model" else part for part in spec)
+        out[name] = _filter_spec_for(mesh, spec, tuple(p.shape))
+    return out
+
+
+def layout_replications(cfg: TransformerConfig, mesh) -> dict:
+    """``{name: reason}`` of the parameters whose layout spec
+    (:func:`layout_specs`) holds more than ``local_shape`` of
+    :func:`param_specs` would: the head rule's replications."""
+    q_split = _head_split(cfg, axis_sizes(mesh).get("model", 1))[0]
+    layout, base = layout_specs(cfg, mesh), param_specs(cfg)
+    out = {}
+    for name, p in Transformer(cfg, "meta").named_parameters():
+        shape = tuple(p.shape)
+        if local_shape(shape, layout[name], mesh) != local_shape(shape, base[name], mesh):
+            heads = cfg.n_kv_heads if name.split(".")[-2] in ("wk", "wv") and q_split \
+                else cfg.n_heads
+            out[name] = f"{heads} heads over model={axis_sizes(mesh)['model']}"
+    return out
+
+
+def shard_transformer(model: Transformer, mesh, *, device=None) -> Transformer:
+    """This rank's :class:`Transformer` on ``mesh``: every parameter of a
+    whole ``model`` cut to the rank's block (:func:`layout_specs`), copied
+    to ``device`` (``model``'s by default). Every rank of the mesh calls
+    this with the same model."""
+    cfg = model.cfg
+    local = Transformer(cfg, model.embed.device if device is None else device, mesh)
+    if local.mesh is None:
+        return model if device is None else model.to(device_of(device))
+    blocks = cut_tree(dict(model.named_parameters()), layout_specs(cfg, mesh), mesh)
+    with torch.no_grad():
+        for name, p in local.named_parameters():
+            p.copy_(blocks[name])
+    return local
+
+
+def unshard_transformer(model: Transformer) -> Transformer:
+    """The whole :class:`Transformer` of a rank's one, its blocks gathered
+    over the mesh in rank order (every rank calls this; each gets it)."""
+    if model.mesh is None:
+        return model
+    full = Transformer(model.cfg, model.embed.device)
+    specs = {name: p.spec for name, p in model.named_parameters()}
+    whole = gather_tree({n: p.detach() for n, p in model.named_parameters()}, specs, model.mesh)
+    with torch.no_grad():
+        for name, p in full.named_parameters():
+            p.copy_(whole[name])
+    return full
 
 
 def init_transformer(
@@ -250,12 +423,18 @@ def init_transformer(
     *,
     generator: torch.Generator | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Transformer:
     """A model with the reference's init laws, drawn from ``generator`` (on
     ``device``; seed 0 when omitted): matrices normal × √(2/(d_in+d_out)),
     the router likewise in f32, the embedding 0.02 × normal, norms ones.
     Torch's generators give other numbers than ``jax.random``; ``interop``
-    carries a JAX model across."""
+    carries a JAX model across. With a ``mesh`` (every rank calls this) the
+    whole model is drawn and cut to the rank's blocks
+    (:func:`shard_transformer`), so the ranks hold one model."""
+    if mesh is not None:
+        whole = init_transformer(cfg, generator=generator, device=device)
+        return shard_transformer(whole, mesh)
     dev = device_of(device)
     model = Transformer(cfg, dev)
     if generator is None:
@@ -298,8 +477,8 @@ def param_specs(cfg: TransformerConfig) -> dict:
     port's specs, keyed by :class:`Transformer`'s parameter names.
     ``nn.Linear`` weights are the transpose of the reference's matrices, so
     their specs are reversed; the reference's stacked ``layers`` dim is one
-    module a layer here. The port places no weight by it (see the module
-    doc); the dry run and the cells read it."""
+    module a layer here. A rank's ``Transformer(cfg, device, mesh)`` holds
+    its block of each parameter by :func:`layout_specs` of these."""
     f = ("pod", "data") if cfg.fsdp else None
     specs = {}
     for name, p in Transformer(cfg, "meta").named_parameters():
@@ -312,7 +491,7 @@ def param_specs(cfg: TransformerConfig) -> dict:
         elif p.dim() == 1:
             spec = (None,)
         elif "moe" in parts:
-            spec = (f, None) if leaf == "router" else ("model", f, None)
+            spec = moe_param_specs(cfg.fsdp)[leaf]
         elif leaf in ("wq_a", "wkv_a"):
             spec = (None, f)
         elif leaf in ("wo", "w_down"):
@@ -355,14 +534,72 @@ def _use_kernel(use_kernel: bool | None, device: torch.device) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _cut_of(p):
+    return getattr(p, "cut", None)
+
+
+def _lin(layer: nn.Linear, x):
+    """``layer(x)`` on the weight as the rank uses it (FSDP blocks gathered)."""
+    return F.linear(x, weight_for_use(layer.weight))
+
+
+def _enter(x, cut: Cut | None):
+    """Megatron's ``f``: ``x`` (alike on every ``model`` rank) entering a
+    module split over ``model``; the backward sums its gradient there."""
+    if cut is None or not cut.split:
+        return x
+    from repro_torch.core.distributed import enter_replicated
+
+    return enter_replicated(x, cut.mesh, ("model",))
+
+
+def _row_parallel(weight: torch.Tensor, x, cut: Cut | None):
+    """``x · weightᵀ`` where ``weight`` holds the rank's input columns
+    (``wo``, ``w_down``): Megatron's ``g``. Each rank's partial product is
+    taken in f32 and the partials added over ``model`` in rank order in
+    f32 (the gradient passes), then rounded once to ``x``'s dtype, as one
+    rank's product accumulates in f32 and rounds once."""
+    w = weight_for_use(weight)
+    if cut is None or not cut.split:
+        return F.linear(x, w)
+    from repro_torch.core.distributed import psum_replicated
+
+    y = torch.matmul(x.float(), w.float().T)
+    return psum_replicated(y, cut.mesh, ("model",)).to(x.dtype)
+
+
+def _heads(p, cfg: TransformerConfig) -> tuple:
+    """``(q heads, first q head, kv heads, first kv head, kv split)`` of an
+    attention module on this rank (every head without a cut)."""
+    cut = _cut_of(p)
+    if cut is None:
+        hkv = cfg.n_heads if cfg.attention == "mla" else cfg.n_kv_heads
+        return (cfg.n_heads, 0, hkv, 0, True)
+    return cut.heads
+
+
+def _kv_weight(layer: nn.Linear, cfg: TransformerConfig, cut, *, all_heads: bool = False):
+    """``wk``/``wv`` as the rank uses it: its block where kv heads split;
+    where they replicate, the rows of the kv head the rank's q heads share
+    (the gradient summed over ``model``), or every row (``all_heads``)."""
+    w = weight_for_use(layer.weight)
+    if cut is None or not cut.split or cut.heads[4] or all_heads:
+        return w
+    _, _, n, k0, _ = cut.heads
+    return _enter(w, cut)[k0 * cfg.head_dim:(k0 + n) * cfg.head_dim]
+
+
 def _gqa_qkv(p: Attention, cfg: TransformerConfig, x, positions):
     b, s, _ = x.shape
-    q = p.wq(x).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = p.wk(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = p.wv(x).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    cut = _cut_of(p)
+    hq, _, hkv, _, _ = _heads(p, cfg)
+    x = _enter(x, cut)
+    q = _lin(p.wq, x).reshape(b, s, hq, cfg.head_dim)
+    k = F.linear(x, _kv_weight(p.wk, cfg, cut)).reshape(b, s, hkv, cfg.head_dim)
+    v = F.linear(x, _kv_weight(p.wv, cfg, cut)).reshape(b, s, hkv, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_scale)
-        k = rms_norm(k, p.k_scale)
+        q = rms_norm(q, _enter(p.q_scale, cut))
+        k = rms_norm(k, _enter(p.k_scale, cut))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -370,21 +607,25 @@ def _gqa_qkv(p: Attention, cfg: TransformerConfig, x, positions):
 
 def _mla_qkv(p: MLAAttention, cfg: TransformerConfig, x, positions):
     """MLA projections (prefill path, explicit K/V): q, k ``(B, S, H,
-    qk_head_dim)``, v ``(B, S, H, v_head_dim)``."""
+    qk_head_dim)``, v ``(B, S, H, v_head_dim)``, ``H`` the rank's heads. The
+    latent projections (``wq_a``, ``wkv_a``) are whole on every rank, the
+    per-head ones (``wq_b``, ``wkv_b``) the rank's rows."""
     b, s, _ = x.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    cq = rms_norm(p.wq_a(x), p.q_norm)
-    q = p.wq_b(cq).reshape(b, s, h, dn + dr)
+    cut = _cut_of(p)
+    h = _heads(p, cfg)[0]
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    cq = rms_norm(_lin(p.wq_a, x), p.q_norm)
+    q = _lin(p.wq_b, _enter(cq, cut)).reshape(b, s, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
 
-    kv_a = p.wkv_a(x)
+    kv_a = _lin(p.wkv_a, x)
     c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p.kv_norm)
     k_pe = apply_rope(kv_a[..., cfg.kv_lora_rank:][:, :, None, :], positions,
                       cfg.rope_theta)  # one shared head
-    kv = p.wkv_b(c_kv).reshape(b, s, h, dn + dv)
+    kv = _lin(p.wkv_b, _enter(c_kv, cut)).reshape(b, s, h, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
-    k = torch.cat([k_nope, k_pe.expand(b, s, h, dr)], dim=-1)
+    k = torch.cat([k_nope, _enter(k_pe, cut).expand(b, s, h, dr)], dim=-1)
     q = torch.cat([q_nope, q_pe], dim=-1)
     return q, k, v
 
@@ -424,12 +665,20 @@ def _attention(p, cfg: TransformerConfig, x, positions, use_kernel: bool):
             q_chunk=min(cfg.q_chunk, s), kv_chunk=min(cfg.kv_chunk, s),
             probs_dtype=torch.bfloat16 if cfg.bf16_probs else None,
         )
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.v_dim)
-    return p.wo(o)
+    o = o.transpose(1, 2).reshape(b, s, _heads(p, cfg)[0] * cfg.v_dim)
+    return _row_parallel(p.wo.weight, o, _cut_of(p))
 
 
 def _swiglu(p: FFN, x):
-    return swiglu(x, p.w_gate.weight.T, p.w_up.weight.T, p.w_down.weight.T)
+    """SwiGLU (``layers.swiglu``), column-parallel then row-parallel on a
+    rank's block."""
+    cut = _cut_of(p)
+    if cut is None or not cut.split:
+        return swiglu(x, weight_for_use(p.w_gate.weight).T, weight_for_use(p.w_up.weight).T,
+                      weight_for_use(p.w_down.weight).T)
+    x = _enter(x, cut)
+    g, u = _lin(p.w_gate, x), _lin(p.w_up, x)
+    return _row_parallel(p.w_down.weight, F.silu(g.float()).to(x.dtype) * u, cut)
 
 
 def _ffn(p, cfg: TransformerConfig, x):
@@ -438,13 +687,20 @@ def _ffn(p, cfg: TransformerConfig, x):
     loss, drops) or ``None``. The MoE runs over the ``B·S`` flattened
     tokens, so its capacity follows them; with ``moe_impl="ep"`` under a
     mesh with a ``model`` axis it is ``moe_ffn_ep`` over the rank's tokens,
-    as the reference's ``_ffn``. Else, on a mesh, each rank routes its own
-    tokens by ``moe_ffn``."""
+    as the reference's ``_ffn``; a rank that holds only its experts
+    (``Transformer(mesh=)``) runs ``moe_ffn_ep`` on them whatever
+    ``moe_impl`` says. Else, on a mesh, each rank routes its own tokens by
+    ``moe_ffn``."""
     if isinstance(p, FFN):
         return _swiglu(p, x), None
     b, s, d = x.shape
-    mesh = active_mesh()
-    if cfg.moe_impl == "ep" and "model" in axis_sizes(mesh):
+    mesh, cut = active_mesh(), _cut_of(p.moe)
+    if cut is not None and cut.split:
+        out = moe_ffn_ep(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, mesh=cut.mesh,
+                         data_axes=tuple(a for a in ("pod", "data")
+                                         if a in axis_sizes(cut.mesh)))
+    elif cfg.moe_impl == "ep" and "model" in axis_sizes(mesh):
         out = moe_ffn_ep(p.moe, x.reshape(b * s, d), top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor, mesh=mesh,
                          data_axes=data_axes())
@@ -483,7 +739,7 @@ def _backbone(params: Transformer, cfg: TransformerConfig, tokens, use_kernel: b
     ``remat`` checkpoints each block."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    x = F.embedding(tokens.long(), params.embed)
+    x = _embed(params, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for blk in params.blocks():
         if remat:
@@ -502,6 +758,33 @@ def _tokens(params: Transformer, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.device)
 
 
+def _model_split(p: torch.Tensor, dim: int) -> bool:
+    spec = getattr(p, "spec", None)
+    return spec is not None and _split_on_model(spec, dim)
+
+
+def _embed(params: Transformer, tokens) -> torch.Tensor:
+    """Token embeddings ``(…, d)``: a rank holding ``d / p`` columns
+    (``(None, "model")``) looks its columns up and all-gathers the width
+    over ``model``."""
+    x = F.embedding(tokens.long(), weight_for_use(params.embed))
+    if _model_split(params.embed, 1):
+        from repro_torch.core.distributed import gather_replicated
+
+        x = gather_replicated(x, params.mesh, ("model",), x.dim() - 1)
+    return x
+
+
+def _whole_vocab(params: Transformer, logits: torch.Tensor) -> torch.Tensor:
+    """Logits whose vocab ``lm_head`` splits over ``model``, all-gathered to
+    the whole vocab (every rank gets them)."""
+    if not _model_split(params.lm_head.weight, 0):
+        return logits
+    from repro_torch.core.distributed import gather_replicated
+
+    return gather_replicated(logits, params.mesh, ("model",), logits.dim() - 1)
+
+
 @torch.no_grad()
 def transformer_logits(
     params: Transformer, cfg: TransformerConfig, tokens, *, use_kernel: bool | None = None
@@ -511,13 +794,15 @@ def transformer_logits(
     exact_f32()
     tokens = _tokens(params, tokens)
     x, _ = _backbone(params, cfg, tokens, _use_kernel(use_kernel, tokens.device))
-    return params.lm_head(x)
+    return _whole_vocab(params, _lin(params.lm_head, x))
 
 
 def _logits_f32(params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """``x · lm_head`` with f32 output: products of the model's dtype summed
-    in f32, as the reference's ``preferred_element_type=f32``."""
-    return torch.matmul(x.float(), params.lm_head.weight.float().T)
+    in f32, as the reference's ``preferred_element_type=f32``; the whole
+    vocab on every rank."""
+    w = weight_for_use(params.lm_head.weight)
+    return _whole_vocab(params, torch.matmul(x.float(), w.float().T))
 
 
 @torch.no_grad()
@@ -548,6 +833,24 @@ def _chunk_nll(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     logits = torch.matmul(x.float(), w.float().T)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask)
+
+
+def _chunk_nll_split(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor, mesh, vocab_lo: int) -> torch.Tensor:
+    """:func:`_chunk_nll` with the head's vocab split over ``model``: the
+    rank's logits ``(B, c, V / p)``, their log-sum-exp over the ranks (max,
+    then the sum of exponentials in rank order) and the label's logit
+    from the rank that holds it; the result is alike on every rank."""
+    from repro_torch.core.distributed import (
+        enter_replicated,
+        vocab_parallel_logsumexp,
+        vocab_parallel_pick,
+    )
+
+    logits = torch.matmul(enter_replicated(x, mesh, ("model",)).float(), w.float().T)
+    lse = vocab_parallel_logsumexp(logits, mesh, "model")
+    gold = vocab_parallel_pick(logits, labels, mesh, "model", vocab_lo)
     return torch.sum((lse - gold) * mask)
 
 
@@ -588,10 +891,17 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, batch: dict, *
         raise ValueError(f"sequence length {s} is not a multiple of loss_chunk {chunk}")
     tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
     cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    head = weight_for_use(params.lm_head.weight)
+    split = _model_split(params.lm_head.weight, 0)
     for lo in range(0, s, chunk):
         sl = slice(lo, lo + chunk)
-        tot = tot + checkpoint(_chunk_nll, x[:, sl], params.lm_head.weight, labels[:, sl],
-                               mask[:, sl], use_reentrant=False)
+        if split:
+            vocab_lo = params.mesh.get_local_rank("model") * head.shape[0]
+            tot = tot + checkpoint(_chunk_nll_split, x[:, sl], head, labels[:, sl],
+                                   mask[:, sl], params.mesh, vocab_lo, use_reentrant=False)
+        else:
+            tot = tot + checkpoint(_chunk_nll, x[:, sl], head, labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
         cnt = cnt + torch.sum(mask[:, sl])
     mesh, daxes = active_mesh(), data_axes()
     if daxes:
@@ -748,17 +1058,28 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
     sharded cache: K9's partials over the rank's block, merged over the
     ranks (:func:`_combine_over_seq`)."""
     b = x.shape[0]
-    q = p.wq(x).reshape(b, 1, cfg.n_heads, cfg.head_dim)
-    k_new = p.wk(x).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
-    v_new = p.wv(x).reshape(b, 1, cfg.n_kv_heads, cfg.head_dim)
+    cut = _cut_of(p)
+    hq, q0, hkv, _, kv_split = _heads(p, cfg)
+    if not kv_split:                       # replicated kv heads: compute them all
+        hkv = cfg.n_kv_heads
+    q = _lin(p.wq, x).reshape(b, 1, hq, cfg.head_dim)
+    k_new = F.linear(x, _kv_weight(p.wk, cfg, cut, all_heads=True)).reshape(
+        b, 1, hkv, cfg.head_dim)
+    v_new = F.linear(x, _kv_weight(p.wv, cfg, cut, all_heads=True)).reshape(
+        b, 1, hkv, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_scale)
         k_new = rms_norm(k_new, p.k_scale)
     posb = lengths[:, None]
     q = apply_rope(q, posb, cfg.rope_theta)[:, 0]             # (B, H, D)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)[:, 0]     # (B, Hkv, D)
+    v_new = v_new[:, 0]
+    if cut is not None and cut.split:      # every head's q and new row on every rank
+        q = _gather_heads(q, cut)
+        if kv_split:
+            k_new, v_new = _gather_heads(k_new, cut), _gather_heads(v_new, cut)
     _write_row(k_cache, lengths, k_new, layout)
-    _write_row(v_cache, lengths, v_new[:, 0], layout)
+    _write_row(v_cache, lengths, v_new, layout)
     scale = 1.0 / (cfg.head_dim ** 0.5)
     live = _local_lengths(lengths, layout)
     if layout is not None:
@@ -769,7 +1090,15 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
         o = decode_attention(q, k_cache, v_cache, live, scale=scale)
     else:
         o = decode_attention_xla(q, k_cache, v_cache, live, scale=scale)
-    return p.wo(o.reshape(b, cfg.n_heads * cfg.head_dim).to(x.dtype))
+    o = o[:, q0:q0 + hq]                   # the rank's heads for the row-parallel wo
+    return _row_parallel(p.wo.weight, o.reshape(b, hq * cfg.head_dim).to(x.dtype), cut)
+
+
+def _gather_heads(x: torch.Tensor, cut: Cut) -> torch.Tensor:
+    """``(B, H_loc, …)`` of each ``model`` rank all-gathered to ``(B, H, …)``."""
+    from repro_torch.core.distributed import gather_heads
+
+    return gather_heads(x, cut.mesh, "model", dim=1)
 
 
 def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
@@ -784,29 +1113,33 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
     l)`` of its block and the ranks merge them as K9's partials.
     """
     b = x.shape[0]
-    h, dn, dr, dv, r = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
-                        cfg.kv_lora_rank)
+    cut = _cut_of(p)
+    h, h0 = _heads(p, cfg)[:2]
+    dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     posb = lengths[:, None]
 
-    cq = rms_norm(p.wq_a(x), p.q_norm)
-    q = p.wq_b(cq).reshape(b, h, dn + dr)
+    cq = rms_norm(_lin(p.wq_a, x), p.q_norm)
+    q = _lin(p.wq_b, cq).reshape(b, h, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe[:, None], posb, cfg.rope_theta)[:, 0]
 
-    kv_a = p.wkv_a(x)
+    kv_a = _lin(p.wkv_a, x)
     c_new = rms_norm(kv_a[..., :r], p.kv_norm)
     pe_new = apply_rope(kv_a[..., r:][:, None, None, :], posb, cfg.rope_theta)[:, 0, 0]
 
     _write_row(c_cache, lengths, c_new, layout)
     _write_row(pe_cache, lengths, pe_new, layout)
 
-    wkv_b = p.wkv_b.weight.T.reshape(r, h, dn + dv).float()
+    wkv_b = weight_for_use(p.wkv_b.weight).T.reshape(r, h, dn + dv).float()
     w_k, w_v = wkv_b[..., :dn], wkv_b[..., dn:]               # (r, h, dn), (r, h, dv)
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_k)
+    q_pe = q_pe.float()
+    if cut is not None and cut.split:      # every head's latent query on every rank
+        q_lat, q_pe = _gather_heads(q_lat, cut), _gather_heads(q_pe, cut)
     scale = 1.0 / (cfg.qk_head_dim ** 0.5)
     c32 = c_cache.float()
     s = (torch.einsum("bhr,blr->bhl", q_lat, c32)
-         + torch.einsum("bhr,blr->bhl", q_pe.float(), pe_cache.float())) * scale
+         + torch.einsum("bhr,blr->bhl", q_pe, pe_cache.float())) * scale
     L = c_cache.shape[1]
     live = _local_lengths(lengths, layout)
     valid = torch.arange(L, device=x.device)[None, None, :] < live[:, None, None]
@@ -819,8 +1152,8 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
     else:
         o_lat = _combine_over_seq(torch.einsum("bhl,blr->bhr", pr, c32), m[..., 0],
                                   pr.sum(dim=-1), layout)
-    o = torch.einsum("bhr,rhv->bhv", o_lat, w_v)
-    return p.wo(o.reshape(b, h * dv).to(x.dtype))
+    o = torch.einsum("bhr,rhv->bhv", o_lat[:, h0:h0 + h], w_v)
+    return _row_parallel(p.wo.weight, o.reshape(b, h * dv).to(x.dtype), cut)
 
 
 def _decode_block(p: Block, cfg, x, cache_a, cache_b, lengths, use_kernel: bool, layout):
@@ -867,7 +1200,7 @@ def decode_step(
     max_len = layout.max_len if layout else cache[a].shape[3 if cfg.attention == "gqa" else 2]
     if not lengths.is_meta and int(lengths.max()) >= max_len:
         raise ValueError(f"a sequence has filled its cache of {max_len} positions")
-    x = F.embedding(tokens.long(), params.embed)
+    x = _embed(params, tokens)
     for i, blk in enumerate(params.dense_layers):
         x = _decode_block(blk, cfg, x, cache[f"dense_{a}"][i], cache[f"dense_{b}"][i],
                           lengths, use, layout)

@@ -13,6 +13,10 @@ Unlike the reference, which returns new trees, :func:`adamw_update` writes
 the parameters and the moments in place, a slice of at most ``CHUNK``
 elements at a time: an embedding table of 10 GB then needs a few hundred MB
 of temporaries, not three more copies of itself.
+
+On a mesh every rank updates its own blocks (a rank's ``Transformer(mesh=)``
+and, with FSDP, its blocks of the moments): the update is elementwise, so
+only the global norm of the clip crosses ranks (``split``, ``mesh``).
 """
 
 from __future__ import annotations
@@ -102,12 +106,27 @@ def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, split: list | None = None, mesh=None):
     """Scale ``grads`` in place so their global f32 norm is at most
     ``max_norm``; returns ``(grads, norm)``. Each leaf is scaled in f32 and
-    cast back to its dtype."""
+    cast back to its dtype.
+
+    On a mesh whose ranks hold blocks of the leaves, ``split`` names, leaf
+    by leaf in :func:`tree_leaves` order, the axes that split each one
+    (``sharding.split_axes``; ``()`` for a whole leaf): each leaf's sum of
+    squares is summed over those axes in rank order (one all-reduce per
+    set of axes), never over the axes that replicate it, and the leaves'
+    sums are added in leaf order, so every rank gets the same norm."""
     leaves = tree_leaves(grads)
     sq = [_sum_of_squares(g) for g in leaves]
+    if split is not None and any(split):
+        from repro_torch.core.distributed import psum_in_order
+
+        for axes in sorted(set(split) - {()}):
+            idx = [i for i, a in enumerate(split) if a == axes]
+            summed = psum_in_order(torch.stack([sq[i] for i in idx]), mesh, axes)
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
     norm = torch.sqrt(sum(sq[1:], sq[0]))
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in leaves:
@@ -147,14 +166,17 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float | None = 1.0,
+    split: list | None = None,
+    mesh=None,
 ):
     """One AdamW step; returns ``(params, new_state, metrics)``. ``params``,
     ``state.m``, ``state.v`` (and ``grads``, by the clip) are written in
     place; the step count is a new tensor. ``metrics`` holds ``grad_norm``
-    (with ``clip_norm``) and ``lr`` as f32 scalars."""
+    (with ``clip_norm``) and ``lr`` as f32 scalars. ``split`` and ``mesh``
+    go to :func:`clip_by_global_norm` (leaves that are a rank's blocks)."""
     metrics = {}
     if clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, split=split, mesh=mesh)
         metrics["grad_norm"] = gnorm
     step = state.step + 1
     t = step.float()

@@ -426,3 +426,131 @@ def _mesh_census(mesh) -> dict:
 
     register_cut_train_cell()
     return dryrun.census_on_ranks(CUT_TRAIN["arch"], CUT_TRAIN["shape"], mesh)
+
+
+TP_MESHES = {"data2_model2": ((2, 2), ("data", "model")), "model4": ((4,), ("model",))}
+
+
+def tp_ranks(rank, world, dev, spec: dict) -> dict:
+    """Rank function of ``tests/test_torch_tensor_parallel.py``: on each mesh
+    of :data:`TP_MESHES` (both in the same 4 ranks), every LM family of
+    ``spec["models"]`` as the rank's blocks of one numpy tree (``interop``
+    with ``mesh=``): parameter shapes, prefill logits and ``transformer_loss``
+    on the rank's rows, and decode steps into a cache with the sequence over
+    ``model`` (the batch over ``data``); on the first mesh, FSDP train steps
+    (``spec["train"]``) and ``train_loop(mesh=)`` straight and resumed
+    (``spec["loop"]``)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.manual_seed(0)
+    out = {}
+    for name, (shape, names) in TP_MESHES.items():
+        mesh = make_mesh(shape, names)
+        res = {"coord": tuple(mesh.get_coordinate()),
+               "models": {arch: _tp_model(mesh, **case) for arch, case in spec["models"].items()}}
+        if name == "data2_model2":
+            res["train"] = {arch: _tp_train(mesh, **case) for arch, case in spec["train"].items()}
+            res["loop"] = _tp_loop(mesh, **spec["loop"])
+        else:
+            res["server"] = _tp_server(mesh, **spec["server"])
+        out[name] = res
+    return out
+
+
+def _tp_model(mesh, cfg, tree, tokens, steps, max_len) -> dict:
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import transformer as tt
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    rows = torch.as_tensor(_rows(tokens, mesh, ("data",)))
+    with torch.no_grad(), use_mesh(mesh):
+        total, aux = tt.transformer_loss(model, cfg, {"tokens": rows})
+    cache = tt.make_cache(cfg, tokens.shape[0], max_len, device="cpu", mesh=mesh,
+                          seq_axes=("model",), batch_axes=("data",))
+    logits = []
+    for i in range(steps):
+        step, cache = tt.decode_step(model, cfg, cache, rows[:, i])
+        logits.append(step.numpy())
+    return {"shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+            "prefill": tt.prefill(model, cfg, rows).numpy(),
+            "loss": {k: float(v) for k, v in {"total": total, **aux}.items()},
+            "decode": np.stack(logits)}
+
+
+def _tp_server(mesh, cfg, tree, prompts, gen) -> list:
+    """``LMServer`` inside the ranks (the rank's blocks, the cache's
+    sequence over ``model``): each request's greedy tokens."""
+    from repro_torch import interop
+    from repro_torch.launch.serve import LMServer
+
+    srv = LMServer(cfg, max_batch=len(prompts), max_len=32, device="cpu", mesh=mesh,
+                   params=interop.transformer_params_from_numpy(tree, cfg, "cpu", mesh=mesh))
+    return [srv.generate(srv.add_request(p), gen) for p in prompts]
+
+
+def _tp_train(mesh, cfg, tree, batch, hp) -> dict:
+    """One FSDP ``make_lm_train_step`` on the rank's rows: metrics, and the
+    parameters and AdamW moments after it, gathered whole (numpy, by
+    parameter name)."""
+    from repro_torch import interop, optim
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizer import tree_leaves
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    opt = optim.adamw_init(train.params_of(model))
+    mine = {k: _rows(v, mesh, ("data",)) for k, v in batch.items()}
+    with use_mesh(mesh):
+        _, opt, metrics = train.make_lm_train_step(cfg, hp)(model, opt, mine)
+    specs = {n: p.spec for n, p in model.named_parameters()}
+    moments = {k: {n: t.numpy() for n, t in gather_tree(getattr(opt, k), specs, mesh).items()}
+               for k in ("m", "v")}
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "params": tree_leaves(interop.transformer_params_to_numpy(model)), "moments": moments,
+            "moment_shapes": {n: tuple(t.shape) for n, t in opt.m.items()}}
+
+
+def _tp_loop(mesh, run_dir, arch, overrides) -> dict:
+    """``train_loop(mesh=)`` with FSDP: 4 steps straight, and 2 steps then a
+    resume to 4; both final checkpoints' leaves, and the straight one
+    restored onto the mesh (each rank cutting its blocks) and gathered
+    back whole."""
+    import dataclasses
+    import os
+
+    from repro_torch import checkpoint as ck
+    from repro_torch import interop, optim
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizer import tree_leaves
+
+    kw = dict(arch=arch, mesh=mesh, device="cpu", ckpt_every=2, log_every=100,
+              smoke_overrides=overrides)
+    straight, resumed = (os.path.join(run_dir, name) for name in ("straight", "resumed"))
+    first = train.train_loop(steps=4, ckpt_dir=straight, **kw)
+    train.train_loop(steps=2, ckpt_dir=resumed, total_steps=4, **kw)
+    again = train.train_loop(steps=4, ckpt_dir=resumed, **kw)
+
+    cfg = dataclasses.replace(get_arch(arch).make_smoke_config(), **overrides)
+    run = train.setup("lm", cfg, train.TrainHyperparams(), "cpu", mesh=mesh)
+    params = train.params_of(run.model)
+    state = optim.adamw_init(params)
+    specs = {n: p.spec for n, p in params.items()}
+    restored, _ = ck.CheckpointManager(straight).restore(
+        like={"params": params, "opt": state}, specs={"params": specs, "opt": state._replace(
+            step=(), m=specs, v=specs)}, mesh=mesh)
+    train._restore_into(params, restored["params"])
+
+    def leaves(d):
+        return {k: np.asarray(v.float() if hasattr(v, "float") else v)
+                for k, v in ck.load_checkpoint(d, 4).items()}
+    return {"straight": first, "resumed": again, "straight_ck": leaves(straight),
+            "resumed_ck": leaves(resumed), "steps": ck.CheckpointManager(resumed).all_steps(),
+            "restored": tree_leaves(interop.transformer_params_to_numpy(run.model)),
+            "straight_dir": straight}

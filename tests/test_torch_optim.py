@@ -85,21 +85,35 @@ def test_adamw_update_matches_the_reference(dtype, step):
     jstate = jopt.AdamWState(step=jnp.int32(step), m=_map(jnp.asarray, m),
                              v=_map(jnp.asarray, v))
     jlr = jopt.cosine_schedule(jstate.step, LR_PEAK, 100, 1000)
-    wp, wstate, wmet = jopt.adamw_update(jg, jstate, jp, lr=jlr, weight_decay=0.1)
-    # the reference's update before its rounding to the params' dtype
-    exact, _, _ = jopt.adamw_update(jg, jstate, _map(lambda a: a.astype(jnp.float32), jp),
-                                    lr=jlr, weight_decay=0.1)
+    _, _, wmet = jopt.adamw_update(jg, jstate, jp, lr=jlr, weight_decay=0.1)
 
-    tp, tg = (_map(lambda a: torch.from_numpy(a).to(tdt), t) for t in (p32, g32))
+    # copies: the port writes in place, and jnp.asarray may share numpy's memory
+    tp, tg = (_map(lambda a: torch.from_numpy(a.copy()).to(tdt), t) for t in (p32, g32))
     before = [x.double().numpy() for x in optim.tree_leaves(tp)]
     tstate = optim.AdamWState(step=torch.tensor(step, dtype=torch.int32),
-                              m=_map(torch.from_numpy, m), v=_map(torch.from_numpy, v))
+                              m=_map(lambda a: torch.from_numpy(a.copy()), m),
+                              v=_map(lambda a: torch.from_numpy(a.copy()), v))
     tlr = optim.cosine_schedule(tstate.step, LR_PEAK, 100, 1000)
     gp, gstate, gmet = optim.adamw_update(tg, tstate, tp, lr=tlr, weight_decay=0.1)
 
     assert gp is tp and int(gstate.step) == step + 1
     _close(gmet["lr"], wmet["lr"])
     _close(gmet["grad_norm"], wmet["grad_norm"])
+    # The clip's scale rests on the norm's last f32 bits, and each library
+    # (on each CPU) sums the squares in its own order: XLA's sum here is
+    # 1e-6 below the float64 norm. A bf16 gradient rounded after a scale one
+    # bit off moves by a whole bf16 ulp. So the clip is held to the
+    # reference's rule at the port's norm bit for bit, and the update to the
+    # reference's on the gradients that clip gives.
+    scale = jnp.minimum(1.0, 1.0 / jnp.maximum(jnp.float32(float(gmet["grad_norm"])), 1e-9))
+    jg = jax.tree.map(lambda g: (g.astype(jnp.float32) * scale).astype(g.dtype), jg)
+    for got, want in zip(optim.tree_leaves(tg), _leaves(jg)):
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    wp, wstate, _ = jopt.adamw_update(jg, jstate, jp, lr=jlr, weight_decay=0.1,
+                                      clip_norm=None)
+    # the reference's update before its rounding to the params' dtype
+    exact, _, _ = jopt.adamw_update(jg, jstate, _map(lambda a: a.astype(jnp.float32), jp),
+                                    lr=jlr, weight_decay=0.1, clip_norm=None)
     for got, want in zip(optim.tree_leaves(gstate.m), _leaves(wstate.m)):
         _close(got, want)
     for got, want in zip(optim.tree_leaves(gstate.v), _leaves(wstate.v)):

@@ -2465,20 +2465,42 @@ TRAIN_MESH = dict(arch="deepseek-moe-16b", steps=4, stop=2,
 # Tensor parallelism in the same 4 ranks, on a model=4 mesh: qwen3-1.7b at full
 # width and depth, each rank holding its blocks (about 1 GB of 4.06 GB).
 TP_MESH = ((4,), ("model",))
-# Depth cut from 28 to 8 layers: each layer's two row-parallel sums all-gather a
+# Depth cut from 28 to 4 layers: each layer's two row-parallel sums all-gather a
 # 67 MB f32 partial through gloo's host staging, 0.46 s each (25.7 s a prefill
-# at full depth beside an NVIDIA H100 80GB HBM3 at 700 W).
-TP_PREFILL = dict(batch=2, seq=4096, layers=8, seed=21)
+# at full depth beside an NVIDIA H100 80GB HBM3 at 700 W; 8 layers until the
+# recsys and GAT phases joined the spawn, 7.84 s).
+TP_PREFILL = dict(batch=2, seq=4096, layers=4, seed=21)
 # decode_32k's cache length, its sequence over model: 8,192 positions a rank,
 # 7.5 GB a rank; length 24,576 fills ranks 0-2, rank 3 holds the new rows only.
-# The f32 check runs CUT_LAYERS layers for f32_steps steps.
-TP_DECODE = dict(batch=8, max_len=32768, length=24576, warm=2, steps=8, f32_steps=2, seed=23)
+# The f32 check runs CUT_LAYERS layers for f32_steps steps. 4 timed steps (8
+# until the recsys and GAT phases joined the spawn; 735 ms a step).
+TP_DECODE = dict(batch=8, max_len=32768, length=24576, warm=2, steps=4, f32_steps=2, seed=23)
 # FSDP on the (2, 2) mesh, f32, full width with the depth cut to 1 layer: the
 # embedding and the head (622M of the 672M parameters) are split over model
 # only, so their gradients' mean over data moves 1.24 GB a rank a step through
 # gloo's host staging. The resume runs in train_mesh (FSDP on its smoke config):
 # a full-width checkpoint would gather 8 GB of state through gloo.
 FSDP_TRAIN = dict(layers=1, batch=2, seq=2048, steps=2, seed=22)
+# The recsys tables and towers over model=4 (TP_MESH): two-tower-retrieval at
+# its full config (10M × 256 items, 1M × 256 users, towers 1024-512-256, 45 GB
+# of weights, moments and gradients whole), each rank a quarter; the whole
+# tables are drawn by one rank at a time. Batch 4,096 (RECSYS_BATCH), the
+# serve_p99 batch of 512 rows and one query over 1,000,000 candidates.
+TP_RECSYS = dict(arch="two-tower-retrieval", batch=4096, steps=2, serve=512,
+                 candidates=1_000_000, seed=31)
+# GAT's nodes and edges over 4 data ranks: gat-cora's full config at
+# minibatch_lg's padded shape (sampled_shape(1024, (15, 10))), d_feat 602.
+DP_MESH = ((4,), ("data",))
+DP_GAT = dict(nodes=169984, edges=338944, d_feat=602, steps=2, seed=32)
+# Both phases hold the parameters, scores and retrieval after step 1, and each
+# step's loss, to one process's within 1e-5 (TOL); step 2's gradient norm
+# within 1e-4: the ranks' f32 sums run in another order, and at the two-tower's
+# 4,096 × 1,792 ReLU units a few last-bit differences of step 1's parameters
+# cross a kink, which turns an example's contribution on or off (grad norm
+# 1.74e-5 from one process's, a first-layer bias 1.07e-3 of its norm after
+# step 2, on an NVIDIA H100 80GB HBM3 at 700 W; one process repeats itself
+# bit for bit).
+STEP2_GNORM_TOL = 1e-4
 
 
 def _seq_block(torch, shape, block: int, layer: int, which: int, dtype, seed: int):
@@ -2567,7 +2589,20 @@ def mesh_phases(np, torch, cfg, model) -> list:
     - ``fsdp_train_qwen3_1_7b``: ``FSDP_TRAIN``'s 2 steps of
       ``make_lm_train_step`` with ``fsdp=True`` on the ``(2, 2)`` mesh in
       f32, loss and ``grad_norm`` within 1e-5 relative of one rank's, and
-      each parameter (gathered) within 1e-5 of its norm.
+      each parameter (gathered) within 1e-5 of its norm;
+    - ``tp_recsys_two_tower``: two-tower-retrieval at its full config on
+      ``TP_MESH``, each rank a quarter of the tables' rows, the towers'
+      columns and their moments (the whole model drawn by one rank at a
+      time): ``TP_RECSYS``'s 2 steps, each loss within 1e-5 relative of
+      one rank's, the grad norm too at step 1 and within
+      ``STEP2_GNORM_TOL`` at step 2; after step 1 each parameter within
+      1e-5 of its norm (the blocks' squared sums added over the ranks),
+      the serve scores within 1e-5 of their largest and the retrieval's
+      ``Matches`` equal to one rank's under the comparison rule;
+    - ``dp_gat_minibatch_lg``: gat-cora at ``DP_GAT``'s shape with its
+      nodes and edges over ``DP_MESH``'s 4 data ranks, 2 steps held as the
+      two-tower's (loss and accuracy at every step), and the bytes each
+      layer gathers and reduce-scatters.
 
     Returns the K9 row of the sharded decode (rank 0's shard; every rank's
     times beside it), and the K8 and K9 rows at a tensor-parallel rank's
@@ -2628,9 +2663,10 @@ def mesh_phases(np, torch, cfg, model) -> list:
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
     MESH_ROOT.mkdir(parents=True)
     tp_inputs, tp_single = _tp_single(np, torch, cfg, model)
+    rg_inputs, rg_single = _recsys_gnn_single(np, torch)
     t0 = time.perf_counter()
-    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, tp_inputs, threads=2, device="cuda",
-                  run_dir=str(MESH_ROOT))
+    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, tp_inputs, rg_inputs, threads=2,
+                  device="cuda", run_dir=str(MESH_ROOT))
     spawn_s = time.perf_counter() - t0
     emit("mesh_spawn", ranks=4, backend="gloo", mesh=MESH_SHAPE, spawn_s=spawn_s,
          rank_seconds=[r["seconds"] for r in ranks])
@@ -2691,7 +2727,9 @@ def mesh_phases(np, torch, cfg, model) -> list:
     row = dict(dec[0]["k9_row"])
     row.update(ranks_ms=[d["k9_row"]["ms"] for d in dec],
                ranks_live=[d["live"] for d in dec], ranks_launches=[d["launches"] for d in dec])
-    return [row] + _tp_report(np, torch, cfg, [r["tp"] for r in ranks], tp_single)
+    rows = [row] + _tp_report(np, torch, cfg, [r["tp"] for r in ranks], tp_single)
+    _recsys_gnn_report(np, torch, ranks, rg_single)
+    return rows
 
 
 def _moe_config():
@@ -2706,7 +2744,7 @@ def _moe_tokens(torch, c):
                        dtype=c.dtype)
 
 
-def mesh_ranks(rank, world, dev, tokens, tp_inputs) -> dict:
+def mesh_ranks(rank, world, dev, tokens, tp_inputs, rg_inputs) -> dict:
     """Rank function (``launch.mesh.spawn``) of ``mesh_phases``."""
     import numpy as np
     import torch
@@ -2724,6 +2762,13 @@ def mesh_ranks(rank, world, dev, tokens, tp_inputs) -> dict:
     out["tp"] = {"prefill": _rank_tp_prefill(np, torch, tp_mesh, tp_inputs),
                  "decode": _rank_tp_decode(np, torch, tp_mesh, tp_inputs),
                  "fsdp": _rank_fsdp_train(np, torch, mesh, tp_inputs)}
+    torch.cuda.empty_cache()
+    dp_mesh = make_mesh(*DP_MESH)
+    t1 = time.perf_counter()
+    out["recsys"] = _rank_tp_recsys(np, torch, tp_mesh, rg_inputs)
+    t2 = time.perf_counter()
+    out["gat"] = _rank_dp_gat(np, torch, dp_mesh, rg_inputs)
+    out["phase_seconds"] = dict(tp_recsys=t2 - t1, dp_gat=time.perf_counter() - t2)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2809,6 +2854,323 @@ def _tp_single(np, torch, cfg, model):
     torch.cuda.empty_cache()
     out["weight_bytes"] = sum(q.numel() * q.element_size() for q in model.parameters())
     return inputs, out
+
+
+def _two_tower_inputs(np):
+    """``TP_RECSYS``'s train batch, serve batch and query (host numpy)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import RecsysPipeline
+
+    t = TP_RECSYS
+    cfg = get_arch(t["arch"]).make_config()
+    pipe = RecsysPipeline(n_items=cfg.n_items, batch_size=t["batch"],
+                          history_len=cfg.history_len, n_user_fields=cfg.n_user_fields,
+                          user_vocab=cfg.user_vocab, kind="two-tower", seed=t["seed"])
+    return cfg, dict(batch=pipe.get_batch(0),
+                     serve={k: v[:t["serve"]] for k, v in pipe.get_batch(1).items()},
+                     query={k: v[:1] for k, v in pipe.get_batch(2).items()})
+
+
+def _gat_graph(np):
+    """``DP_GAT``'s config and whole graph (host numpy): every process makes
+    the same one."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import GraphPipeline
+
+    g = DP_GAT
+    cfg = dc.replace(get_arch("gat-cora").make_config(), d_feat=g["d_feat"])
+    return cfg, GraphPipeline(g["nodes"], g["edges"], g["d_feat"], n_classes=cfg.n_classes,
+                              seed=g["seed"]).full_graph()
+
+
+def _to_card(torch, batch: dict) -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def _recsys_gnn_single(np, torch):
+    """One process's references of ``tp_recsys_two_tower`` and
+    ``dp_gat_minibatch_lg``, before the spawn: the two-tower's steps at its
+    full config (its parameters go to ``MESH_ROOT`` for the ranks to hold
+    their blocks against), its serve scores and its retrieval, then GAT's
+    steps on the whole graph. Returns the ranks' inputs and the references."""
+    from repro_torch.launch.train import (
+        TrainHyperparams,
+        make_gat_train_step,
+        make_recsys_train_step,
+        params_of,
+    )
+    from repro_torch.models import gnn, recsys
+    from repro_torch.optim import adamw_init
+
+    t = TP_RECSYS
+    hp = TrainHyperparams(**TRAIN_HP)
+    cfg, host = _two_tower_inputs(np)
+    inputs = dict(two_tower_ref=str(MESH_ROOT / "two_tower_single.pt"))
+    out = {}
+    model, out["init_s"] = generated(torch, lambda: recsys.init_two_tower(
+        cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda"))
+    opt = adamw_init(params_of(model))
+    step = make_recsys_train_step(cfg, hp)
+    batch = _to_card(torch, host["batch"])
+    out["metrics"], out["step_ms"] = [], []
+    for i in range(t["steps"]):
+        (_, opt, met), ms = timed(torch, lambda: step(model, opt, batch))
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+        out["step_ms"].append(ms)
+        if i == 0:  # the parameters, scores and retrieval after step 1
+            t0 = time.perf_counter()
+            torch.save({n: q.detach().cpu() for n, q in model.named_parameters()},
+                       inputs["two_tower_ref"])
+            out["save_s"] = time.perf_counter() - t0
+            out.update(_two_tower_serve(np, torch, cfg, model, host))
+            torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["state_bytes"] = sum(q.numel() * q.element_size() for q in (
+        *model.parameters(), *opt.m.values(), *opt.v.values()))
+    del opt, batch, model
+    torch.cuda.empty_cache()
+
+    gcfg, graph = _gat_graph(np)
+    model = gnn.init_gat(gcfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    opt = adamw_init(params_of(model))
+    step = make_gat_train_step(gcfg, hp)
+    g = _to_card(torch, graph)
+    out["gat_metrics"], out["gat_step_ms"] = [], []
+    for i in range(DP_GAT["steps"]):
+        (_, opt, met), ms = timed(torch, lambda: step(model, opt, g))
+        out["gat_metrics"].append({k: float(v) for k, v in met.items()})
+        out["gat_step_ms"].append(ms)
+        if i == 0:
+            inputs["gat_params"] = {n: q.detach().cpu().clone()  # a copy on any device
+                                    for n, q in model.named_parameters()}
+    del model, opt, g
+    torch.cuda.empty_cache()
+    return inputs, out
+
+
+def _two_tower_serve(np, torch, cfg, model, host, mesh=None) -> dict:
+    """``two_tower_score`` of ``TP_RECSYS``'s serve rows and
+    ``retrieval_scores`` of its query over the candidates (under ``mesh``
+    when given); one process also keeps its embeddings' float64 check and
+    the near-threshold counts the ranks are held with."""
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import recsys
+
+    serve, query = _to_card(torch, host["serve"]), _to_card(torch, host["query"])
+    cand = torch.arange(TP_RECSYS["candidates"], dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.no_grad(), use_mesh(mesh):
+        score, out["score_ms"] = timed(torch, lambda: recsys.two_tower_score(model, cfg, serve))
+        got, out["retrieval_ms"] = timed(torch, lambda: recsys.retrieval_scores(
+            model, cfg, query, cand, k=256))
+        if mesh is None:
+            u = recsys.user_embedding(model, cfg, query)
+            c = recsys.item_embedding(model, cfg, cand)
+    out["score"] = score.cpu()
+    out["matches"] = as_rows(np, got.values, got.indices, got.counts)
+    if mesh is None:  # retrieval_check's rule against the float64 oracle
+        ref, out["near"] = f64_topk(np, u, c, 0.0, 256)
+        cmp = compare(np, out["matches"], ref, 0.0, out["near"])
+        check(cmp["ok"], f"tp_recsys: one rank's retrieval against float64: {cmp}")
+        out["retrieval_check"] = dict(cmp, count=int(got.counts.reshape(-1)[0]),
+                                      candidates=int(c.shape[0]))
+    return out
+
+
+def _rank_tp_recsys(np, torch, mesh, inputs) -> dict:
+    """``tp_recsys_two_tower`` on a rank of ``TP_MESH``: the whole model drawn
+    by one rank at a time and cut to its quarter, ``TP_RECSYS``'s steps,
+    scores and retrieval, and its blocks held against one process's."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dd
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import block_of
+    from repro_torch.launch.train import TrainHyperparams, make_recsys_train_step, params_of
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw_init
+
+    t = TP_RECSYS
+    cfg, host = _two_tower_inputs(np)
+    me = mesh.get_local_rank("model")
+    model = None
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for turn in range(TP_MESH[0][0]):  # 4 whole copies and the blocks would not fit
+        if turn == me:
+            model = recsys.init_two_tower(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                                          device="cuda", mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    build_s = time.perf_counter() - t0
+    opt = adamw_init(params_of(model))
+    step = make_recsys_train_step(cfg, TrainHyperparams(**TRAIN_HP))
+    batch = _to_card(torch, host["batch"])
+    keys = ("psum", "all_gather", "reduce_scatter")
+    wire0 = {k: (dd.WIRE_BYTES[k], dd.WIRE_SECONDS[k]) for k in keys}
+    metrics, walls, out = [], [], {}
+    for i in range(t["steps"]):
+        with use_mesh(mesh):
+            (_, opt, met), ms = timed(torch, lambda: step(model, opt, batch))
+        metrics.append({k: float(v) for k, v in met.items()})
+        walls.append(ms)
+        if i == 0:  # held to one process's parameters, scores and retrieval after step 1
+            wire = {k: dict(bytes=dd.WIRE_BYTES[k] - b, ms=(dd.WIRE_SECONDS[k] - sec) * 1e3)
+                    for k, (b, sec) in wire0.items()}
+            torch.cuda.empty_cache()
+            ref = torch.load(inputs["two_tower_ref"], mmap=True)
+            out["diffs"] = {name: _sq_diff(torch, q.detach(), block_of(ref[name], q.spec, mesh))
+                            for name, q in model.named_parameters()}
+            del ref
+            out.update(_two_tower_serve(np, torch, cfg, model, host, mesh))
+            torch.cuda.empty_cache()
+    out.update(metrics=metrics, step_ms=walls, wire_step1=wire, build_s=build_s,
+               block_bytes=sum(q.numel() * q.element_size() for q in model.parameters()),
+               moment_bytes=sum(q.numel() * q.element_size()
+                                for q in (*opt.m.values(), *opt.v.values())),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               shapes={n: list(q.shape) for n, q in model.named_parameters()})
+    del opt, batch, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sq_diff(torch, got, want, rows: int = 1 << 18) -> tuple[float, float]:
+    """``(Σ (got − want)², Σ want²)`` in f64, ``rows`` rows at a time (a
+    table block whole in f64 would not fit beside the ranks' state);
+    ``want`` on the host."""
+    d = n = 0.0
+    for lo in range(0, got.shape[0], rows):
+        w = want[lo:lo + rows].cuda().double()
+        d += float((got[lo:lo + rows].double() - w).square().sum())
+        n += float(w.square().sum())
+    return d, n
+
+
+def _rank_dp_gat(np, torch, mesh, inputs) -> dict:
+    """``dp_gat_minibatch_lg`` on a rank of ``DP_MESH``: its blocks of the
+    graph's nodes and edges, ``DP_GAT``'s steps, the bytes each layer
+    gathers and reduce-scatters, and the parameters against one process's."""
+    from repro_torch.core import distributed as dd
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch.train import TrainHyperparams, make_gat_train_step, params_of
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw_init
+
+    cfg, whole = _gat_graph(np)
+    axes = gnn.graph_axes(mesh, DP_GAT["nodes"], DP_GAT["edges"])
+    g = _to_card(torch, {k: np.ascontiguousarray(v)
+                         for k, v in gnn.cut_graph(whole, axes, mesh).items()})
+    model = gnn.init_gat(cfg, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
+    opt = adamw_init(params_of(model))
+    step = make_gat_train_step(cfg, TrainHyperparams(**TRAIN_HP), graph_axes=axes)
+    keys = ("all_gather", "reduce_scatter", "psum", "pmax")
+    wire0 = {k: (dd.WIRE_BYTES[k], dd.WIRE_SECONDS[k]) for k in keys}
+    metrics, walls = [], []
+    for i in range(DP_GAT["steps"]):
+        with use_mesh(mesh):
+            (_, opt, met), ms = timed(torch, lambda: step(model, opt, g))
+        metrics.append({k: float(v) for k, v in met.items()})
+        walls.append(ms)
+        if i == 0:  # held to one process's parameters after step 1
+            diffs = {name: _sq_diff(torch, q.detach(), inputs["gat_params"][name])
+                     for name, q in model.named_parameters()}
+    per_layer = DP_GAT["steps"] * cfg.n_layers
+    wire = {k: dict(bytes_per_layer=(dd.WIRE_BYTES[k] - b) / per_layer,
+                    ms=(dd.WIRE_SECONDS[k] - sec) * 1e3) for k, (b, sec) in wire0.items()}
+    out = dict(axes=[list(a) for a in axes], nodes=int(g["labels"].shape[0]),
+               edges=int(g["edge_src"].shape[0]), metrics=metrics, step_ms=walls, wire=wire,
+               diffs=diffs)
+    del model, opt, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_rels(ranks_metrics: list, single: list, every_step: tuple) -> tuple[float, float]:
+    """``(largest relative difference of the ``every_step`` metrics at every
+    step and of step 1's grad norm, step 2's grad norm's)`` of the ranks'
+    metrics from one process's."""
+    def rel(r, i, k):
+        return abs(r[i][k] - single[i][k]) / abs(single[i][k])
+    first = max(rel(r, i, k) for r in ranks_metrics for i in range(len(single))
+                for k in every_step)
+    first = max(first, *(rel(r, 0, "grad_norm") for r in ranks_metrics))
+    return first, max(rel(r, 1, "grad_norm") for r in ranks_metrics)
+
+
+def _param_rel(ranks_diffs: list) -> float:
+    """The largest over parameters of ‖got − want‖ / ‖want‖, the ranks'
+    blocks' squared sums added (a whole leaf's sums count on every rank
+    alike, which cancels)."""
+    return max((sum(d[n][0] for d in ranks_diffs) / sum(d[n][1] for d in ranks_diffs)) ** 0.5
+               for n in ranks_diffs[0])
+
+
+def _recsys_gnn_report(np, torch, ranks, single) -> None:
+    """Hold ``tp_recsys_two_tower`` and ``dp_gat_minibatch_lg``'s ranks
+    against one process and emit them."""
+    card = smi_name_power()
+    tr = [r["recsys"] for r in ranks]
+    t = TP_RECSYS
+    rel, rel2 = _step_rels([r["metrics"] for r in tr], single["metrics"], ("loss",))
+    param_rel = _param_rel([r["diffs"] for r in tr])
+    want = single["score"]
+    dscore = max(float((r["score"] - want).abs().max()) for r in tr)
+    score_bound = TOL * float(want.abs().max())
+    near = single["near"]
+    cmp = [compare(np, r["matches"], single["matches"], 0.0, near) for r in tr]
+    emit("tp_recsys_two_tower", card=card, mesh=TP_MESH, config=t,
+         metrics=[r["metrics"] for r in tr], single=single["metrics"],
+         step_ms=[r["step_ms"] for r in tr], single_step_ms=single["step_ms"],
+         build_s=[r["build_s"] for r in tr], single_init_s=single["init_s"],
+         block_bytes=[r["block_bytes"] for r in tr],
+         moment_bytes=[r["moment_bytes"] for r in tr],
+         max_memory_allocated=[r["max_memory_allocated"] for r in tr],
+         single_state_bytes=single["state_bytes"],
+         single_max_memory_allocated=single["max_memory_allocated"],
+         single_save_s=single["save_s"], wire_step1=[r["wire_step1"] for r in tr],
+         score_ms=[r["score_ms"] for r in tr], single_score_ms=single["score_ms"],
+         max_abs_dscore=dscore, score_bound=score_bound,
+         retrieval_ms=[r["retrieval_ms"] for r in tr],
+         single_retrieval_ms=single["retrieval_ms"], retrieval_vs_single=cmp[0],
+         single_retrieval_vs_f64=single["retrieval_check"], max_rel_diff=rel,
+         step2_grad_norm_rel_diff=rel2, step2_grad_norm_bound=STEP2_GNORM_TOL,
+         max_param_rel_diff_step1=param_rel,
+         phase_seconds=[r["phase_seconds"]["tp_recsys"] for r in ranks])
+    check(rel <= TOL, f"tp_recsys: a loss or step 1's grad norm {rel} from one rank's")
+    check(rel2 <= STEP2_GNORM_TOL, f"tp_recsys: step 2's grad norm {rel2} from one rank's")
+    check(param_rel <= TOL, f"tp_recsys: parameters {param_rel} from one rank's")
+    check(dscore <= score_bound, f"tp_recsys: |Δscore| {dscore} above {score_bound}")
+    check(all(c["ok"] for c in cmp), f"tp_recsys: retrieval differs from one rank's: {cmp}")
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(t["arch"]).make_config()
+    for r in tr:
+        check(r["shapes"]["item_table"] == [cfg.n_items // 4, cfg.embed_dim]
+              and r["shapes"]["user_table"] == [cfg.user_vocab // 4, cfg.embed_dim],
+              f"tp_recsys: table blocks {r['shapes']['item_table']}, "
+              f"{r['shapes']['user_table']}")
+
+    gr = [r["gat"] for r in ranks]
+    rel, rel2 = _step_rels([r["metrics"] for r in gr], single["gat_metrics"], ("loss", "acc"))
+    param_rel = _param_rel([r["diffs"] for r in gr])
+    emit("dp_gat_minibatch_lg", card=card, mesh=DP_MESH, config=DP_GAT,
+         axes=gr[0]["axes"], nodes_per_rank=[r["nodes"] for r in gr],
+         edges_per_rank=[r["edges"] for r in gr], metrics=[r["metrics"] for r in gr],
+         single=single["gat_metrics"], step_ms=[r["step_ms"] for r in gr],
+         single_step_ms=single["gat_step_ms"], wire=[r["wire"] for r in gr],
+         max_rel_diff=rel, step2_grad_norm_rel_diff=rel2,
+         step2_grad_norm_bound=STEP2_GNORM_TOL, max_param_rel_diff_step1=param_rel,
+         phase_seconds=[r["phase_seconds"]["dp_gat"] for r in ranks])
+    check([r["nodes"] for r in gr] == [DP_GAT["nodes"] // 4] * 4
+          and [r["edges"] for r in gr] == [DP_GAT["edges"] // 4] * 4,
+          f"dp_gat: blocks {[(r['nodes'], r['edges']) for r in gr]}")
+    check(rel <= TOL, f"dp_gat: a loss, accuracy or step 1's grad norm {rel} from one rank's")
+    check(rel2 <= STEP2_GNORM_TOL, f"dp_gat: step 2's grad norm {rel2} from one rank's")
+    check(param_rel <= TOL, f"dp_gat: parameters {param_rel} from one rank's")
 
 
 def _blockwise_decode_attention(q, k, v, lengths, *, scale):

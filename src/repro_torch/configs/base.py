@@ -16,7 +16,9 @@ needs the ranks of a real mesh.
 placement of them. ``fn`` is what one rank runs, on its local arguments
 under ``distributed.sharding.use_mesh``: ``layout`` says how the port
 itself cuts each argument into those (its batch, cache and candidate
-splits, and an LM's weights and moments by ``transformer.layout_specs``),
+splits, an LM's weights and moments by ``transformer.layout_specs``, a
+recsys model's by ``recsys.layout_specs``, a graph's nodes and edges by
+``gnn.graph_specs``),
 and :func:`local_args` makes a rank's meta arguments from it
 (``launch.dryrun``).
 """
@@ -98,11 +100,16 @@ def arg_bytes(args, specs, mesh) -> int:
 def local_args(args, layout, mesh):
     """Meta arguments of one rank's block under ``layout`` (a spec tree per
     argument): each tensor cut to :func:`~repro_torch.distributed.sharding.
-    local_shape`; a module laid out by specs (an LM's ``Transformer``) is
-    the rank's ``Transformer(cfg, "meta", mesh)``, one without keeps its
-    (replicated) parameters. ``mesh`` is the ``DeviceMesh`` the cell runs
-    on, whose collectives the module's forward calls."""
+    local_shape`; a module laid out by specs is the rank's blocks (an LM's
+    ``Transformer(cfg, "meta", mesh)``, a recsys ``ParamTree.rebuild("meta",
+    mesh)``), one without keeps its (replicated) parameters. ``mesh`` is the
+    ``DeviceMesh`` the cell runs on, whose collectives the module's forward
+    calls."""
+    from repro_torch.models.layers import ParamTree
+
     def cut(arg, spec, path=""):
+        if isinstance(arg, ParamTree):
+            return arg if spec is None else arg.rebuild("meta", mesh)
         if isinstance(arg, torch.nn.Module):
             return arg if spec is None else type(arg)(arg.cfg, "meta", mesh)
         if isinstance(arg, torch.Tensor):

@@ -9,7 +9,7 @@ from repro_torch.configs.base import ArchDef, register
 from repro_torch.configs.recsys_common import recsys_shapes
 from repro_torch.core.apss import similarity_topk
 from repro_torch.models import recsys
-from repro_torch.models.layers import as_input, take
+from repro_torch.models.layers import as_input, lookup
 
 
 def config() -> recsys.Bert4RecConfig:
@@ -35,7 +35,7 @@ def _retrieve(cfg, params, batch, candidate_ids):
     """Next-item retrieval: encode the session, APSS-score vs candidates
     (``similarity_topk``'s plain path, on the params' device)."""
     h = recsys.bert4rec_encode(params, cfg, batch["item_ids"])[:, -1]        # (1, d)
-    cand = take(params["item_table"], as_input(params, candidate_ids))     # (N, d)
+    cand = lookup(params["item_table"], as_input(params, candidate_ids))   # (N, d)
     return similarity_topk(h, cand, threshold=0.0, k=256, block_rows=h.shape[0],
                            exclude_self=False, device=h.device)
 

@@ -11,9 +11,12 @@ Message passing is ``models/gnn.py``'s fixed-order segment sums over
 padded edge lists. Sampled shapes take the padded batch the neighbor
 sampler emits (``data.sampler.sampled_shape``). The reference shards the
 nodes and edges of the large graphs over the data axes and lets GSPMD add
-the cross-shard partials; the port has no cross-shard message passing, so
-its layout replicates the graph on every rank (``layout``; the dry run's
-``resident_bytes`` against ``spec_bytes`` prices it).
+the cross-shard partials; the port cuts them the same way
+(``layout``: ``gnn.graph_specs`` of ``gnn.graph_axes``) and its step adds
+the partials itself (``gat_loss(graph_axes=)``: gathers, a max and sums
+in rank order over the data axes, a reduce-scatter onto each node's
+owner). ``full_graph_sm`` replicates its graph, as the reference's. The
+weights replicate (``gat_param_specs``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.configs.base import (
 )
 from repro_torch.data.sampler import sampled_shape
 from repro_torch.launch.train import make_gat_train_step, params_of
-from repro_torch.models.gnn import GATConfig, gat_param_specs, init_gat
+from repro_torch.models.gnn import GATConfig, gat_param_specs, graph_axes, graph_specs, init_gat
 from repro_torch.optim import adamw_init
 from repro_torch.optim.optimizer import AdamWState
 
@@ -67,6 +70,7 @@ def _build_graph_cell(cfg: GATConfig, mesh, *, n_nodes: int, n_edges: int, d_fea
         "features": (ax, None), "edge_src": (ax,), "edge_dst": (ax,), "edge_mask": (ax,),
         "labels": (ax,), "label_mask": (ax,),
     }
+    axes = graph_axes(mesh, n_nodes, n_edges) if shard_edges else ((), ())
     specs = gat_param_specs(cfg)
     p_sh = shardings_for(mesh, specs)
     o_sh = shardings_for(mesh, AdamWState(step=(), m=specs, v=specs))
@@ -76,13 +80,13 @@ def _build_graph_cell(cfg: GATConfig, mesh, *, n_nodes: int, n_edges: int, d_fea
     l2 = 2 * n_nodes * cfg.d_hidden * cfg.n_heads * cfg.n_classes
     edge_work = 4 * n_edges * cfg.n_heads * cfg.d_hidden
     return CellBuild(
-        fn=make_gat_train_step(cfg),
+        fn=make_gat_train_step(cfg, graph_axes=axes),
         args=(params, opt, _graph(n_nodes, n_edges, d_feat)),
         in_shardings=(p_sh, o_sh, shardings_for(mesh, batch_sh)),
         out_shardings=(p_sh, o_sh, None),
         static_info={"model_flops": 3 * (l1 + l2 + edge_work), "kind": "train",
                      "n_nodes": n_nodes, "n_edges": n_edges},
-        layout=(None, None, None),
+        layout=(None, None, graph_specs(axes)),
     )
 
 

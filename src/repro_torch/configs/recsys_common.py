@@ -11,6 +11,12 @@ over the data axes as the horizontal distribution's corpus rows are: each
 rank scores its block, and the ranks' top-k lists are gathered and merged
 (:func:`sharded_retrieval`), as ``core.distributed.gather_matches``
 assembles the horizontal distribution's rows.
+
+Every cell's ``layout`` gives the weights (and in ``train_batch`` the AdamW
+moments) the reference's specs as a rank holds them
+(``recsys.layout_specs``: tables' rows and tower columns over ``model``,
+whole heads only) and the batch its rows over the data axes; a rank's model
+is ``ParamTree.rebuild(device, mesh)`` of the family's init.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ def _params_and_opt(init_fn, cfg, mesh, spec_fn):
     specs = spec_fn(cfg)
     return (params, opt, shardings_for(mesh, specs),
             shardings_for(mesh, AdamWState(step=(), m=specs, v=specs)))
+
+
+def _opt_layout(layout: dict) -> AdamWState:
+    return AdamWState(step=(), m=layout, v=layout)
 
 
 def _batch(cfg, batch: int, kind: str) -> dict:
@@ -101,7 +111,8 @@ def _build_train(cfg, mesh, init_fn, spec_fn, batch: int) -> CellBuild:
         out_shardings=(p_sh, o_sh, None),
         static_info={"kind": "train", "model_flops": 3 * batch * _flops_per_example(cfg),
                      "batch": batch},
-        layout=(None, None, b_spec),
+        layout=(recsys.layout_specs(cfg, mesh), _opt_layout(recsys.layout_specs(cfg, mesh)),
+                b_spec),
     )
 
 
@@ -116,13 +127,14 @@ def _build_serve(cfg, mesh, init_fn, spec_fn, score_fn, batch: int) -> CellBuild
         out_shardings=None,
         static_info={"kind": "serve", "model_flops": batch * _flops_per_example(cfg),
                      "batch": batch},
-        layout=(None, b_spec),
+        layout=(recsys.layout_specs(cfg, mesh), b_spec),
     )
 
 
 def sharded_retrieval(retrieval_fn, cfg, params, batch, candidate_ids):
     """``retrieval_fn`` over this rank's block of the candidates (the active
-    mesh's data axes), its candidate positions made global (``+ r ·
+    mesh's data axes; the tables' rows over ``model`` when ``params`` are a
+    rank's blocks), its candidate positions made global (``+ r ·
     n_loc``), the ranks' top-k lists all-gathered in rank order and merged
     (ties to the lower rank, so to the lower position): ``Matches`` by
     ``merge_matches`` (counts add), a ``(values, ids)`` top-k by a stable
@@ -163,7 +175,7 @@ def _build_retrieval(cfg, mesh, init_fn, spec_fn, retrieval_fn) -> CellBuild:
                      "model_flops": _flops_per_example(cfg)
                      + 2 * N_CANDIDATES * getattr(cfg, "embed_dim", 64),
                      "batch": N_CANDIDATES},
-        layout=(None, q_spec, cand_spec),
+        layout=(recsys.layout_specs(cfg, mesh), q_spec, cand_spec),
     )
 
 

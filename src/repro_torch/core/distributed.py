@@ -470,6 +470,52 @@ class _GatherReplicated(torch.autograd.Function):
         return g.narrow(ctx.dim, me * ctx.n, ctx.n), None, None, None
 
 
+class _ReduceScatterOwned(torch.autograd.Function):
+    """:func:`reduce_scatter_in_order` whose backward all-gathers: each
+    rank's partial sum covers every block, and the owner of a block uses
+    the sum, so a partial's gradient is the owner's gradient of its block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return reduce_scatter_in_order(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def reduce_scatter_owned(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Every rank's partial sums ``x`` over ``axes`` added in rank order in
+    f32 onto the rank that owns each block of ``dim`` (row-major); the
+    gradient of a partial is its block owners' gradients, all-gathered."""
+    axes = tuple(axes)
+    if _axis_size(mesh, axes) == 1:
+        return x
+    return _ReduceScatterOwned.apply(x, mesh, axes, dim)
+
+
+def psum_shared(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """:func:`psum_in_order` over ``axes`` of partials that every rank then
+    uses in its own way (its own edges, its own rows): the backward sums
+    the ranks' gradients in rank order too (``psum``'s transpose)."""
+    axes = tuple(axes)
+    if _axis_size(mesh, axes) == 1:
+        return x
+    return enter_replicated(psum_replicated(x, mesh, axes), mesh, axes)
+
+
+def pmax_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``lax.pmax`` over an axis or a tuple of axes, one axis after another
+    (a max is exact in any order). No gradient."""
+    axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+    x = x.detach()
+    for a in axes:
+        if _axis_size(mesh, a) > 1:
+            x = _pmax(x, mesh, a)
+    return x
+
+
 def gather_heads(x: torch.Tensor, mesh, axis, dim: int = 1) -> torch.Tensor:
     """Every rank's heads ``(…, H_loc, …)`` all-gathered along ``dim`` over
     ``axis`` (a decode step's q heads and new k/v rows under tensor

@@ -30,14 +30,24 @@ tensors, and the port's code names each split and each collective
     (:func:`weight_for_use`), and the AdamW moments alike;
   - the decode cache's sequence (``models.transformer.make_cache(mesh=)``:
     each rank attends over its shard, the ranks combine the partials);
+  - a recsys model's weights (``models.recsys.init_*(mesh=)`` by
+    ``recsys.layout_specs``, the reference's ``*_param_specs``): every
+    table's rows over ``model`` (a vocab-parallel lookup,
+    ``layers.lookup``; BERT4Rec's logits over the rank's rows), the
+    two-tower's tower columns, BERT4Rec's and BST's blocks (and BST's
+    first MLP pair) as column and row pairs, with their AdamW moments;
+  - a graph's nodes and edges over the data axes (``models.gnn.cut_graph``
+    by ``gnn.graph_specs``, the reference's ``batch_sh``): each layer
+    gathers the nodes' terms, maxes and sums the softmax over the ranks'
+    edges and reduce-scatters the aggregation onto the nodes' owners;
   - the batch over the data axes (``launch.train.train_loop(mesh=)``).
 
 A dimension whose size its axes do not divide replicates
 (``elastic._filter_spec_for``); attention splits whole heads only
-(``transformer.layout_replications`` lists where that replicates).
-:func:`cut_tree` cuts a whole tree to a rank's blocks and
-:func:`gather_tree` gathers one back. Specs are the port's tuples
-(``distributed/elastic.py``).
+(``transformer.layout_replications`` and ``recsys.layout_replications``
+list where that replicates). :func:`cut_tree` cuts a whole tree (or a
+``ParamTree``) to a rank's blocks and :func:`gather_tree` gathers one
+back. Specs are the port's tuples (``distributed/elastic.py``).
 """
 
 from __future__ import annotations
@@ -182,15 +192,26 @@ def cut_tree(tree, specs, mesh):
     """A whole tree (dicts, lists and named tuples of numpy arrays or
     tensors) cut to this rank's blocks by a spec tree of its structure
     (:func:`block_of` leaf by leaf; a ``None`` or ``()`` spec keeps the
-    leaf whole)."""
+    leaf whole). A ``ParamTree`` takes its specs by parameter name and
+    becomes the rank's tagged blocks (``layers.cut_param_tree``)."""
+    from repro_torch.models.layers import ParamTree, cut_param_tree
+
+    if isinstance(tree, ParamTree):
+        return cut_param_tree(tree, specs, mesh)
     return _map_with_specs(lambda x, spec: block_of(x, spec, mesh), tree, specs)
 
 
 def gather_tree(tree, specs, mesh):
     """The inverse of :func:`cut_tree` on tensors: each leaf's blocks
     all-gathered over the axes of each split dimension, in row-major rank
-    order (every rank of ``mesh`` calls this and gets the whole tree)."""
+    order (every rank of ``mesh`` calls this and gets the whole tree). A
+    ``ParamTree`` of blocks is gathered by its own tags
+    (``layers.gather_param_tree``; ``specs`` and ``mesh`` unused)."""
     from repro_torch.core.distributed import _all_gather
+    from repro_torch.models.layers import ParamTree, gather_param_tree
+
+    if isinstance(tree, ParamTree):
+        return gather_param_tree(tree)
 
     def gather(x, spec):
         x = x.detach()

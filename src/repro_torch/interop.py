@@ -296,7 +296,25 @@ def _param_tree_from_numpy(tree: dict, dtype, device):
     return ParamTree(conv(tree))
 
 
+def _param_tree_cut(tree: dict, cfg, device, mesh, layout_specs, init):
+    """A ``ParamTree`` of ``tree``'s leaves (numpy) on ``device``, its
+    family's ``init`` attached (``ParamTree.rebuild``): with a ``mesh``,
+    this rank's blocks of ``layout_specs(cfg, mesh)``
+    (``layers.cut_param_tree``)."""
+    import functools
+
+    from repro_torch.models.layers import cut_param_tree
+
+    model = _param_tree_from_numpy(tree, cfg.dtype, device)
+    model.cfg, model.build = cfg, functools.partial(init, cfg)
+    return model if mesh is None else cut_param_tree(model, layout_specs(cfg, mesh), mesh)
+
+
 def _param_tree_to_numpy(model) -> dict:
+    from repro_torch.models.layers import gather_param_tree
+
+    model = gather_param_tree(model)
+
     def conv(node):
         if isinstance(node, dict):
             return {key: conv(v) for key, v in node.items()}
@@ -307,23 +325,36 @@ def _param_tree_to_numpy(model) -> dict:
     return conv(model.tree())
 
 
-def recsys_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+def recsys_params_from_numpy(tree: dict, cfg, device: str | torch.device, mesh=None):
     """A recsys model's ``ParamTree`` (two-tower, BERT4Rec, DIN or BST) from
     the reference's parameter tree of numpy arrays (``jax.tree.map(np.asarray,
     params)``), leaf for leaf in the reference's orientation, cast to
-    ``cfg.dtype``."""
-    return _param_tree_from_numpy(tree, cfg.dtype, device)
+    ``cfg.dtype``. With a ``mesh`` (every rank calls this) it is the rank's
+    blocks of ``recsys.layout_specs``."""
+    from repro_torch.models import recsys
+
+    init = recsys._FAMILY[type(cfg)][0]
+    return _param_tree_cut(tree, cfg, device, mesh, recsys.layout_specs, init)
 
 
 def recsys_params_to_numpy(model) -> dict:
-    """The reference's parameter tree (float32 numpy) of a recsys model."""
+    """The reference's parameter tree (float32 numpy) of a recsys model; a
+    rank's blocks are gathered first (every rank of the mesh calls this)."""
     return _param_tree_to_numpy(model)
 
 
-def gat_params_from_numpy(tree: dict, cfg, device: str | torch.device):
+def gat_params_from_numpy(tree: dict, cfg, device: str | torch.device, mesh=None):
     """A GAT's ``ParamTree`` from the reference's ``{"layers": [{"w", "a_src",
-    "a_dst"}, ...]}`` of numpy arrays, cast to ``cfg.dtype``."""
-    return _param_tree_from_numpy(tree, cfg.dtype, device)
+    "a_dst"}, ...]}`` of numpy arrays, cast to ``cfg.dtype``. The weights
+    replicate on a ``mesh`` (``gat_param_specs``): every rank holds them
+    whole."""
+    from repro_torch.models import gnn
+    from repro_torch.models.layers import layout_of
+
+    def layout(c, m):
+        return layout_of(gnn.gat_param_specs(c), gnn.init_gat(c, device="meta"), m)
+
+    return _param_tree_cut(tree, cfg, device, mesh, layout, gnn.init_gat)
 
 
 def gat_params_to_numpy(model) -> dict:
@@ -358,6 +389,17 @@ def named_to_numpy(model, named: dict, to_numpy) -> dict:
     back as the reference's tree."""
     import copy
 
+    from repro_torch.models.layers import ParamTree, _map_named
+
+    if isinstance(model, ParamTree):  # a rank's blocks keep their tags
+        params = dict(model.named_parameters())
+        skeleton = ParamTree(_map_named(lambda name, p: named[name].detach().float(),
+                                        model.tree()), requires_grad=False)
+        for name, p in skeleton.named_parameters():
+            if hasattr(params[name], "spec"):
+                p.spec, p.mesh = params[name].spec, params[name].mesh
+        skeleton.mesh = model.mesh
+        return to_numpy(skeleton)
     skeleton = copy.deepcopy(model).float()
     for name, p in skeleton.named_parameters():
         p.data = named[name].detach().float()

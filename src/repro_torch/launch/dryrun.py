@@ -9,7 +9,9 @@ collective returns at once) and a ``DeviceMesh`` over it, the cell's
 arguments as meta tensors of rank 0's local shapes under the port's own
 layout (``CellBuild.layout``: batch and cache splits, an LM's weights and
 its AdamW moments by ``transformer.layout_specs``: tensor parallel over
-``model``, FSDP over the data axes in ``train_4k``),
+``model``, FSDP over the data axes in ``train_4k``; a recsys model's by
+``recsys.layout_specs``, tables and towers over ``model``; a graph's nodes
+and edges over the data axes by ``gnn.graph_specs``),
 and the cell's ``fn`` run once under ``launch.op_analysis``'s census. The
 collective helpers of ``core.distributed`` see meta tensors, report to
 the census and return meta results without touching the group. On the
@@ -150,11 +152,17 @@ def _materialize(args, layout, mesh, device="cpu"):
 
     from repro_torch.configs.base import local_args
 
+    from repro_torch.models.layers import ParamTree
+
     def real(a):
         if isinstance(a, torch.nn.Module):
             # rebuilt, not moved: a rank's blocks carry their spec and mesh
-            a = type(a)(a.cfg, device, a.mesh) if getattr(a, "mesh", None) is not None \
-                else a.to_empty(device=device)
+            if getattr(a, "mesh", None) is None:
+                a = a.to_empty(device=device)
+            elif isinstance(a, ParamTree):
+                a = a.rebuild(device, a.mesh)
+            else:
+                a = type(a)(a.cfg, device, a.mesh)
             with torch.no_grad():
                 for p in a.parameters():
                     p.zero_()

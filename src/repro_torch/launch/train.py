@@ -20,8 +20,14 @@ blocks of the reference's ``param_specs``: tensor parallel over ``model``
 (heads, FFN columns and rows, embedding width, vocab, experts) and, with
 ``cfg.fsdp``, FSDP over the data axes, whose leaves' gradients arrive
 reduce-scattered in rank order (``core.distributed.gather_for_use``) and
-whose AdamW moments are the rank's blocks too. A model without blocks
-(another family, or an LM built whole) is replicated, and MoE layers with
+whose AdamW moments are the rank's blocks too. A recsys model built on the
+mesh holds its blocks of the reference's ``*_param_specs`` (tables' rows
+and tower columns over ``model``, ``recsys.layout_specs``) and computes
+the reference's global-batch loss (the two-tower's negatives gathered over
+the data axes, BERT4Rec's global mask count). A GAT's weights replicate and
+its graph is cut by nodes and edges over the data axes
+(``gnn.graph_axes``; the step takes ``graph_axes``). A model without
+blocks (an LM built whole) is replicated, and MoE layers with
 ``moe_impl="ep"`` split their experts (``models.moe.moe_ffn_ep``).
 
 CLI (reduced configs; on the card unless ``--device cpu``):
@@ -215,8 +221,11 @@ def make_lm_train_step(cfg: TransformerConfig, hp: TrainHyperparams = TrainHyper
                            accum_steps=getattr(cfg, "grad_accum", 1))
 
 
-def make_gat_train_step(cfg: gnn.GATConfig, hp: TrainHyperparams = TrainHyperparams()):
-    return make_train_step(lambda p, b: gnn.gat_loss(p, cfg, b), hp)
+def make_gat_train_step(cfg: gnn.GATConfig, hp: TrainHyperparams = TrainHyperparams(), *,
+                        graph_axes: tuple | None = None):
+    """GAT's step; with ``graph_axes`` (``gnn.graph_axes``) the batch is the
+    rank's blocks of the graph on the active mesh."""
+    return make_train_step(lambda p, b: gnn.gat_loss(p, cfg, b, graph_axes=graph_axes), hp)
 
 
 RECSYS_LOSSES = (
@@ -257,8 +266,10 @@ def setup(family: str, cfg, hp: TrainHyperparams, device, mesh=None) -> TrainSet
     """The reduced model (seed 0), loss, step and data pipeline of
     ``train_loop`` for a config of ``family``, on ``device``: the reference's
     pipelines and batch sizes (LM 4 × min(128, 4·loss_chunk) tokens, a
-    512-node 4,096-edge graph, 32 recsys examples). With a ``mesh`` an LM is
-    this rank's blocks of the model (``init_transformer(mesh=)``)."""
+    512-node 4,096-edge graph, 32 recsys examples). With a ``mesh`` the
+    model is this rank's blocks (``init_*(mesh=)``), ``get_batch`` gives the
+    rank's rows over the data axes, and a graph is cut by nodes and edges
+    (``gnn.cut_graph``)."""
     from repro_torch.data import GraphPipeline, LMDataPipeline, RecsysPipeline
 
     dev = device_of(device)
@@ -267,34 +278,39 @@ def setup(family: str, cfg, hp: TrainHyperparams, device, mesh=None) -> TrainSet
         pipe = LMDataPipeline(vocab_size=cfg.vocab_size, batch_size=4,
                               seq_len=min(128, 4 * cfg.loss_chunk), seed=0)
         return TrainSetup(model, lambda p, b: transformer_loss(p, cfg, b),
-                          make_lm_train_step(cfg, hp), pipe.get_batch)
+                          make_lm_train_step(cfg, hp), _rank_rows(pipe.get_batch, mesh))
     if family == "gnn":
-        model = gnn.init_gat(cfg, device=dev)
+        model = gnn.init_gat(cfg, device=dev, mesh=mesh)
         pipe = GraphPipeline(n_nodes=512, n_edges=4096, d_feat=cfg.d_feat,
                              n_classes=cfg.n_classes)
-        g = {k: torch.as_tensor(v, device=dev) for k, v in pipe.full_graph().items()}
-        return TrainSetup(model, lambda p, b: gnn.gat_loss(p, cfg, b),
-                          make_gat_train_step(cfg, hp), lambda s: g)
+        whole = pipe.full_graph()
+        axes = None
+        if mesh is not None:
+            axes = gnn.graph_axes(mesh, len(whole["labels"]), len(whole["edge_src"]))
+            whole = gnn.cut_graph(whole, axes, mesh)
+        g = {k: torch.as_tensor(v, device=dev) for k, v in whole.items()}
+        return TrainSetup(model, lambda p, b: gnn.gat_loss(p, cfg, b, graph_axes=axes),
+                          make_gat_train_step(cfg, hp, graph_axes=axes), lambda s: g)
     if isinstance(cfg, recsys.TwoTowerConfig):
-        model = recsys.init_two_tower(cfg, device=dev)
+        model = recsys.init_two_tower(cfg, device=dev, mesh=mesh)
         pipe = RecsysPipeline(n_items=cfg.n_items, batch_size=32,
                               history_len=cfg.history_len,
                               n_user_fields=cfg.n_user_fields,
                               user_vocab=cfg.user_vocab, kind="two-tower")
     elif isinstance(cfg, recsys.Bert4RecConfig):
-        model = recsys.init_bert4rec(cfg, device=dev)
+        model = recsys.init_bert4rec(cfg, device=dev, mesh=mesh)
         pipe = RecsysPipeline(n_items=cfg.n_items, batch_size=32,
                               history_len=cfg.seq_len, kind="seq")
     elif isinstance(cfg, recsys.DINConfig):
-        model = recsys.init_din(cfg, device=dev)
+        model = recsys.init_din(cfg, device=dev, mesh=mesh)
         pipe = RecsysPipeline(n_items=cfg.n_items, batch_size=32,
                               history_len=cfg.seq_len, kind="ctr")
     else:
-        model = recsys.init_bst(cfg, device=dev)
+        model = recsys.init_bst(cfg, device=dev, mesh=mesh)
         pipe = RecsysPipeline(n_items=cfg.n_items, batch_size=32,
                               history_len=cfg.seq_len - 1, kind="ctr")
     return TrainSetup(model, recsys_loss_fn(cfg), make_recsys_train_step(cfg, hp),
-                      pipe.get_batch)
+                      _rank_rows(pipe.get_batch, mesh))
 
 
 def _restore_into(live, restored) -> None:
@@ -340,11 +356,11 @@ def train_loop(
 
     With a ``mesh`` (a ``DeviceMesh``; every rank of it calls this, on its
     own ``device``) each step runs under ``use_mesh(mesh)`` on the rank's
-    rows of the pipeline's batch over the data axes (a graph is
-    replicated), and the gradients are averaged over them
-    (:func:`make_train_step`). An LM rank holds its blocks of the model
-    and of the moments (see the module doc; ``smoke_overrides={"fsdp":
-    True}`` adds FSDP), other families the whole model. A checkpoint holds
+    rows of the pipeline's batch over the data axes (a graph's blocks of
+    nodes and edges), and the gradients are averaged over them
+    (:func:`make_train_step`). A rank holds its blocks of the model and of
+    the moments (see the module doc; ``smoke_overrides={"fsdp": True}``
+    adds FSDP to an LM; a GAT's weights are whole). A checkpoint holds
     whole tensors, gathered in rank order, as one process's does; the
     mesh's first rank writes it, every rank resumes from it (cutting its
     blocks), and the ranks meet at a barrier after the last save.
@@ -386,8 +402,6 @@ def train_loop(
 
     writer = mesh is None or all(c == 0 for c in mesh.get_coordinate())
     get_batch = run.get_batch
-    if mesh is not None and arch_def.family != "gnn":
-        get_batch = _rank_rows(run.get_batch, mesh)
     timer = StepTimer()
     metrics = {}
     for s in range(start_step, steps):
@@ -422,6 +436,8 @@ def _rank_rows(get_batch: Callable, mesh) -> Callable:
     rank's row-major place over ``("pod", "data")`` and ``q`` their size."""
     from repro_torch.core.distributed import _axis_index, _axis_size
 
+    if mesh is None:
+        return get_batch
     sizes = axis_sizes(mesh)
     daxes = tuple(a for a in ("pod", "data") if a in sizes)
     if not daxes:

@@ -23,6 +23,17 @@ sort on the card, where advanced indexing's CPU backward adds with atomics),
 and :func:`segment_sum` sorts by segment and sums each segment serially. A
 training step then has the same bits on every run, which a resumed run
 needs.
+
+On a mesh a :class:`ParamTree` holds the rank's blocks of the reference's
+specs (:func:`cut_param_tree`): each parameter carries its ``.spec`` and
+``.mesh``, and the functions below read them. :func:`lookup` is ``take``
+on a table whose rows are split over ``model`` (each id read by the rank
+that holds it, the ranks' rows summed: exactly one rank contributes to
+each element, so the result is one process's lookup bit for bit);
+:func:`column_parallel` and :func:`row_parallel` are Megatron's pair, and
+:func:`mlp` runs a tower whose matrices are split by columns (the
+activation gathered over ``model`` after each layer) or by a column and
+row pair. Without a mesh they are ``take`` and plain products.
 """
 
 from __future__ import annotations
@@ -180,6 +191,35 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out.reshape(*ids.shape, *table.shape[1:])
 
 
+def model_split(t: torch.Tensor, dim: int) -> bool:
+    """Whether ``t`` is a rank's block whose dimension ``dim`` its ``.spec``
+    splits over ``model``."""
+    spec = getattr(t, "spec", None)
+    if spec is None or len(spec) <= dim:
+        return False
+    part = spec[dim]
+    return part == "model" or (isinstance(part, tuple) and "model" in part)
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """:func:`take` on ``table``, which may be a rank's block of rows split
+    over ``model`` (``table.spec``): ids outside the rank's rows read zeros
+    and the ranks' results are summed over ``model`` in rank order, so
+    each element is the one rank's row that holds it, bit for bit. The
+    gradient passes to every rank alike and adds into the rank's own rows
+    in :func:`take`'s fixed order."""
+    if not model_split(table, 0):
+        return take(table, ids)
+    from repro_torch.core.distributed import psum_replicated
+
+    n = table.shape[0]
+    local = ids.long() - table.mesh.get_local_rank("model") * n
+    own = (local >= 0) & (local < n)
+    rows = take(table, torch.where(own, local, 0))
+    rows = torch.where(own.reshape(*own.shape, *([1] * (table.dim() - 1))), rows, 0.0)
+    return psum_replicated(rows, table.mesh, ("model",))
+
+
 def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
     """``torch.bincount(ids, minlength=n)`` (ids in ``[0, n)``) as a
     ``scatter_add_`` of ones: the same counts, and it runs on the meta
@@ -213,13 +253,55 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 # -- MLP ----------------------------------------------------------------------
 
 
+def column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x · w`` where ``w`` may hold the rank's output columns (``(None,
+    "model")``): Megatron's ``f``, ``x`` (alike on every ``model`` rank)
+    entering a split product, its gradient summed over ``model``. The
+    result is the rank's columns."""
+    if model_split(w, 1):
+        from repro_torch.core.distributed import enter_replicated
+
+        x = enter_replicated(x, w.mesh, ("model",))
+    return torch.matmul(x, w)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x · w`` where ``w`` may hold the rank's input rows (``("model",
+    None)``) and ``x`` the matching columns: Megatron's ``g``. Each rank's
+    partial product is taken in f32, the partials added over ``model`` in
+    rank order in f32 (the gradient passes) and rounded once to ``x``'s
+    dtype, as one rank's product accumulates in f32 and rounds once."""
+    if not model_split(w, 0):
+        return torch.matmul(x, w)
+    from repro_torch.core.distributed import psum_replicated
+
+    y = torch.matmul(x.float(), w.float())
+    return psum_replicated(y, w.mesh, ("model",)).to(x.dtype)
+
+
+def gather_columns(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The rank's columns ``y`` of a product by ``like`` (split by columns
+    over ``model``) gathered to the whole width; ``y`` unchanged else."""
+    if not model_split(like, 1):
+        return y
+    from repro_torch.core.distributed import gather_replicated
+
+    return gather_replicated(y, like.mesh, ("model",), y.dim() - 1)
+
+
 def mlp(x: torch.Tensor, ws, bs, act=torch.relu) -> torch.Tensor:
     """Plain MLP tower (recsys): ``act`` on every layer but the last;
-    weights ``(d_in, d_out)``."""
+    weights ``(d_in, d_out)``. On a rank's blocks a matrix split by columns
+    over ``model`` is :func:`column_parallel` with its bias block; if the
+    next matrix is split by rows the pair is Megatron's (the activation
+    stays the rank's columns, :func:`row_parallel` sums it), else the
+    activation is gathered over ``model`` (:func:`gather_columns`)."""
     exact_f32()
     h = x
     for i, (w, b) in enumerate(zip(ws, bs)):
-        h = torch.matmul(h, w) + b
+        h = row_parallel(h, w) + b if model_split(w, 0) else column_parallel(h, w) + b
+        if i + 1 == len(ws) or not model_split(ws[i + 1], 0):
+            h = gather_columns(h, w)
         if i < len(ws) - 1:
             h = act(h)
     return h
@@ -256,6 +338,8 @@ class ParamTree(nn.Module):
     function reads the tree as the reference reads its dict, and
     ``named_parameters`` names each leaf by its path (``blocks.0.wq``)."""
 
+    mesh = None  # a rank's blocks: the mesh they are cut for (cut_param_tree)
+
     def __init__(self, tree: dict, *, requires_grad: bool = True):
         super().__init__()
         for key, value in tree.items():
@@ -288,6 +372,77 @@ class ParamTree(nn.Module):
                 return [unwrap(v) for v in node]
             return node
         return {key: unwrap(self[key]) for key in self.keys()}
+
+    def rebuild(self, device, mesh=None) -> "ParamTree":
+        """This tree's model made again by its family's init (the ``build``
+        an init function attached, with its config) on ``device`` and cut
+        for ``mesh``: how a dry run builds a rank's blocks, which
+        ``Module.to_empty`` would strip of their ``.spec`` tags."""
+        return self.build(device=device, mesh=mesh)
+
+
+def _map_named(fn, tree, prefix: str = ""):
+    """``tree`` (dicts and lists of tensors) with each tensor replaced by
+    ``fn(name, tensor)``, named as ``named_parameters`` names it."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, f"{prefix}.{k}" if prefix else k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_named(fn, v, f"{prefix}.{i}" if prefix else str(i))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def layout_of(specs: dict, tree: ParamTree, mesh) -> dict:
+    """``specs`` (by parameter name) as a rank of ``mesh`` holds ``tree``'s
+    parameters: axes the mesh lacks and dimensions their axes do not divide
+    replicate (``elastic``'s rule)."""
+    from repro_torch.distributed.elastic import _filter_spec_for
+
+    return {name: _filter_spec_for(mesh, tuple(specs[name]), tuple(p.shape))
+            for name, p in tree.named_parameters()}
+
+
+def cut_param_tree(whole: ParamTree, layout: dict, mesh) -> ParamTree:
+    """This rank's :class:`ParamTree` on ``mesh``: every parameter of
+    ``whole`` cut to the rank's block by ``layout`` (filtered specs, by
+    name; ``sharding.block_of``), copied, and tagged with its ``.spec`` and
+    ``.mesh``; the tree's ``mesh`` is ``mesh``. ``whole`` itself when no
+    parameter splits. Every rank of the mesh calls this with the same
+    tree; no collective runs."""
+    from repro_torch.distributed.sharding import block_of
+
+    if not any(any(part is not None for part in spec) for spec in layout.values()):
+        return whole
+    with torch.no_grad():
+        tree = _map_named(lambda name, p: block_of(p.detach(), layout[name], mesh).clone(),
+                          whole.tree())
+    local = ParamTree(tree, requires_grad=next(whole.parameters()).requires_grad)
+    for name, p in local.named_parameters():
+        p.spec, p.mesh = layout[name], mesh
+    local.mesh = mesh
+    for key in ("cfg", "build"):
+        if hasattr(whole, key):
+            setattr(local, key, getattr(whole, key))
+    return local
+
+
+def gather_param_tree(local: ParamTree) -> ParamTree:
+    """The whole :class:`ParamTree` of a rank's blocks, gathered over the
+    mesh in rank order (every rank calls this; each gets it); ``local``
+    itself when it holds no blocks."""
+    from repro_torch.distributed.sharding import gather_tree
+
+    if local.mesh is None:
+        return local
+    named = dict(local.named_parameters())
+    whole = gather_tree({n: p.detach() for n, p in named.items()},
+                        {n: p.spec for n, p in named.items()}, local.mesh)
+    out = ParamTree(_map_named(lambda name, p: whole[name], local.tree()),
+                    requires_grad=next(local.parameters()).requires_grad)
+    for key in ("cfg", "build"):
+        if hasattr(local, key):
+            setattr(out, key, getattr(local, key))
+    return out
 
 
 def flat_specs(tree, prefix: str = "") -> dict:

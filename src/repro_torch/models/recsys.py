@@ -15,11 +15,36 @@ paper's similarity problem.
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` of the
 reference's tree (matrices ``(d_in, d_out)``), so ``interop`` carries a
 reference tree across leaf for leaf.
+
+On a mesh (``init_*(mesh=)``, ``interop.recsys_params_from_numpy(mesh=)``)
+a rank holds its blocks of the reference's ``*_param_specs``
+(:func:`layout_specs`), each parameter tagged with ``.spec`` and
+``.mesh``, and the forwards split where the tags say:
+
+  - every table's rows over ``model``: a vocab-parallel lookup
+    (``layers.lookup``), BERT4Rec's logits against the rank's rows of
+    ``item_table`` (rows at or past ``n_items`` masked; its CE by
+    ``vocab_parallel_logsumexp``/``_pick``, ``bert4rec_score`` gathering
+    the logits);
+  - the two-tower's tower matrices by columns, the activation gathered
+    over ``model`` after each layer; BST's first MLP pair and the
+    BERT4Rec and BST blocks (``wq``/``wk``/``wv``, ``w1`` by columns,
+    ``wo``, ``w2`` by rows) as Megatron pairs, row-parallel partials
+    summed over ``model`` in f32 in rank order and rounded once;
+    attention splits whole heads only (:func:`layout_replications` lists
+    where it replicates);
+  - under ``distributed.sharding.use_mesh`` with data axes the batch is
+    the rank's rows: the two-tower's in-batch negatives and ``logq`` are
+    gathered over the data axes (``gather_for_use``: the item gradients
+    come back reduce-scattered) and BERT4Rec divides by the global mask
+    count, so the trainer's mean over the data axes is the reference's
+    global-batch loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -28,18 +53,24 @@ from torch.nn import functional as F
 from repro_torch.core.apss import similarity_topk
 from repro_torch.core.matches import Matches
 from repro_torch.core.precision import exact_f32
+from repro_torch.distributed.sharding import active_mesh, axis_sizes, data_axes, local_shape
 from repro_torch.interop import device_of
 from repro_torch.models.layers import (
     ParamTree,
     as_input,
     chunked_attention,
+    column_parallel,
+    cut_param_tree,
     dense_init,
     embed_init,
     flat_specs,
+    layout_of,
+    lookup,
     mlp,
+    model_split,
     rms_norm,
+    row_parallel,
     segment_sum,
-    take,
 )
 
 # ---------------------------------------------------------------------------
@@ -56,7 +87,7 @@ def embedding_bag(
 ) -> torch.Tensor:
     """Fixed-width multi-hot bag lookup: gather rows, mask, reduce."""
     valid = (ids >= 0).to(table.dtype)
-    emb = take(table, torch.clamp(ids, min=0))                 # (B, L, E)
+    emb = lookup(table, torch.clamp(ids, min=0))               # (B, L, E)
     w = valid if weights is None else weights * valid
     emb = emb * w[..., None]
     s = torch.sum(emb, dim=1)
@@ -75,7 +106,7 @@ def embedding_bag_ragged(
     weights: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Ragged EmbeddingBag: a lookup, then a fixed-order segment sum."""
-    emb = take(table, flat_ids)
+    emb = lookup(table, flat_ids)
     if weights is not None:
         emb = emb * weights[:, None]
     return segment_sum(emb, segment_ids, num_segments)
@@ -88,6 +119,17 @@ def _generator(device, generator):
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     return dev, generator
+
+
+def _finish(tree: ParamTree, cfg, init, mesh) -> ParamTree:
+    """``tree`` with its config and its family's ``init`` attached (for
+    ``ParamTree.rebuild``), cut to this rank's blocks of
+    :func:`layout_specs` on ``mesh`` (every rank calls this with the same
+    draw; the whole tree is freed once the blocks are copied)."""
+    tree.cfg, tree.build = cfg, functools.partial(init, cfg)
+    if mesh is None:
+        return tree
+    return cut_param_tree(tree, layout_specs(cfg, mesh), mesh)
 
 
 def _stack(gen, dims, d_in: int, dtype, dev) -> dict:
@@ -119,18 +161,18 @@ class TwoTowerConfig:
 
 
 def init_two_tower(cfg: TwoTowerConfig, *, generator: torch.Generator | None = None,
-                   device: str | torch.device = "cuda") -> ParamTree:
+                   device: str | torch.device = "cuda", mesh=None) -> ParamTree:
     """The reference's init laws on ``device`` (seed 0 when ``generator`` is
     omitted): tables 0.02 × normal, tower matrices normal × √(2/(d_in+d_out)),
-    biases zero."""
+    biases zero. With a ``mesh``, the rank's blocks of that draw."""
     dev, gen = _generator(device, generator)
     d_user_in = cfg.embed_dim * (cfg.n_user_fields + 1)  # fields + history bag
-    return ParamTree({
+    return _finish(ParamTree({
         "item_table": embed_init(gen, cfg.n_items, cfg.embed_dim, cfg.dtype, dev),
         "user_table": embed_init(gen, cfg.user_vocab, cfg.embed_dim, cfg.dtype, dev),
         "user_tower": _stack(gen, cfg.tower_dims, d_user_in, cfg.dtype, dev),
         "item_tower": _stack(gen, cfg.tower_dims, cfg.embed_dim, cfg.dtype, dev),
-    })
+    }), cfg, init_two_tower, mesh)
 
 
 def two_tower_param_specs(cfg: TwoTowerConfig) -> dict:
@@ -151,7 +193,7 @@ def _l2norm(x: torch.Tensor) -> torch.Tensor:
 
 def user_embedding(params: ParamTree, cfg: TwoTowerConfig, batch) -> torch.Tensor:
     exact_f32()
-    fields = take(params["user_table"], as_input(params, batch["user_fields"]))  # (B, F, E)
+    fields = lookup(params["user_table"], as_input(params, batch["user_fields"]))  # (B, F, E)
     hist = embedding_bag(params["item_table"], as_input(params, batch["history"]),
                          mode="mean")                                       # (B, E)
     x = torch.cat([fields.reshape(fields.shape[0], -1), hist], dim=-1)
@@ -161,21 +203,35 @@ def user_embedding(params: ParamTree, cfg: TwoTowerConfig, batch) -> torch.Tenso
 
 def item_embedding(params: ParamTree, cfg: TwoTowerConfig, item_ids) -> torch.Tensor:
     exact_f32()
-    x = take(params["item_table"], as_input(params, item_ids))
+    x = lookup(params["item_table"], as_input(params, item_ids))
     t = params["item_tower"]
     return _l2norm(mlp(x, t["w"], t["b"]))
 
 
 def two_tower_loss(params: ParamTree, cfg: TwoTowerConfig, batch):
-    """In-batch sampled softmax with the logQ correction."""
+    """In-batch sampled softmax with the logQ correction. Under a mesh with
+    data axes the batch is the rank's rows and the negatives (and
+    ``logq``) are the global batch's, gathered over the data axes: the
+    loss is the mean over the rank's rows, whose mean over the data
+    ranks is the global one."""
     u = user_embedding(params, cfg, batch)              # (B, E)
     i = item_embedding(params, cfg, batch["item_ids"])  # (B, E)
-    logits = torch.matmul(u, i.T).float() / cfg.temperature
     logq = batch.get("sampling_logq")
     if logq is not None:
-        logits = logits - as_input(params, logq, torch.float32)[None, :]
+        logq = as_input(params, logq, torch.float32)
     labels = torch.arange(u.shape[0], device=u.device)
-    nll = -torch.diagonal(torch.log_softmax(logits, dim=-1))
+    mesh, daxes = active_mesh(), data_axes()
+    if daxes:
+        from repro_torch.core.distributed import _all_gather, _axis_index, gather_for_use
+
+        labels = labels + _axis_index(mesh, daxes) * u.shape[0]
+        i = gather_for_use(i, mesh, daxes, 0)
+        if logq is not None:
+            logq = _all_gather(logq, mesh, daxes)
+    logits = torch.matmul(u, i.T).float() / cfg.temperature
+    if logq is not None:
+        logits = logits - logq[None, :]
+    nll = -torch.gather(torch.log_softmax(logits, dim=-1), 1, labels[:, None])[:, 0]
     loss = torch.mean(nll)
     acc = torch.mean((torch.argmax(logits, dim=-1) == labels).float())
     return loss, {"loss": loss, "in_batch_acc": acc}
@@ -188,6 +244,9 @@ def two_tower_score(params: ParamTree, cfg: TwoTowerConfig, batch) -> torch.Tens
     return torch.sum(u * i, dim=-1) / cfg.temperature
 
 
+RETRIEVAL_CHUNK = 131072  # candidates a rank's blocks embed at a time
+
+
 @torch.no_grad()
 def retrieval_scores(
     params: ParamTree, cfg: TwoTowerConfig, batch, candidate_ids, *, k: int = 256,
@@ -195,9 +254,17 @@ def retrieval_scores(
 ) -> Matches:
     """Score one (or a few) queries against a large candidate corpus: the
     item tower embeds the candidates, then ``similarity_topk`` (plain path)
-    keeps each query's top ``k`` at ``threshold`` on the params' device."""
+    keeps each query's top ``k`` at ``threshold`` on the params' device.
+    A rank's blocks (``params.mesh``) embed the candidates ``RETRIEVAL_CHUNK``
+    at a time: each chunk's lookups and tower activations are gathered over
+    ``model``, and a whole corpus of them would not fit beside the tables."""
     u = user_embedding(params, cfg, batch)              # (Q, E)
-    c = item_embedding(params, cfg, candidate_ids)      # (N, E)
+    ids = as_input(params, candidate_ids)
+    if params.mesh is None:
+        c = item_embedding(params, cfg, ids)            # (N, E)
+    else:
+        c = torch.cat([item_embedding(params, cfg, ids[lo:lo + RETRIEVAL_CHUNK])
+                       for lo in range(0, ids.shape[0], RETRIEVAL_CHUNK)])
     return similarity_topk(u, c, threshold, k=k, block_rows=u.shape[0],
                            exclude_self=False, device=u.device)
 
@@ -229,7 +296,7 @@ class Bert4RecConfig:
 
 
 def init_bert4rec(cfg: Bert4RecConfig, *, generator: torch.Generator | None = None,
-                  device: str | torch.device = "cuda") -> ParamTree:
+                  device: str | torch.device = "cuda", mesh=None) -> ParamTree:
     dev, gen = _generator(device, generator)
     d, dt = cfg.embed_dim, cfg.dtype
 
@@ -251,12 +318,12 @@ def init_bert4rec(cfg: Bert4RecConfig, *, generator: torch.Generator | None = No
         "w2": dense_init(gen, cfg.d_ff, d, dt, dev),
         "b2": zeros(d),
     } for _ in range(cfg.n_blocks)]
-    return ParamTree({
+    return _finish(ParamTree({
         "item_table": embed_init(gen, cfg.padded_items, d, dt, dev),
         "pos_table": embed_init(gen, cfg.seq_len, d, dt, dev),
         "blocks": blocks,
         "final_norm": ones(d),
-    })
+    }), cfg, init_bert4rec, mesh)
 
 
 def bert4rec_param_specs(cfg: Bert4RecConfig) -> dict:
@@ -279,41 +346,87 @@ def bert4rec_encode(params: ParamTree, cfg: Bert4RecConfig, item_ids) -> torch.T
     exact_f32()
     item_ids = as_input(params, item_ids)
     b, s = item_ids.shape
-    x = take(params["item_table"], item_ids)
+    x = lookup(params["item_table"], item_ids)
     x = x + params["pos_table"][None, :s]
-    d, h = cfg.embed_dim, cfg.n_heads
-    hd = d // h
+    hd = cfg.embed_dim // cfg.n_heads
     for p in params["blocks"]:
         xn = rms_norm(x, p["attn_norm"])
-        q, k, v = (torch.matmul(xn, p[w]).reshape(b, s, h, hd).transpose(1, 2)
+        q, k, v = (column_parallel(xn, p[w]).reshape(b, s, -1, hd).transpose(1, 2)
                    for w in ("wq", "wk", "wv"))
         o = chunked_attention(q, k, v, causal=False, q_chunk=min(128, s),
                               kv_chunk=min(128, s))
-        o = o.transpose(1, 2).reshape(b, s, d)
-        x = x + torch.matmul(o, p["wo"])
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        x = x + row_parallel(o, p["wo"])
         xn = rms_norm(x, p["ffn_norm"])
-        hh = F.gelu(torch.matmul(xn, p["w1"]) + p["b1"], approximate="tanh")
-        x = x + torch.matmul(hh, p["w2"]) + p["b2"]
+        hh = F.gelu(column_parallel(xn, p["w1"]) + p["b1"], approximate="tanh")
+        x = x + row_parallel(hh, p["w2"]) + p["b2"]
     return rms_norm(x, params["final_norm"])
 
 
+def _item_logits(params: ParamTree, cfg: Bert4RecConfig, h: torch.Tensor, *,
+                 grad: bool) -> tuple[torch.Tensor, int]:
+    """``(h · item_tableᵀ, first id)`` in f32 (products of the model's dtype
+    summed in f32): every item's logit, or on a rank whose rows of the
+    table ``model`` splits, the logits of its rows (``h`` entering the
+    split with its gradient summed over ``model`` when ``grad``), the rows
+    at or past ``n_items`` masked to ``-inf``."""
+    table = params["item_table"]
+    if not model_split(table, 0):
+        return torch.matmul(h.float(), table[:cfg.n_items].float().T), 0
+    lo = table.mesh.get_local_rank("model") * table.shape[0]
+    if grad:
+        from repro_torch.core.distributed import enter_replicated
+
+        h = enter_replicated(h, table.mesh, ("model",))
+    logits = torch.matmul(h.float(), table.float().T)
+    pad = torch.arange(lo, lo + table.shape[0], device=logits.device) >= cfg.n_items
+    return logits.masked_fill(pad, float("-inf")), lo
+
+
 def bert4rec_loss(params: ParamTree, cfg: Bert4RecConfig, batch):
-    """Masked-item prediction (cloze) CE over the masked positions."""
+    """Masked-item prediction (cloze) CE over the masked positions. On a
+    rank whose ``item_table`` rows ``model`` splits, the log-sum-exp and
+    the label's logit cross the ranks (``vocab_parallel_*``). Under a mesh
+    with data axes the batch is the rank's rows and the loss is the rank's
+    NLL sum over the global mask count, times the data ranks: their mean
+    is the global masked mean."""
     h = bert4rec_encode(params, cfg, batch["item_ids"])     # (B, S, d)
-    logits = torch.matmul(h.float(), params["item_table"][:cfg.n_items].float().T)
+    logits, lo = _item_logits(params, cfg, h, grad=True)
     labels = as_input(params, batch["labels"]).long()
     mask = as_input(params, batch["mask"], torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    table = params["item_table"]
+    if model_split(table, 0):
+        from repro_torch.core.distributed import vocab_parallel_logsumexp, vocab_parallel_pick
+
+        lse = vocab_parallel_logsumexp(logits, table.mesh, "model")
+        gold = vocab_parallel_pick(logits, labels, table.mesh, "model", lo)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (lse - gold) * mask
-    loss = torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    cnt = torch.sum(mask)
+    mesh, daxes = active_mesh(), data_axes()
+    if daxes:
+        from repro_torch.core.distributed import _axis_size, psum_in_order
+
+        cnt = psum_in_order(cnt.detach(), mesh, daxes)
+        loss = torch.sum(nll) / torch.clamp(cnt, min=1.0) * _axis_size(mesh, daxes)
+    else:
+        loss = torch.sum(nll) / torch.clamp(cnt, min=1.0)
     return loss, {"loss": loss}
 
 
 def bert4rec_score(params: ParamTree, cfg: Bert4RecConfig, batch) -> torch.Tensor:
-    """Next-item scores from the final position (serving)."""
+    """Next-item scores from the final position (serving); on a rank of a
+    vocab split, every rank's logits gathered over ``model``."""
     h = bert4rec_encode(params, cfg, batch["item_ids"])
-    return torch.matmul(h[:, -1].float(), params["item_table"][:cfg.n_items].float().T)
+    logits, _ = _item_logits(params, cfg, h[:, -1], grad=False)
+    table = params["item_table"]
+    if not model_split(table, 0):
+        return logits
+    from repro_torch.core.distributed import gather_replicated
+
+    return gather_replicated(logits, table.mesh, ("model",), 1)[:, :cfg.n_items]
 
 
 # ---------------------------------------------------------------------------
@@ -333,14 +446,14 @@ class DINConfig:
 
 
 def init_din(cfg: DINConfig, *, generator: torch.Generator | None = None,
-             device: str | torch.device = "cuda") -> ParamTree:
+             device: str | torch.device = "cuda", mesh=None) -> ParamTree:
     dev, gen = _generator(device, generator)
     e = cfg.embed_dim
-    return ParamTree({
+    return _finish(ParamTree({
         "item_table": embed_init(gen, cfg.n_items, e, cfg.dtype, dev),
         "attn": _stack(gen, (*cfg.attn_dims, 1), 4 * e, cfg.dtype, dev),
         "mlp": _stack(gen, (*cfg.mlp_dims, 1), 2 * e, cfg.dtype, dev),
-    })
+    }), cfg, init_din, mesh)
 
 
 def din_param_specs(cfg: DINConfig) -> dict:
@@ -355,9 +468,9 @@ def din_param_specs(cfg: DINConfig) -> dict:
 def din_logits(params: ParamTree, cfg: DINConfig, batch) -> torch.Tensor:
     exact_f32()
     history = as_input(params, batch["history"])
-    hist = take(params["item_table"], torch.clamp(history, min=0))        # (B, S, E)
+    hist = lookup(params["item_table"], torch.clamp(history, min=0))      # (B, S, E)
     valid = (history >= 0).float()
-    target = take(params["item_table"], as_input(params, batch["item_ids"]))  # (B, E)
+    target = lookup(params["item_table"], as_input(params, batch["item_ids"]))  # (B, E)
     t = target[:, None, :].expand(hist.shape)
     ai = torch.cat([hist, t, hist - t, hist * t], dim=-1)                 # (B, S, 4E)
     score = mlp(ai, params["attn"]["w"], params["attn"]["b"], act=torch.sigmoid)[..., 0]
@@ -397,7 +510,7 @@ class BSTConfig:
 
 
 def init_bst(cfg: BSTConfig, *, generator: torch.Generator | None = None,
-             device: str | torch.device = "cuda") -> ParamTree:
+             device: str | torch.device = "cuda", mesh=None) -> ParamTree:
     dev, gen = _generator(device, generator)
     e, dt = cfg.embed_dim, cfg.dtype
     blocks = [{
@@ -412,12 +525,12 @@ def init_bst(cfg: BSTConfig, *, generator: torch.Generator | None = None,
         "b2": torch.zeros((e,), dtype=dt, device=dev),
         "norm2": torch.ones((e,), dtype=dt, device=dev),
     } for _ in range(cfg.n_blocks)]
-    return ParamTree({
+    return _finish(ParamTree({
         "item_table": embed_init(gen, cfg.n_items, e, dt, dev),
         "pos_table": embed_init(gen, cfg.seq_len, e, dt, dev),
         "blocks": blocks,
         "mlp": _stack(gen, (*cfg.mlp_dims, 1), cfg.seq_len * e, dt, dev),
-    })
+    }), cfg, init_bst, mesh)
 
 
 def bst_param_specs(cfg: BSTConfig) -> dict:
@@ -443,17 +556,17 @@ def bst_logits(params: ParamTree, cfg: BSTConfig, batch) -> torch.Tensor:
     seq = torch.cat([as_input(params, batch["history"]),
                      as_input(params, batch["item_ids"])[:, None]], dim=1)  # (B, S)
     b, s = seq.shape
-    e, h = cfg.embed_dim, cfg.n_heads
-    hd = e // h
-    x = take(params["item_table"], torch.clamp(seq, min=0))
+    e = cfg.embed_dim
+    hd = e // cfg.n_heads
+    x = lookup(params["item_table"], torch.clamp(seq, min=0))
     x = x + params["pos_table"][None, :s]
     for p in params["blocks"]:
-        q, k, v = (torch.matmul(x, p[w]).reshape(b, s, h, hd) for w in ("wq", "wk", "wv"))
+        q, k, v = (column_parallel(x, p[w]).reshape(b, s, -1, hd) for w in ("wq", "wk", "wv"))
         logits = torch.einsum("bqhe,bkhe->bhqk", q, k) / (hd ** 0.5)
         w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        o = torch.einsum("bhqk,bkhe->bqhe", w, v).reshape(b, s, e)
-        x = rms_norm(x + torch.matmul(o, p["wo"]), p["norm1"])
-        ff = torch.matmul(torch.relu(torch.matmul(x, p["w1"]) + p["b1"]), p["w2"]) + p["b2"]
+        o = torch.einsum("bhqk,bkhe->bqhe", w, v).reshape(b, s, -1)
+        x = rms_norm(x + row_parallel(o, p["wo"]), p["norm1"])
+        ff = row_parallel(torch.relu(column_parallel(x, p["w1"]) + p["b1"]), p["w2"]) + p["b2"]
         x = rms_norm(x + ff, p["norm2"])
     flat = x.reshape(b, s * e)
     return mlp(flat, params["mlp"]["w"], params["mlp"]["b"], act=F.leaky_relu)[..., 0]
@@ -463,3 +576,52 @@ def bst_loss(params: ParamTree, cfg: BSTConfig, batch):
     logits = bst_logits(params, cfg, batch)
     loss = _bce_with_logits(logits, as_input(params, batch["click"], torch.float32))
     return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# layouts on a mesh
+# ---------------------------------------------------------------------------
+
+_FAMILY = {
+    TwoTowerConfig: (init_two_tower, two_tower_param_specs),
+    Bert4RecConfig: (init_bert4rec, bert4rec_param_specs),
+    DINConfig: (init_din, din_param_specs),
+    BSTConfig: (init_bst, bst_param_specs),
+}
+_ATTENTION = ("wq", "wk", "wv", "wo")
+
+
+def param_specs(cfg) -> dict:
+    """The reference's ``*_param_specs`` of ``cfg``'s family, by name."""
+    return _FAMILY[type(cfg)][1](cfg)
+
+
+def _heads_split(cfg, mesh) -> bool:
+    m = axis_sizes(mesh).get("model", 1)
+    return not hasattr(cfg, "n_heads") or m == 1 or cfg.n_heads % m == 0
+
+
+def layout_specs(cfg, mesh) -> dict:
+    """:func:`param_specs` as a rank of ``mesh`` holds the parameters: axes
+    the mesh lacks and dimensions their axes do not divide replicate
+    (``elastic``'s rule), and the blocks' attention matrices split whole
+    heads only: where ``model`` does not divide the heads, ``wq``/``wk``/
+    ``wv``/``wo`` replicate although their width may divide."""
+    specs = dict(param_specs(cfg))
+    if not _heads_split(cfg, mesh):
+        for name in specs:
+            if name.startswith("blocks.") and name.rsplit(".", 1)[-1] in _ATTENTION:
+                specs[name] = tuple(None if part == "model" else part for part in specs[name])
+    return layout_of(specs, _FAMILY[type(cfg)][0](cfg, device="meta"), mesh)
+
+
+def layout_replications(cfg, mesh) -> dict:
+    """``{name: reason}`` of the parameters whose layout spec holds more
+    than ``local_shape`` of :func:`param_specs` would: the head rule's."""
+    layout, base = layout_specs(cfg, mesh), param_specs(cfg)
+    out = {}
+    for name, p in _FAMILY[type(cfg)][0](cfg, device="meta").named_parameters():
+        shape = tuple(p.shape)
+        if local_shape(shape, layout[name], mesh) != local_shape(shape, base[name], mesh):
+            out[name] = f"{cfg.n_heads} heads over model={axis_sizes(mesh)['model']}"
+    return out

@@ -111,6 +111,7 @@ from repro_torch.models.layers import (
     decode_attention_xla,
     dense_init,
     embed_init,
+    model_split,
     rms_norm,
     swiglu,
 )
@@ -758,17 +759,12 @@ def _tokens(params: Transformer, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.embed.device)
 
 
-def _model_split(p: torch.Tensor, dim: int) -> bool:
-    spec = getattr(p, "spec", None)
-    return spec is not None and _split_on_model(spec, dim)
-
-
 def _embed(params: Transformer, tokens) -> torch.Tensor:
     """Token embeddings ``(…, d)``: a rank holding ``d / p`` columns
     (``(None, "model")``) looks its columns up and all-gathers the width
     over ``model``."""
     x = F.embedding(tokens.long(), weight_for_use(params.embed))
-    if _model_split(params.embed, 1):
+    if model_split(params.embed, 1):
         from repro_torch.core.distributed import gather_replicated
 
         x = gather_replicated(x, params.mesh, ("model",), x.dim() - 1)
@@ -778,7 +774,7 @@ def _embed(params: Transformer, tokens) -> torch.Tensor:
 def _whole_vocab(params: Transformer, logits: torch.Tensor) -> torch.Tensor:
     """Logits whose vocab ``lm_head`` splits over ``model``, all-gathered to
     the whole vocab (every rank gets them)."""
-    if not _model_split(params.lm_head.weight, 0):
+    if not model_split(params.lm_head.weight, 0):
         return logits
     from repro_torch.core.distributed import gather_replicated
 
@@ -892,7 +888,7 @@ def transformer_loss(params: Transformer, cfg: TransformerConfig, batch: dict, *
     tot = torch.zeros((), dtype=torch.float32, device=tokens.device)
     cnt = torch.zeros((), dtype=torch.float32, device=tokens.device)
     head = weight_for_use(params.lm_head.weight)
-    split = _model_split(params.lm_head.weight, 0)
+    split = model_split(params.lm_head.weight, 0)
     for lo in range(0, s, chunk):
         sl = slice(lo, lo + chunk)
         if split:

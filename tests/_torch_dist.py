@@ -554,3 +554,170 @@ def _tp_loop(mesh, run_dir, arch, overrides) -> dict:
             "resumed_ck": leaves(resumed), "steps": ck.CheckpointManager(resumed).all_steps(),
             "restored": tree_leaves(interop.transformer_params_to_numpy(run.model)),
             "straight_dir": straight}
+
+
+RG_MESHES = {"data2_model2": ((2, 2), ("data", "model")), "model4": ((4,), ("model",)),
+             "data4": ((4,), ("data",))}
+
+
+def recsys_gnn_ranks(rank, world, dev, spec: dict) -> dict:
+    """Rank function of ``tests/test_torch_recsys_gnn_parallel.py``: on each
+    mesh of :data:`RG_MESHES` (all in the same 4 ranks), every recsys case
+    of ``spec["recsys"]`` (not on ``data4``) and the GAT case
+    ``spec["gat"]`` as the rank's blocks of one numpy tree (``interop``
+    with ``mesh=``); on the first mesh also the vocab-parallel lookup, the
+    ``sharded_retrieval`` cell and ``train_loop(mesh=)`` straight and
+    resumed (``spec["loops"]``)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.manual_seed(0)
+    out = {}
+    for name, (shape, names) in RG_MESHES.items():
+        mesh = make_mesh(shape, names)
+        res = {"coord": tuple(mesh.get_coordinate()), "gat": _rg_gat(mesh, **spec["gat"])}
+        if name != "data4":
+            res["recsys"] = {arch: _rg_recsys(mesh, **case)
+                             for arch, case in spec["recsys"].items()}
+        if name == "data2_model2":
+            res["lookup"] = _rg_lookup(mesh, **spec["lookup"])
+            res["retrieval"] = _rg_retrieval(mesh, **spec["retrieval"])
+            res["loops"] = {arch: _rg_loop(mesh, arch=arch, run_dir=d)
+                            for arch, d in spec["loops"].items()}
+        out[name] = res
+    return out
+
+
+def _rg_step(mesh, model, loss_fn, step_fn, batch, to_numpy) -> dict:
+    """Loss, metrics and gradients (averaged over the data axes, gathered
+    whole) of the rank's batch, then one step: its metrics, the parameters
+    and AdamW moments after it (gathered whole) and the moments' shapes."""
+    from repro_torch import interop, optim
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch import train
+
+    with use_mesh(mesh):
+        loss, aux, grads = train.grads_of(loss_fn, model, batch)
+        grads, loss, aux = train._mean_over_data(grads, loss, aux, train.params_of(model))
+        opt = optim.adamw_init(train.params_of(model))
+        _, opt, metrics = step_fn(model, opt, batch)
+    return {"loss": float(loss), "aux": {k: float(v) for k, v in aux.items()},
+            "grads": interop.named_to_numpy(model, grads, to_numpy),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": to_numpy(model),
+            "m": interop.named_to_numpy(model, opt.m, to_numpy),
+            "v": interop.named_to_numpy(model, opt.v, to_numpy),
+            "moment_shapes": {n: tuple(t.shape) for n, t in opt.m.items()}}
+
+
+def _rg_recsys(mesh, cfg, tree, batch, score_fn, loss_fn, hp) -> dict:
+    import copy
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import cut_tree, gather_tree
+    from repro_torch.launch import train
+    from repro_torch.models import recsys
+
+    model = interop.recsys_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    rows = {k: _rows(v, mesh, ("data",)) for k, v in batch.items()}
+    # copies: a whole leaf's array shares the live parameter's memory
+    out = {"shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+           "round_trip": copy.deepcopy(interop.recsys_params_to_numpy(model))}
+    whole = interop.recsys_params_from_numpy(tree, cfg, "cpu")
+    cut = cut_tree(whole, recsys.layout_specs(cfg, mesh), mesh)
+    back = gather_tree(cut, None, mesh)
+    out["cut_tree"] = (cut.mesh is model.mesh
+                       and all(torch.equal(a, b) and a.spec == b.spec for a, b in
+                               zip(cut.parameters(), model.parameters()))
+                       and all(torch.equal(a, b) for a, b in
+                               zip(back.parameters(), whole.parameters())))
+    with torch.no_grad(), use_mesh(mesh):
+        out["score"] = score_fn(model, cfg, rows).numpy()
+    out.update(_rg_step(mesh, model, lambda p, b: loss_fn(p, cfg, b),
+                        train.make_recsys_train_step(cfg, hp), rows,
+                        interop.recsys_params_to_numpy))
+    return out
+
+
+def _rg_gat(mesh, cfg, tree, graph, hp) -> dict:
+    import copy
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.distributed import use_mesh
+    from repro_torch.launch import train
+    from repro_torch.models import gnn
+
+    model = interop.gat_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    axes = gnn.graph_axes(mesh, len(graph["labels"]), len(graph["edge_src"]))
+    g = {k: torch.as_tensor(v) for k, v in gnn.cut_graph(graph, axes, mesh).items()}
+    out = {"axes": axes, "block": {k: tuple(v.shape) for k, v in g.items()},
+           "round_trip": copy.deepcopy(interop.gat_params_to_numpy(model))}
+    with torch.no_grad(), use_mesh(mesh):
+        out["logits"] = gnn.gat_forward(model, cfg, g, graph_axes=axes).numpy()
+    out.update(_rg_step(mesh, model, lambda p, b: gnn.gat_loss(p, cfg, b, graph_axes=axes),
+                        train.make_gat_train_step(cfg, hp, graph_axes=axes), g,
+                        interop.gat_params_to_numpy))
+    return out
+
+
+def _rg_lookup(mesh, table, ids) -> dict:
+    """``layers.lookup`` on the rank's rows of ``table`` (split over
+    ``model``) and ``take`` on the whole table, with the gradient of a sum
+    of the lookups into the rank's rows."""
+    import torch
+
+    from repro_torch.distributed.sharding import block_of
+    from repro_torch.models.layers import lookup, take
+
+    block = torch.nn.Parameter(torch.from_numpy(np.array(block_of(table, ("model", None),
+                                                                   mesh))))
+    block.spec, block.mesh = ("model", None), mesh
+    got = lookup(block, torch.from_numpy(ids))
+    (g,) = torch.autograd.grad(got.sum(), block)
+    return {"got": got.detach().numpy(), "want": take(torch.from_numpy(table),
+                                                      torch.from_numpy(ids)).numpy(),
+            "grad": g.numpy()}
+
+
+def _rg_retrieval(mesh, cfg, tree, query, candidates) -> dict:
+    """The two-tower's ``retrieval_cand`` cell: tables over ``model``, this
+    rank's block of the candidates over ``data`` (``sharded_retrieval``)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import two_tower_retrieval as tt_config
+    from repro_torch.configs.recsys_common import sharded_retrieval
+    from repro_torch.distributed import use_mesh
+
+    model = interop.recsys_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    with torch.no_grad(), use_mesh(mesh):
+        m = sharded_retrieval(tt_config._retrieve, cfg, model, query,
+                              torch.as_tensor(_rows(candidates, mesh, ("data",))))
+    return {"values": m.values.numpy(), "indices": m.indices.numpy(),
+            "counts": m.counts.numpy()}
+
+
+def _rg_loop(mesh, arch, run_dir) -> dict:
+    """``train_loop(mesh=)``: 4 steps straight, and 2 then a resume to 4;
+    both final checkpoints' leaves."""
+    import os
+
+    from repro_torch import checkpoint as ck
+    from repro_torch.launch import train
+
+    kw = dict(arch=arch, mesh=mesh, device="cpu", ckpt_every=2, log_every=100)
+    straight, resumed = (os.path.join(run_dir, name) for name in ("straight", "resumed"))
+    first = train.train_loop(steps=4, ckpt_dir=straight, **kw)
+    train.train_loop(steps=2, ckpt_dir=resumed, total_steps=4, **kw)
+    again = train.train_loop(steps=4, ckpt_dir=resumed, **kw)
+
+    def leaves(d):
+        return {k: np.asarray(v) for k, v in ck.load_checkpoint(d, 4).items()}
+    return {"straight": first, "resumed": again, "straight_ck": leaves(straight),
+            "resumed_ck": leaves(resumed)}

@@ -99,3 +99,21 @@ def test_dryrun_train_cell_holds_the_ranks_blocks(tmp_path):
     assert res["spec_bytes"] <= res["resident_bytes"] <= 1.25 * res["spec_bytes"]
     assert res["census"]["collectives"]["reduce-scatter"]["count"] > 0  # FSDP gradients
     assert res["useful_flops_ratio"] > 0.5
+
+
+@pytest.mark.parametrize("arch,shape", [("two-tower-retrieval", "train_batch"),
+                                        ("gat-cora", "minibatch_lg")])
+def test_dryrun_recsys_and_graph_cells_hold_their_blocks(tmp_path, arch, shape):
+    """At 16 × 16 a rank holds its blocks: the two-tower's tables (rows) and
+    towers (columns) over model with their AdamW moments, GAT's minibatch
+    graph by nodes and edges over data; resident within 1.25× of what the
+    reference's specs place on a device. The two-tower gathers its in-batch
+    negatives over data and the tower activations over model; GAT's
+    aggregation partials reduce-scatter onto the nodes' owners."""
+    res = _dryrun(tmp_path, "--arch", arch, "--shape", shape)
+    assert res["status"] == "ok"
+    assert res["spec_bytes"] <= res["resident_bytes"] <= 1.25 * res["spec_bytes"]
+    coll = res["census"]["collectives"]
+    assert coll["all-gather"]["count"] > 0
+    if arch == "gat-cora":
+        assert coll["reduce-scatter"]["count"] >= 2  # one a layer's aggregation

@@ -260,7 +260,12 @@ Phases, each printing one JSON line (with ``t_s``, seconds since the start):
     ``train_loop(mesh=)`` on deepseek-moe-16b's smoke config with
     ``moe_impl="ep"`` (capacity factor 16, aux loss weighted 0): 4 steps
     equal one process's within 1e-5 relative; stopped at step 2 and
-    resumed, bit for bit the straight run in every checkpoint leaf.
+    resumed, bit for bit the straight run in every checkpoint leaf. The
+    tensor-parallel, FSDP, recsys and GAT phases follow (``mesh_phases``
+    lists them), then ``tp3_prefill_minicpm3_4b`` and ``tp3_qwen3_1_7b``:
+    heads that ``model`` does not divide, zero-padded to a split, on a
+    ``model = 3`` mesh of ranks 0-2 (K8 on a padded rank's heads, K9's
+    partials on a rank's block; three kernel rows).
 18b. The MLA and MoE families and qwen3-8b at full width (bf16, weights
     from seed 0 on the card), one model on the card at a time
     (``lm_zoo_phases``). Each prefill (2 × 4096; ``zoo_prefill_phase``) is
@@ -2446,7 +2451,8 @@ def lm_server_phase(np, torch, phase, cfg, model, max_dlogit, *, requests=4, pro
 
 # ---------------------------------------------------------------------------
 # Meshes: the sequence-sharded decode on K9's partials, expert parallelism,
-# training on a mesh (4 ranks on the one card over gloo)
+# training on a mesh, tensor parallelism with heads padded to a split (4 ranks
+# on the one card over gloo)
 # ---------------------------------------------------------------------------
 
 MESH_ROOT = ROOT / "build" / "mesh"  # the ranks' run directory and checkpoints
@@ -2501,6 +2507,17 @@ DP_GAT = dict(nodes=169984, edges=338944, d_feat=602, steps=2, seed=32)
 # step 2, on an NVIDIA H100 80GB HBM3 at 700 W; one process repeats itself
 # bit for bit).
 STEP2_GNORM_TOL = 1e-4
+# Heads that model does not divide, at full width on a model=3 mesh of ranks
+# 0-2 inside the same spawn (rank 3 makes the mesh, then sits the phases
+# out): minicpm3-4b's 40 MLA heads padded to 42 (14 a rank) and qwen3-1.7b's
+# 16 q heads on 8 kv heads padded to 18 on 9 (6 q and 3 kv a rank, one zero
+# kv group on rank 2), each cut to 2 layers. Prefill 2 × 4,096 (bf16; the
+# minicpm3 f32 run too); qwen3's decode batch 8 into a cache of 24,576
+# positions over the 3 ranks (8,192 a rank, length 20,480: rank 2 half
+# full), 1 warm-up step, 2 timed, and 2 in f32.
+TP3_MESH = ((3,), ("model",), (0, 1, 2))
+TP3 = dict(layers=2, batch=2, seq=4096, dec_batch=8, max_len=24576, length=20480, warm=1,
+           steps=2, seed=41)
 
 
 def _seq_block(torch, shape, block: int, layer: int, which: int, dtype, seed: int):
@@ -2602,11 +2619,25 @@ def mesh_phases(np, torch, cfg, model) -> list:
     - ``dp_gat_minibatch_lg``: gat-cora at ``DP_GAT``'s shape with its
       nodes and edges over ``DP_MESH``'s 4 data ranks, 2 steps held as the
       two-tower's (loss and accuracy at every step), and the bytes each
-      layer gathers and reduce-scatters.
+      layer gathers and reduce-scatters;
+    - ``tp3_prefill_minicpm3_4b`` and ``tp3_qwen3_1_7b``: heads that
+      ``model`` does not divide, on ``TP3_MESH`` (ranks 0-2; rank 3 makes
+      the mesh and sits out), at full width and ``TP3``'s 2 layers:
+      minicpm3-4b's 40 MLA heads padded to 42, K8 on each rank's 14
+      (``(2, 14, 14, 4096, 128)`` after MLA's padding to head dim 128),
+      and qwen3-1.7b's 16 / 8 padded to 18 / 9, K8 on each rank's 6 q and 3
+      kv heads; each prefill's last logits top-1 equal to one process's and
+      within bf16 2e-2 (minicpm3's f32 run within 2e-5); qwen3's decode
+      (batch 8, 24,576 positions over the 3 ranks) with K9's partials on
+      each rank's 8,192 positions for the reference's 16 / 8 heads, held
+      as ``tp_decode_qwen3_1_7b`` (bf16 against the 3 blocks' merge within
+      2e-2 or twice one process's own gap, f32 within 2e-5 and top-1
+      equal).
 
     Returns the K9 row of the sharded decode (rank 0's shard; every rank's
-    times beside it), and the K8 and K9 rows at a tensor-parallel rank's
-    shapes."""
+    times beside it), the K8 and K9 rows at a tensor-parallel rank's
+    shapes, and the ``model=3`` phases' K8 rows at both rank shapes and K9
+    row at the rank's block."""
     import shutil
 
     from repro_torch.launch.mesh import spawn
@@ -2663,13 +2694,17 @@ def mesh_phases(np, torch, cfg, model) -> list:
     shutil.rmtree(MESH_ROOT, ignore_errors=True)
     MESH_ROOT.mkdir(parents=True)
     tp_inputs, tp_single = _tp_single(np, torch, cfg, model)
+    t0 = time.perf_counter()
+    tp3_inputs, tp3_single = _tp3_single(np, torch)
+    tp3_single_s = time.perf_counter() - t0
     rg_inputs, rg_single = _recsys_gnn_single(np, torch)
     t0 = time.perf_counter()
-    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, tp_inputs, rg_inputs, threads=2,
-                  device="cuda", run_dir=str(MESH_ROOT))
+    ranks = spawn("chip_smoke:mesh_ranks", 4, tokens, tp_inputs, tp3_inputs, rg_inputs,
+                  threads=2, device="cuda", run_dir=str(MESH_ROOT))
     spawn_s = time.perf_counter() - t0
     emit("mesh_spawn", ranks=4, backend="gloo", mesh=MESH_SHAPE, spawn_s=spawn_s,
-         rank_seconds=[r["seconds"] for r in ranks])
+         rank_seconds=[r["seconds"] for r in ranks],
+         rank_phase_seconds=[r["phase_seconds"] for r in ranks], tp3_single_s=tp3_single_s)
 
     # sequence-sharded decode against one rank
     dec = [r["decode"] for r in ranks]
@@ -2728,6 +2763,7 @@ def mesh_phases(np, torch, cfg, model) -> list:
     row.update(ranks_ms=[d["k9_row"]["ms"] for d in dec],
                ranks_live=[d["live"] for d in dec], ranks_launches=[d["launches"] for d in dec])
     rows = [row] + _tp_report(np, torch, cfg, [r["tp"] for r in ranks], tp_single)
+    rows += _tp3_report(np, torch, [r["tp3"] for r in ranks[:TP3_MESH[0][0]]], tp3_single)
     _recsys_gnn_report(np, torch, ranks, rg_single)
     return rows
 
@@ -2744,7 +2780,7 @@ def _moe_tokens(torch, c):
                        dtype=c.dtype)
 
 
-def mesh_ranks(rank, world, dev, tokens, tp_inputs, rg_inputs) -> dict:
+def mesh_ranks(rank, world, dev, tokens, tp_inputs, tp3_inputs, rg_inputs) -> dict:
     """Rank function (``launch.mesh.spawn``) of ``mesh_phases``."""
     import numpy as np
     import torch
@@ -2763,12 +2799,19 @@ def mesh_ranks(rank, world, dev, tokens, tp_inputs, rg_inputs) -> dict:
                  "decode": _rank_tp_decode(np, torch, tp_mesh, tp_inputs),
                  "fsdp": _rank_fsdp_train(np, torch, mesh, tp_inputs)}
     torch.cuda.empty_cache()
+    shape, names, members = TP3_MESH
+    tp3_mesh = make_mesh(shape, names, ranks=members)  # every rank makes it
+    t3 = time.perf_counter()
+    if tp3_mesh.get_coordinate() is not None:
+        out["tp3"] = _rank_tp3(np, torch, tp3_mesh, tp3_inputs)
+    torch.cuda.empty_cache()
+    tp3_s = time.perf_counter() - t3
     dp_mesh = make_mesh(*DP_MESH)
     t1 = time.perf_counter()
     out["recsys"] = _rank_tp_recsys(np, torch, tp_mesh, rg_inputs)
     t2 = time.perf_counter()
     out["gat"] = _rank_dp_gat(np, torch, dp_mesh, rg_inputs)
-    out["phase_seconds"] = dict(tp_recsys=t2 - t1, dp_gat=time.perf_counter() - t2)
+    out["phase_seconds"] = dict(tp3=tp3_s, tp_recsys=t2 - t1, dp_gat=time.perf_counter() - t2)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3173,11 +3216,12 @@ def _recsys_gnn_report(np, torch, ranks, single) -> None:
     check(param_rel <= TOL, f"dp_gat: parameters {param_rel} from one rank's")
 
 
-def _blockwise_decode_attention(q, k, v, lengths, *, scale):
-    """One rank's decode attention as the ``model=4`` ranks compute it: K9's
-    partials over each of the cache's 4 sequence blocks (local lengths, as
-    ``transformer._local_lengths``), merged by ``combine_partials`` in
-    block order. The tensor-parallel decode's reference."""
+def _blockwise_decode_attention(q, k, v, lengths, *, scale, p=TP_MESH[0][0]):
+    """One rank's decode attention as ``p`` model ranks compute it (the
+    ``model=4`` ones by default): K9's partials over each of the cache's
+    ``p`` sequence blocks (local lengths, as ``transformer._local_lengths``),
+    merged by ``combine_partials`` in block order. The tensor-parallel
+    decode's reference."""
     import torch
 
     from repro_torch.kernels.decode_attention.ops import (
@@ -3185,7 +3229,6 @@ def _blockwise_decode_attention(q, k, v, lengths, *, scale):
         decode_attention_partials,
     )
 
-    p = TP_MESH[0][0]
     n = k.shape[2] // p
     parts = [decode_attention_partials(q, k[:, :, i * n:(i + 1) * n], v[:, :, i * n:(i + 1) * n],
                                        (lengths - i * n).clamp(0, n), scale=scale)
@@ -3214,7 +3257,7 @@ def _rank_tp_prefill(np, torch, mesh, inputs) -> dict:
                psum_bytes=dd.WIRE_BYTES["psum"] - b0,
                psum_ms=(dd.WIRE_SECONDS["psum"] - s0) * 1e3,
                weight_bytes=sum(q.numel() * q.element_size() for q in model.parameters()),
-               heads=list(model.layers[0].attn.cut.heads))
+               heads=_heads_info(model))
     del model
     torch.cuda.empty_cache()
     return out
@@ -3254,30 +3297,7 @@ def _rank_tp_decode(np, torch, mesh, inputs) -> dict:
                     ms=(dd.WIRE_SECONDS[k] - sec) * 1e3 / d["steps"])
             for k, (b, sec) in wire.items()}
     live = int((cache["length"][0] - lay.offset).clamp(0, lay.local_len))
-
-    # K9's partials on this rank's block of layer 0, every head, at its live positions
-    _, k9 = _attention_modules()
-    D = cfg.head_dim
-    g = torch.Generator("cuda").manual_seed(4)
-    q = torch.randn((d["batch"], cfg.n_heads, D), generator=g, device="cuda").to(cfg.dtype)
-    k, v = cache["k"][0], cache["v"][0]
-    lens = torch.full((d["batch"],), live, dtype=torch.int32, device="cuda")
-    cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens),
-                      k9.decode_attention_plain(q, k, v, lens))
-    check(_k9_ok(cmp, "bfloat16"), f"tp decode rank at {lay.offset}: K9 differs: {cmp}")
-    mask = (torch.arange(lay.local_len, device="cuda") < live)[None, None, None, :]
-    nbytes = 2.0 * d["batch"] * live * cfg.n_kv_heads * D * k.element_size() \
-        + q.numel() * q.element_size() + 4.0 * d["batch"] * cfg.n_heads * (D + 2)
-    row = kernel_row(
-        np, torch, "decode_attention", "tp_decode_qwen3_1_7b", {"decode_attention": launches},
-        cmp, lambda: k9.decode_attention_kernel(q, k, v, lens),
-        lambda: k9.decode_attention_plain(q, k, v, lens),
-        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                               scale=1.0 / D ** 0.5, enable_gqa=True),
-        4.0 * d["batch"] * live * cfg.n_heads * D, nbytes)
-    row.update(shape=[d["batch"], cfg.n_heads, cfg.n_kv_heads, lay.local_len, D],
-               dtype="bfloat16", live_positions=live, offset=lay.offset, m_err=cmp["m_err"],
-               l_rel_err=cmp["l_rel_err"])
+    row = _k9_block_row(np, torch, "tp_decode_qwen3_1_7b", cfg, cache, lay, live, launches)
     cache_bytes = sum(cache[key].numel() * cache[key].element_size() for key in ("k", "v"))
     del cache, model
     torch.cuda.empty_cache()
@@ -3297,6 +3317,282 @@ def _rank_tp_decode(np, torch, mesh, inputs) -> dict:
     return dict(logits=torch.stack(steps), logits32=logits32, wall_ms=float(np.median(walls)),
                 launches=launches, wire=wire, live=live, offset=lay.offset,
                 local_len=lay.local_len, cache_bytes=cache_bytes, k9_row=row)
+
+
+def _k9_block_row(np, torch, phase, cfg, cache, lay, live: int, launches: int) -> dict:
+    """K9's partials entry on this rank's block of layer 0 of ``cache``
+    (sequence over ``model``), every head of the reference's geometry, at
+    the block's ``live`` positions: held to its plain version, timed beside
+    it and SDPA, bound by the bytes of the live keys and values."""
+    import torch.nn.functional as F
+
+    _, k9 = _attention_modules()
+    D, batch = cfg.head_dim, cache["length"].shape[0]
+    g = torch.Generator("cuda").manual_seed(4)
+    q = torch.randn((batch, cfg.n_heads, D), generator=g, device="cuda").to(cfg.dtype)
+    k, v = cache["k"][0], cache["v"][0]
+    lens = torch.full((batch,), live, dtype=torch.int32, device="cuda")
+    cmp = _k9_compare(torch, k9.decode_attention_kernel(q, k, v, lens),
+                      k9.decode_attention_plain(q, k, v, lens))
+    check(_k9_ok(cmp, "bfloat16"), f"{phase} rank at {lay.offset}: K9 differs: {cmp}")
+    mask = (torch.arange(lay.local_len, device="cuda") < live)[None, None, None, :]
+    nbytes = 2.0 * batch * live * cfg.n_kv_heads * D * k.element_size() \
+        + q.numel() * q.element_size() + 4.0 * batch * cfg.n_heads * (D + 2)
+    row = kernel_row(
+        np, torch, "decode_attention", phase, {"decode_attention": launches},
+        cmp, lambda: k9.decode_attention_kernel(q, k, v, lens),
+        lambda: k9.decode_attention_plain(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               scale=1.0 / D ** 0.5, enable_gqa=True),
+        4.0 * batch * live * cfg.n_heads * D, nbytes)
+    row.update(shape=[batch, cfg.n_heads, cfg.n_kv_heads, lay.local_len, D],
+               dtype="bfloat16", live_positions=live, offset=lay.offset, m_err=cmp["m_err"],
+               l_rel_err=cmp["l_rel_err"])
+    return row
+
+
+def _heads_info(model) -> dict:
+    """A rank's attention heads (``transformer.Heads`` of its first layer)
+    as plain lists: the q and kv heads it holds (``-1`` a zero head), its
+    first padded q head and the ranks sharing its kv heads."""
+    h = model.blocks()[0].attn.cut.heads
+    return dict(q=list(h.q), kv=list(h.kv), q0=h.q0, shared=list(h.shared))
+
+
+def _tp3_configs(torch, dtype=None):
+    """minicpm3-4b's and qwen3-1.7b's full configs cut to ``TP3``'s depth
+    (in ``dtype``, the configs' own by default)."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+
+    out = []
+    for arch in ("minicpm3-4b", "qwen3-1.7b"):
+        cfg = dc.replace(get_arch(arch).make_config(), n_layers=TP3["layers"])
+        out.append(cfg if dtype is None else dc.replace(cfg, dtype=dtype))
+    return out
+
+
+def _tp3_model(torch, cfg, mesh=None):
+    from repro_torch.models.transformer import init_transformer
+
+    return init_transformer(cfg, generator=torch.Generator("cuda").manual_seed(0),
+                            device="cuda", mesh=mesh)
+
+
+def _tp3_decode_cache(torch, cfg, mesh=None, *, seed: int, blocks: int = 1, first: int = 0):
+    """qwen3's ``TP3`` cache, seeded block by block (one process: all
+    ``TP3_MESH`` blocks; a rank of the mesh: its own), at ``TP3``'s length."""
+    from repro_torch.models.transformer import make_cache
+
+    t = TP3
+    if mesh is None:
+        cache = make_cache(cfg, t["dec_batch"], t["max_len"], device="cuda")
+    else:
+        cache = make_cache(cfg, t["dec_batch"], t["max_len"], device="cuda", mesh=mesh,
+                           seq_axes=("model",))
+    _fill_seq_cache(torch, cache, blocks=blocks, first=first, seed=seed)
+    cache["length"].fill_(t["length"])
+    return cache
+
+
+def _tp3_single(np, torch):
+    """One process's references of the ``model=3`` phases, before the
+    spawn: the prefills (minicpm3-4b bf16 and f32, qwen3-1.7b bf16) and
+    qwen3's decode (bf16 through K9 over the whole cache, bf16 merging the 3
+    blocks' K9 partials as the ranks do, f32). Returns the ranks' inputs and
+    the references."""
+    import contextlib
+    import functools
+
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import decode_step, prefill
+
+    t = TP3
+    mc, qc = _tp3_configs(torch)
+    p = TP3_MESH[0][0]
+    inputs = {"prefill": {cfg.name: _tp_tokens(np, (t["batch"], t["seq"]), t["seed"],
+                                               cfg.vocab_size) for cfg in (mc, qc)},
+              "decode": _tp_tokens(np, (t["dec_batch"], t["warm"] + t["steps"]),
+                                   t["seed"] + 1, qc.vocab_size)}
+    out = {}
+    for cfg in (mc, *_tp3_configs(torch, torch.float32)[:1], qc):
+        model = _tp3_model(torch, cfg)
+        tok = torch.from_numpy(inputs["prefill"][cfg.name]).cuda()
+        prefill(model, cfg, tok)
+        logits, ms = timed(torch, lambda: prefill(model, cfg, tok))
+        out[(cfg.name, _dtype_name(torch, cfg.dtype))] = dict(logits=logits.float().cpu(),
+                                                              ms=ms)
+        del model
+        torch.cuda.empty_cache()
+
+    def decode(cfg, seed, warm):
+        model = _tp3_model(torch, cfg)
+        cache = _tp3_decode_cache(torch, cfg, seed=seed, blocks=p)
+        tok = torch.from_numpy(inputs["decode"]).cuda()
+        steps, walls = [], []
+        for s in range(warm + t["steps"]):
+            (lg, _), ms = timed(torch, lambda: decode_step(model, cfg, cache, tok[:, s]))
+            if s >= warm:
+                steps.append(lg.float().cpu())
+                walls.append(ms)
+        del model, cache
+        torch.cuda.empty_cache()
+        return torch.stack(steps), walls
+
+    out["decode"], out["decode_ms"] = decode(qc, t["seed"], t["warm"])
+    with contextlib.ExitStack() as stack:
+        stack.callback(setattr, transformer, "decode_attention", transformer.decode_attention)
+        transformer.decode_attention = functools.partial(_blockwise_decode_attention, p=p)
+        out["decode_blocks"], _ = decode(qc, t["seed"], t["warm"])
+    out["decode32"], _ = decode(_tp3_configs(torch, torch.float32)[1], t["seed"] + 1, 0)
+    return inputs, out
+
+
+def _rank_tp3(np, torch, mesh, inputs) -> dict:
+    """A ``TP3_MESH`` rank's part of ``tp3_prefill_minicpm3_4b`` and
+    ``tp3_qwen3_1_7b``: each prefill (after a warm-up, bf16; minicpm3's f32
+    too) with its K8 launches and row-sum bytes, qwen3's decode steps with
+    their K9 launches, and K9's row on the rank's block."""
+    from repro_torch.core import distributed as dd
+    from repro_torch.models.transformer import decode_step, prefill
+
+    t = TP3
+    mc, qc = _tp3_configs(torch)
+    place = mesh.get_local_rank("model")
+    out = {"place": place}
+    for cfg in (mc, *_tp3_configs(torch, torch.float32)[:1], qc):
+        model = _tp3_model(torch, cfg, mesh)
+        torch.cuda.empty_cache()
+        tok = torch.from_numpy(inputs["prefill"][cfg.name]).cuda()
+        if cfg.dtype == torch.bfloat16:
+            prefill(model, cfg, tok)
+        reset_launches()
+        b0, s0 = dd.WIRE_BYTES["psum"], dd.WIRE_SECONDS["psum"]
+        logits, ms = timed(torch, lambda: prefill(model, cfg, tok))
+        out[(cfg.name, _dtype_name(torch, cfg.dtype))] = dict(
+            logits=logits.float().cpu(), wall_ms=ms,
+            k8_launches=launches_now()["flash_attention"],
+            psum_bytes=dd.WIRE_BYTES["psum"] - b0, psum_ms=(dd.WIRE_SECONDS["psum"] - s0) * 1e3,
+            weight_bytes=sum(q.numel() * q.element_size() for q in model.parameters()),
+            heads=_heads_info(model))
+        del model
+        torch.cuda.empty_cache()
+
+    def decode(cfg, seed, warm, row: bool):
+        model = _tp3_model(torch, cfg, mesh)
+        cache = _tp3_decode_cache(torch, cfg, mesh, seed=seed, first=place)
+        lay = cache["layout"]
+        tok = torch.from_numpy(inputs["decode"]).cuda()
+        for s in range(warm):
+            decode_step(model, cfg, cache, tok[:, s])
+        reset_launches()
+        wire = {k: (dd.WIRE_BYTES[k], dd.WIRE_SECONDS[k]) for k in ("gather_heads", "psum")}
+        steps, walls = [], []
+        for s in range(warm, warm + t["steps"]):
+            (lg, _), ms = timed(torch, lambda: decode_step(model, cfg, cache, tok[:, s]))
+            steps.append(lg.float().cpu())
+            walls.append(ms)
+        res = dict(logits=torch.stack(steps), wall_ms=walls,
+                   launches=launches_now()["decode_attention"],
+                   wire={k: dict(bytes=(dd.WIRE_BYTES[k] - b) / t["steps"],
+                                 ms=(dd.WIRE_SECONDS[k] - sec) * 1e3 / t["steps"])
+                         for k, (b, sec) in wire.items()},
+                   offset=lay.offset, local_len=lay.local_len,
+                   live=int((cache["length"][0] - lay.offset).clamp(0, lay.local_len)))
+        if row:
+            res["k9_row"] = _k9_block_row(np, torch, "tp3_qwen3_1_7b", cfg, cache, lay,
+                                          res["live"], res["launches"])
+        del model, cache
+        torch.cuda.empty_cache()
+        return res
+
+    out["decode"] = decode(qc, t["seed"], t["warm"], True)
+    out["decode32"] = decode(_tp3_configs(torch, torch.float32)[1], t["seed"] + 1, 0, False)
+    return out
+
+
+def _tp3_report(np, torch, ranks, single) -> list:
+    """Hold the ``model=3`` phases' ranks against one process and emit them;
+    the K8 rows at a rank's two shapes (the card to itself, after the
+    spawn) and the ranks' K9 row."""
+    t = TP3
+    mc, qc = _tp3_configs(torch)
+    rows = []
+    for phase, cfg, dtypes in (("tp3_prefill_minicpm3_4b", mc, ("bfloat16", "float32")),
+                               ("tp3_qwen3_1_7b", qc, ("bfloat16",))):
+        fields = {}
+        for dn in dtypes:
+            pre = [r[(cfg.name, dn)] for r in ranks]
+            for r in pre[1:]:
+                check(torch.equal(r["logits"], pre[0]["logits"]),
+                      f"{phase}: the ranks' {dn} logits differ")
+            got, want = pre[0]["logits"], single[(cfg.name, dn)]["logits"]
+            top1 = int((got.argmax(-1) == want.argmax(-1)).sum())
+            dlogit = float((got - want).abs().max())
+            fields[dn] = dict(top1_equal=top1, max_abs_dlogit=dlogit,
+                              wall_ms=[r["wall_ms"] for r in pre],
+                              single_wall_ms=single[(cfg.name, dn)]["ms"],
+                              k8_launches=[r["k8_launches"] for r in pre],
+                              psum_bytes=[r["psum_bytes"] for r in pre],
+                              psum_ms=[r["psum_ms"] for r in pre])
+            check(top1 == t["batch"], f"{phase}: {dn} top-1 agrees on {top1} of {t['batch']}")
+            check(dlogit <= LM_ATOL[dn], f"{phase}: {dn} |Δlogit| {dlogit}")
+            for r in pre:
+                check(r["k8_launches"] == t["layers"],
+                      f"{phase}: K8 launched {r['k8_launches']} times in {dn}")
+        heads = [r[(cfg.name, "bfloat16")]["heads"] for r in ranks]
+        emit(phase, mesh=TP3_MESH, batch=t["batch"], seq=t["seq"], layers=t["layers"],
+             heads=heads, weight_bytes=[r[(cfg.name, "bfloat16")]["weight_bytes"]
+                                        for r in ranks], **fields)
+        launches = {"flash_attention": fields["bfloat16"]["k8_launches"][0]}
+        hq, hkv = len(heads[0]["q"]), len(heads[0]["kv"])
+        if cfg.attention == "mla":
+            import dataclasses as dc
+
+            row = k8_mla_row(np, torch, phase, launches, t["batch"], dc.replace(cfg, n_heads=hq),
+                             t["seq"])
+        else:
+            row = k8_row(np, torch, phase, launches, t["batch"], hq, hkv, t["seq"],
+                         cfg.head_dim)
+        row.update(ranks_launches=fields["bfloat16"]["k8_launches"])
+        rows.append(row)
+
+    dec = [r["decode"] for r in ranks]
+    for r in dec[1:]:
+        check(torch.equal(r["logits"], dec[0]["logits"]), "tp3_qwen3_1_7b: decode logits differ")
+    got = dec[0]["logits"]
+    top1 = {key: int((got.argmax(-1) == single[key].argmax(-1)).sum())
+            for key in ("decode_blocks", "decode")}
+    dlogit = {key: float((got - single[key]).abs().max()) for key in ("decode_blocks", "decode")}
+    got32 = ranks[0]["decode32"]["logits"]
+    d32 = float((got32 - single["decode32"]).abs().max())
+    top1_32 = int((got32.argmax(-1) == single["decode32"].argmax(-1)).sum())
+    floor = float((single["decode"] - single["decode_blocks"]).abs().max())
+    bound = max(LM_ATOL["bfloat16"], 2 * floor)
+    n = t["dec_batch"] * t["steps"]
+    emit("tp3_qwen3_1_7b_decode", mesh=TP3_MESH, batch=t["dec_batch"], max_len=t["max_len"],
+         length=t["length"], steps=t["steps"], layers=t["layers"],
+         ranks=[dict(offset=r["offset"], live=r["live"], launches=r["launches"],
+                     step_wall_ms=r["wall_ms"], k9_ms=r["k9_row"]["ms"], wire=r["wire"])
+                for r in dec],
+         single_step_wall_ms=single["decode_ms"], positions=n,
+         top1_equal_blocks=top1["decode_blocks"], max_abs_dlogit_blocks=dlogit["decode_blocks"],
+         top1_equal_whole_cache=top1["decode"], max_abs_dlogit_whole_cache=dlogit["decode"],
+         single_noise_floor=floor, max_abs_dlogit_bound=bound, f32_max_abs_dlogit=d32,
+         f32_top1_equal=top1_32)
+    check(dlogit["decode_blocks"] <= bound,
+          f"tp3_qwen3_1_7b: decode |Δlogit| {dlogit} above {bound} (one rank's own noise "
+          f"{floor})")
+    check(d32 <= LM_ATOL["float32"] and top1_32 == n,
+          f"tp3_qwen3_1_7b: f32 decode |Δlogit| {d32}, top-1 {top1_32}")
+    for r in dec:
+        check(r["launches"] == qc.n_layers * t["steps"],
+              f"tp3_qwen3_1_7b: rank at {r['offset']} launched K9 {r['launches']} times")
+    k9 = dict(dec[0]["k9_row"])
+    k9.update(ranks_ms=[r["k9_row"]["ms"] for r in dec], ranks_live=[r["live"] for r in dec],
+              ranks_launches=[r["launches"] for r in dec])
+    return rows + [k9]
 
 
 def _rank_fsdp_train(np, torch, mesh, inputs) -> dict:
@@ -3413,7 +3709,7 @@ def _tp_report(np, torch, cfg, tp, single) -> list:
     check(rel <= 1e-5, f"fsdp_train: loss or grad norm {rel} from one rank's")
     check(param_rel <= 1e-5, f"fsdp_train: parameters {param_rel} from one rank's")
 
-    hq, _, hkv, _, _ = pre[0]["heads"]
+    hq, hkv = len(pre[0]["heads"]["q"]), len(pre[0]["heads"]["kv"])
     k8 = k8_row(np, torch, "tp_prefill_qwen3_1_7b", {"flash_attention": pre[0]["k8_launches"]},
                 p["batch"], hq, hkv, p["seq"], cfg.head_dim)
     k8.update(ranks_launches=[r["k8_launches"] for r in pre])

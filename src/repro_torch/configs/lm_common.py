@@ -18,7 +18,8 @@ A cell's ``args`` are meta tensors at the global shapes and
 training); ``layout`` is the port's own placement: the batch over the data
 axes, the cache as the reference's, and the weights (and in ``train_4k``
 the AdamW moments) by ``layout_specs``: the reference's ``param_specs``
-with whole heads only (``transformer.layout_replications``).
+with whole heads only, zero-padded to a split where ``model`` does not
+divide them (``transformer.layout_replications``).
 """
 
 from __future__ import annotations

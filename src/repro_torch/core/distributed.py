@@ -310,12 +310,14 @@ def _all_gather(x: torch.Tensor, mesh, axis, dim: int = 0, *,
         return out.movedim(0, dim).flatten(dim, dim + 1)
 
 
-def psum_in_order(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+def psum_in_order(x: torch.Tensor, mesh, axes, *, places: tuple | None = None) -> torch.Tensor:
     """``lax.psum`` over an axis or a row-major tuple of axes, summed in
     rank order in ``x``'s dtype: the ranks' tensors are all-gathered and
     added one after another, so every rank gets the same bits on every
-    run, whatever the timing and the backend's reduction order. Reported
-    to the census as one all-reduce of ``x``; ``WIRE_BYTES["psum"]`` and
+    run, whatever the timing and the backend's reduction order. With
+    ``places`` only the ranks at those places (row-major over ``axes``, in
+    order) are added: a sum over a group inside the axes. Reported to the
+    census as one all-reduce of ``x``; ``WIRE_BYTES["psum"]`` and
     ``WIRE_SECONDS["psum"]`` count the bytes this rank sends and the time."""
     axes = tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
     p = _axis_size(mesh, axes) if axes else 1
@@ -327,25 +329,28 @@ def psum_in_order(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     WIRE_BYTES["psum"] += x.numel() * x.element_size()
     if op_analysis.CENSUS is not None:
         op_analysis.report_collective("all-reduce", x.numel() * x.element_size(), p)
-    out = parts[0]
-    for i in range(1, p):
+    order = range(p) if places is None else places
+    out = parts[order[0]]
+    for i in order[1:]:
         out = out + parts[i]
     return out
 
 
 class _EnterReplicated(torch.autograd.Function):
-    """Identity forward; the backward sums the gradient over ``axes`` in
-    rank order: ``shard_map``'s transpose of an input replicated over
-    those axes (each rank's gradient is its share of the whole)."""
+    """Identity forward; the backward sums the gradient over ``axes`` (or
+    over the ranks at ``places`` of them) in rank order: ``shard_map``'s
+    transpose of an input replicated over those ranks (each rank's
+    gradient is its share of the whole)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, x, mesh, axes, places):
+        ctx.mesh, ctx.axes, ctx.places = mesh, axes, places
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return psum_in_order(g.contiguous(), ctx.mesh, ctx.axes), None, None
+        return (psum_in_order(g.contiguous(), ctx.mesh, ctx.axes, places=ctx.places),
+                None, None, None)
 
 
 class _PsumReplicatedOut(torch.autograd.Function):
@@ -381,7 +386,15 @@ class _Pmean(torch.autograd.Function):
 def enter_replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """``x`` (the same on every rank of ``axes``) entering a region whose
     ranks each use a part of it: the gradient is summed over ``axes``."""
-    return _EnterReplicated.apply(x, mesh, tuple(axes))
+    return _EnterReplicated.apply(x, mesh, tuple(axes), None)
+
+
+def enter_shared(x: torch.Tensor, mesh, axes, places: tuple) -> torch.Tensor:
+    """``x`` held alike by the ranks at ``places`` of ``axes`` and used by
+    each in its own way: the gradient is summed over those ranks only."""
+    if len(places) < 2:
+        return x
+    return _EnterReplicated.apply(x, mesh, tuple(axes), tuple(places))
 
 
 def psum_replicated(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -8,9 +8,12 @@ specs against it, and place each leaf.
 
 A spec is this port's own: a tuple with one entry per dimension of its
 leaf, each an axis name, a tuple of axis names or ``None`` (the
-counterpart of a JAX ``PartitionSpec``). Axis names missing from the new
-mesh, and dimensions whose size does not divide the product of their
-axes' sizes, degrade to replication, so one spec tree drives every scale.
+counterpart of a JAX ``PartitionSpec``), or a :class:`HeadBlocks`: whole
+heads laid out over one axis by a list, zero heads padding the blocks to
+one size (attention whose heads the axis does not divide). Axis names
+missing from the new mesh, and dimensions whose size does not divide the
+product of their axes' sizes, degrade to replication, so one spec tree
+drives every scale.
 
 :func:`reshard_tree` returns DTensors (``torch.distributed.tensor``) with
 ``Shard(d)`` / ``Replicate()`` placements. Every rank holds the whole host
@@ -85,14 +88,72 @@ def _axis_sizes(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadBlocks:
+    """A spec entry for a dimension of whole heads of ``width`` elements
+    each, laid out over ``axis`` by a list: the rank at place ``r`` of the
+    axis holds the heads ``blocks[r]`` in that order, ``-1`` standing for a
+    zero head. Every block holds as many heads, a head may lie in several
+    blocks (a kv head the ranks of its group share), and every head of the
+    whole dimension lies in one at least. ``GSPMD`` splits such a dimension
+    by its size, cutting heads; this keeps them whole."""
+
+    axis: str
+    width: int
+    blocks: tuple
+
+    def __post_init__(self):
+        if len({len(b) for b in self.blocks}) != 1:
+            raise ValueError(f"blocks of unequal size: {self.blocks}")
+        held = {h for b in self.blocks for h in b if h >= 0}
+        if held != set(range(len(held))):
+            raise ValueError(f"blocks hold heads {sorted(held)}, not every head from 0")
+
+    @property
+    def heads(self) -> int:
+        """Heads of the whole dimension."""
+        return 1 + max(h for b in self.blocks for h in b)
+
+    @property
+    def local(self) -> int:
+        """Elements of the dimension one block holds."""
+        return len(self.blocks[0]) * self.width
+
+    def rows(self, place: int) -> list:
+        """The whole dimension's elements block ``place`` holds, in order;
+        ``heads · width`` (one past the end) for a zero head's."""
+        zero = self.heads * self.width
+        return [h * self.width + i if h >= 0 else zero
+                for h in self.blocks[place] for i in range(self.width)]
+
+    def gathered_rows(self) -> list:
+        """Where each element of the whole dimension lies in the blocks laid
+        side by side in place order: in the first block holding its head."""
+        first = {}
+        for r, b in enumerate(self.blocks):
+            for slot, h in enumerate(b):
+                first.setdefault(h, r * len(b) + slot)
+        return [first[h] * self.width + i for h in range(self.heads) for i in range(self.width)]
+
+    def repeats(self, place: int) -> bool:
+        """Whether every head of block ``place`` lies in an earlier block
+        (a shared kv head its group's first rank holds too; zero heads
+        count as held)."""
+        earlier = {h for b in self.blocks[:place] for h in b}
+        return all(h < 0 or h in earlier for h in self.blocks[place])
+
+
 def _filter_spec_for(mesh, spec, shape) -> tuple:
     """``spec`` with axis names the mesh lacks, and dimensions the mesh does
-    not divide, replicated (``None``); ``shape=None`` checks no division."""
+    not divide, replicated (``None``); ``shape=None`` checks no division. A
+    :class:`HeadBlocks` stays where the mesh has its axis at its size."""
     sizes = _axis_sizes(mesh)
 
     def keep(part, dim):
         if part is None:
             return None
+        if isinstance(part, HeadBlocks):
+            return part if sizes.get(part.axis) == len(part.blocks) else None
         names = part if isinstance(part, (tuple, list)) else (part,)
         kept = tuple(a for a in names if a in sizes)
         if not kept or (dim is not None and dim % int(np.prod([sizes[a] for a in kept]))):
@@ -117,6 +178,9 @@ def _place(x, spec, mesh):
     for d, part in enumerate(spec):
         if part is None:
             continue
+        if isinstance(part, HeadBlocks):
+            raise ValueError("a DTensor has no placement for padded or shared heads "
+                             "(HeadBlocks); distributed.sharding.cut_tree cuts them")
         for a in (part if isinstance(part, tuple) else (part,)):  # outer axis first
             i = names.index(a)
             placements[i] = Shard(d)

@@ -9,7 +9,9 @@ collective returns at once) and a ``DeviceMesh`` over it, the cell's
 arguments as meta tensors of rank 0's local shapes under the port's own
 layout (``CellBuild.layout``: batch and cache splits, an LM's weights and
 its AdamW moments by ``transformer.layout_specs``: tensor parallel over
-``model``, FSDP over the data axes in ``train_4k``; a recsys model's by
+``model`` (heads whole, zero-padded to a split where ``model`` does not
+divide them: ``local_shape`` prices a rank's padded and shared head
+blocks), FSDP over the data axes in ``train_4k``; a recsys model's by
 ``recsys.layout_specs``, tables and towers over ``model``; a graph's nodes
 and edges over the data axes by ``gnn.graph_specs``),
 and the cell's ``fn`` run once under ``launch.op_analysis``'s census. The

@@ -39,18 +39,24 @@ PG_TIMEOUT_S = 120.0    # a collective that waits longer raises instead of hangi
 JOIN_TIMEOUT_S = 900.0  # the whole run of the ranks
 
 
-def make_mesh(shape: Sequence[int], names: Sequence[str]):
+def make_mesh(shape: Sequence[int], names: Sequence[str], *, ranks: Sequence[int] | None = None):
     """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the initialised
     process group (row-major over the ranks, as ``jax.make_mesh`` lays out
     devices). Its groups use the default group's backend; under gloo the
     mesh is a CPU mesh and the collectives stage CUDA tensors through host
-    memory (``core.distributed``)."""
-    from torch.distributed.device_mesh import init_device_mesh
+    memory (``core.distributed``). With ``ranks`` (global ranks, row-major)
+    it is a mesh over those ranks only, smaller than the group: every rank
+    of the group calls this all the same (making its groups is collective),
+    and on a rank outside it ``get_coordinate()`` is ``None``."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group (see spawn)")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+    if ranks is None:
+        return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names))
+    return DeviceMesh(device_type, torch.tensor(list(ranks)).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(names))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> dict:

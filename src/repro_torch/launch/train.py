@@ -189,11 +189,12 @@ def make_train_step(
             loss = loss_sum / accum_steps
         grads, loss, aux = _mean_over_data(grads, loss, aux, params)
         lr = cosine_schedule(opt_state.step, hp.lr, hp.warmup_steps, hp.total_steps)
-        split, mesh = _split_of(params)
+        split, mesh, repeats = _split_of(params)
         _, new_opt, opt_metrics = adamw_update(
             grads, opt_state, params,
             lr=lr, b1=hp.b1, b2=hp.b2,
             weight_decay=hp.weight_decay, clip_norm=hp.clip_norm, split=split, mesh=mesh,
+            repeats=repeats,
         )
         metrics = {"loss": loss, **aux, **opt_metrics}
         return model, new_opt, metrics
@@ -202,18 +203,20 @@ def make_train_step(
 
 
 def _split_of(params: dict) -> tuple:
-    """``(split, mesh)`` for the optimizer's clip: the axes that split each
-    leaf in ``tree_leaves`` order, and the mesh of the tagged blocks
-    (``(None, None)`` when no leaf is a block)."""
-    from repro_torch.distributed.sharding import split_axes
+    """``(split, mesh, repeats)`` for the optimizer's clip: the axes that
+    split each leaf in ``tree_leaves`` order, the mesh of the tagged blocks
+    and whether each leaf's block repeats a lower rank's (a shared kv head;
+    ``sharding.repeats_block``); ``(None, None, None)`` when no leaf is a
+    block."""
+    from repro_torch.distributed.sharding import repeats_block, split_axes
     from repro_torch.optim.optimizer import tree_leaves
 
     leaves = tree_leaves(params)
     tagged = [p for p in leaves if getattr(p, "spec", None) is not None]
     if not tagged:
-        return None, None
-    return [split_axes(p.spec) if getattr(p, "spec", None) is not None else ()
-            for p in leaves], tagged[0].mesh
+        return None, None, None
+    return ([split_axes(p.spec) if getattr(p, "spec", None) is not None else ()
+             for p in leaves], tagged[0].mesh, [repeats_block(p) for p in leaves])
 
 
 def make_lm_train_step(cfg: TransformerConfig, hp: TrainHyperparams = TrainHyperparams()):

@@ -194,11 +194,12 @@ def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def model_split(t: torch.Tensor, dim: int) -> bool:
     """Whether ``t`` is a rank's block whose dimension ``dim`` its ``.spec``
     splits over ``model``."""
+    from repro_torch.distributed.sharding import on_axis
+
     spec = getattr(t, "spec", None)
     if spec is None or len(spec) <= dim:
         return False
-    part = spec[dim]
-    return part == "model" or (isinstance(part, tuple) and "model" in part)
+    return on_axis(spec[dim], "model")
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -31,8 +31,11 @@ a rank holds its blocks of the reference's ``*_param_specs``
     BERT4Rec and BST blocks (``wq``/``wk``/``wv``, ``w1`` by columns,
     ``wo``, ``w2`` by rows) as Megatron pairs, row-parallel partials
     summed over ``model`` in f32 in rank order and rounded once;
-    attention splits whole heads only (:func:`layout_replications` lists
-    where it replicates);
+    attention splits whole heads only: where ``model`` does not divide them
+    they are zero-padded to a count it does (``sharding.HeadLayout``; a
+    rank's block keeps the head width, and a zero head's ``q``, ``k`` and
+    ``v`` are zero, so it adds exactly nothing and takes no gradient;
+    :func:`layout_replications` lists the padded blocks);
   - under ``distributed.sharding.use_mesh`` with data axes the batch is
     the rank's rows: the two-tower's in-batch negatives and ``logq`` are
     gathered over the data axes (``gather_for_use``: the item gradients
@@ -53,7 +56,13 @@ from torch.nn import functional as F
 from repro_torch.core.apss import similarity_topk
 from repro_torch.core.matches import Matches
 from repro_torch.core.precision import exact_f32
-from repro_torch.distributed.sharding import active_mesh, axis_sizes, data_axes, local_shape
+from repro_torch.distributed.sharding import (
+    HeadLayout,
+    active_mesh,
+    axis_sizes,
+    data_axes,
+    local_shape,
+)
 from repro_torch.interop import device_of
 from repro_torch.models.layers import (
     ParamTree,
@@ -596,32 +605,46 @@ def param_specs(cfg) -> dict:
     return _FAMILY[type(cfg)][1](cfg)
 
 
-def _heads_split(cfg, mesh) -> bool:
+def _head_layout(cfg, mesh) -> HeadLayout | None:
+    """The attention heads over ``model`` where it does not split them
+    evenly (``None`` where it does, or the family has no attention)."""
     m = axis_sizes(mesh).get("model", 1)
-    return not hasattr(cfg, "n_heads") or m == 1 or cfg.n_heads % m == 0
+    if not hasattr(cfg, "n_heads") or m == 1:
+        return None
+    lay = HeadLayout.of(cfg.n_heads, cfg.n_heads, m)
+    return None if lay.even_q else lay
 
 
 def layout_specs(cfg, mesh) -> dict:
     """:func:`param_specs` as a rank of ``mesh`` holds the parameters: axes
     the mesh lacks and dimensions their axes do not divide replicate
     (``elastic``'s rule), and the blocks' attention matrices split whole
-    heads only: where ``model`` does not divide the heads, ``wq``/``wk``/
-    ``wv``/``wo`` replicate although their width may divide."""
+    heads only: where ``model`` does not divide the heads, the ``model``
+    entry of ``wq``/``wk``/``wv`` (columns) and ``wo`` (rows) is a
+    ``HeadBlocks`` of the rank's heads, zero-padded to a count ``model``
+    divides."""
     specs = dict(param_specs(cfg))
-    if not _heads_split(cfg, mesh):
+    lay = _head_layout(cfg, mesh)
+    if lay is not None:
+        blocks = lay.q_blocks(cfg.embed_dim // cfg.n_heads)
         for name in specs:
             if name.startswith("blocks.") and name.rsplit(".", 1)[-1] in _ATTENTION:
-                specs[name] = tuple(None if part == "model" else part for part in specs[name])
+                specs[name] = tuple(blocks if part == "model" else part for part in specs[name])
     return layout_of(specs, _FAMILY[type(cfg)][0](cfg, device="meta"), mesh)
 
 
 def layout_replications(cfg, mesh) -> dict:
     """``{name: reason}`` of the parameters whose layout spec holds more
-    than ``local_shape`` of :func:`param_specs` would: the head rule's."""
+    than ``local_shape`` of :func:`param_specs` would place on a rank: the
+    attention matrices whose heads are zero-padded."""
     layout, base = layout_specs(cfg, mesh), param_specs(cfg)
+    lay = _head_layout(cfg, mesh)
     out = {}
     for name, p in _FAMILY[type(cfg)][0](cfg, device="meta").named_parameters():
         shape = tuple(p.shape)
-        if local_shape(shape, layout[name], mesh) != local_shape(shape, base[name], mesh):
-            out[name] = f"{cfg.n_heads} heads over model={axis_sizes(mesh)['model']}"
+        held, even = (torch.Size(local_shape(shape, spec[name], mesh)).numel()
+                      for spec in (layout, base))
+        if held > even:
+            out[name] = (f"{cfg.n_heads} heads zero-padded to {lay.hkv_pad} over "
+                         f"model={lay.m}: {lay.q_per_rank} a rank")
     return out

@@ -47,14 +47,23 @@ the dense residual too), the experts (``moe_ffn_ep`` on the rank's
 experts), the embedding's width (all-gathered after the lookup) and the
 head's vocab (logits all-gathered for a caller; a vocab-parallel
 log-sum-exp in the loss). K8 runs on the rank's heads. Heads split only
-whole: where the kv heads do not divide, each rank computes the kv head
-its q heads share; where the q heads do not, attention replicates
-(:func:`layout_replications`). Decode keeps the reference's cache specs
-(the sequence over ``model``): each layer all-gathers the ranks' q heads
-and new k/v rows, K9's partials run over the rank's sequence block for
-every head, and after the merge each rank keeps its heads of ``o`` for
-``wo``. With ``cfg.fsdp`` each matrix's other dimension (``param_specs``'
-``("pod", "data")``) is split over the data axes too and gathered before use
+whole (``sharding.HeadLayout``): where ``model`` does not divide them the
+q heads, and where needed whole kv groups, are zero-padded to a count it
+does (zero rows of ``wq``/``wq_b``/``wkv_b`` and ``wk``/``wv``, zero
+columns of ``wo``), and each rank holds only the kv heads its q heads
+read, one kv head shared by the ranks of its group with its gradient
+summed over them (:func:`layout_specs`, :func:`layout_replications`). A
+padded head's output is masked to exactly zero before ``wo``, so its
+weights, gradients and AdamW moments stay exactly zero; trees that leave
+the ranks (:func:`unshard_transformer`, ``interop``, the checkpoints) are
+the reference's, unpadded. Decode keeps the reference's cache specs (the
+sequence over ``model``) and head geometry: each layer all-gathers the
+ranks' q heads and new k/v rows in one collective and drops the padding
+and the repeated kv heads, K9's partials run over the rank's sequence
+block for every head, and after the merge each rank keeps its heads of
+``o`` (zeros for its padded ones) for ``wo``. With ``cfg.fsdp`` each
+matrix's other dimension (``param_specs``' ``("pod", "data")``) is split
+over the data axes too and gathered before use
 (``sharding.weight_for_use``), its gradient reduce-scattered back in rank
 order. A model built whole runs as before on every rank.
 
@@ -87,6 +96,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.precision import exact_f32
 from repro_torch.distributed.elastic import _filter_spec_for
 from repro_torch.distributed.sharding import (
+    HeadLayout,
     active_mesh,
     axis_sizes,
     cut_tree,
@@ -300,15 +310,47 @@ class Transformer(nn.Module):
         m = axis_sizes(mesh).get("model", 1)
         me = mesh.get_local_rank("model") if m > 1 and hasattr(mesh, "get_local_rank") else 0
         cfg = self.cfg
-        attn = Cut(mesh, _head_split(cfg, m)[0], _head_geometry(cfg, m, me))
+        attn = Cut(mesh, m > 1, _head_geometry(cfg, m, me))
         for blk in self.blocks():
             blk.attn.cut = attn
             ffns = [blk.ffn] if isinstance(blk.ffn, FFN) else \
                 [f for f in (blk.ffn.shared, blk.ffn.dense) if f is not None]
             for f in ffns:
-                f.cut = Cut(mesh, _split_on_model(f.w_down.weight.spec, 1))
+                f.cut = Cut(mesh, model_split(f.w_down.weight, 1))
             if isinstance(blk.ffn, MoEFFN):
-                blk.ffn.moe.cut = Cut(mesh, _split_on_model(blk.ffn.moe.w_gate.spec, 0))
+                blk.ffn.moe.cut = Cut(mesh, model_split(blk.ffn.moe.w_gate, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """An attention module's heads on one rank of ``model`` (every head, on
+    a model built whole): ``q`` the q head of each head the rank holds, in
+    order, from padded place ``q0``, and ``kv`` the kv head of each kv head
+    it holds (``-1`` a zero head: padding); ``shared`` the ``model`` places
+    that hold its kv heads too, itself included (``()`` when no other
+    does); ``q_keep`` and ``kv_keep`` where each q and kv head lies among
+    every rank's held heads gathered in rank order (a decode step's
+    gather drops the padding and the repeated kv heads by them)."""
+
+    q: tuple
+    q0: int
+    kv: tuple
+    shared: tuple = ()
+    q_keep: tuple = ()
+    kv_keep: tuple = ()
+
+    @property
+    def hq(self) -> int:
+        return len(self.q)
+
+    @property
+    def hkv(self) -> int:
+        return len(self.kv)
+
+    @property
+    def zeros(self) -> int:
+        """How many of the rank's q heads are padding."""
+        return sum(h < 0 for h in self.q)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,59 +358,65 @@ class Cut:
     """How one module of a rank's :class:`Transformer` is cut over the
     mesh's ``model`` axis: ``split`` when its model dimension (attention
     heads, FFN columns, experts) is; an attention module's ``heads`` are
-    ``(q heads held, first q head, kv heads computed, first kv head, kv
-    heads split)``."""
+    its :class:`Heads`."""
 
     mesh: Any
     split: bool
-    heads: tuple = ()
+    heads: Heads | None = None
 
 
-def _split_on_model(spec, dim: int) -> bool:
-    part = spec[dim]
-    return part == "model" or (isinstance(part, tuple) and "model" in part)
+_HEAD_LEAVES = ("wq", "wk", "wv", "wo", "wq_b", "wkv_b")
 
 
-def _head_geometry(cfg: TransformerConfig, m: int, me: int) -> tuple:
-    """:class:`Cut`'s ``heads`` for the rank at place ``me`` of ``m``."""
-    q_split, kv_split = _head_split(cfg, m)
+def _head_layout(cfg: TransformerConfig, m: int) -> HeadLayout | None:
+    """The heads over ``m`` model ranks (``None`` for one): MLA's kv heads
+    are its q heads (one latent per head, no groups)."""
+    if m == 1:
+        return None
     hkv = cfg.n_heads if cfg.attention == "mla" else cfg.n_kv_heads
-    if not q_split:
-        return (cfg.n_heads, 0, hkv, 0, False)
-    hq = cfg.n_heads // m
-    if kv_split:
-        return (hq, me * hq, hkv // m, me * (hkv // m), True)
-    return (hq, me * hq, 1, me * hq // (cfg.n_heads // hkv), False)
+    return HeadLayout.of(cfg.n_heads, hkv, m)
 
 
-def _head_split(cfg: TransformerConfig, m: int) -> tuple[bool, bool]:
-    """Whether ``m`` model ranks split the (q, kv) heads. Heads split only
-    whole: q heads where ``m`` divides them; GQA's kv heads where ``m``
-    divides them too, else they replicate and each rank computes the one
-    kv head its q heads share, which needs ``kv heads | m`` (then a rank's
-    q heads never straddle two kv heads). Otherwise attention replicates."""
-    if m == 1 or cfg.n_heads % m:
-        return False, False
-    if cfg.attention == "mla" or cfg.n_kv_heads % m == 0:
-        return True, True
-    return (True, False) if m % cfg.n_kv_heads == 0 else (False, False)
+def _head_width(cfg: TransformerConfig, leaf: str) -> int:
+    """Elements of one head in an attention weight's ``model`` dimension."""
+    if leaf == "wq_b":
+        return cfg.qk_head_dim
+    if leaf == "wkv_b":
+        return cfg.qk_nope_dim + cfg.v_head_dim
+    return cfg.v_dim if leaf == "wo" else cfg.head_dim
+
+
+def _head_geometry(cfg: TransformerConfig, m: int, me: int) -> Heads:
+    """:class:`Cut`'s ``heads`` for the rank at place ``me`` of ``m``."""
+    lay = _head_layout(cfg, m)
+    if lay is None:
+        hkv = cfg.n_heads if cfg.attention == "mla" else cfg.n_kv_heads
+        return Heads(tuple(range(cfg.n_heads)), 0, tuple(range(hkv)))
+    shared = lay.sharers(me)
+    return Heads(lay.q_heads(me), me * lay.q_per_rank, lay.kv_heads(me),
+                 shared if len(shared) > 1 else (),
+                 tuple(lay.q_blocks(1).gathered_rows()), tuple(lay.kv_blocks(1).gathered_rows()))
 
 
 def layout_specs(cfg: TransformerConfig, mesh) -> dict:
     """:func:`param_specs` as a rank of ``mesh`` holds the parameters:
     axes the mesh lacks and dimensions their axes do not divide replicate
     (``elastic``'s rule), and attention weights split only whole heads
-    (:func:`_head_split`): where heads do not divide, the weight's
-    ``model`` dimension replicates although its size may divide."""
-    q_split, kv_split = _head_split(cfg, axis_sizes(mesh).get("model", 1))
+    (:func:`_head_layout`): where ``model`` does not split them evenly the
+    weight's ``model`` entry is a ``HeadBlocks`` of the rank's padded q
+    heads (``wq``, ``wo``, ``wq_b``, ``wkv_b``) or of the kv heads its q
+    heads read (``wk``, ``wv``)."""
+    lay = _head_layout(cfg, axis_sizes(mesh).get("model", 1))
     base = param_specs(cfg)
     out = {}
     for name, p in Transformer(cfg, "meta").named_parameters():
         spec, parts = base[name], name.split(".")
         leaf = parts[-2] if parts[-1] == "weight" else parts[-1]
-        if "attn" in parts and ((leaf in ("wk", "wv") and not kv_split)
-                                or (leaf in ("wq", "wo", "wq_b", "wkv_b") and not q_split)):
-            spec = tuple(None if part == "model" else part for part in spec)
+        if lay is not None and "attn" in parts and leaf in _HEAD_LEAVES:
+            kv = leaf in ("wk", "wv")
+            if not (lay.even_kv if kv else lay.even_q):
+                blocks = (lay.kv_blocks if kv else lay.q_blocks)(_head_width(cfg, leaf))
+                spec = tuple(blocks if part == "model" else part for part in spec)
         out[name] = _filter_spec_for(mesh, spec, tuple(p.shape))
     return out
 
@@ -376,16 +424,30 @@ def layout_specs(cfg: TransformerConfig, mesh) -> dict:
 def layout_replications(cfg: TransformerConfig, mesh) -> dict:
     """``{name: reason}`` of the parameters whose layout spec
     (:func:`layout_specs`) holds more than ``local_shape`` of
-    :func:`param_specs` would: the head rule's replications."""
-    q_split = _head_split(cfg, axis_sizes(mesh).get("model", 1))[0]
+    :func:`param_specs` would place on a rank: whole heads where ``model``
+    does not split them evenly (zero heads padding a rank's block, a kv
+    head the ranks of its group each hold)."""
+    m = axis_sizes(mesh).get("model", 1)
+    lay = _head_layout(cfg, m)
     layout, base = layout_specs(cfg, mesh), param_specs(cfg)
     out = {}
     for name, p in Transformer(cfg, "meta").named_parameters():
         shape = tuple(p.shape)
-        if local_shape(shape, layout[name], mesh) != local_shape(shape, base[name], mesh):
-            heads = cfg.n_kv_heads if name.split(".")[-2] in ("wk", "wv") and q_split \
-                else cfg.n_heads
-            out[name] = f"{heads} heads over model={axis_sizes(mesh)['model']}"
+        held, even = (torch.Size(local_shape(shape, spec[name], mesh)).numel()
+                      for spec in (layout, base))
+        if held <= even:
+            continue
+        if name.split(".")[-2] in ("wk", "wv"):
+            why = [f"{cfg.n_kv_heads} kv heads over model={m}: a rank holds the "
+                   f"{lay.kv_per_rank} its q heads read"]
+            if lay.hkv_pad > lay.hkv:
+                why.append(f"{lay.hkv_pad - lay.hkv} zero kv groups")
+            if len(lay.sharers(0)) > 1:
+                why.append(f"one whole kv head shared by {len(lay.sharers(0))} ranks")
+            out[name] = ", ".join(why)
+        else:
+            out[name] = (f"{cfg.n_heads} q heads zero-padded to {lay.hkv_pad * lay.g_pad} "
+                         f"over model={m}: {lay.q_per_rank} a rank")
     return out
 
 
@@ -569,35 +631,45 @@ def _row_parallel(weight: torch.Tensor, x, cut: Cut | None):
     return psum_replicated(y, cut.mesh, ("model",)).to(x.dtype)
 
 
-def _heads(p, cfg: TransformerConfig) -> tuple:
-    """``(q heads, first q head, kv heads, first kv head, kv split)`` of an
-    attention module on this rank (every head without a cut)."""
+def _heads(p, cfg: TransformerConfig) -> Heads:
+    """The :class:`Heads` of an attention module on this rank (every head
+    without a cut)."""
     cut = _cut_of(p)
-    if cut is None:
-        hkv = cfg.n_heads if cfg.attention == "mla" else cfg.n_kv_heads
-        return (cfg.n_heads, 0, hkv, 0, True)
-    return cut.heads
+    return _head_geometry(cfg, 1, 0) if cut is None else cut.heads
 
 
-def _kv_weight(layer: nn.Linear, cfg: TransformerConfig, cut, *, all_heads: bool = False):
-    """``wk``/``wv`` as the rank uses it: its block where kv heads split;
-    where they replicate, the rows of the kv head the rank's q heads share
-    (the gradient summed over ``model``), or every row (``all_heads``)."""
+def _kv_weight(layer: nn.Linear, cut):
+    """``wk``/``wv`` as the rank uses it: its block of the kv heads its q
+    heads read; a kv head that the ranks of its group each hold enters with
+    its gradient summed over them in rank order (each rank's q heads use
+    it their own way)."""
     w = weight_for_use(layer.weight)
-    if cut is None or not cut.split or cut.heads[4] or all_heads:
+    if cut is None or not cut.split or not cut.heads.shared:
         return w
-    _, _, n, k0, _ = cut.heads
-    return _enter(w, cut)[k0 * cfg.head_dim:(k0 + n) * cfg.head_dim]
+    from repro_torch.core.distributed import enter_shared
+
+    return enter_shared(w, cut.mesh, ("model",), cut.heads.shared)
+
+
+def _zero_padded(o: torch.Tensor, heads: Heads, dim: int) -> torch.Tensor:
+    """``o`` with the rank's padded heads (along ``dim``) exactly zero: a
+    padded GQA head reads a real kv head (its scores are 0, so it outputs
+    the mean of ``v``), and MLA's its shared rope key; masked, nothing
+    flows into ``wo``'s zero columns or back into the padding."""
+    if not heads.zeros:
+        return o
+    pad = torch.tensor([h < 0 for h in heads.q], device=o.device)
+    return o.masked_fill(pad.reshape(*[1] * dim, -1, *[1] * (o.dim() - dim - 1)), 0.0)
 
 
 def _gqa_qkv(p: Attention, cfg: TransformerConfig, x, positions):
     b, s, _ = x.shape
     cut = _cut_of(p)
-    hq, _, hkv, _, _ = _heads(p, cfg)
+    heads = _heads(p, cfg)
     x = _enter(x, cut)
-    q = _lin(p.wq, x).reshape(b, s, hq, cfg.head_dim)
-    k = F.linear(x, _kv_weight(p.wk, cfg, cut)).reshape(b, s, hkv, cfg.head_dim)
-    v = F.linear(x, _kv_weight(p.wv, cfg, cut)).reshape(b, s, hkv, cfg.head_dim)
+    q = _lin(p.wq, x).reshape(b, s, heads.hq, cfg.head_dim)
+    k = F.linear(x, _kv_weight(p.wk, cut)).reshape(b, s, heads.hkv, cfg.head_dim)
+    v = F.linear(x, _kv_weight(p.wv, cut)).reshape(b, s, heads.hkv, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, _enter(p.q_scale, cut))
         k = rms_norm(k, _enter(p.k_scale, cut))
@@ -613,7 +685,7 @@ def _mla_qkv(p: MLAAttention, cfg: TransformerConfig, x, positions):
     per-head ones (``wq_b``, ``wkv_b``) the rank's rows."""
     b, s, _ = x.shape
     cut = _cut_of(p)
-    h = _heads(p, cfg)[0]
+    h = _heads(p, cfg).hq
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     cq = rms_norm(_lin(p.wq_a, x), p.q_norm)
     q = _lin(p.wq_b, _enter(cq, cut)).reshape(b, s, h, dn + dr)
@@ -666,7 +738,8 @@ def _attention(p, cfg: TransformerConfig, x, positions, use_kernel: bool):
             q_chunk=min(cfg.q_chunk, s), kv_chunk=min(cfg.kv_chunk, s),
             probs_dtype=torch.bfloat16 if cfg.bf16_probs else None,
         )
-    o = o.transpose(1, 2).reshape(b, s, _heads(p, cfg)[0] * cfg.v_dim)
+    heads = _heads(p, cfg)
+    o = _zero_padded(o, heads, 1).transpose(1, 2).reshape(b, s, heads.hq * cfg.v_dim)
     return _row_parallel(p.wo.weight, o, _cut_of(p))
 
 
@@ -1055,14 +1128,10 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
     ranks (:func:`_combine_over_seq`)."""
     b = x.shape[0]
     cut = _cut_of(p)
-    hq, q0, hkv, _, kv_split = _heads(p, cfg)
-    if not kv_split:                       # replicated kv heads: compute them all
-        hkv = cfg.n_kv_heads
-    q = _lin(p.wq, x).reshape(b, 1, hq, cfg.head_dim)
-    k_new = F.linear(x, _kv_weight(p.wk, cfg, cut, all_heads=True)).reshape(
-        b, 1, hkv, cfg.head_dim)
-    v_new = F.linear(x, _kv_weight(p.wv, cfg, cut, all_heads=True)).reshape(
-        b, 1, hkv, cfg.head_dim)
+    heads = _heads(p, cfg)
+    q = _lin(p.wq, x).reshape(b, 1, heads.hq, cfg.head_dim)
+    k_new = F.linear(x, _kv_weight(p.wk, cut)).reshape(b, 1, heads.hkv, cfg.head_dim)
+    v_new = F.linear(x, _kv_weight(p.wv, cut)).reshape(b, 1, heads.hkv, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_scale)
         k_new = rms_norm(k_new, p.k_scale)
@@ -1071,9 +1140,8 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
     k_new = apply_rope(k_new, posb, cfg.rope_theta)[:, 0]     # (B, Hkv, D)
     v_new = v_new[:, 0]
     if cut is not None and cut.split:      # every head's q and new row on every rank
-        q = _gather_heads(q, cut)
-        if kv_split:
-            k_new, v_new = _gather_heads(k_new, cut), _gather_heads(v_new, cut)
+        q, k_new, v_new = _gather_heads(cut, (q, heads.q_keep), (k_new, heads.kv_keep),
+                                        (v_new, heads.kv_keep))
     _write_row(k_cache, lengths, k_new, layout)
     _write_row(v_cache, lengths, v_new, layout)
     scale = 1.0 / (cfg.head_dim ** 0.5)
@@ -1086,15 +1154,39 @@ def _gqa_decode_attn(p: Attention, cfg, x, k_cache, v_cache, lengths, use_kernel
         o = decode_attention(q, k_cache, v_cache, live, scale=scale)
     else:
         o = decode_attention_xla(q, k_cache, v_cache, live, scale=scale)
-    o = o[:, q0:q0 + hq]                   # the rank's heads for the row-parallel wo
-    return _row_parallel(p.wo.weight, o.reshape(b, hq * cfg.head_dim).to(x.dtype), cut)
+    o = _rank_heads(o, heads)              # the rank's heads for the row-parallel wo
+    return _row_parallel(p.wo.weight, o.reshape(b, heads.hq * cfg.head_dim).to(x.dtype), cut)
 
 
-def _gather_heads(x: torch.Tensor, cut: Cut) -> torch.Tensor:
-    """``(B, H_loc, …)`` of each ``model`` rank all-gathered to ``(B, H, …)``."""
+def _gather_heads(cut: Cut, *parts) -> list:
+    """Each ``(x, keep)`` of ``parts``, ``x (B, h, D)`` the rank's heads,
+    all-gathered over ``model`` (one collective for all the parts) to
+    ``(B, len(keep), D)``: every rank's heads side by side in rank order,
+    then the places ``keep`` (the reference's heads, without the padding
+    and the repeats)."""
     from repro_torch.core.distributed import gather_heads
 
-    return gather_heads(x, cut.mesh, "model", dim=1)
+    b = parts[0][0].shape[0]
+    flat = torch.cat([x.reshape(b, -1) for x, _ in parts], dim=1)
+    got = gather_heads(flat, cut.mesh, "model", dim=1)
+    got = got.view(b, got.shape[1] // flat.shape[1], flat.shape[1])
+    out, lo = [], 0
+    for x, keep in parts:
+        n = x.shape[1] * x.shape[2]
+        every = got[:, :, lo:lo + n].reshape(b, -1, x.shape[2])
+        out.append(every.index_select(1, torch.tensor(keep, dtype=torch.long, device=x.device)))
+        lo += n
+    return out
+
+
+def _rank_heads(o: torch.Tensor, heads: Heads) -> torch.Tensor:
+    """The rank's heads of ``o (B, H, …)`` (every head, the reference's
+    geometry) in its padded order, zeros for its padded ones."""
+    idx = torch.tensor([h if h >= 0 else o.shape[1] for h in heads.q], dtype=torch.long,
+                       device=o.device)
+    if not heads.zeros:
+        return o.index_select(1, idx)
+    return torch.cat([o, o.new_zeros((o.shape[0], 1, *o.shape[2:]))], dim=1).index_select(1, idx)
 
 
 def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
@@ -1110,7 +1202,8 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
     """
     b = x.shape[0]
     cut = _cut_of(p)
-    h, h0 = _heads(p, cfg)[:2]
+    heads = _heads(p, cfg)
+    h = heads.hq
     dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     posb = lengths[:, None]
 
@@ -1131,7 +1224,7 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope.float(), w_k)
     q_pe = q_pe.float()
     if cut is not None and cut.split:      # every head's latent query on every rank
-        q_lat, q_pe = _gather_heads(q_lat, cut), _gather_heads(q_pe, cut)
+        q_lat, q_pe = _gather_heads(cut, (q_lat, heads.q_keep), (q_pe, heads.q_keep))
     scale = 1.0 / (cfg.qk_head_dim ** 0.5)
     c32 = c_cache.float()
     s = (torch.einsum("bhr,blr->bhl", q_lat, c32)
@@ -1148,7 +1241,7 @@ def _mla_decode_attn(p: MLAAttention, cfg, x, c_cache, pe_cache, lengths,
     else:
         o_lat = _combine_over_seq(torch.einsum("bhl,blr->bhr", pr, c32), m[..., 0],
                                   pr.sum(dim=-1), layout)
-    o = torch.einsum("bhr,rhv->bhv", o_lat[:, h0:h0 + h], w_v)
+    o = torch.einsum("bhr,rhv->bhv", _rank_heads(o_lat, heads), w_v)
     return _row_parallel(p.wo.weight, o.reshape(b, h * dv).to(x.dtype), cut)
 
 

@@ -106,7 +106,8 @@ def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, *, split: list | None = None, mesh=None):
+def clip_by_global_norm(grads, max_norm: float, *, split: list | None = None, mesh=None,
+                        repeats: list | None = None):
     """Scale ``grads`` in place so their global f32 norm is at most
     ``max_norm``; returns ``(grads, norm)``. Each leaf is scaled in f32 and
     cast back to its dtype.
@@ -116,9 +117,14 @@ def clip_by_global_norm(grads, max_norm: float, *, split: list | None = None, me
     (``sharding.split_axes``; ``()`` for a whole leaf): each leaf's sum of
     squares is summed over those axes in rank order (one all-reduce per
     set of axes), never over the axes that replicate it, and the leaves'
-    sums are added in leaf order, so every rank gets the same norm."""
+    sums are added in leaf order, so every rank gets the same norm.
+    ``repeats`` marks, leaf by leaf, a block that a lower rank of those
+    axes holds too (``sharding.repeats_block``: a shared kv head): it adds
+    0, so each head counts once."""
     leaves = tree_leaves(grads)
-    sq = [_sum_of_squares(g) for g in leaves]
+    sq = [torch.zeros((), dtype=torch.float32, device=g.device)
+          if repeats is not None and repeats[i] else _sum_of_squares(g)
+          for i, g in enumerate(leaves)]
     if split is not None and any(split):
         from repro_torch.core.distributed import psum_in_order
 
@@ -168,15 +174,18 @@ def adamw_update(
     clip_norm: float | None = 1.0,
     split: list | None = None,
     mesh=None,
+    repeats: list | None = None,
 ):
     """One AdamW step; returns ``(params, new_state, metrics)``. ``params``,
     ``state.m``, ``state.v`` (and ``grads``, by the clip) are written in
     place; the step count is a new tensor. ``metrics`` holds ``grad_norm``
-    (with ``clip_norm``) and ``lr`` as f32 scalars. ``split`` and ``mesh``
-    go to :func:`clip_by_global_norm` (leaves that are a rank's blocks)."""
+    (with ``clip_norm``) and ``lr`` as f32 scalars. ``split``, ``mesh`` and
+    ``repeats`` go to :func:`clip_by_global_norm` (leaves that are a rank's
+    blocks)."""
     metrics = {}
     if clip_norm is not None:
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, split=split, mesh=mesh)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, split=split, mesh=mesh,
+                                           repeats=repeats)
         metrics["grad_norm"] = gnorm
     step = state.step + 1
     t = step.float()

@@ -429,6 +429,9 @@ def _mesh_census(mesh) -> dict:
 
 
 TP_MESHES = {"data2_model2": ((2, 2), ("data", "model")), "model4": ((4,), ("model",))}
+# Heads that model does not divide: model=4 in all 4 ranks, and model=3 on
+# ranks 0-2 (the card's geometry), a mesh smaller than the group.
+PADDED_MESHES = {"model4": ((4,), ("model",), None), "model3": ((3,), ("model",), (0, 1, 2))}
 
 
 def tp_ranks(rank, world, dev, spec: dict) -> dict:
@@ -438,8 +441,12 @@ def tp_ranks(rank, world, dev, spec: dict) -> dict:
     with ``mesh=``): parameter shapes, prefill logits and ``transformer_loss``
     on the rank's rows, and decode steps into a cache with the sequence over
     ``model`` (the batch over ``data``); on the first mesh, FSDP train steps
-    (``spec["train"]``) and ``train_loop(mesh=)`` straight and resumed
-    (``spec["loop"]``)."""
+    (``spec["train"]``), 2 FSDP steps of a padded GQA config
+    (``spec["padded_train"]``) and ``train_loop(mesh=)`` straight and
+    resumed (``spec["loop"]``). Then on each mesh of :data:`PADDED_MESHES`
+    the configs of ``spec["padded"][mesh]``, whose heads it pads, as the
+    families above, and on ``model4`` their interop and checkpoint round
+    trips."""
     import torch
 
     from repro_torch.launch.mesh import make_mesh
@@ -452,10 +459,48 @@ def tp_ranks(rank, world, dev, spec: dict) -> dict:
                "models": {arch: _tp_model(mesh, **case) for arch, case in spec["models"].items()}}
         if name == "data2_model2":
             res["train"] = {arch: _tp_train(mesh, **case) for arch, case in spec["train"].items()}
+            res["padded_train"] = _tp_padded_train(mesh, **spec["padded_train"])
             res["loop"] = _tp_loop(mesh, **spec["loop"])
         else:
             res["server"] = _tp_server(mesh, **spec["server"])
         out[name] = res
+    for name, (shape, names, members) in PADDED_MESHES.items():
+        mesh = make_mesh(shape, names, ranks=members)
+        if mesh.get_coordinate() is None:       # outside the sub-mesh: sit the phase out
+            continue
+        cases = spec["padded"][name]
+        res = out.setdefault(name, {})
+        res["padded"] = {key: _tp_model(mesh, **case) for key, case in cases.items()}
+        if name == "model4":
+            res["round_trip"] = {key: _tp_round_trip(mesh, case["cfg"], case["tree"],
+                                                     f"{spec['run_dir']}/{key}")
+                                 for key, case in cases.items()}
+    return out
+
+
+def _padded_entries(model, opt=None) -> dict:
+    """``{name: (entries, max |weight|, max |m|, max |v|)}`` over the zero
+    heads of each block that holds some (a ``HeadBlocks`` entry in its
+    spec): how many entries are padding and their largest magnitudes."""
+    import torch
+
+    from repro_torch.core.distributed import _axis_index
+    from repro_torch.distributed.elastic import HeadBlocks
+
+    out = {}
+    for name, p in model.named_parameters():
+        for dim, part in enumerate(getattr(p, "spec", None) or ()):
+            if not isinstance(part, HeadBlocks):
+                continue
+            zero = part.heads * part.width
+            idx = [i for i, r in enumerate(part.rows(_axis_index(p.mesh, part.axis)))
+                   if r == zero]
+            if not idx:
+                continue
+            at = torch.tensor(idx)
+            held = [p] + ([] if opt is None else [opt.m[name], opt.v[name]])
+            out[name] = (len(idx) * p.numel() // p.shape[dim],
+                         *(float(t.detach().index_select(dim, at).abs().max()) for t in held))
     return out
 
 
@@ -479,7 +524,67 @@ def _tp_model(mesh, cfg, tree, tokens, steps, max_len) -> dict:
     return {"shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
             "prefill": tt.prefill(model, cfg, rows).numpy(),
             "loss": {k: float(v) for k, v in {"total": total, **aux}.items()},
-            "decode": np.stack(logits)}
+            "decode": np.stack(logits), "heads": model.blocks()[0].attn.cut.heads,
+            "padded": _padded_entries(model)}
+
+
+def _tp_round_trip(mesh, cfg, tree, run_dir) -> dict:
+    """The rank's blocks of ``tree`` carried back through ``interop`` (the
+    reference's tree, gathered), and through a checkpoint of the blocks
+    (gathered whole, written by the first rank) restored onto the mesh: the
+    tree's leaves, the checkpoint's shapes, and whether every restored
+    block equals the rank's bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ck
+    from repro_torch import interop
+    from repro_torch.optim.optimizer import tree_leaves
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    params = dict(model.named_parameters())
+    specs = {"params": {n: p.spec for n, p in params.items()}}
+    mgr = ck.CheckpointManager(run_dir)
+    mgr.save({"params": params}, 1, specs=specs, mesh=mesh)
+    dist.barrier()
+    restored, _ = mgr.restore(like={"params": params}, specs=specs, mesh=mesh)
+    same = all(torch.equal(torch.as_tensor(np.asarray(restored["params"][n])), p.detach())
+               for n, p in params.items())
+    return {"tree": tree_leaves(interop.transformer_params_to_numpy(model)),
+            "ckpt_shapes": {k: tuple(np.shape(v)) for k, v in ck.load_checkpoint(run_dir,
+                                                                                  1).items()},
+            "restored_equal": same}
+
+
+def _tp_padded_train(mesh, cfg, tree, batch, hp, steps) -> dict:
+    """``steps`` FSDP ``make_lm_train_step`` steps of a config whose heads
+    ``model`` pads, on the rank's rows: each step's metrics, the parameters
+    and AdamW moments after the first (gathered whole), and the padded
+    entries of the rank's blocks and moments after the last."""
+    from repro_torch import interop, optim
+    from repro_torch.distributed import use_mesh
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizer import tree_leaves
+
+    model = interop.transformer_params_from_numpy(tree, cfg, "cpu", mesh=mesh)
+    opt = optim.adamw_init(train.params_of(model))
+    mine = {k: _rows(v, mesh, ("data",)) for k, v in batch.items()}
+    step = train.make_lm_train_step(cfg, hp)
+    specs = {n: p.spec for n, p in model.named_parameters()}
+    metrics, first = [], None
+    for i in range(steps):
+        with use_mesh(mesh):
+            _, opt, met = step(model, opt, mine)
+        metrics.append({k: float(v) for k, v in met.items()})
+        if i == 0:
+            # copies: a whole leaf's gathered moment is the live one, which step 2 updates
+            first = {"params": tree_leaves(interop.transformer_params_to_numpy(model)),
+                     "moments": {k: {n: t.numpy().copy() for n, t in
+                                     gather_tree(getattr(opt, k), specs, mesh).items()}
+                                 for k in ("m", "v")}}
+    return {"metrics": metrics, "first": first, "padded": _padded_entries(model, opt),
+            "heads": model.blocks()[0].attn.cut.heads}
 
 
 def _tp_server(mesh, cfg, tree, prompts, gen) -> list:
@@ -592,7 +697,8 @@ def recsys_gnn_ranks(rank, world, dev, spec: dict) -> dict:
 def _rg_step(mesh, model, loss_fn, step_fn, batch, to_numpy) -> dict:
     """Loss, metrics and gradients (averaged over the data axes, gathered
     whole) of the rank's batch, then one step: its metrics, the parameters
-    and AdamW moments after it (gathered whole) and the moments' shapes."""
+    and AdamW moments after it (gathered whole), the moments' shapes and
+    the padded heads' entries of the rank's blocks."""
     from repro_torch import interop, optim
     from repro_torch.distributed import use_mesh
     from repro_torch.launch import train
@@ -608,7 +714,8 @@ def _rg_step(mesh, model, loss_fn, step_fn, batch, to_numpy) -> dict:
             "params": to_numpy(model),
             "m": interop.named_to_numpy(model, opt.m, to_numpy),
             "v": interop.named_to_numpy(model, opt.v, to_numpy),
-            "moment_shapes": {n: tuple(t.shape) for n, t in opt.m.items()}}
+            "moment_shapes": {n: tuple(t.shape) for n, t in opt.m.items()},
+            "padded": _padded_entries(model, opt)}
 
 
 def _rg_recsys(mesh, cfg, tree, batch, score_fn, loss_fn, hp) -> dict:

@@ -59,12 +59,14 @@ def test_dryrun_cell_at_the_production_mesh(tmp_path, arch, shape):
     if arch == "qwen3-1.7b":
         # batch 128 over data (8 rows), cache 32,768 over model (2,048 positions)
         # on every rank; weights split over model as the reference's specs, but
-        # for the 8 kv heads, which do not split over 16 ranks
+        # for the 8 kv heads: each rank holds the one its q head reads, which
+        # two ranks share (GSPMD would cut it in halves)
         cache = 28 * 8 * 8 * 2048 * 128 * 2 * 2
         assert res["resident_bytes"] > cache
         assert res["spec_bytes"] < res["resident_bytes"] <= 1.25 * res["spec_bytes"]
         assert res["layers_counted"] == [1, 2]
-        # a layer's q heads and K9's partials; the embedding's width, the vocab
+        # a layer's q heads and new k/v rows (one gather) and K9's partials;
+        # the embedding's width, the vocab
         assert res["census"]["collectives"]["all-gather"]["count"] == 2 * 28 + 2
     else:
         assert res["census"]["collectives"]["all-reduce"]["count"] > 0  # gradient mean
@@ -93,7 +95,8 @@ def test_dryrun_override_changes_the_census(tmp_path):
 def test_dryrun_train_cell_holds_the_ranks_blocks(tmp_path):
     """``train_4k`` at 16 × 16: the rank's weights and AdamW moments are its
     blocks (tensor parallel and FSDP), within 1.25× of what the reference's
-    specs place on a device; only the 8 kv heads replicate over model."""
+    specs place on a device; only the 8 kv heads are held whole, each by
+    the 2 ranks whose q heads read it."""
     res = _dryrun(tmp_path, "--arch", "qwen3-1.7b", "--shape", "train_4k")
     assert res["status"] == "ok"
     assert res["spec_bytes"] <= res["resident_bytes"] <= 1.25 * res["spec_bytes"]
@@ -117,3 +120,18 @@ def test_dryrun_recsys_and_graph_cells_hold_their_blocks(tmp_path, arch, shape):
     assert coll["all-gather"]["count"] > 0
     if arch == "gat-cora":
         assert coll["reduce-scatter"]["count"] >= 2  # one a layer's aggregation
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "arctic-480b"])
+def test_dryrun_padded_heads_hold_their_blocks(tmp_path, arch):
+    """``train_4k`` at 16 × 16 where ``model`` does not divide the heads
+    (minicpm3-4b's 40, arctic-480b's 56 q heads on 8 kv heads): the heads
+    zero-padded to 48 and 64, 3 and 4 a rank (arctic's kv head shared by 2
+    ranks), so a rank's weights and moments stay within 1.25× of what the
+    reference's specs place on a device, and attention's work splits over
+    model: a third or more of the census is the model's own FLOPs (with
+    attention whole on every rank it was 0.075 and 0.105)."""
+    res = _dryrun(tmp_path, "--arch", arch, "--shape", "train_4k")
+    assert res["status"] == "ok" and res["mesh"] == "16x16"
+    assert res["spec_bytes"] <= res["resident_bytes"] <= 1.25 * res["spec_bytes"]
+    assert res["useful_flops_ratio"] > 0.3

@@ -6,13 +6,14 @@ every case on a ``data=2 × model=2``, a ``model=4`` and (GAT only) a
 ``data=4`` mesh in the same ranks. Each rank holds its blocks of one numpy
 tree of the reference's structure per smoke config (``interop`` with
 ``mesh=``): the recsys tables' rows and the tower columns over ``model``,
-BERT4Rec's and BST's blocks as Megatron pairs (whole heads only: their 2
-heads replicate at ``model=4``), GAT's weights whole and its graph cut by
-nodes and edges over ``data``. Tolerances:
+BERT4Rec's and BST's blocks as Megatron pairs (whole heads only: at
+``model=4`` their 2 heads are zero-padded to 4, one a rank), GAT's weights
+whole and its graph cut by nodes and edges over ``data``. Tolerances:
 
 - parameter and AdamW moment blocks are ``local_shape`` of
-  ``recsys.layout_specs`` (the reference's specs but for the listed head
-  replications), exactly;
+  ``recsys.layout_specs`` (the reference's specs but for the listed padded
+  heads), exactly; a padded head's weights and moments are exactly 0
+  after the step;
 - the scores of the rank's rows, the loss and metrics, the gradients
   (averaged over the data ranks, gathered), and one ``make_*_train_step``
   (metrics, the parameters and moments after it, gathered) against the
@@ -441,5 +442,31 @@ def test_layout_replications_name_the_heads_that_do_not_split():
         assert recsys.layout_replications(cfg, {"data": 2, "model": 2}) == {}
         repl = recsys.layout_replications(cfg, {"model": 4})
         assert sorted(n.rsplit(".", 1)[-1] for n in repl) == ["wk", "wo", "wq", "wv"], arch
+        # 2 heads zero-padded to 4: one head a rank, not the whole matrix
+        hd = cfg.embed_dim // cfg.n_heads
+        layout = recsys.layout_specs(cfg, {"model": 4})
+        for name in repl:
+            dim = 0 if name.endswith("wo") else 1
+            whole = (cfg.embed_dim, cfg.embed_dim)
+            assert local_shape(whole, layout[name], {"model": 4})[dim] == hd, name
+            assert "zero-padded to 4" in repl[name], name
     for arch in ("two-tower-retrieval", "din"):
         assert recsys.layout_replications(CASES[arch]["cfg"], {"model": 4}) == {}
+
+
+@pytest.mark.parametrize("arch", ["bert4rec", "bst"])
+def test_padded_heads_stay_zero_through_a_step(ranks, arch):
+    """At ``model=4`` BERT4Rec's and BST's 2 heads are padded to 4, one a
+    rank: ranks 2 and 3 hold a zero head in each attention matrix, and
+    after the step (held to one process above) its weights and both AdamW
+    moments are exactly 0 (a zero head's ``q``, ``k`` and ``v`` are zero,
+    and ``wo``'s zero rows pass it no gradient)."""
+    cfg = CASES[arch]["cfg"]
+    padded = [r["model4"]["recsys"][arch]["padded"] for r in ranks]
+    assert [bool(p) for p in padded] == [False, False, True, True]
+    for p in padded[2:]:
+        for name, (entries, *largest) in p.items():
+            assert entries == cfg.embed_dim * cfg.embed_dim // cfg.n_heads, name
+            assert largest == [0.0, 0.0, 0.0], name
+        assert sorted(n.rsplit(".", 1)[-1] for n in p) == \
+            sorted(["wq", "wk", "wv", "wo"] * cfg.n_blocks)

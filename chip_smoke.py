@@ -1244,7 +1244,8 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
     from repro_torch.interop import matches_to_numpy
     from repro_torch.kernels.apss_block import sparse
     from repro_torch.kernels.apss_block.fused import _tile_packets
-    from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
+    from repro_torch.kernels.apss_block.ops import compact_worklist
+    from repro_torch.obs import Tracer
 
     n, m = sp.shape
     t, bm = threshold, 256
@@ -1270,39 +1271,39 @@ def sparse_phase(np, torch, phase, sp, gen_s, *, threshold, k, dense=None) -> di
         vs_k2 = compare(np, got_np, dense["k2"], t, near)
         vs_k2["counts_equal"] = bool(np.array_equal(got_np[2], dense["k2"][2]))
 
-    # K3's own inputs, built stage by stage as the main path builds them, each
-    # stage timed on the host clock up to a synchronize.
+    # The stages of one timed call: the host times of its stage spans
+    # (core/apss_blocked/mask, kernels/apss_sparse/<stage>), each ending when
+    # its stage returns, not when the stage's device work does.
+    with Tracer() as tr:
+        timed(torch, kernel_path)
     stage = {}
+    for s in tr.walk():
+        if s.name.startswith(("core/apss_blocked/", "kernels/apss_sparse/")):
+            key = s.name.rsplit("/", 1)[1]
+            stage[key] = stage.get(key, 0.0) + 1e3 * s.duration_s
+
+    # K3's own inputs, built as the main path builds them, for the packet
+    # check and the kernel table.
     spp, _ = pad_rows_sparse(sp, bm)
     grid = spp.n // bm
-
-    def stats_and_mask():
-        stats = sparse_block_stats(spp, bm)
-        return live_tile_mask(stats, stats, t, return_ub=True)
-
-    (mask, ub), stage["stats_mask"] = timed(torch, stats_and_mask)
-    wl, stage["host_worklist"] = timed(torch, lambda: compact_worklist(mask, ub))
+    stats = sparse_block_stats(spp, bm)
+    mask, ub = live_tile_mask(stats, stats, t, return_ub=True)
+    wl = compact_worklist(mask, ub)
     ij = torch.as_tensor(wl).cuda()
     T = ij.shape[1]
-    (bdims, bx), stage["host_support_gather"] = timed(
-        torch, lambda: sparse.block_support_gather(spp, bm))
-    (bx, bdims), stage["support_to_card"] = timed(
-        torch, lambda: (torch.from_numpy(bx).cuda(), torch.from_numpy(bdims).cuda()))
+    bdims, bx = sparse.block_support_gather(spp, bm)
+    bx, bdims = torch.from_numpy(bx).cuda(), torch.from_numpy(bdims).cuda()
     idxb = spp.indices.reshape(grid, bm, spp.cap)
     valb = spp.values.reshape(grid, bm, spp.cap)
-    yg, stage["tile_gather"] = timed(
-        torch, lambda: sparse.gather_tiles(bdims, idxb, valb, ij))
+    yg = sparse.gather_tiles(bdims, idxb, valb, ij)
     kw = dict(n_valid=n)
-    pk, stage["k3"] = timed(
-        torch, lambda: sparse.sparse_tile_candidates_kernel(bx, yg, ij, t, k, **kw))
-    _, stage["fold"] = timed(torch, lambda: fold_packets(
-        ij, pk[0], pk[1], pk[2][..., 0], pk[3], pk[4], pk[5][..., 0],
-        grid_m=grid, block_m=bm, k=k))
+    pk = sparse.sparse_tile_candidates_kernel(bx, yg, ij, t, k, **kw)
     S = bx.shape[2]
     emit(phase, n=n, m=m, cap=spp.cap, nnz=int(sp.nnz.sum()), threshold=t, k=k,
          corpus_seconds=gen_s, support_S=S, worklist_T=T,
          live_tiles=int(mask.sum()), total_tiles=grid * grid,
          yg_bytes=yg.numel() * 4, bx_bytes=bx.numel() * 4, stage_ms=stage,
+         stage_ms_are="host times of the stage spans of one timed call",
          total_matches=int(ref.counts.sum()),
          overflowed_rows=int(ref.overflowed().sum()),
          launches=launches, first_call_ms={"kernel": first_k, "plain": first_p},

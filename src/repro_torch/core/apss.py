@@ -42,6 +42,7 @@ from repro_torch.core.sparse import (
     sparse_similarity_topk,
 )
 from repro_torch.interop import as_corpus
+from repro_torch.obs import trace
 from repro_torch.planner import telemetry
 
 
@@ -223,27 +224,45 @@ def apss_blocked(
     path, under the reference's name), ``blocked/sparse-kernel`` or
     ``blocked/sparse-xla`` when telemetry is on; live tiles where a mask
     was computed (``with_prune_stats``, or the sparse kernel's worklist).
+
+    Runs in a ``core/apss_blocked`` span. K1's path opens two children,
+    ``core/apss_blocked/prepare`` (the padded copy and the bound mask) and
+    ``core/apss_blocked/score`` (K1 and its tail); the sparse path computes
+    its mask in ``core/apss_blocked/mask``, and the sparse kernel's stages
+    open ``kernels/apss_sparse/<stage>`` spans.
     """
-    if isinstance(D, SparseCorpus):
-        return _apss_blocked_sparse(
-            D.to(device), threshold, k, block_rows=block_rows,
-            with_prune_stats=with_prune_stats, use_kernel=use_kernel,
-        )
+    join = _apss_blocked_sparse if isinstance(D, SparseCorpus) else _apss_blocked_dense
+    with trace.span("core/apss_blocked"):
+        m, mask, record = join(D, threshold, k, block_rows=block_rows,
+                               with_prune_stats=with_prune_stats, use_kernel=use_kernel,
+                               device=device)
+    if record is not None:  # pinned to the caller's span (a plan's ``execute``)
+        telemetry.record(record)
+    if not with_prune_stats:
+        return m
+    return m, prune_stats(mask)
+
+
+def _apss_blocked_dense(D, threshold, k, *, block_rows, with_prune_stats, use_kernel,
+                        device):
+    """``(Matches, mask or None, ApssStats or None)`` of the dense join."""
     D = as_corpus(D, device)
     if use_kernel:
-        from repro_torch.kernels.apss_block.ops import apss_fused
+        from repro_torch.kernels.apss_block.ops import _padded_pair, _pick_bk, apss_fused_padded
 
         bm = _kernel_tile(block_rows)
-        m = apss_fused(
-            D, D, threshold, k, block_m=bm, block_n=bm, exclude_self=True,
-            device=D.device,
-        )
+        with trace.span("core/apss_blocked/prepare"):
+            pair = _padded_pair(D, D, threshold, None, True, bm, bm,
+                                _pick_bk(D.shape[1], 512), D.device)
+        with trace.span("core/apss_blocked/score"):
+            m = apss_fused_padded(*pair, threshold, k, block_m=bm, block_n=bm,
+                                  exclude_self=True)
     else:
         m = similarity_topk(
             D, D, threshold, k, block_rows=block_rows, exclude_self=True,
             device=D.device,
         )
-    mask = None
+    mask = record = None
     if with_prune_stats:
         Dp, _ = pad_rows(D, block_rows)
         mask = block_prune_mask(Dp, Dp, threshold, block_rows)
@@ -253,33 +272,27 @@ def apss_blocked(
         flops = telemetry.dense_join_flops(n, n, mdim)
         if use_kernel and live is not None and total:
             flops *= live / total  # K1 skips dead tiles
-        telemetry.record(telemetry.ApssStats(
+        record = telemetry.ApssStats(
             variant="blocked/dense-kernel" if use_kernel else "blocked/dense-xla",
             n=n, m=mdim, block_rows=block_rows, sparse=False, flops=flops,
             live_tiles=live, total_tiles=total, tile_counts=counts,
-        ))
-    if not with_prune_stats:
-        return m
-    return m, prune_stats(mask)
+        )
+    return m, mask, record
 
 
-def _apss_blocked_sparse(
-    D: SparseCorpus,
-    threshold: float,
-    k: int,
-    *,
-    block_rows: int,
-    with_prune_stats: bool,
-    use_kernel: bool,
-) -> Matches | tuple[Matches, PruneStats]:
-    mask = ub = None
+def _apss_blocked_sparse(D: SparseCorpus, threshold: float, k: int, *, block_rows: int,
+                         with_prune_stats: bool, use_kernel: bool, device):
+    """``(Matches, mask or None, ApssStats or None)`` of the sparse join."""
+    D = D.to(device)
+    mask = ub = record = None
     bs = _kernel_tile(block_rows) if use_kernel else block_rows
     if with_prune_stats or use_kernel:
         # The block stats are computed once and shared by the worklist and
         # the accounting.
-        Dp, _ = pad_rows_sparse(D, bs)
-        stats = sparse_block_stats(Dp, bs)
-        mask, ub = live_tile_mask(stats, stats, threshold, return_ub=True)
+        with trace.span("core/apss_blocked/mask"):
+            Dp, _ = pad_rows_sparse(D, bs)
+            stats = sparse_block_stats(Dp, bs)
+            mask, ub = live_tile_mask(stats, stats, threshold, return_ub=True)
     if use_kernel:
         from repro_torch.kernels.apss_block.sparse import apss_sparse_compacted
 
@@ -296,12 +309,10 @@ def _apss_blocked_sparse(
         flops = telemetry.sparse_join_flops(D.n, D.n, D.cap)
         if use_kernel and live is not None and total:
             flops *= live / total  # worklist compaction skips dead tiles
-        telemetry.record(telemetry.ApssStats(
+        record = telemetry.ApssStats(
             variant="blocked/sparse-kernel" if use_kernel else "blocked/sparse-xla",
             n=D.n, m=D.m, block_rows=bs, sparse=True, flops=flops,
             live_tiles=live, total_tiles=total, tile_counts=counts,
             extra={"cap": D.cap},
-        ))
-    if not with_prune_stats:
-        return m
-    return m, prune_stats(mask)
+        )
+    return m, mask, record

@@ -123,11 +123,36 @@ def apss_fused(
     moved to ``device``). Offsets are runtime arguments of the kernel, so a
     distribution schedule can change them at every step. Without
     ``block_mask``, the maxweight bound mask gates tiles (``auto_mask``).
+    The two steps are :func:`_padded_pair` and :func:`apss_fused_padded`.
     """
-    nq, nc, xp, yp, block_mask = _padded_pair(
-        x, y, threshold, block_mask, auto_mask, block_m, block_n,
-        _pick_bk(x.shape[1], block_k), device,
+    return apss_fused_padded(
+        *_padded_pair(
+            x, y, threshold, block_mask, auto_mask, block_m, block_n,
+            _pick_bk(x.shape[1], block_k), device,
+        ),
+        threshold, k, block_m=block_m, block_n=block_n, row_offset=row_offset,
+        col_offset=col_offset, exclude_self=exclude_self,
     )
+
+
+def apss_fused_padded(
+    nq: int,
+    nc: int,
+    xp: torch.Tensor,
+    yp: torch.Tensor,
+    block_mask: torch.Tensor,
+    threshold: float,
+    k: int,
+    *,
+    block_m: int = 256,
+    block_n: int = 256,
+    row_offset: int = 0,
+    col_offset: int = 0,
+    exclude_self: bool = True,
+) -> Matches:
+    """K1 and its tail on :func:`_padded_pair`'s ``(nq, nc, xp, yp,
+    block_mask)``: ``Matches`` of the ``nq`` query rows against the ``nc``
+    corpus rows."""
     values, indices, counts = apss_fused_kernel(
         xp, yp, block_mask, threshold, k,
         block_m=block_m, block_n=block_n, n_valid_cols=nc,

@@ -70,6 +70,7 @@ from repro_torch.kernels.apss_block.fused import (
 )
 from repro_torch.kernels.apss_block.ops import compact_worklist, fold_packets
 from repro_torch.launch import op_analysis
+from repro_torch.obs import trace
 
 
 def block_support_gather(
@@ -403,6 +404,11 @@ def apss_sparse_compacted(
     skips the internal bound computation when the caller has it; it must be
     conservative or exactness is lost. ``block_ub`` optionally carries the
     matching tile upper bounds for the worklist order.
+
+    Under a tracer each stage runs in a ``kernels/apss_sparse/<stage>``
+    span: ``mask`` (when the mask is computed here), ``worklist``,
+    ``support_gather`` (on the host), ``gather``, ``score`` (K3) and
+    ``fold``.
     """
     sp = sp.to(device)
     dev = sp.device
@@ -413,24 +419,31 @@ def apss_sparse_compacted(
     if block_mask is not None:
         mask, ub = block_mask, block_ub
     else:
-        mask, ub = sparse_block_prune_mask(
-            spp, spp, threshold, block_m, use_minsize=use_minsize, return_ub=True,
-        )
-    wl = compact_worklist(mask, ub)
-    if wl is None:
-        return empty_matches(n, k, dev)
-    ij = torch.as_tensor(wl).to(dev)
+        with trace.span("kernels/apss_sparse/mask"):
+            mask, ub = sparse_block_prune_mask(
+                spp, spp, threshold, block_m, use_minsize=use_minsize, return_ub=True,
+            )
+    with trace.span("kernels/apss_sparse/worklist"):
+        wl = compact_worklist(mask, ub)
+        if wl is None:
+            return empty_matches(n, k, dev)
+        ij = torch.as_tensor(wl).to(dev)
 
-    bdims, bx = block_support_gather(spp, block_m, pad_to=lane_pad)
-    idxb = spp.indices.reshape(grid_m, block_m, spp.cap)
-    valb = spp.values.reshape(grid_m, block_m, spp.cap)
-    yg = gather_tiles(torch.from_numpy(bdims).to(dev), idxb, valb, ij)
-    fv, fi, fc, bv, bi, bc = sparse_tile_candidates_kernel(
-        torch.from_numpy(bx).to(dev), yg, ij, threshold, k, n_valid=n,
-    )
+    with trace.span("kernels/apss_sparse/support_gather"):
+        bdims, bx = block_support_gather(spp, block_m, pad_to=lane_pad)
+    with trace.span("kernels/apss_sparse/gather"):
+        idxb = spp.indices.reshape(grid_m, block_m, spp.cap)
+        valb = spp.values.reshape(grid_m, block_m, spp.cap)
+        yg = gather_tiles(torch.from_numpy(bdims).to(dev), idxb, valb, ij)
+        bx = torch.from_numpy(bx).to(dev)
+    with trace.span("kernels/apss_sparse/score"):
+        fv, fi, fc, bv, bi, bc = sparse_tile_candidates_kernel(
+            bx, yg, ij, threshold, k, n_valid=n,
+        )
     del yg  # the largest buffer of the path; the fold does not need it
-    values, indices, counts = fold_packets(
-        ij, fv, fi, fc[..., 0], bv, bi, bc[..., 0],
-        grid_m=grid_m, block_m=block_m, k=k,
-    )
+    with trace.span("kernels/apss_sparse/fold"):
+        values, indices, counts = fold_packets(
+            ij, fv, fi, fc[..., 0], bv, bi, bc[..., 0],
+            grid_m=grid_m, block_m=block_m, k=k,
+        )
     return Matches(values=values[:n], indices=indices[:n], counts=counts[:n])

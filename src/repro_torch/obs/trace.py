@@ -15,6 +15,13 @@ Span clocks are host clocks: a span ends when its Python call returns, and
 no span synchronizes the card, so a span around queued device work measures
 the enqueue unless the code inside it waits. The ring-step children are the
 exception: a ticker settles its CUDA events when the tracer finalizes.
+While ``torch.profiler`` records (``torch.autograd._profiler_enabled()``),
+each span also opens ``torch.profiler.record_function(<span name>)`` for
+its lifetime, errors included: the span is then a host scope of the
+profiler's trace, on the clock of its device records, so a kineto trace
+taken while a :class:`Tracer` is active names the port's stages beside the
+kernels they launch. With no profiler recording, no ``record_function`` is
+made.
 
 Guard discipline mirrors ``telemetry.enabled()``: with no active
 :class:`Tracer`, :func:`span` returns one shared no-op context manager and
@@ -32,6 +39,8 @@ from __future__ import annotations
 import threading
 import time
 from typing import Iterator, Optional
+
+import torch
 
 from repro_torch.obs import recorder as _recorder
 from repro_torch.planner import telemetry
@@ -259,25 +268,34 @@ NULL_SPAN = _NullSpanCtx()
 
 
 class _SpanCtx:
-    __slots__ = ("_name", "_attrs", "_span")
+    __slots__ = ("_name", "_attrs", "_span", "_scope")
 
     def __init__(self, name: str, attrs: dict):
         self._name = name
         self._attrs = attrs
         self._span: Optional[Span] = None
+        self._scope = None  # the profiler's record_function, while it records
 
     def __enter__(self) -> Optional[Span]:
         t = active()
         if t is None:
             return None
+        if torch.autograd._profiler_enabled():
+            self._scope = torch.profiler.record_function(self._name)
+            self._scope.__enter__()
         self._span = t.start(self._name, self._attrs)
         return self._span
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        t = active()
-        if t is not None and self._span is not None:
-            err = None if exc is None else repr(exc)
-            t.end(self._span, error=err)
+        try:
+            t = active()
+            if t is not None and self._span is not None:
+                err = None if exc is None else repr(exc)
+                t.end(self._span, error=err)
+        finally:
+            if self._scope is not None:
+                self._scope.__exit__(exc_type, exc, tb)
+                self._scope = None
         return False
 
 

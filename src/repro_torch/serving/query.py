@@ -45,8 +45,16 @@ as the reference does. Each call runs in a ``serving/query`` span (attributes
 ``early_exit_skipped_tiles`` under early exit), observes
 ``serving.live_tile_fraction`` and adds the skipped tiles to
 ``serving.early_exit_skipped_tiles``, as the reference does; with no tracer,
-registry or log active these cost a list check. ``_score`` offers its call
-to ``obs.compile.capture_calls`` under the reference's names
+registry or log active these cost a list check. The call's stages are child
+spans of ``serving/query``: ``serving/query/mask`` (the padded batch, its
+mask and bounds copied to the host, the batch's first wait on the device),
+``serving/query/worklist`` (the host worklist and its bounds),
+``serving/query/score`` (the scoring launch, every shard's on a sharded
+index) and ``serving/query/fold`` (the fold, or the early-exit walk, which
+scores and folds tile by tile; the shards' folds and their merge). The
+unsharded fold sizes its buffer from a count on the device, so it holds the
+batch's wait on the scoring kernel. ``_score`` offers its call to
+``obs.compile.capture_calls`` under the reference's names
 (``serving.dense_inner``, ``serving.sparse_inner``,
 ``serving.dense_ee_inner``, ``serving.sparse_ee_inner``,
 ``serving.dense_ee_kernel``) for the audit (``obs.audit``) to replay.
@@ -162,15 +170,12 @@ def _query_topk_impl(index, Q, threshold, k, *, block_q, use_kernel, use_minsize
                               use_kernel=use_kernel, use_minsize=use_minsize)
     B = Q.shape[0]
     dev = index.device
-    Qp = torch.nn.functional.pad(Q, (0, 0, 0, (-B) % block_q))
+    Qp, mk, ubh = _host_mask(index, Q, threshold, block_q=block_q, use_minsize=use_minsize)
     grid_q = Qp.shape[0] // block_q
-    mask, ub = _query_mask(
-        Qp, index.stats, threshold=threshold, block_q=block_q,
-        use_minsize=use_minsize, normalized=index.normalized,
-    )
-    mk, ubh = mask.cpu().numpy(), ub.cpu().numpy()
-    wl = compact_rect_worklist(mk, ubh)
-    T = 0 if wl is None else wl.shape[1]
+    with trace.span("serving/query/worklist"):
+        wl = compact_rect_worklist(mk, ubh)
+        T = 0 if wl is None else wl.shape[1]
+        ubw = None if wl is None else ubh[wl[0], wl[1]].astype(np.float32)
     if telemetry.enabled():
         telemetry.record(telemetry.ApssStats(
             variant="serving/query",
@@ -185,7 +190,6 @@ def _query_topk_impl(index, Q, threshold, k, *, block_q, use_kernel, use_minsize
     if wl is None:
         out, scored = empty_matches(B, k, dev), 0
     else:
-        ubw = ubh[wl[0], wl[1]].astype(np.float32)
         values, indices, counts, scored = _score(
             index, Qp, wl, ubw, threshold, k, B=B, block_q=block_q,
             grid_q=grid_q, use_kernel=use_kernel, early_exit=early_exit,
@@ -234,6 +238,19 @@ def _queries(index: APSSIndex, Q) -> torch.Tensor:
     return torch.nn.functional.pad(Q, (0, width - index.m)).contiguous()
 
 
+def _host_mask(index, Q, threshold, *, block_q, use_minsize):
+    """The batch padded to ``block_q`` rows, and its live mask and tile
+    bounds against the index on the host: where the batch first waits on
+    the device (the ``serving/query/mask`` span)."""
+    with trace.span("serving/query/mask"):
+        Qp = torch.nn.functional.pad(Q, (0, 0, 0, (-Q.shape[0]) % block_q))
+        mask, ub = _query_mask(
+            Qp, index.stats, threshold=threshold, block_q=block_q,
+            use_minsize=use_minsize, normalized=index.normalized,
+        )
+        return Qp, mask.cpu().numpy(), ub.cpu().numpy()
+
+
 def _query_mask(Qp, corpus_stats, *, threshold, block_q, use_minsize, normalized):
     """Query-side block stats and the live mask + upper bounds against the
     index's corpus stats: ``O(B·m)`` for the summary and one ``(B/bq × nb)``
@@ -266,27 +283,31 @@ def _score(index, Qp, wl, ubw, threshold, k, *, B, block_q, grid_q, use_kernel,
         def packets(ij_t):
             qg = gather_query_tiles(Qp, index.bdims, ij_t, block_q)
             return score(qg, index.bx, ij_t, threshold, k, nc_valid=index.n)
-    elif early_exit and use_kernel:
-        fv, fi, fc, skipped = rect_tile_candidates_early_exit_kernel(
-            Qp, index.corpus, ij, torch.from_numpy(ubw).to(dev), **tile, **kw, nq_valid=B,
-        )
-        values, indices, counts = fold_rect_packets(
-            ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
-        return values, indices, counts.clamp_max(k), T - int(skipped.sum())
     else:
         score = rect_tile_candidates_kernel if use_kernel else rect_tile_candidates_plain
 
         def packets(ij_t):
             return score(Qp, index.corpus, ij_t, **tile, **kw)
 
-    if early_exit:
-        values, indices, counts, skipped = early_exit_walk(
-            lambda t: packets(ij[:, t:t + 1]), ij, ubw, B, **fold)
+    if early_exit and (index.is_sparse or not use_kernel):
+        # The walk scores and folds tile by tile: one span holds both.
+        with trace.span("serving/query/fold"):
+            values, indices, counts, skipped = early_exit_walk(
+                lambda t: packets(ij[:, t:t + 1]), ij, ubw, B, **fold)
         return values, indices, counts, T - int(skipped.sum())
-    fv, fi, fc = packets(ij)
-    values, indices, counts = fold_rect_packets(
-        ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
-    return values, indices, counts, T
+    with trace.span("serving/query/score"):
+        if early_exit:
+            fv, fi, fc, skipped = rect_tile_candidates_early_exit_kernel(
+                Qp, index.corpus, ij, torch.from_numpy(ubw).to(dev), **tile, **kw, nq_valid=B,
+            )
+        else:
+            (fv, fi, fc), skipped = packets(ij), None
+    with trace.span("serving/query/fold"):
+        values, indices, counts = fold_rect_packets(
+            ij, torch.ones(T, dtype=torch.bool), fv, fi, fc[..., 0], **fold)
+    if skipped is None:
+        return values, indices, counts, T
+    return values, indices, counts.clamp_max(k), T - int(skipped.sum())
 
 
 def _capture_name(sparse: bool, early_exit: bool, use_kernel: bool) -> str:
@@ -322,15 +343,11 @@ def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) 
             "applies to dense shards"
         )
     B = Q.shape[0]
-    Qp = torch.nn.functional.pad(Q, (0, 0, 0, (-B) % block_q))
+    Qp, mk, ubh = _host_mask(index, Q, threshold, block_q=block_q, use_minsize=use_minsize)
     grid_q = Qp.shape[0] // block_q
-    mask, ub = _query_mask(
-        Qp, index.stats, threshold=threshold, block_q=block_q,
-        use_minsize=use_minsize, normalized=index.normalized,
-    )
-    mk, ubh = mask.cpu().numpy(), ub.cpu().numpy()
-    work = shard_worklists(index, mk, ubh)
-    live = sum(ij.shape[1] for _, ij in work)
+    with trace.span("serving/query/worklist"):
+        work = shard_worklists(index, mk, ubh)
+        live = sum(ij.shape[1] for _, ij in work)
     if telemetry.enabled():
         per_shard = dict((s, ij.shape[1]) for s, ij in work)
         telemetry.record(telemetry.ApssStats(
@@ -352,14 +369,16 @@ def _sharded_query(index, Q, threshold, k, *, block_q, use_kernel, use_minsize) 
     # Every shard's launch is enqueued before its fold, and the folds take
     # host worklists (sized on the host), so nothing here waits on a
     # device: shards on several cards overlap, shards on one card queue.
-    packets = [_shard_packets(index, s, Qp, ij, threshold, k, block_q=block_q,
-                              use_kernel=use_kernel) for s, ij in work]
-    parts = []
-    for (_, ij), (fv, fi, fc) in zip(work, packets):
-        folded = fold_rect_packets(ij, np.ones(ij.shape[1], bool), fv, fi, fc[..., 0],
-                                   grid_q=grid_q, block_q=block_q, k=k)
-        parts.append(Matches(*(x.to(index.device) for x in folded)))
-    out = functools.reduce(merge_matches, parts)
+    with trace.span("serving/query/score"):
+        packets = [_shard_packets(index, s, Qp, ij, threshold, k, block_q=block_q,
+                                  use_kernel=use_kernel) for s, ij in work]
+    with trace.span("serving/query/fold"):
+        parts = []
+        for (_, ij), (fv, fi, fc) in zip(work, packets):
+            folded = fold_rect_packets(ij, np.ones(ij.shape[1], bool), fv, fi, fc[..., 0],
+                                       grid_q=grid_q, block_q=block_q, k=k)
+            parts.append(Matches(*(x.to(index.device) for x in folded)))
+        out = functools.reduce(merge_matches, parts)
     return Matches(values=out.values[:B], indices=out.indices[:B], counts=out.counts[:B])
 
 

@@ -272,7 +272,7 @@ def test_autotune_lets_a_kernel_error_raise(monkeypatch):
     def broken(*a, **kw):
         raise KernelError("apss_fused: no such kernel")
 
-    monkeypatch.setattr(ops, "apss_fused", broken)
+    monkeypatch.setattr(ops, "apss_fused_kernel", broken)
     with pytest.raises(KernelError, match="no such kernel"):
         plan_apss(torch.from_numpy(D), T, K, profile=default_profile(),
                   include_kernel=True, autotune=True, block_rows_choices=(128,))

@@ -328,7 +328,9 @@ Phases, each printing one JSON line (with ``t_s``, seconds since the start):
     its maximum, power draw and temperature just before and after the
     kernel's timed runs (``clocks``; one such line also comes before the
     first and after the last timed row); K1's rows add its grid (row tiles
-    × segments) and segment count, K3's its work items and grid (scoring
+    × segments), segment count and the stages its chunk walk took against
+    those of the walk over every chunk (``stages_walked``,
+    ``stages_dense``; the bound counts the walked share of the work), K3's its work items and grid (scoring
     items, selection blocks), K7's its tensor-core passes, output tile, the
     f32 FMA bound beside the tensor-core one (``bound_ms_fma``) and the
     float64 slice error, K4's and K6's their work items, grid,
@@ -1118,11 +1120,12 @@ def main_path_phase(np, torch, phase, D, gen_s, *, threshold, k):
     # K1 against its plain version on the same padded inputs.
     kw1 = dict(block_m=bm, block_n=bm, n_valid_cols=n, exclude_self=True)
     out_k = fused.apss_fused_kernel(Dp, Dp, mask1, t, k, **kw1)
+    walk = fused.last_walk()
     out_p = fused.apss_fused_plain(Dp, Dp, mask1, t, k, **kw1)
     cmp1 = compare(np, as_rows(np, *out_k), as_rows(np, *out_p), t, near_p)
     check(cmp1["ok"], f"{phase}: K1 disagrees with its plain version: {cmp1}")
     mk = mask1.cpu().numpy()
-    flop1 = 2.0 * m * float((mk * np.outer(valid, valid)).sum())
+    flop1 = 2.0 * m * float((mk * np.outer(valid, valid)).sum()) * walk[0] / walk[1]
     bytes1 = 4.0 * n * m + n * (8 * k + 4) + mk.size
     row = kernel_row(
         np, torch, "apss_fused", phase, launches, cmp1,
@@ -1134,7 +1137,8 @@ def main_path_phase(np, torch, phase, D, gen_s, *, threshold, k):
     row_tiles = -(-Dp.shape[0] // fused.FUSED_TILE)
     row.update(segments=segments, grid=[row_tiles, segments],
                merge_grid=-(-Dp.shape[0] // 8) if segments > 1 else 0,
-               slots=fused.fused_capacity(Dp.dtype, k, Dp.device))
+               slots=fused.fused_capacity(Dp.dtype, k, Dp.device),
+               stages_walked=walk[0], stages_dense=walk[1])
     rows.append(row)
 
     # K2 against its plain version on the same padded inputs and worklist.
@@ -4534,13 +4538,14 @@ def dedup_phase(np, torch, phase, radikal) -> dict:
     near_p = np.concatenate([near, np.zeros(Dp.shape[0] - N, near.dtype)])
     kw = dict(block_m=256, block_n=256, n_valid_cols=N, exclude_self=True)
     out_k = fused.apss_fused_kernel(Dp, Dp, mask, t, k, **kw)
+    walk = fused.last_walk()
     out_p = fused.apss_fused_plain(Dp, Dp, mask, t, k, **kw)
     cmp = compare(np, as_rows(np, *out_k), as_rows(np, *out_p), t, near_p)
     check(cmp["ok"], f"{phase}: K1 disagrees with its plain version: {cmp}")
     grid = Dp.shape[0] // 256
     valid = np.minimum(256, N - np.arange(grid) * 256)
     mk = mask.cpu().numpy()
-    flop = 2.0 * m * float((mk * np.outer(valid, valid)).sum())
+    flop = 2.0 * m * float((mk * np.outer(valid, valid)).sum()) * walk[0] / walk[1]
     nbytes = 4.0 * N * m + N * (8 * k + 4) + mk.size
     del out_k, out_p
     row = kernel_row(
@@ -4552,7 +4557,8 @@ def dedup_phase(np, torch, phase, radikal) -> dict:
     row.update(segments=segments, grid=[-(-Dp.shape[0] // fused.FUSED_TILE), segments],
                merge_grid=-(-Dp.shape[0] // 8) if segments > 1 else 0,
                slots=fused.fused_capacity(Dp.dtype, k, Dp.device),
-               live_tiles=int(mk.sum()), total_tiles=int(mk.size))
+               live_tiles=int(mk.sum()), total_tiles=int(mk.size),
+               stages_walked=walk[0], stages_dense=walk[1])
     del Dn, Dp
     torch.cuda.empty_cache()
     return row
@@ -5094,14 +5100,16 @@ def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, t
                col_offset=col_off, exclude_self=True)
     near = ((dot_f32(x, y) - t).abs() <= TOL).sum(dim=1).cpu().numpy()
     near = np.concatenate([near, np.zeros(xp.shape[0] - n_loc, near.dtype)])
-    cmp1 = compare(np, as_rows(np, *fused.apss_fused_kernel(xp, yp, mask, t, k, **kw1)),
+    out_k = fused.apss_fused_kernel(xp, yp, mask, t, k, **kw1)
+    walk = fused.last_walk()
+    cmp1 = compare(np, as_rows(np, *out_k),
                    as_rows(np, *fused.apss_fused_plain(xp, yp, mask, t, k, **kw1)), t, near)
     check(cmp1["ok"], f"{phase}: K1 at the ring step disagrees with its plain version: {cmp1}")
     launches = {"apss_fused": sum(sum(v) for v in k1_launches.values())}
     mk = mask.cpu().numpy()
     valid_r = np.full(mk.shape[0], bm)
     valid_c = np.minimum(bm, nc - np.arange(mk.shape[1]) * bm)
-    flop = 2.0 * m_pad * float((mk * np.outer(valid_r, valid_c)).sum())
+    flop = 2.0 * m_pad * float((mk * np.outer(valid_r, valid_c)).sum()) * walk[0] / walk[1]
     nbytes = 4.0 * 2 * n_loc * m_pad + n_loc * (8 * k + 4) + mk.size
     row = kernel_row(
         np, torch, "apss_fused", phase, launches, cmp1,
@@ -5114,8 +5122,9 @@ def distributed_phase(np, torch, phase, D_host, single, residuals, profile, *, t
                launches_per_rank=k1_launches, segments=segments,
                grid=[-(-xp.shape[0] // fused.FUSED_TILE), segments],
                merge_grid=-(-xp.shape[0] // 8) if segments > 1 else 0,
-               slots=fused.fused_capacity(xp.dtype, k, xp.device))
-    del x, y, xp, yp, mask
+               slots=fused.fused_capacity(xp.dtype, k, xp.device),
+               stages_walked=walk[0], stages_dense=walk[1])
+    del x, y, xp, yp, mask, out_k
     torch.cuda.empty_cache()
     return row
 

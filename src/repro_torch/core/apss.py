@@ -224,6 +224,10 @@ def apss_blocked(
     path, under the reference's name), ``blocked/sparse-kernel`` or
     ``blocked/sparse-xla`` when telemetry is on; live tiles where a mask
     was computed (``with_prune_stats``, or the sparse kernel's worklist).
+    K1 on the card adds the stages it walked and those of the walk over
+    every chunk (``extra``: ``k1_stages_walked``, ``k1_stages_dense``; read
+    from the card, so the record waits for K1) and scales ``flops`` by their
+    ratio.
 
     Runs in a ``core/apss_blocked`` span. K1's path opens two children,
     ``core/apss_blocked/prepare`` (the padded copy and the bound mask) and
@@ -248,6 +252,7 @@ def _apss_blocked_dense(D, threshold, k, *, block_rows, with_prune_stats, use_ke
     """``(Matches, mask or None, ApssStats or None)`` of the dense join."""
     D = as_corpus(D, device)
     if use_kernel:
+        from repro_torch.kernels.apss_block.fused import last_walk
         from repro_torch.kernels.apss_block.ops import _padded_pair, _pick_bk, apss_fused_padded
 
         bm = _kernel_tile(block_rows)
@@ -272,10 +277,16 @@ def _apss_blocked_dense(D, threshold, k, *, block_rows, with_prune_stats, use_ke
         flops = telemetry.dense_join_flops(n, n, mdim)
         if use_kernel and live is not None and total:
             flops *= live / total  # K1 skips dead tiles
+        extra = {}
+        walk = last_walk() if use_kernel else None
+        if walk is not None:  # K1 ran on the card: it skips chunks one tile holds no nonzero in
+            extra = {"k1_stages_walked": walk[0], "k1_stages_dense": walk[1]}
+            if walk[1]:
+                flops *= walk[0] / walk[1]
         record = telemetry.ApssStats(
             variant="blocked/dense-kernel" if use_kernel else "blocked/dense-xla",
             n=n, m=mdim, block_rows=block_rows, sparse=False, flops=flops,
-            live_tiles=live, total_tiles=total, tile_counts=counts,
+            live_tiles=live, total_tiles=total, tile_counts=counts, extra=extra,
         )
     return m, mask, record
 

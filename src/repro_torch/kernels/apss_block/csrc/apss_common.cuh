@@ -1,13 +1,15 @@
 // Shared pieces of the APSS self-join kernels for Hopper (sm_90a).
 //
-// ring_tile: the pipelined body of K1, K2, K3, K4 and K6 (bottom of this
+// ring_tile: the pipelined body of K2, K3, K4 and K6 (bottom of this
 //   file): a BM x BN tile of X . Y^T over a feature range, streamed through
 //   a ring of cp.async stages in shared memory (the next stages' copies in
 //   flight while one is multiplied), each thread owning RM x RN scores and
 //   reading its rows and columns four features at a time. Each score is
 //   one fmaf chain from 0 in increasing feature order, the order of
 //   score_strip_part below. Inputs are float32 or bfloat16 (as raw 16-bit
-//   words, widened exactly to float32); the sum is float32.
+//   words, widened exactly to float32); the sum is float32. ring_walk is
+//   the same body over a walk of the stages: ring_tile walks all of them,
+//   K1 those in which both of its row tiles hold a nonzero.
 //
 // tile_select: phase 2 of the self-join worklist kernels K2 and K3, whose
 //   launches live in tile_items.cuh (work items of up to 128 x 128 scores
@@ -42,8 +44,10 @@
 //   ... in increasing chunk order. This order is part of the K4 = K5 = K6
 //   contract: each computes a tile's partials on different thread blocks
 //   and adds them in the same order, so their packets are bit-identical.
-//   A self-join score (K1, K2, K3) is one ring_tile chain over all its
-//   features, so K1 = K2 = K3 (on full support) bit for bit.
+//   A self-join score (K2, K3) is one ring_tile chain over all its
+//   features; K1's skips only stages whose every product is an exact zero
+//   (apss_fused.cu), which leave the chain unchanged, so K1 = K2 = K3 (on
+//   full support) bit for bit.
 //
 // Top-k order: (value descending, global id ascending) -- the order the
 //   reference's first-position max-extraction gives when column tiles are
@@ -449,13 +453,20 @@ __device__ __forceinline__ void ring_load(unsigned char* ring, int stage,
   }
 }
 
-// acc[i][j] = X[ty + TYN*i] . Y[tx + TXN*j] over features [0, len) of the
+// The stages ring_walk streams: `stages` of them, the feature offset of
+// stage c from next(c), asked for c = 0, 1, 2, ... in turn. Contiguous is
+// every stage of [0, len) in order, ring_tile's walk; K1 walks a subset
+// (apss_fused.cu, ChunkWalk).
+struct Contiguous {
+  int stages;
+  __device__ __forceinline__ long long next(int c) { return (long long)c * PK; }
+};
+
+// acc[i][j] = X[ty + TYN*i] . Y[tx + TXN*j] over the walk's stages of the
 // BM rows at x (rows at or past x_rows read as 0) and the BN rows at y (past
 // y_rows 0), both at row stride m, for the thread (ty, tx) = (tid / TXN,
-// tid % TXN) of NT = (BM / RM) * (BN / RN): one fmaf chain from 0 in
-// increasing feature order per score, the order of score_strip_part, so
-// every kernel that sums one feature range through either gets the same bits. len is a multiple of PK; x, y
-// and m * sizeof are 16-byte aligned.
+// tid % TXN) of NT = (BM / RM) * (BN / RN): one fmaf chain from 0 in the
+// walk's order per score. x, y and m * sizeof are 16-byte aligned.
 //
 // The features stream through STAGES ring stages by cp.async: while stage
 // c is multiplied, the copies of stages c + 1 .. c + STAGES - 1 are in
@@ -466,10 +477,11 @@ __device__ __forceinline__ void ring_load(unsigned char* ring, int stage,
 // and columns by TXN, so a warp's loads of one row fall on consecutive
 // padded rows (distinct banks). Ends with every copy landed and every
 // thread past its last read of the ring.
-template <int BM, int BN, int RM, int RN, int STAGES, typename TX, typename TY>
-__device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
+template <int BM, int BN, int RM, int RN, int STAGES, typename TX, typename TY, typename Walk>
+__device__ __forceinline__ void ring_walk(const TX* __restrict__ x, int x_rows,
                                           const TY* __restrict__ y, int y_rows, long long m,
-                                          int len, unsigned char* ring, float (&acc)[RM][RN]) {
+                                          Walk walk, unsigned char* ring,
+                                          float (&acc)[RM][RN]) {
   using R = Ring<BM, BN, STAGES, TX, TY>;
   constexpr int TXN = BN / RN, TYN = BM / RM, NT = TXN * TYN;
   static_assert(STAGES >= 2, "a ring has at least two stages");
@@ -478,11 +490,11 @@ __device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-  const int nk = len / PK;
+  const int nk = walk.stages;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
-      ring_load<BM, BN, STAGES, NT>(ring, s, x, x_rows, y, y_rows, m, (long long)s * PK);
+      ring_load<BM, BN, STAGES, NT>(ring, s, x, x_rows, y, y_rows, m, walk.next(s));
     cp_async_commit();  // an empty group keeps the count of groups uniform
   }
   for (int c = 0; c < nk; ++c) {
@@ -491,7 +503,7 @@ __device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
     const int nxt = c + STAGES - 1;
     if (nxt < nk)
       ring_load<BM, BN, STAGES, NT>(ring, nxt % STAGES, x, x_rows, y, y_rows, m,
-                                    (long long)nxt * PK);
+                                    walk.next(nxt));
     cp_async_commit();
     const unsigned char* st = ring + (c % STAGES) * R::STAGE;
     const TX* sx = reinterpret_cast<const TX*>(st) + ty * R::LDX;
@@ -516,6 +528,16 @@ __device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ring_walk over every stage of features [0, len), in increasing feature
+// order: the order of score_strip_part, so every kernel that sums one
+// feature range through either gets the same bits. len is a multiple of PK.
+template <int BM, int BN, int RM, int RN, int STAGES, typename TX, typename TY>
+__device__ __forceinline__ void ring_tile(const TX* __restrict__ x, int x_rows,
+                                          const TY* __restrict__ y, int y_rows, long long m,
+                                          int len, unsigned char* ring, float (&acc)[RM][RN]) {
+  ring_walk<BM, BN, RM, RN, STAGES>(x, x_rows, y, y_rows, m, Contiguous{len / PK}, ring, acc);
 }
 
 }  // namespace apss

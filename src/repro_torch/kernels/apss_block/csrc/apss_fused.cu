@@ -9,17 +9,25 @@
 // row block's running top-k across j in VMEM scratch. Hopper's blocks run
 // in no order, so the columns are cut into S segments (whole 128-column
 // tiles; fused.py::fused_segments picks S so that the grid of row tiles x
-// segments fills the card) and two launches replace the carry over j:
+// segments fills the card) and launches replace the carry over j:
+//   0. fused_kernel_occupancy, once for x and once for y unless y is x: for
+//      each 128-row tile and each chunk of PK = 32 features, one bit that
+//      says some row of the tile is nonzero there, and one that says some
+//      entry is not finite (Inf or NaN). One block per (tile, 1,024
+//      features) reads its rows once in 16-byte loads; the bitmaps are
+//      (tiles, 2, ceil(m / 1,024)) words, 58 KB at radikal.
 //   1. fused_kernel: one thread block per (128-row tile, segment) walks the
 //      segment's 128 x 128 score tiles in ascending column order. A tile
 //      is skipped when every entry of the block mask that covers it is 0
 //      (the mask stays at the caller's block_m x block_n granularity, and
 //      each score is also held to its own entry, so its meaning is
-//      unchanged). A live tile is one ring_tile (apss_common.cuh): the
-//      features stream through a 3-stage (f32) or 4-stage (bf16) cp.async
-//      ring, each of 256 threads owns 8 x 8 scores (4 fmaf per value read
-//      from shared memory), each score one fmaf chain over all m features
-//      in increasing order. The tile then goes to shared memory (it
+//      unchanged). A live tile is one ring_walk (apss_common.cuh) over the
+//      chunks in which both tiles hold a nonzero or either a non-finite
+//      value (ChunkWalk), in increasing feature order: the features stream
+//      through a 3-stage (f32) or 4-stage (bf16) cp.async ring, each of
+//      256 threads owns 8 x 8 scores (4 fmaf per value read from shared
+//      memory), each score one fmaf chain over the walked chunks. The
+//      tile then goes to shared memory (it
 //      aliases the ring) and one warp per row keeps s >= t, local col <
 //      n_valid_cols, a live mask entry and (with exclude_self) global row
 //      != global col, adds them to the exact count, drops candidates that
@@ -31,7 +39,9 @@
 //      top-k of the segment lives in device memory, in the block's own
 //      slice of the output (S = 1) or of the scratch (S, n_rows, k); only
 //      its owning warp reads and writes a row, so plain loads see its
-//      writes.
+//      writes. Thread 0 adds the tile's walked stages, and the m / PK of
+//      the whole walk, to a device counter (the census and telemetry read
+//      it; nothing else waits for it).
 //   2. fused_merge_kernel (S > 1): one warp per row merges the S sorted
 //      lists (lane s holds the head of segment s): k rounds of warp-wide
 //      first-in-order selection; counts add as int32. Exact: a member of
@@ -39,13 +49,25 @@
 // Order everywhere: (value desc, global id asc). Row and column offsets and
 // the count of valid columns are runtime arguments (the ring schedules).
 //
-// Bound: float32 FMA (apss_common.cuh); radikal (6,912 x 136,704 padded,
-// every tile live) is 2 * 6883^2 * 136447 FLOP, 193 ms at 67 TFLOP/s.
+// Same bits as the walk over every chunk (K1 = K2 = K3): a skipped chunk
+// holds only finite values and is all zero in one of the tiles, so each of
+// its products is an exact +0 or -0, and fmaf(a, b, acc) with a * b = +-0
+// returns acc (a chain from +0 never reaches -0). The chain over the walked
+// chunks in increasing order is the whole chain less steps that change
+// nothing. A chunk with an Inf or NaN is always walked (Inf * 0 is NaN).
+// Zero-magnitude entries (-0) count as zero. The walk depends on the data
+// alone: a dense corpus walks every chunk and pays only step 0.
+//
+// Bound: float32 FMA (apss_common.cuh) over the walked stages, 2 * 128^2 *
+// PK FLOP each; radikal (6,912 x 136,704 padded, every tile live) walking
+// every stage is 2 * 6883^2 * 136447 FLOP, 193 ms at 67 TFLOP/s. Below the
+// walk's own work lies the read of the corpus (step 0, 1.1 ms at radikal).
 // Shared memory per block: the ring (110,592 bytes f32, 81,920 bf16; the
 // 128 x 144 f32 score tile of 73,728 bytes fits in it), 512 bytes of
 // counts and 64 * (k + 128) bytes of per-warp merge area: 184,832 bytes f32
 // at the largest k, FUSED_MAX_K = 1024 (227 KB allow 1,768). One block an
-// SM.
+// SM. The walk reads its bitmaps from global memory (L1), so no m is too
+// wide for it.
 #include "apss_common.cuh"
 
 namespace apss {
@@ -65,6 +87,97 @@ struct Fused {
   static constexpr size_t REGION = R::BYTES > TILE_BYTES ? R::BYTES : TILE_BYTES;
   static constexpr size_t smem(int k) {
     return REGION + sizeof(int) * FT + (sizeof(float) + sizeof(int)) * WARPS * (k + FT);
+  }
+};
+
+constexpr int OCC_WORD = 32 * PK;  // features of one bitmap word
+
+// A 32-bit word of T values: MAG masks the non-sign bits of each, bad(w)
+// says one of them is Inf or NaN.
+template <typename T>
+struct Bits;
+template <>
+struct Bits<float> {
+  static constexpr unsigned MAG = 0x7fffffffu;
+  __device__ static bool bad(unsigned w) { return (w & 0x7f800000u) == 0x7f800000u; }
+};
+template <>
+struct Bits<uint16_t> {  // bfloat16 pairs
+  static constexpr unsigned MAG = 0x7fff7fffu;
+  __device__ static bool bad(unsigned w) {
+    return (w & 0x7f80u) == 0x7f80u || (w & 0x7f800000u) == 0x7f800000u;
+  }
+};
+
+// Step 0: block (j, tile) writes word j of the tile's occupancy bitmap
+// (bit c: some row of rows [tile * FT, +FT) is nonzero in features
+// [(32 j + c) PK, +PK)) at occ[tile][0][j] and of its non-finite bitmap at
+// occ[tile][1][j]; a row of words is ceil(m / OCC_WORD) long. Thread p reads
+// the 16 bytes at feature 32 j PK + p E of every RPP-th row, once each.
+// With `walked`, block (0, 0) also zeroes fused_kernel's stage counter.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fused_kernel_occupancy(const T* __restrict__ x, int n_rows, int m,
+                       unsigned* __restrict__ occ, unsigned long long* __restrict__ walked) {
+  constexpr int E = 16 / sizeof(T);      // values a load
+  constexpr int LPR = OCC_WORD / E;      // loads across a word's features of one row
+  constexpr int RPP = THREADS / LPR;     // rows a pass: 1 (f32), 2 (bf16)
+  __shared__ unsigned s_occ, s_bad;
+  const int j = blockIdx.x, tile = blockIdx.y;
+  const int words = (m / PK + 31) / 32;
+  const int row0 = tile * FT;
+  const int rows = n_rows - row0 < FT ? n_rows - row0 : FT;
+  const int p = threadIdx.x % LPR;
+  const long long f = (long long)j * OCC_WORD + p * E;
+  if (threadIdx.x == 0) {
+    s_occ = s_bad = 0;
+    if (walked != nullptr && j == 0 && tile == 0) walked[0] = walked[1] = 0;
+  }
+  __syncthreads();
+  unsigned mag = 0;
+  bool bad = false;
+  if (f < m) {
+    const long long stride = (long long)RPP * m / E;  // in 16-byte words
+    const uint4* src = reinterpret_cast<const uint4*>(x + (long long)row0 * m + f) +
+                       (long long)(threadIdx.x / LPR) * (m / E);
+#pragma unroll 8
+    for (int r = threadIdx.x / LPR; r < rows; r += RPP, src += stride) {
+      const uint4 u = __ldcs(src);  // read once: evict first
+      mag |= u.x | u.y | u.z | u.w;
+      bad |= Bits<T>::bad(u.x) | Bits<T>::bad(u.y) | Bits<T>::bad(u.z) | Bits<T>::bad(u.w);
+    }
+  }
+  const unsigned bit = 1u << (p * E / PK);
+  if (mag & Bits<T>::MAG) atomicOr(&s_occ, bit);
+  if (bad) atomicOr(&s_bad, bit);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    occ[(long long)tile * 2 * words + j] = s_occ;
+    occ[(long long)tile * 2 * words + words + j] = s_bad;
+  }
+}
+
+// K1's walk of a tile pair: the PK-feature chunks in which both row tiles
+// hold a nonzero, or either a non-finite value, in increasing order, from
+// their step-0 bitmaps ox and oy (occupancy words [0, words), non-finite
+// words [words, 2 words)). Every thread of the block walks it alike.
+struct ChunkWalk {
+  const unsigned* ox;
+  const unsigned* oy;
+  int words, stages, j;
+  unsigned w;  // the chunks of word j not yet walked
+  __device__ __forceinline__ ChunkWalk(const unsigned* ox_, const unsigned* oy_, int words_)
+      : ox(ox_), oy(oy_), words(words_), stages(0), j(-1), w(0) {
+    for (int i = 0; i < words; ++i) stages += __popc(word(i));
+  }
+  __device__ __forceinline__ unsigned word(int i) const {
+    return (__ldg(ox + i) & __ldg(oy + i)) | __ldg(ox + words + i) | __ldg(oy + words + i);
+  }
+  __device__ __forceinline__ long long next(int) {
+    while (w == 0) w = word(++j);
+    const int b = __ffs(w) - 1;
+    w &= w - 1;
+    return ((long long)j * 32 + b) * PK;
   }
 };
 
@@ -94,7 +207,8 @@ __device__ __forceinline__ void merge_row(const float* mv, const int* mi, int k,
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_kernel(const T* __restrict__ x, const T* __restrict__ y, const int* __restrict__ mask,
-             float* __restrict__ seg_v, int* __restrict__ seg_i, int* __restrict__ seg_c,
+             const unsigned* __restrict__ occ_x, const unsigned* __restrict__ occ_y,
+             unsigned long long* __restrict__ walked, float* __restrict__ seg_v, int* __restrict__ seg_i, int* __restrict__ seg_c,
              int n_rows, int n_cols, int m, int mask_cols, int block_m, int block_n,
              int row_offset, int col_offset, int n_valid_cols, float threshold, int k,
              int exclude_self, int n_segments) {
@@ -123,6 +237,8 @@ fused_kernel(const T* __restrict__ x, const T* __restrict__ y, const int* __rest
   __syncthreads();
 
   const int mr0 = row0 / block_m, nmr = (row0 + x_rows - 1) / block_m - mr0 + 1;
+  const int words = (m / PK + 31) / 32;
+  const unsigned* ox = occ_x + (long long)blockIdx.x * 2 * words;
   float* mv = mrg_v + warp * (k + FT);
   int* mi = mrg_i + warp * (k + FT);
   for (int ct = ct0; ct < ct1; ++ct) {
@@ -134,9 +250,14 @@ fused_kernel(const T* __restrict__ x, const T* __restrict__ y, const int* __rest
       any |= mask[(long long)(mr0 + e / nmc) * mask_cols + mc0 + e % nmc] != 0;
     if (!__syncthreads_or(any)) continue;  // the same for every thread
 
+    const ChunkWalk walk(ox, occ_y + (long long)ct * 2 * words, words);
+    if (threadIdx.x == 0) {
+      atomicAdd(walked, (unsigned long long)walk.stages);
+      atomicAdd(walked + 1, (unsigned long long)(m / PK));
+    }
     float acc[FRM][FRN];
-    ring_tile<FT, FT, FRM, FRN, F::STAGES>(x + (long long)row0 * m, x_rows,
-                                         y + (long long)col0 * m, y_rows, m, m, ring, acc);
+    ring_walk<FT, FT, FRM, FRN, F::STAGES>(x + (long long)row0 * m, x_rows,
+                                         y + (long long)col0 * m, y_rows, m, walk, ring, acc);
 #pragma unroll
     for (int i = 0; i < FRM; ++i)
 #pragma unroll
@@ -239,11 +360,27 @@ fused_merge_kernel(const float* __restrict__ seg_v, const int* __restrict__ seg_
   if (lane == 0) out_c[row] = c;
 }
 
+// Step 0 on the n_rows rows of x: the bitmaps of its row tiles into occ
+// ((n_rows + FT - 1) / FT, 2, ceil(m / OCC_WORD) words); with `walked`,
+// that counter zeroed.
 template <typename T>
-int launch(const void* x, const void* y, const void* mask, void* seg_v, void* seg_i,
-           void* seg_c, void* out_v, void* out_i, void* out_c, int n_rows, int n_cols, int m,
-           int block_m, int block_n, int row_offset, int col_offset, int n_valid_cols,
-           float threshold, int k, int exclude_self, int n_segments, void* stream_) {
+cudaError_t occupancy(const void* x, int n_rows, int m, void* occ, void* walked,
+                      cudaStream_t stream) {
+  const int tiles = (n_rows + FT - 1) / FT;
+  if (n_rows < 1 || m % PK || m < PK || tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((m + OCC_WORD - 1) / OCC_WORD, tiles);
+  fused_kernel_occupancy<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), n_rows, m, static_cast<unsigned*>(occ),
+      static_cast<unsigned long long*>(walked));
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* y, const void* mask, void* occ, void* walked,
+           void* seg_v, void* seg_i, void* seg_c, void* out_v, void* out_i, void* out_c,
+           int n_rows, int n_cols, int m, int block_m, int block_n, int row_offset,
+           int col_offset, int n_valid_cols, float threshold, int k, int exclude_self,
+           int n_segments, void* stream_) {
   const int col_tiles = (n_cols + FT - 1) / FT;
   if (n_rows < 1 || n_cols < 1 || n_rows % block_m || n_cols % block_n || block_m % TILE ||
       block_n % TILE || m % PK || m < PK || k < 1 || k > FUSED_MAX_K || n_segments < 1 ||
@@ -259,10 +396,20 @@ int launch(const void* x, const void* y, const void* mask, void* seg_v, void* se
   cudaError_t err = cudaFuncSetAttribute(fused_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
+  // The bitmaps of x, then of y unless y is x, one after the other in occ.
+  const long long row_words = 2LL * ((m / PK + 31) / 32);
+  unsigned* occ_x = static_cast<unsigned*>(occ);
+  unsigned* occ_y = occ_x;
+  err = occupancy<T>(x, n_rows, m, occ_x, walked, stream);
+  if (err == cudaSuccess && (y != x || n_cols != n_rows)) {
+    occ_y = occ_x + (n_rows + FT - 1) / FT * row_words;
+    err = occupancy<T>(y, n_cols, m, occ_y, nullptr, stream);
+  }
+  if (err != cudaSuccess) return err;
   const dim3 grid((n_rows + FT - 1) / FT, n_segments);
   fused_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const int*>(mask),
-      static_cast<float*>(seg_v), static_cast<int*>(seg_i), static_cast<int*>(seg_c), n_rows,
+      occ_x, occ_y, static_cast<unsigned long long*>(walked), static_cast<float*>(seg_v), static_cast<int*>(seg_i), static_cast<int*>(seg_c), n_rows,
       n_cols, m, n_cols / block_n, block_m, block_n, row_offset, col_offset, n_valid_cols,
       threshold, k, exclude_self, n_segments);
   err = cudaGetLastError();
@@ -292,21 +439,32 @@ int capacity(int k, int* per_sm, int* sms) {
 }  // namespace apss
 
 // x (n_rows, m), y (n_cols, m) row-major, one dtype; mask (n_rows/block_m,
-// n_cols/block_n) int32; seg_v/seg_i (n_segments, n_rows, k) and seg_c
-// (n_segments, n_rows) scratch (unused when n_segments is 1); out_v/out_i
-// (n_rows, k); out_c (n_rows). Returns a cudaError_t code.
-#define APSS_FUSED_ENTRIES(SUFFIX, T)                                                        \
-  extern "C" int apss_fused_##SUFFIX(                                                        \
-      const void* x, const void* y, const void* mask, void* seg_v, void* seg_i, void* seg_c, \
-      void* out_v, void* out_i, void* out_c, int n_rows, int n_cols, int m, int block_m,    \
-      int block_n, int row_offset, int col_offset, int n_valid_cols, float threshold, int k, \
-      int exclude_self, int n_segments, void* stream) {                                      \
-    return apss::launch<T>(x, y, mask, seg_v, seg_i, seg_c, out_v, out_i, out_c, n_rows,     \
-                           n_cols, m, block_m, block_n, row_offset, col_offset,             \
-                           n_valid_cols, threshold, k, exclude_self, n_segments, stream);   \
-  }                                                                                          \
-  extern "C" int apss_fused_capacity_##SUFFIX(int k, int* per_sm, int* sms) {                \
-    return apss::capacity<T>(k, per_sm, sms);                                                \
+// n_cols/block_n) int32; occ the step-0 bitmaps' scratch, int32 words
+// ((n_rows + 127) / 128 (+ (n_cols + 127) / 128 unless y is x), 2,
+// ceil(m / 1024)); walked 2 int64: the stages walked and those of the
+// walk over every chunk, of the live tiles; seg_v/seg_i (n_segments,
+// n_rows, k) and seg_c (n_segments, n_rows) scratch (unused when
+// n_segments is 1); out_v/out_i (n_rows, k); out_c (n_rows). The
+// occupancy entry runs step 0 alone on x (n_rows, m) into occ. Each
+// returns a cudaError_t code.
+#define APSS_FUSED_ENTRIES(SUFFIX, T)                                                         \
+  extern "C" int apss_fused_##SUFFIX(                                                         \
+      const void* x, const void* y, const void* mask, void* occ, void* walked, void* seg_v,   \
+      void* seg_i, void* seg_c, void* out_v, void* out_i, void* out_c, int n_rows,            \
+      int n_cols, int m, int block_m, int block_n, int row_offset, int col_offset,            \
+      int n_valid_cols, float threshold, int k, int exclude_self, int n_segments,             \
+      void* stream) {                                                                         \
+    return apss::launch<T>(x, y, mask, occ, walked, seg_v, seg_i, seg_c, out_v, out_i, out_c, \
+                           n_rows, n_cols, m, block_m, block_n, row_offset, col_offset,       \
+                           n_valid_cols, threshold, k, exclude_self, n_segments, stream);     \
+  }                                                                                           \
+  extern "C" int apss_fused_occupancy_##SUFFIX(const void* x, int n_rows, int m, void* occ,   \
+                                               void* stream) {                                \
+    return apss::occupancy<T>(x, n_rows, m, occ, nullptr,                                     \
+                              static_cast<cudaStream_t>(stream));                             \
+  }                                                                                           \
+  extern "C" int apss_fused_capacity_##SUFFIX(int k, int* per_sm, int* sms) {                 \
+    return apss::capacity<T>(k, per_sm, sms);                                                 \
   }
 
 APSS_FUSED_ENTRIES(f32, float)

@@ -21,8 +21,8 @@
 //      block_m, block_n) f32 scratch. Each score is one fmaf chain from 0
 //      in increasing feature order, so K2's packets equal K3's on a corpus
 //      whose every row block has the full feature range as its support, and
-//      K2's scores equal K1's (apss_fused.cu, one ring_tile chain over all
-//      features) bit for bit. The column block comes from a pointer, not a
+//      K2's scores equal K1's (apss_fused.cu, one ring_walk chain that
+//      skips only chunks of exact zero products) bit for bit. The column block comes from a pointer, not a
 //      template flag: with a flag, K3's instance compiled to 174 registers
 //      and ran 7 % slower than this one on sparse_radikal_full (H100 SXM).
 //      The stages and the item width were chosen by tools/kernel_ab.py

@@ -4,8 +4,11 @@
    extraction: per-row top-k and exact counts of ``X·Yᵀ ≥ t`` over every
    live column tile, with the score matrix never in device memory. The
    columns go in the segments of :func:`fused_segments`, one thread block
-   per (128-row tile, segment), and a second launch merges the segments'
-   lists as :func:`merge_segments_plain` does.
+   per (128-row tile, segment), and a last launch merges the segments'
+   lists as :func:`merge_segments_plain` does. A first launch writes each
+   128-row tile's bitmap of the 32-feature chunks it holds a nonzero in
+   (:func:`fused_occupancy_plain`), and a tile pair walks only the chunks
+   both hold (:func:`fused_walk_plain` counts them).
 2. :func:`apss_tile_candidates_kernel` (K2, ``csrc/tile_candidates.cu``) --
    per live upper-triangular tile of a ``(2, T)`` worklist, a forward packet
    (rows of block i) and a mirror packet (rows of block j), which
@@ -42,8 +45,9 @@ reference package and which the card's smoke run holds the kernels against.
 With an op census active (``launch.op_analysis``) each launch also
 reports its work at the padded shapes the card computes: FLOPs of the
 tiles it scores, and the bytes of each scored tile's operand rows, its
-outputs and its scratch (written and read back once). Work the launch
-itself decides (K1's live tiles, K5's skips) is read when the census
+outputs and its scratch (written and read back once); K1's are those of
+the chunks it walks, plus its bitmaps' read of the operands. Work the launch
+itself decides (K1's walked stages, K5's skips) is read when the census
 closes. With no census this costs one ``is None`` check.
 
 Top-k order everywhere: value descending, then global id ascending. Empty
@@ -83,6 +87,7 @@ _TILE = 64  # block sides are multiples of it (csrc/apss_common.cuh, TILE)
 _TK = 32    # widths are multiples of the kernels' feature stage (PK, TK)
 TILE_ITEM = 128  # rows and columns of a K2/K3 work item (csrc/tile_items.cuh)
 FUSED_TILE = 128    # K1's score tile, rows and columns (csrc/apss_fused.cu, FT)
+OCC_WORD = 32 * _TK  # features of one word of K1's bitmaps (a bit a stage of its walk)
 FUSED_MAX_K = 1024  # K1's largest k (its per-warp merge area in shared memory)
 _MAX_SEGMENTS = 32  # K1's merge holds one segment per lane
 SEGMENT_SLACK = 0.05  # K1 takes fewer segments for at most 5 % more tile steps
@@ -183,6 +188,47 @@ def apss_fused_plain(
         )
         outs.append((v, i, ok.sum(dim=1, keepdim=True, dtype=torch.int32)))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def fused_occupancy_plain(x: torch.Tensor) -> torch.Tensor:
+    """K1's step 0 in plain PyTorch: the bitmaps of ``x (n, m)``'s 128-row
+    tiles, ``(ceil(n / 128), 2, ceil(m / 1024))`` int32 words. Bit ``c`` of
+    word ``[t, 0, j]`` is set where some row of tile ``t`` is nonzero in
+    features ``[32 (32 j + c), +32)``, of ``[t, 1, j]`` where one of them is
+    Inf or NaN; -0 counts as zero. ``m`` is a multiple of 32."""
+    n, m = x.shape
+    tiles, chunks = -(-n // FUSED_TILE), m // _TK
+    words = -(-m // OCC_WORD)
+    v = torch.nn.functional.pad(x, (0, 0, 0, tiles * FUSED_TILE - n))
+    v = v.reshape(tiles, FUSED_TILE, chunks, _TK)
+    bits = torch.stack([(v != 0).any(dim=3).any(dim=1),
+                        (~torch.isfinite(v)).any(dim=3).any(dim=1)], dim=1)
+    bits = torch.nn.functional.pad(bits, (0, words * 32 - chunks)).reshape(tiles, 2, words, 32)
+    w = (bits.to(torch.int64) << torch.arange(32, device=x.device)).sum(dim=3)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+_POP8 = np.array([bin(b).count("1") for b in range(256)], np.int64)
+
+
+def fused_walk_plain(occ_x: torch.Tensor, occ_y: torch.Tensor, block_mask: torch.Tensor, *,
+                     block_m: int, block_n: int, m: int) -> tuple[int, int]:
+    """The stages K1 walks and those of its walk over every chunk, from the
+    bitmaps of :func:`fused_occupancy_plain`: over each 128 × 128 tile
+    ``(i, j)`` under a live entry of ``block_mask`` (at ``block_m`` ×
+    ``block_n``), ``popcount((ox_i & oy_j) | bad_x_i | bad_y_j)`` and
+    ``m / 32``."""
+    mask = torch.as_tensor(block_mask).cpu() != 0
+    cells = mask.repeat_interleave(block_m // _TILE, dim=0).repeat_interleave(
+        block_n // _TILE, dim=1)  # 64 x 64 cells, two to a tile side
+    cells = torch.nn.functional.pad(cells, (0, cells.shape[1] % 2, 0, cells.shape[0] % 2))
+    live = cells.reshape(cells.shape[0] // 2, 2, -1, 2).any(dim=3).any(dim=1).numpy()
+    ox, oy = (np.ascontiguousarray(o.cpu().numpy()).view(np.uint32) for o in (occ_x, occ_y))
+    walked = 0
+    for i, cols in enumerate(live):
+        w = (ox[i, 0] & oy[cols, 0]) | ox[i, 1] | oy[cols, 1]
+        walked += int(_POP8[w.view(np.uint8)].sum())
+    return walked, int(live.sum()) * (m // _TK)
 
 
 def fused_segments(row_tiles: int, col_tiles: int, slots: int) -> int:
@@ -693,6 +739,38 @@ def fused_segments_for(x: torch.Tensor, n_cols: int, k: int) -> int:
                           fused_capacity(x.dtype, k, x.device))
 
 
+# K1's stage counter of its last call on the card, a (2,) int64 tensor on the
+# card; None after a call that ran the plain version.
+_last_walk: list = [None]
+
+
+def last_walk() -> tuple[int, int] | None:
+    """``(stages walked, stages of the walk over every chunk)`` over the live
+    128 × 128 tiles of the last :func:`apss_fused_kernel` call, or None if
+    that call ran the plain version. Reading it waits for the call."""
+    walked = _last_walk[0]
+    return None if walked is None else tuple(walked.tolist())
+
+
+def fused_occupancy(x: torch.Tensor) -> torch.Tensor:
+    """K1's step 0 on its own: the bitmaps of :func:`fused_occupancy_plain`,
+    from the occupancy kernel on a CUDA tensor and from the plain version
+    on a CPU one."""
+    if x.device.type == "cpu":
+        return fused_occupancy_plain(x)
+    _check_operand("x", x)
+    n, m = x.shape
+    if m % _TK:
+        raise ValueError(f"m must be a multiple of {_TK}; got {m}")
+    occ = torch.empty((-(-n // FUSED_TILE), 2, -(-m // OCC_WORD)), dtype=torch.int32,
+                      device=x.device)
+    fn, check = _entry("apss_fused", f"apss_fused_occupancy_{_suffix(x.dtype)}",
+                       [_VP, _I, _I, _VP, _VP])
+    check(fn(x.data_ptr(), n, m, occ.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream))
+    return occ
+
+
 def apss_fused_kernel(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -714,14 +792,19 @@ def apss_fused_kernel(
     and ``n_valid_cols`` the count of non-padding rows of ``y``; all three
     are runtime arguments of the kernel. The columns run in
     :func:`fused_segments_for` segments; ``k`` above ``FUSED_MAX_K`` raises
-    ``ValueError``. Returns ``(values (n_rows, k) f32,
-    indices (n_rows, k) i32, counts (n_rows, 1) i32)``.
+    ``ValueError``. Each live tile walks only the 32-feature chunks where
+    both of its row tiles hold a nonzero (or either an Inf or NaN), from the
+    bitmaps of a first launch (:func:`fused_occupancy`), with the bits of
+    the walk over every chunk; :func:`last_walk` reads the stages walked.
+    Returns ``(values (n_rows, k) f32, indices (n_rows, k) i32,
+    counts (n_rows, 1) i32)``.
     """
     kw = dict(
         block_m=block_m, block_n=block_n, n_valid_cols=n_valid_cols,
         row_offset=row_offset, col_offset=col_offset, exclude_self=exclude_self,
     )
     if x.device.type == "cpu":
+        _last_walk[0] = None
         return apss_fused_plain(x, y, block_mask, threshold, k, **kw)
     _check_operand("x", x)
     _check_operand("y", y)
@@ -754,12 +837,16 @@ def apss_fused_kernel(
                torch.empty((S, n_rows), dtype=torch.int32, device=dev))
     else:  # one segment: the kernel writes the output itself
         seg = (values, indices, counts)
+    same = y.data_ptr() == x.data_ptr() and n_cols == n_rows  # one set of bitmaps
+    tiles = -(-n_rows // FUSED_TILE) + (0 if same else -(-n_cols // FUSED_TILE))
+    occ = torch.empty((tiles, 2, -(-m // OCC_WORD)), dtype=torch.int32, device=dev)
+    walked = torch.empty(2, dtype=torch.int64, device=dev)
     fn, check = _entry(
         "apss_fused", f"apss_fused_{_suffix(x.dtype)}",
-        [_VP] * 9 + [_I] * 8 + [_F, _I, _I, _I, _VP],
+        [_VP] * 11 + [_I] * 8 + [_F, _I, _I, _I, _VP],
     )
     status = fn(
-        x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(), occ.data_ptr(), walked.data_ptr(),
         *(a.data_ptr() for a in seg),
         values.data_ptr(), indices.data_ptr(), counts.data_ptr(),
         n_rows, n_cols, m, block_m, block_n,
@@ -769,12 +856,16 @@ def apss_fused_kernel(
     )
     check(status)
     LAUNCHES["apss_fused"] += 1
+    _last_walk[0] = walked
     if op_analysis.CENSUS is not None:
-        live = lazy(lambda: int(mask.count_nonzero()))
+        stages = lazy(lambda: int(walked[0]))
         out = packet_bytes(n_rows, k) * (1 + 2 * S if S > 1 else 1)  # + segment lists
+        step0 = (n_rows if same else n_rows + n_cols) * m * x.element_size() + 8 * occ.numel()
         op_analysis.report_kernel(
-            "apss_fused", "apss_fused", lambda: 2.0 * live() * block_m * block_n * m,
-            lambda: live() * (block_m + block_n) * m * x.element_size() + out + 4 * mask.numel())
+            "apss_fused", "apss_fused",
+            lambda: 2.0 * stages() * FUSED_TILE * FUSED_TILE * _TK,
+            lambda: stages() * 2 * FUSED_TILE * _TK * x.element_size() + out
+            + 4 * mask.numel() + step0)
     return values, indices, counts
 
 

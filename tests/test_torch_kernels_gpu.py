@@ -250,36 +250,155 @@ def _dense_from_packets(p, ij, n, block_m, block_n):
     return S
 
 
+def _zipf_law(n, m, seed, nnz=40.0):
+    """Unit rows of Poisson(nnz) nonzeros on dimensions drawn without
+    replacement ∝ (d + 1)^-1.1 (Gumbel-top-k), weights |N(0, 1)| + 0.05:
+    radikal's law. At 1,024 × 32,768 a pair of 128-row tiles shares a
+    nonzero in about 41 % of its 32-feature chunks."""
+    rng = np.random.default_rng(seed)
+    logp = -1.1 * np.log(np.arange(m) + 1.0)
+    X = np.zeros((n, m), np.float32)
+    for i, k in enumerate(np.maximum(1, rng.poisson(nnz, n))):
+        dims = np.argpartition(-(logp - np.log(-np.log(rng.random(m)))), k)[:k]
+        X[i, dims] = np.abs(rng.standard_normal(k)) + 0.05
+    return X / np.linalg.norm(X, axis=1, keepdims=True)
+
+
+def _law_case(law, block):
+    """``(D, t)`` of a K1 = K2 case: ``uniform`` (30 % dense, every chunk
+    held), ``zipf`` (radikal's law), ``zero_tile`` (rows 128-255 zero, t =
+    0: their scores +0, every one counted), ``non_finite`` (an Inf at a
+    chunk only its row holds: Inf · 0 is NaN in the walk over every chunk,
+    so that chunk must be walked; t = -1 counts every finite score)."""
+    if law == "uniform":
+        return _corp(3 * block - 20, 200, seed=8), 0.3
+    D = _zipf_law(1024, 32768, seed=9)
+    if law == "zero_tile":
+        D[128:256] = 0
+        return D, 0.0
+    if law == "non_finite":
+        D[:, 32 * 1000:32 * 1001] = 0
+        D[5, 32 * 1000 + 7] = np.inf
+        return D, -1.0
+    return D, 0.2
+
+
+def _scores_of(v, i, rows, n, device, row0=0):
+    """The (n, n) scores a K1 output holds at (row0 + row, id), NaN elsewhere."""
+    S = torch.full((n, n), float("nan"), device=device)
+    keep = i >= 0
+    r = row0 + torch.arange(rows, device=device)[:, None].expand_as(i)
+    S[r[keep], i[keep].long()] = v[keep]
+    return S
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("block", [128, 256])
-def test_k2_scores_bit_identical_to_k1(card, dtype, block):
-    """K1 and K2 both sum each score as one ring_tile fmaf chain from 0 over
-    all m features: with k covering every candidate, every (row, column)
-    score in K2's forward and mirror packets equals K1's bit for bit, and
-    K1's counts are the packets' candidates a row."""
+@pytest.mark.parametrize("law", ["uniform", "zipf", "zero_tile", "non_finite"])
+def test_k2_scores_bit_identical_to_k1(card, dtype, block, law):
+    """K1 and K2 both sum each score as one fmaf chain from 0 in feature
+    order, K2 over every chunk and K1 over the chunks both row tiles hold a
+    nonzero in (or either a non-finite value): with k covering every
+    candidate, every (row, column) score in K2's forward and mirror packets
+    equals K1's bit for bit, and K1's counts are the packets' candidates a
+    row. K1's bitmaps and walked stages equal their plain versions; the
+    uniform corpus walks every stage, radikal's law under two thirds."""
     from repro_torch.kernels.apss_block import fused
 
-    D = _corp(3 * block - 20, 200, seed=8)
+    D, t = _law_case(law, block)
     Dp = torch.from_numpy(_pad(D, block, 32)).to(card, dtype)
     n = Dp.shape[0]
     nb = n // block
     ij = torch.tensor([[i, j] for i in range(nb) for j in range(i, nb)],
                       dtype=torch.int32).T.contiguous().to(card)
-    k2 = fused.apss_tile_candidates_kernel(Dp, ij, 0.3, n, block_m=block, block_n=block,
+    k2 = fused.apss_tile_candidates_kernel(Dp, ij, t, n, block_m=block, block_n=block,
                                            n_valid=D.shape[0])
     mask = torch.ones((nb, nb), dtype=torch.int32)
-    v1, i1, c1 = fused.apss_fused_kernel(Dp, Dp, mask, 0.3, n, block_m=block, block_n=block,
+    v1, i1, c1 = fused.apss_fused_kernel(Dp, Dp, mask, t, n, block_m=block, block_n=block,
                                          n_valid_cols=D.shape[0], exclude_self=True)
-    torch.cuda.synchronize()
-    S1 = torch.full((n, n), float("nan"), device=card)
-    keep = i1 >= 0
-    S1[torch.arange(n, device=card)[:, None].expand_as(i1)[keep], i1[keep].long()] = v1[keep]
+    walk = fused.last_walk()
+    S1 = _scores_of(v1, i1, n, n, card)
     S2 = _dense_from_packets(k2, ij, n, block, block)
     live = ~torch.isnan(S1)
     assert torch.equal(live, ~torch.isnan(S2))
     assert torch.equal(S1[live], S2[live])
     assert torch.equal(live.sum(dim=1, dtype=torch.int32), c1[:, 0])  # k held every one
     assert int(c1.sum()) > 0
+
+    occ = fused.fused_occupancy(Dp)
+    assert torch.equal(occ.cpu(), fused.fused_occupancy_plain(Dp.cpu()))
+    assert walk == fused.fused_walk_plain(occ, occ, mask, block_m=block, block_n=block,
+                                          m=Dp.shape[1])
+    if law == "uniform":
+        assert walk[0] == walk[1]
+    else:
+        assert walk[0] < 2 / 3 * walk[1]
+    if law == "zero_tile":  # +0 against every column, each counted
+        z = S1[128:256, :D.shape[0]]
+        z = z[~torch.isnan(z)]
+        assert z.numel() == 128 * (D.shape[0] - 1)
+        assert bool((z == 0).all()) and not bool(torch.signbit(z).any())
+        assert bool((c1[128:256, 0] == D.shape[0] - 1).all())
+    if law == "non_finite":  # row 5's scores are NaN, never counted
+        assert int(c1[5, 0]) == 0 and int(live[:, 5].sum()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_offsets_and_segments_bit_identical_to_k2(card, dtype):
+    """K1 on x ≠ y (two sets of bitmaps) at runtime offsets, in S > 1
+    segments, scores each pair as K2 does over every chunk, bit for bit;
+    its walked stages equal the plain reckoning of the two bitmaps."""
+    from repro_torch.kernels.apss_block import fused
+
+    D = _zipf_law(1024, 32768, seed=10)
+    Dp = torch.from_numpy(D).to(card, dtype)
+    n, t = Dp.shape[0], 0.2
+    ij = torch.tensor([[i, j] for i in range(8) for j in range(i, 8)],
+                      dtype=torch.int32).T.contiguous().to(card)
+    S2 = _dense_from_packets(
+        fused.apss_tile_candidates_kernel(Dp, ij, t, n, block_m=128, block_n=128, n_valid=n),
+        ij, n, 128, 128)
+    x, y = Dp[256:512], Dp[128:]
+    mask = torch.ones((2, 7), dtype=torch.int32)
+    mask[1, 3] = 0  # a dead tile: not walked, not scored
+    assert fused.fused_segments_for(x, y.shape[0], y.shape[0]) > 1
+    v1, i1, c1 = fused.apss_fused_kernel(x, y, mask, t, y.shape[0], block_m=128, block_n=128,
+                                         n_valid_cols=y.shape[0], row_offset=256,
+                                         col_offset=128, exclude_self=True)
+    walk = fused.last_walk()
+    S1 = _scores_of(v1, i1, 256, n, card, row0=256)[256:512, 128:]
+    want = S2[256:512, 128:].clone()
+    want[128:, 384:512] = float("nan")
+    live = ~torch.isnan(S1)
+    assert torch.equal(live, ~torch.isnan(want))
+    assert torch.equal(S1[live], want[live])
+    assert torch.equal(live.sum(dim=1, dtype=torch.int32), c1[:, 0])
+    assert int(c1.sum()) > 0
+    assert walk == fused.fused_walk_plain(fused.fused_occupancy(x), fused.fused_occupancy(y),
+                                          mask, block_m=128, block_n=128, m=Dp.shape[1])
+    assert walk[1] == 13 * 1024 and walk[0] < 2 / 3 * walk[1]
+
+
+def test_k1_telemetry_records_the_walk(card):
+    """Under a telemetry log, ``apss_blocked``'s K1 record carries the
+    stages K1 walked and those of the walk over every chunk, and scales its
+    FLOPs by their ratio."""
+    from repro_torch.core.apss import apss_blocked
+    from repro_torch.kernels.apss_block import fused
+    from repro_torch.planner import CommLog
+    from repro_torch.planner import telemetry as tt
+
+    D = torch.from_numpy(_zipf_law(1024, 32768, seed=11)).to(card)
+    with CommLog() as log:
+        got = apss_blocked(D, 0.2, 16, block_rows=128, use_kernel=True, device=card)
+    rec = log.last
+    walked, dense = fused.last_walk()
+    assert rec.variant == "blocked/dense-kernel"
+    assert rec.extra == {"k1_stages_walked": walked, "k1_stages_dense": dense}
+    assert 0 < walked < 2 / 3 * dense
+    assert rec.flops == pytest.approx(tt.dense_join_flops(1024, 1024, 32768) * walked / dense,
+                                      rel=1e-12)
+    assert int(got.counts.sum()) > 0
 
 
 def test_k2_repeated_call_is_bit_identical(card):
@@ -1811,9 +1930,14 @@ def _census_case(name, card):
                     live * 256 * m * 4 + 4 * n * n + 4 * mask.numel())
         S = fused.fused_segments_for(D, n, k)
         out = _packets(n, k) * (1 + 2 * S if S > 1 else 1)
+        occ = fused.fused_occupancy_plain(D.cpu())
+        walked, dense = fused.fused_walk_plain(occ, occ, mask, block_m=128, block_n=128, m=m)
+        assert dense == live * m // 32 and walked < dense  # the padded features are skipped
+        step0 = n * m * 4 + 8 * occ.numel()  # the bitmaps: the corpus read, words written
         return (lambda: fused.apss_fused_kernel(D, D, mask, 0.3, k, block_m=128, block_n=128,
                                                 n_valid_cols=300),
-                name, 2.0 * live * 128 * 128 * m, live * 256 * m * 4 + out + 4 * mask.numel())
+                name, 2.0 * walked * 128 * 128 * 32,
+                walked * 256 * 32 * 4 + out + 4 * mask.numel() + step0)
     if name == "apss_tile_candidates":
         D = torch.from_numpy(_pad(_inputs(torch.float32, seed=1), 256, 128)).to(card)
         ij = torch.tensor([[0, 0, 1], [0, 1, 1]], dtype=torch.int32, device=card)

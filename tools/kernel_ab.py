@@ -6,6 +6,8 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 
     python3 tools/kernel_ab.py k1_merge     # K1: rank merge, k rounds of selection, none
     python3 tools/kernel_ab.py k1_layout    # K1: 8 x 8 scores a thread, 16 x 4, 16 x 4 in 4 stages
+    python3 tools/kernel_ab.py k1_walk --base build/parent  # K1: the parent's, the chunk
+                                            #     walk, the walk over every chunk
     python3 tools/kernel_ab.py k4_strip     # K4: corpus strips of up to 8 or 4 rows a thread
     python3 tools/kernel_ab.py k6_strip     # K6: the same strips on its support-width operands
     python3 tools/kernel_ab.py k9_split     # K9: 4 or 8 rows a lane in flight x split 512-4096
@@ -23,10 +25,13 @@ shape are the port's own (K9's split is the wrapper's
 ``DECODE_SPLIT_VALUES``, set per run). With ``--base CHECKOUT`` (another
 checkout of the repo, such as the parent commit unpacked by ``git
 archive``) the kernel's source and headers there run first, as variant
-``base``. The variants run in turns, two (K1) or three (K2, K3, K4, K6,
-K7, K9) rounds, each time the median of 5 (K1, K7) or 7 CUDA-event runs
-after a warm-up, on the cells of ``chip_smoke.py``: K1 on clustered_65k
-and radikal_full, K4 on serve_radikal_full at B = 64 and 8, K6 on the
+``base`` (K1's through that checkout's own wrapper, ``fused.py``, since
+the two may differ in their entry points). The variants run in turns, two
+(K1) or three (K2, K3, K4, K6, K7, K9) rounds, each time the median of 5
+(K1, K7) or 7 CUDA-event runs after a warm-up, on the cells of
+``chip_smoke.py``: K1 on clustered_65k, radikal_full, the ring step of
+distributed_radikal_full and dedup_radikal_full (with the stages each
+variant walked), K4 on serve_radikal_full at B = 64 and 8, K6 on the
 sparse index of serve_radikal_full at B = 64 and 8 and on
 serve_sparse_clustered_65k at B = 64, K9 at the decode cell's shapes (8,
 16, 8, 32768, 128) bf16 and lengths, K7 on k7_radikal_full (f32), K3 on
@@ -116,6 +121,14 @@ def k1_layout(src: dict) -> dict:
                                                "sizeof(T) == 4 ? 4 : 4")}}
 
 
+def k1_walk(src: dict) -> dict:
+    """K1 walking the chunks both row tiles hold (the port's), and every
+    chunk (its bitmaps still made, so the step-0 launch costs alike)."""
+    return {"walk": {}, "dense": {"apss_fused.cu": _sub(
+        src["apss_fused.cu"], "const ChunkWalk walk(ox, occ_y + (long long)ct * 2 * words, words);",
+        "const Contiguous walk{m / PK};")}}
+
+
 def rect_strip(src: dict) -> dict:
     """K4's and K6's strips (rect_tiles.cuh): up to 8 corpus rows a thread,
     up to 4, and 4 in a 3-stage ring."""
@@ -164,6 +177,7 @@ EXPERIMENTS = {  # name: (library, source, variants, segment counts to force)
     "k1_merge": ("apss_fused", "apss_block/csrc/apss_fused.cu", k1_merge,
                  {"clustered": 9, "radikal": 5}),
     "k1_layout": ("apss_fused", "apss_block/csrc/apss_fused.cu", k1_layout, {}),
+    "k1_walk": ("apss_fused", "apss_block/csrc/apss_fused.cu", k1_walk, {}),
     "k4_strip": ("rect_tile_candidates", "apss_block/csrc/rect_tile_candidates.cu", rect_strip,
                  {}),
     "k6_strip": ("rect_sparse_tile_candidates",
@@ -217,42 +231,82 @@ def time_ms(np, torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def run_k1(np, torch, libs: dict, forced: dict) -> None:
+def k1_cells(np, torch):
+    """K1's cells of the smoke's kernel table, one at a time: ``(name, x, y,
+    mask, t, k, kwargs)`` with the operands the main paths build."""
+    import chip_smoke as cs
+    from repro_torch.core.apss import normalize_rows
     from repro_torch.core.pruning import block_prune_mask
     from repro_torch.data.synthetic import clustered_corpus, synthetic_corpus
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.apss_block import fused
-    from repro_torch.kernels.apss_block.ops import _pad_to, _pick_bk
+    from repro_torch.kernels.apss_block.ops import _pad_to, _padded_pair, _pick_bk
 
-    segments_for = fused.fused_segments_for
-    cells = {
-        "clustered": (lambda: clustered_corpus(65536, 768, 8, n_clusters=32, seed=0), 0.5),
-        "radikal": (lambda: synthetic_corpus(6883, 136447, 1072472 / 6883, seed=0), 0.2),
-    }
-    for cell, (make, t) in cells.items():
-        D = torch.from_numpy(make()).cuda()
+    def join(name, D, t, k):
         n, m = D.shape
         Dp = _pad_to(D, 256, _pick_bk(m, 512))
         mask = block_prune_mask(Dp, Dp, t, 256, 256, use_minsize=False)
-        kw = dict(block_m=256, block_n=256, n_valid_cols=n, exclude_self=True)
+        return (name, Dp, Dp, mask, t, k,
+                dict(block_m=256, block_n=256, n_valid_cols=n, exclude_self=True))
+
+    yield join("clustered", torch.from_numpy(
+        clustered_corpus(65536, 768, 8, n_clusters=32, seed=0)).cuda(), 0.5, 32)
+    R = synthetic_corpus(6883, 136447, 1072472 / 6883, seed=0)
+    yield join("radikal", torch.from_numpy(R).cuda(), 0.2, 32)
+    # distributed_radikal_full's ring step: rank 2's rows against rank 1's.
+    n_loc, m_pad = 7168 // 4, 136448
+    Dr = np.zeros((7168, m_pad), np.float32)
+    Dr[:R.shape[0], :R.shape[1]] = R
+    x, y = (torch.from_numpy(Dr[a * n_loc:(a + 1) * n_loc]).cuda() for a in (2, 1))
+    del Dr
+    _, nc, xp, yp, mask = _padded_pair(x, y, 0.2, None, True, 256, 256, _pick_bk(m_pad, 512),
+                                       x.device)
+    yield ("ring_step", xp, yp, mask, 0.2, 32,
+           dict(block_m=256, block_n=256, n_valid_cols=nc, row_offset=2 * n_loc,
+                col_offset=n_loc, exclude_self=True))
+    del x, y, xp, yp
+    # dedup_radikal_full: radikal and its planted copies, normalised.
+    rng = np.random.default_rng(cs.DEDUP["seed"])
+    src = np.sort(rng.choice(R.shape[0], cs.DEDUP["planted"], replace=False))
+    X = normalize_rows(torch.from_numpy(np.concatenate([
+        R, R[src] * (1 + cs.DEDUP["noise"] * rng.random((len(src), R.shape[1]),
+                                                       dtype=np.float32))])).cuda())
+    yield join("dedup", X, cs.DEDUP["threshold"], 64)
+
+
+def run_k1(np, torch, libs: dict, forced: dict, base=None) -> None:
+    import importlib.util
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apss_block import fused
+
+    wrappers = {v: fused for v in libs}
+    if base is not None and "base" in libs:  # the other checkout's K1 through its own wrapper
+        path = base / "src/repro_torch/kernels/apss_block/fused.py"
+        spec = importlib.util.spec_from_file_location("kernel_ab_base_fused", path)
+        wrappers["base"] = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(wrappers["base"])
+    segments_for = {v: w.fused_segments_for for v, w in wrappers.items()}
+    for cell, x, y, mask, t, k, kw in k1_cells(np, torch):
         runs = [(v, None) for v in libs] + [(v, forced[cell]) for v in libs
                                             if v != "nomerge" and cell in forced]
         res, ref = {}, None
         for _ in range(2):
             for v, s in runs:
                 _build._LIBS["apss_fused"] = libs[v]
-                fused.fused_segments_for = segments_for if s is None else (lambda *a, s=s: s)
-                fn = lambda: fused.apss_fused_kernel(Dp, Dp, mask, t, 32, **kw)  # noqa: E731
+                w = wrappers[v]
+                w.fused_segments_for = segments_for[v] if s is None else (lambda *a, s=s: s)
+                fn = lambda: w.apss_fused_kernel(x, y, mask, t, k, **kw)  # noqa: E731
                 out = fn()
                 torch.cuda.synchronize()
                 ref = out if ref is None else ref
                 same = (bool(torch.equal(out[2], ref[2])) if v == "nomerge"
                         else all(torch.equal(a, b) for a, b in zip(out, ref)))
                 key = v if s is None else f"{v}_s{s}"
-                res.setdefault(key, []).append(dict(ms=time_ms(np, torch, fn, 5), same=same))
-        fused.fused_segments_for = segments_for
+                walk = getattr(w, "last_walk", lambda: None)()
+                res.setdefault(key, []).append(dict(ms=time_ms(np, torch, fn, 5), same=same,
+                                                    stages=walk))
+                w.fused_segments_for = segments_for[v]
         print(cell, json.dumps(res), flush=True)
-        del D, Dp
+        del x, y, mask, ref, out
         torch.cuda.empty_cache()
 
 
@@ -528,7 +582,7 @@ def main() -> int:
         runs = {"base": {p.name: p.read_text()
                          for p in [other, *other.parent.glob("*.cuh")]}, **runs}
     libs = build(name, source.name, files, runs)
-    run = {"apss_fused": lambda: run_k1(np, torch, libs, forced),
+    run = {"apss_fused": lambda: run_k1(np, torch, libs, forced, base),
            "rect_tile_candidates": lambda: run_k4(np, torch, libs),
            "rect_sparse_tile_candidates": lambda: run_k6(np, torch, libs),
            "decode_attention": lambda: run_k9(np, torch, libs),

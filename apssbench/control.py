@@ -9,6 +9,10 @@ control seeds, the control (the reference from TF32-rounded inputs with
 float32 sums, ``reference.control_matches``) in the program's place, judged
 the same way. One JSON line a seed, and a summary: the largest program
 reading and the smallest control reading of each number.
+
+A cell on several chips runs each seed on its ranks, one a card
+(``apssbench/ranks.py``): the program on every rank, the judge and the
+control on rank 0.
 """
 
 import time
@@ -23,18 +27,24 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def readings(root, workload: str, seed: int, *, device: str, control: bool) -> dict:
+def readings(root, workload: str, seed: int, *, device: str, control: bool,
+             lockstep=None) -> dict | None:
     """One seed's readings: ``program`` and, with ``control``, ``control``,
-    each the numbers of the driver's ``judge`` and ``failed``."""
-    from apssbench.harness import prepared, start
+    each the numbers of the driver's ``judge`` and ``failed``. With a
+    ``lockstep`` of several ranks, this is one rank's part, and the ranks
+    other than 0 return ``None`` once the program's calls are done."""
+    from apssbench.harness import Solo, prepared, start
 
+    lock = Solo() if lockstep is None else lockstep
     t0 = time.perf_counter()
-    run = start(root, workload, seed, device)
+    run = start(root, workload, seed, device, rank=lock.rank, world=lock.world)
     driver = prepared(run)
     driver.setup()
     for i in range(run.traffic.get("pool_batches", 1)):
         run.step_keys.append(driver.step(i)[1])
     driver.free()
+    if lock.rank:
+        return None
     limits = run.cell.limits
     out = {"seed": seed, "program": _numbers(driver.judge(limits))}
     if control:
@@ -49,7 +59,8 @@ def _numbers(judged) -> dict:
     return {**numbers, "failed": failed}
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, device: str = "cuda") -> int:
+    """``device`` is ``"cuda"`` from the command line; a test passes ``"cpu"``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True, help="comma-separated")
@@ -57,17 +68,27 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    if not torch.cuda.is_available():
-        print("apssbench.control: no CUDA card", file=sys.stderr)
+    from apssbench.harness import load_cell
+
+    chips = load_cell(ROOT, args.workload).chips
+    if device == "cuda" and (not torch.cuda.is_available() or torch.cuda.device_count() < chips):
+        print(f"apssbench.control: {args.workload} needs {chips} CUDA card(s)", file=sys.stderr)
         return 2
     seeds = [int(s) for s in args.seeds.split(",") if s]
     controls = {int(s) for s in args.control_seeds.split(",") if s}
     rows = []
     for seed in seeds:
-        r = readings(ROOT, args.workload, seed, device="cuda", control=seed in controls)
+        if chips == 1:
+            r = readings(ROOT, args.workload, seed, device=device, control=seed in controls)
+        else:
+            from apssbench.ranks import control_readings
+
+            r = control_readings(ROOT, args.workload, seed, device=device,
+                                 control=seed in controls)
         rows.append(r)
         print(json.dumps(r), flush=True)
-        torch.cuda.empty_cache()
+        if device == "cuda":
+            torch.cuda.empty_cache()
     names = [k for k in rows[0]["program"] if k != "failed"]
     summary = {"workload": args.workload, "seeds": len(rows),
                "program_max": {k: max(r["program"][k] for r in rows) for k in names}}

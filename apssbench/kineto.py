@@ -41,29 +41,27 @@ class Trace:
         """Device seconds of the records whose name holds any of ``names``."""
         return sum(b - a for nm, a, b in self.device if any(s in nm for s in names)) / 1e9
 
-    def top_ops(self, n: int = 10) -> list:
-        """The ``n`` device operations that took most time, ``[name, s]``."""
+    def op_ns(self) -> dict:
+        """Device nanoseconds by operation name."""
         by = defaultdict(int)
         for nm, a, b in self.device:
             by[nm] += b - a
-        top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
-        return [[nm[:160], ns / 1e9] for nm, ns in top]
+        return by
 
-    def idle_gaps(self, n: int = 10) -> list:
-        """Idle time between device records by what the host was doing:
-        each of the ``GAPS_LABELLED`` longest gaps takes the name of the
-        shortest host record spanning its middle (``host`` where none does),
-        and the ``n`` names with the most gap time are returned as
-        ``[name, s]``."""
+    def gap_ns(self) -> dict:
+        """Idle nanoseconds between device records by what the host was
+        doing: each of the ``GAPS_LABELLED`` longest gaps takes the name of
+        the shortest host record spanning its middle (``host`` where none
+        does)."""
         if len(self.device) < 2:
-            return []
+            return {}
         starts = np.array([a for _, a, _ in self.device], np.int64)
         ends = np.maximum.accumulate(np.array([b for _, _, b in self.device], np.int64))
         gap = starts[1:] - ends[:-1]
         order = np.argsort(-gap)[:GAPS_LABELLED]
         order = order[gap[order] > 0]
         if not len(order):
-            return []
+            return {}
         h0 = np.array([a for a, _, _ in self.host], np.int64)
         h1 = np.array([b for _, b, _ in self.host], np.int64)
         names = [nm for _, _, nm in self.host]
@@ -74,8 +72,23 @@ class Trace:
             label = names[int(np.argmin(span))] if len(span) and span.min() < np.iinfo(
                 np.int64).max else "host"
             by[label] += int(gap[g])
-        top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
-        return [[nm[:160], ns / 1e9] for nm, ns in top]
+        return by
+
+
+def summed(by_trace) -> dict:
+    """Nanoseconds by name, summed over several traces' ``op_ns()`` or
+    ``gap_ns()`` (the cards of one run)."""
+    total = defaultdict(int)
+    for by in by_trace:
+        for nm, ns in by.items():
+            total[nm] += ns
+    return total
+
+
+def ranked(by: dict, n: int = 10) -> list:
+    """The ``n`` names of ``by`` with the most nanoseconds, as ``[name, s]``."""
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:n]
+    return [[nm[:160], ns / 1e9] for nm, ns in top]
 
 
 def read(prof) -> Trace:

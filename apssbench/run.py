@@ -4,7 +4,9 @@
 
 Exits non-zero and prints no result where there is no CUDA card (or fewer
 than the cell asks for), where the port cannot be imported, or where a
-module of JAX or of the JAX package ``repro`` was loaded in this process.
+module of JAX or of the JAX package ``repro`` was loaded in this process or,
+in a cell of several chips, in any of its ranks (``apssbench/ranks.py``),
+or where a rank fails.
 """
 
 import time
@@ -19,7 +21,10 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, device: str = "cuda", timeout_s: float | None = None) -> int:
+    """``device`` is ``"cuda"`` from the command line; a test passes
+    ``"cpu"``, and may shorten the ranks' collective timeout
+    (``ranks.COLLECTIVE_TIMEOUT_S``) with ``timeout_s``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -32,15 +37,24 @@ def main(argv=None) -> int:
     from apssbench import harness
 
     cell = harness.load_cell(ROOT, args.workload)
-    chips = int(cell.workload["chips"])
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    chips = cell.chips
+    if device == "cuda" and (not torch.cuda.is_available() or torch.cuda.device_count() < chips):
         print(f"apssbench: {args.workload} needs {chips} CUDA card(s); "
               f"torch.cuda.is_available()={torch.cuda.is_available()}, "
               f"device_count={torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result = harness.run_cell(ROOT, args.workload, seed=args.seed, seconds=args.seconds,
-                              trace=bool(args.trace), device="cuda", t_start=T_START)
-    found = harness.forbidden_modules()  # once the window has closed, in this process
+    if chips == 1:
+        result = harness.run_cell(ROOT, args.workload, seed=args.seed, seconds=args.seconds,
+                                  trace=bool(args.trace), device=device, t_start=T_START)
+        found = harness.forbidden_modules()  # once the window has closed, in this process
+    else:
+        from apssbench import ranks
+
+        result, found = ranks.run_cell_ranks(
+            ROOT, args.workload, seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
+            device=device, t_start=T_START,
+            timeout_s=ranks.COLLECTIVE_TIMEOUT_S if timeout_s is None else timeout_s)
+        found = sorted(set(found) | set(harness.forbidden_modules()))
     if found:
         print(f"apssbench: modules loaded that the benchmark may not run: {found}",
               file=sys.stderr)

@@ -1,4 +1,9 @@
-"""BENCHMARK.json against the benchmark's contract, and the import guard."""
+"""BENCHMARK.json against the benchmark's contract, and the import guard.
+
+Each rule of the contract is a ``check_*`` function of a root's
+``BENCHMARK.json`` and files, so that a copy of the benchmark grown by new
+files (``test_apssbench_ranks.py``) is held to the same rules
+(:func:`check_contract`)."""
 
 import ast
 import json
@@ -24,67 +29,77 @@ def _line(s):
     return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
 
 
-def test_top_level_keys_and_command():
-    assert set(SPEC) == KEYS
-    assert 1 <= len(SPEC["paths"]) <= 16 and all(PATH.match(p) for p in SPEC["paths"])
-    assert all(not p.startswith("/") and ".." not in p for p in SPEC["paths"])
-    assert 1 <= len(SPEC["command"]) <= 32 and all(_line(w) for w in SPEC["command"])
-    script = ROOT / SPEC["command"][1]
-    assert script.is_file() and any(script.is_relative_to(ROOT / p) for p in SPEC["paths"])
-    assert (ROOT / "BENCHMARK.json").stat().st_size <= 64 * 1024
+def check_top_level_keys_and_command(root: Path, spec: dict) -> None:
+    assert set(spec) == KEYS
+    assert 1 <= len(spec["paths"]) <= 16 and all(PATH.match(p) for p in spec["paths"])
+    assert all(not p.startswith("/") and ".." not in p for p in spec["paths"])
+    assert 1 <= len(spec["command"]) <= 32 and all(_line(w) for w in spec["command"])
+    script = root / spec["command"][1]
+    assert script.is_file() and any(script.is_relative_to(root / p) for p in spec["paths"])
+    assert (root / "BENCHMARK.json").stat().st_size <= 64 * 1024
 
 
-def test_run_seconds_fits_the_check_with_24_cells():
-    r = SPEC["run_seconds"]
+def check_run_seconds(spec: dict) -> None:
+    r = spec["run_seconds"]
     assert isinstance(r, int) and 1 <= r <= 51
     assert (2 + 14 * 24) * (r + 60) + 24 * 2 * 90 + 1200 <= 43200
 
 
-@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
-def test_config_entry(entry):
+def check_config_entry(root: Path, spec: dict, entry: dict) -> None:
     assert set(entry) == {"name", "source", "file", "reduced", "why"}
     assert NAME.match(entry["name"]) and _line(entry["source"]) and _line(entry["why"])
-    assert PATH.match(entry["file"]) and entry["file"].startswith(tuple(SPEC["paths"]))
-    cfg = json.loads((ROOT / entry["file"]).read_text())
+    assert PATH.match(entry["file"]) and entry["file"].startswith(tuple(spec["paths"]))
+    cfg = json.loads((root / entry["file"]).read_text())
     assert len(entry["reduced"]) <= 16 and all(k in cfg and NAME.match(k) for k in entry["reduced"])
-    assert entry["name"] in {w["config"] for w in SPEC["workloads"]}
+    assert entry["name"] in {w["config"] for w in spec["workloads"]}
 
 
-@pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda w: w["name"])
-def test_workload_entry_and_its_files(cell):
+def check_workload_entry_and_its_files(root: Path, cell: dict) -> None:
     assert set(cell) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(cell["name"]) and NAME.match(cell["traffic"]) and _line(cell["why"])
-    assert cell["chips"] == 1
-    loaded = harness.load_cell(ROOT, cell["name"])
-    assert (ROOT / "apssbench" / "drivers" / f"{loaded.traffic['driver']}.py").is_file()
+    assert cell["chips"] in (1, 4)
+    loaded = harness.load_cell(root, cell["name"])
+    assert (root / "apssbench" / "drivers" / f"{loaded.traffic['driver']}.py").is_file()
     assert loaded.limits and all(NAME.match(k) for k in loaded.limits)
     assert all(isinstance(v, (int, float)) for v in loaded.limits.values())
-    assert (ROOT / "apssbench" / "laws" / f"{loaded.config['assumed']['law']}.py").is_file()
+    assert (root / "apssbench" / "laws" / f"{loaded.config['assumed']['law']}.py").is_file()
     e2e = loaded.metrics(trace=False)
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2
     assert loaded.metrics(trace=True), "every cell reports a per-layer metric"
 
 
-def test_cells_unique():
-    pairs = [(w["config"], w["traffic"]) for w in SPEC["workloads"]]
-    assert len(set(pairs)) == len(pairs) == len({w["name"] for w in SPEC["workloads"]})
+def check_driver_declares_ranks_exactly_on_several_chips(root: Path, cell: dict) -> None:
+    loaded = harness.load_cell(root, cell["name"])
+    path = root / "apssbench" / "drivers" / f"{loaded.traffic['driver']}.py"
+    assert bool(getattr(harness.load_module(path), "RANKS", False)) == (cell["chips"] > 1)
+    loaded.driver()  # the harness's own refusal agrees
 
 
-@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
-def test_metric_entry_and_reader(metric):
-    per_layer = metric in SPEC["per_layer"]
+def check_four_chip_quota(spec: dict) -> None:
+    """At most a quarter of the cells, rounded down, on four chips; one always may."""
+    four = sum(w["chips"] == 4 for w in spec["workloads"])
+    assert four <= max(1, len(spec["workloads"]) // 4)
+
+
+def check_cells_unique(spec: dict) -> None:
+    pairs = [(w["config"], w["traffic"]) for w in spec["workloads"]]
+    assert len(set(pairs)) == len(pairs) == len({w["name"] for w in spec["workloads"]})
+
+
+def check_metric_entry_and_reader(root: Path, spec: dict, metric: dict) -> None:
+    per_layer = metric in spec["per_layer"]
     allowed = {"name", "unit", "better", "source"} | (
         {"layer", "moves", "workloads"} if per_layer else {"bound", "workloads"})
     assert set(metric) <= allowed and NAME.match(metric["name"]) and UNIT.match(metric["unit"])
     assert metric["better"] in ("lower", "higher")
-    cells = {w["name"] for w in SPEC["workloads"]}
+    cells = {w["name"] for w in spec["workloads"]}
     assert set(metric.get("workloads", cells)) <= cells
-    assert callable(harness.load_module(ROOT / "apssbench" / "metrics" / f"{metric['name']}.py").read)
+    assert callable(harness.load_module(root / "apssbench" / "metrics" / f"{metric['name']}.py").read)
     if per_layer:
         assert _line(metric["layer"])
         assert metric["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
-        moved = {m["name"]: m for m in SPEC["end_to_end"]}[metric["moves"]]
+        moved = {m["name"]: m for m in spec["end_to_end"]}[metric["moves"]]
         assert set(metric["workloads"]) <= set(moved.get("workloads", cells))
         if metric["name"].endswith("_roofline"):
             assert metric["unit"] == "%"
@@ -93,9 +108,87 @@ def test_metric_entry_and_reader(metric):
         assert 0.01 <= metric["bound"] <= 0.25
 
 
-def test_names_unique():
-    names = [m["name"] for m in METRICS]
+def check_names_unique(spec: dict) -> None:
+    names = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]]
     assert len(names) == len(set(names))
+
+
+def check_nothing_imports_jax_or_the_jax_package(root: Path) -> None:
+    files = [p for p in (root / "apssbench").rglob("*.py") if not p.name.startswith("test_")]
+    for p in files:
+        assert not _imports(p) & set(harness.FORBIDDEN), p
+
+
+def check_contract(root: Path) -> None:
+    """Every rule above over ``root``'s ``BENCHMARK.json`` and files."""
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    check_top_level_keys_and_command(root, spec)
+    check_run_seconds(spec)
+    for entry in spec["configs"]:
+        check_config_entry(root, spec, entry)
+    for cell in spec["workloads"]:
+        check_workload_entry_and_its_files(root, cell)
+        check_driver_declares_ranks_exactly_on_several_chips(root, cell)
+    check_four_chip_quota(spec)
+    check_cells_unique(spec)
+    for metric in spec["end_to_end"] + spec["per_layer"]:
+        check_metric_entry_and_reader(root, spec, metric)
+    check_names_unique(spec)
+    check_nothing_imports_jax_or_the_jax_package(root)
+
+
+def test_top_level_keys_and_command():
+    check_top_level_keys_and_command(ROOT, SPEC)
+
+
+def test_run_seconds_fits_the_check_with_24_cells():
+    check_run_seconds(SPEC)
+
+
+@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_entry(entry):
+    check_config_entry(ROOT, SPEC, entry)
+
+
+@pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda w: w["name"])
+def test_workload_entry_and_its_files(cell):
+    check_workload_entry_and_its_files(ROOT, cell)
+
+
+@pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda w: w["name"])
+def test_driver_declares_ranks_exactly_on_several_chips(cell):
+    check_driver_declares_ranks_exactly_on_several_chips(ROOT, cell)
+
+
+def test_at_most_a_quarter_of_the_cells_on_four_chips():
+    check_four_chip_quota(SPEC)
+
+
+@pytest.mark.parametrize("chips,cells,allowed", [
+    ((1, 1, 1), 3, True), ((4, 1, 1), 3, True), ((4, 4, 1), 3, False),
+    ((4, 4) + (1,) * 6, 8, True), ((4, 4, 4) + (1,) * 6, 9, False),
+])
+def test_four_chip_quota_is_a_quarter_rounded_down_and_one_always(chips, cells, allowed):
+    spec = {"workloads": [{"chips": c} for c in chips]}
+    assert len(chips) == cells
+    if allowed:
+        check_four_chip_quota(spec)
+    else:
+        with pytest.raises(AssertionError):
+            check_four_chip_quota(spec)
+
+
+def test_cells_unique():
+    check_cells_unique(SPEC)
+
+
+@pytest.mark.parametrize("metric", METRICS, ids=lambda m: m["name"])
+def test_metric_entry_and_reader(metric):
+    check_metric_entry_and_reader(ROOT, SPEC, metric)
+
+
+def test_names_unique():
+    check_names_unique(SPEC)
 
 
 def test_configurations_are_the_papers_table_1():
@@ -123,9 +216,7 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_nothing_imports_jax_or_the_jax_package():
-    files = [p for p in (ROOT / "apssbench").rglob("*.py") if not p.name.startswith("test_")]
-    for p in files:
-        assert not _imports(p) & set(harness.FORBIDDEN), p
+    check_nothing_imports_jax_or_the_jax_package(ROOT)
 
 
 def test_reference_imports_nothing_of_the_program():
@@ -147,6 +238,7 @@ def test_the_harness_and_the_port_load_no_jax():
     code = (
         "import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']\n"
         "import apssbench.harness as h, apssbench.kineto, apssbench.control, apssbench.readers\n"
+        "import apssbench.ranks\n"
         "for d in ('drivers/join_loop', 'drivers/query_loop', 'laws/zipf', 'laws/topical'):\n"
         "    h.load_module(h.Path(sys.argv[1]) / 'apssbench' / (d + '.py'))\n"
         "import repro_torch, repro_torch.serving.index, repro_torch.serving.query\n"
